@@ -1,0 +1,13 @@
+"""`repro_torch` — the PyTorch/CUDA port of :mod:`repro` for NVIDIA Hopper.
+
+The port mirrors ``repro``'s layout (``configs/``, ``models/``,
+``kernels/``, ``runtime/``, ``api/``, ``launch/``, ``checkpoint/``,
+``obs/``) so each module's counterpart is easy to find. It imports torch
+and numpy, never jax, and nothing from ``repro``. Its entry points run on
+the CUDA card unless the caller asks for the CPU (``device="cpu"``).
+
+Slice 1 ports split-inference serving of the dense LM family: the
+``continuous`` and ``paged`` engines, with prefill attention and paged
+decode attention running on hand-written CUDA kernels
+(``repro_torch/csrc``).
+"""

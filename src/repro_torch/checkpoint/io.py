@@ -1,0 +1,86 @@
+"""Flat-key npz checkpoints and the weights bridge from ``repro``.
+
+Reads the format of ``repro.checkpoint.io`` (``save``/``restore``): keys
+joined by ``/``, list entries keyed ``#i``, bfloat16 leaves stored as
+uint16 and listed in ``__bf16_keys__``. :func:`restore` returns the
+port's parameter tree (nested dicts of tensors) on a given device, and
+:func:`from_numpy_tree` does the same for an in-memory nested dict of
+numpy arrays (e.g. ``jax.device_get`` of a ``repro`` params tree). Both
+are bit-exact: bf16 leaves move as raw 16-bit patterns. The LM keeps
+JAX's ``(d_in, d_out)`` weight layout, so no leaf is transposed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+def _unflatten(flat: Dict[str, Any]) -> Any:
+    root: Dict[str, Any] = {}
+    for key, val in flat.items():
+        parts = key.split(_SEP)
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def rebuild(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node)
+        if keys and all(k.startswith("#") for k in keys):
+            items = sorted(((int(k[1:]), v) for k, v in node.items()))
+            return [rebuild(v) for _, v in items]
+        return {k: rebuild(v) for k, v in node.items()}
+
+    return rebuild(root)
+
+
+def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
+    """Raw bf16 bit patterns (uint16) -> a bfloat16 tensor, bit-exact."""
+    return torch.from_numpy(
+        np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
+
+
+def _leaf_to_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":          # ml_dtypes bf16 from jax
+        return _bf16_from_bits(arr.view(np.uint16))
+    return torch.from_numpy(np.array(arr))
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def from_numpy_tree(tree: Any, device="cpu") -> Any:
+    """Nested dict/list of numpy arrays -> the same tree of tensors on
+    ``device`` (bf16 arrays keep their exact bits)."""
+    if isinstance(tree, dict):
+        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_numpy_tree(v, device) for v in tree]
+    return _leaf_to_tensor(tree).to(device)
+
+
+def restore(path: str, device="cpu") -> Any:
+    """Load a ``repro``-format npz checkpoint onto ``device``."""
+    with np.load(path, allow_pickle=True) as data:
+        bf16 = set(data["__bf16_keys__"].tolist())
+        flat = {}
+        for k in data.files:
+            if k == "__bf16_keys__":
+                continue
+            v = data[k]
+            flat[k] = (_bf16_from_bits(v) if k in bf16
+                       else torch.from_numpy(np.ascontiguousarray(v)))
+    return _to_device(_unflatten(flat), device)
+

@@ -1,0 +1,214 @@
+"""Neural-net building blocks of the dense LM, in plain PyTorch (port of
+the serving half of :mod:`repro.models.layers`).
+
+Parameters are nested dicts of tensors with ``repro``'s key names and its
+``(d_in, d_out)`` weight layout (``y = x @ W``), so the weights bridge is
+key-for-key with no transposes. Attention in prefill and in paged decode
+goes through :mod:`repro_torch.kernels.ops` (the CUDA kernels on the card,
+their plain versions on the CPU); contiguous decode attention stays plain
+torch, as it is plain JAX in ``repro``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig, ParamSpec
+
+_NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Nested-dict tree utilities (dict keys visited in sorted order, as
+# jax.tree_util flattens dicts)
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def materialize(spec_tree, generator: torch.Generator, dtype: torch.dtype,
+                device) -> Any:
+    """Randomly initialize parameters from a spec tree, with ``repro``'s
+    rules (``repro.models.layers.materialize``): one draw per leaf, in
+    flattened order, from ``generator`` (which lives on ``device``).
+
+    As in ``repro``, a fan-in scaled leaf takes ``shape[0]`` as its fan-in,
+    which for a layer-stacked leaf is the layer count — kept as it is so a
+    random-init model has the same weight scales as ``repro``'s."""
+    def one(spec: ParamSpec):
+        dt = spec.dtype or dtype
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=device)
+        noise = torch.randn(spec.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+        if spec.init == "embed":
+            return (noise * (0.02 * spec.scale)).to(dt)
+        if spec.init != "normal":
+            raise NotImplementedError(f"init rule {spec.init!r} is not "
+                                      f"ported yet")
+        fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
+        std = spec.scale / math.sqrt(max(fan_in, 1))
+        return (noise * std).to(dt)
+
+    # draw in flattened (sorted-key) order so init is a pure function of
+    # the generator's seed, independent of dict insertion order
+    values = iter([one(spec) for spec in tree_leaves(spec_tree)])
+    return _rebuild(spec_tree, values)
+
+
+def _rebuild(tree, values):
+    """``tree``'s structure with its leaves replaced, in flattened order,
+    by successive items of ``values``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], values) for k in sorted(tree)}
+    return next(values)
+
+
+# ---------------------------------------------------------------------------
+# Norms & positional encodings
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def rotary_angles(positions, head_dim: int, theta: float):
+    """positions (...,) -> (cos, sin) of shape (..., head_dim//2), fp32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x, cos, sin):
+    """x (..., S, H, hd); cos/sin broadcastable to (..., S, 1, hd//2)."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out1 = xf1 * cos - xf2 * sin
+    out2 = xf2 * cos + xf1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention, forward only. q: (B, S, Hq, hd); k, v:
+    (B, T, Hkv, hd). Runs the flash-attention kernel on the card (its
+    plain version on the CPU); ``repro``'s q/kv chunk sizes are TPU
+    schedule knobs that the kernel's own tiling replaces."""
+    return ops.attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention over a (possibly ring-buffered) KV cache,
+    plain torch exactly as ``repro.models.layers.decode_attention``.
+
+    q: (B, 1, Hq, hd); caches: (B, C, Hc, hd) with Hc dividing Hq; pos a
+    (B,) tensor of absolute positions of the new tokens."""
+    b, _, hq, hd = q.shape
+    c, hc = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hc
+    qr = q.reshape(b, 1, hc, rep, hd)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qr.float(),
+                     k_cache.float()) / math.sqrt(hd)
+    pos = pos.long().expand(b)
+    n_valid = torch.clamp(pos + 1, max=c)
+    idx = torch.arange(c, device=q.device)
+    valid = idx[None, :] < n_valid[:, None]
+    if window is not None and c > window:
+        valid &= idx[None, :] > pos[:, None] - window
+    s = s.masked_fill(~valid[:, None, None, None, :], _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhrk,bkhd->bqhrd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype).reshape(b, 1, hq, hd)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table,
+                           pos) -> torch.Tensor:
+    """Single-token attention over a paged KV cache. q: (B, 1, Hq, hd);
+    pages: (NP, P, Hc, hd); page_table (B, M) int32; pos (B,) int32.
+    Runs the paged-attention kernel on the card (its plain version on the
+    CPU)."""
+    b, _, hq, hd = q.shape
+    out = ops.paged_attention(q.reshape(b, hq, hd).contiguous(), k_pages,
+                              v_pages, page_table, pos)
+    return out.reshape(b, 1, hq, hd)
+
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    specs = {
+        "wq": ParamSpec((d, hq * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, hkv * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, hkv * hd), ("embed", "kv_heads")),
+        "wo": ParamSpec((hq * hd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((hq * hd,), ("heads",), init="zeros")
+        specs["bk"] = ParamSpec((hkv * hd,), ("kv_heads",), init="zeros")
+        specs["bv"] = ParamSpec((hkv * hd,), ("kv_heads",), init="zeros")
+    return specs
+
+
+def attention_qkv(p, x, cfg: ModelConfig, positions):
+    """Project to q, k, v (+bias, +rotary). x: (B, S, d)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if not cfg.learned_pos_embed:
+        cos, sin = rotary_angles(positions, hd, cfg.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"w_gate": ParamSpec((d, ff), ("embed", "ff")),
+            "w_up": ParamSpec((d, ff), ("embed", "ff")),
+            "w_down": ParamSpec((ff, d), ("ff", "embed"))}
+
+
+def mlp_apply(p, x):
+    g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
+    return (g * (x @ p["w_up"])) @ p["w_down"]

@@ -1,0 +1,307 @@
+"""Decoder-only LM of the dense family, prefill and decode (port of the
+serving half of :mod:`repro.models.transformer`).
+
+Parameters are split into ``client`` and ``server`` subtrees at the
+paper's cut layer, with every block's leaves stacked on a leading layer
+axis, key-for-key as in ``repro``. Layers run as a Python loop over that
+axis (``repro`` scans them). KV caches keep ``repro``'s layout and its
+``kv_repeat`` head replication, so cache bytes and page budgets equal
+``repro``'s.
+
+Where ``repro``'s decode steps return a new cache (JAX donates the old
+buffers), the port writes the new token's K/V into the cache tensors in
+place and returns the same cache object.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig, ParamSpec
+
+
+def stack_specs(specs, n: int):
+    """Prepend a stacked `layers` dim of size n to every spec in a tree."""
+    return L.tree_map(
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
+                            init=s.init, dtype=s.dtype, scale=s.scale),
+        specs)
+
+
+def _layer(stacked, i: int):
+    return L.tree_map(lambda x: x[i], stacked)
+
+
+def _num_layers(stacked) -> int:
+    return L.tree_leaves(stacked)[0].shape[0]
+
+
+class _Blocks:
+    """Dense attention block definitions used by LanguageModel."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def block_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "attn": L.attention_specs(cfg),
+            "norm2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "mlp": L.mlp_specs(cfg),
+        }
+
+    # ----- prefill -----
+    def attn_block(self, p, x, positions, *, window):
+        """Full-sequence block; returns (x, (k_rep, v_rep)) for the cache."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], hn, cfg, positions)
+        attn_out = L.blockwise_attention(q, k, v, causal=True,
+                                         window=window)
+        x = x + attn_out.reshape(b, s, -1) @ p["attn"]["wo"]
+        hn = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], hn)
+        return x, (self._repeat_kv(k), self._repeat_kv(v))
+
+    # ----- decode -----
+    def _mlp_tail(self, p, x, attn_out):
+        b, w = x.shape[0], x.shape[1]
+        x = x + attn_out.reshape(b, w, -1) @ p["attn"]["wo"]
+        hn2 = L.rms_norm(x, p["norm2"], self.cfg.norm_eps)
+        return x + L.mlp_apply(p["mlp"], hn2)
+
+    def attn_block_decode(self, p, x, kc, vc, pos, *, window):
+        """One-token block over a contiguous cache (B, C, Hc, hd); writes
+        the token's K/V at slot ``pos % C`` in place."""
+        cfg = self.cfg
+        b = x.shape[0]
+        hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], hn, cfg, pos[:, None])
+        slot = pos % kc.shape[1]
+        bidx = torch.arange(b, device=x.device)
+        kc[bidx, slot] = self._repeat_kv(k)[:, 0]
+        vc[bidx, slot] = self._repeat_kv(v)[:, 0]
+        # Ring cache (cache_len == window): slot-validity masking suffices.
+        # Full cache with a window: pass the window so old keys are masked.
+        eff_window = (None if (window is not None and kc.shape[1] <= window)
+                      else window)
+        attn_out = L.decode_attention(q, kc, vc, pos, window=eff_window)
+        return self._mlp_tail(p, x, attn_out)
+
+    def attn_block_decode_paged(self, p, x, kc, vc, pos, page, off,
+                                page_table):
+        """One-token block over page buffers (NP, P, Hc, hd) shared by
+        all rows; the token's K/V goes to physical page ``page`` (=
+        ``table[b, pos // P]``) at offset ``off`` (= ``pos % P``), in
+        place. Inactive rows point their table at the scratch page, so
+        their writes land there (several rows may write it in one step;
+        harmless)."""
+        cfg = self.cfg
+        hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], hn, cfg, pos[:, None])
+        kc[page, off] = self._repeat_kv(k)[:, 0]
+        vc[page, off] = self._repeat_kv(v)[:, 0]
+        attn_out = L.paged_decode_attention(q, kc, vc, page_table, pos)
+        return self._mlp_tail(p, x, attn_out)
+
+    # ----- cache helpers -----
+    def kv_cache_heads(self) -> int:
+        return self.cfg.num_kv_heads * self.kv_repeat()
+
+    def kv_repeat(self) -> int:
+        # Replicate kv heads as repro does for the TPU's 16-way model
+        # axis (repro.models.transformer._Blocks.kv_repeat): the port keeps
+        # the same cache layout so bytes per token and page budgets match.
+        cfg = self.cfg
+        if cfg.num_kv_heads % 16 == 0 or cfg.num_heads == cfg.num_kv_heads:
+            return 1
+        group = cfg.num_heads // max(cfg.num_kv_heads, 1)
+        if cfg.num_kv_heads < cfg.num_heads and 16 % cfg.num_kv_heads == 0:
+            r = 16 // cfg.num_kv_heads
+            if r <= group and group % r == 0:
+                return r
+        return 1
+
+    def _repeat_kv(self, k):
+        r = self.kv_repeat()
+        return k.repeat_interleave(r, dim=2) if r > 1 else k
+
+    def attn_cache_specs(self, batch: int, cache_len: int):
+        cfg = self.cfg
+        heads = self.kv_cache_heads()
+        shape = (batch, cache_len, heads, cfg.head_dim)
+        if heads % 16 == 0:
+            axes = ("batch", None, "kv_heads_cache", None)
+        elif cache_len % 16 == 0:
+            axes = ("batch", "cache_seq", None, None)
+        else:
+            axes = ("batch", None, None, None)
+        return {"k": ParamSpec(shape, axes, init="zeros"),
+                "v": ParamSpec(shape, axes, init="zeros")}
+
+
+class LanguageModel:
+    """Decoder-only LM with a PSL cut; the port serves the dense family."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} ({cfg.name}) is not ported to "
+                f"repro_torch yet; see ROADMAP.md, 'Other model families'")
+        self.cfg = cfg
+        self.blocks = _Blocks(cfg)
+
+    # ----- parameters -----
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        d, v = cfg.d_model, cfg.vocab_size
+        bs = self.blocks.block_specs()
+        client = {
+            "embed": ParamSpec((v, d), ("vocab", "embed"), init="embed"),
+            "blocks": stack_specs(bs, cfg.cut_layer),
+        }
+        server: Dict[str, Any] = {
+            "final_norm": ParamSpec((d,), ("embed",), init="ones"),
+            "blocks": stack_specs(bs, cfg.num_layers - cfg.cut_layer),
+        }
+        if not cfg.tie_embeddings:
+            server["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
+        return {"client": client, "server": server}
+
+    def init(self, generator: torch.Generator):
+        """Random parameters on the generator's device (``repro``'s init
+        rules; the draws differ from ``jax.random``'s)."""
+        return L.materialize(self.param_specs(), generator,
+                             self.cfg.torch_dtype, generator.device)
+
+    def _lm_head(self, params):
+        if self.cfg.tie_embeddings:
+            return params["client"]["embed"].T
+        return params["server"]["lm_head"]
+
+    def _stacks(self, params):
+        return (("client", params["client"]["blocks"]),
+                ("server", params["server"]["blocks"]))
+
+    # ----- caches -----
+    def cache_specs(self, batch: int, cache_len: int,
+                    window: Optional[int] = None) -> Dict[str, Any]:
+        cfg = self.cfg
+        window = window if window is not None else cfg.sliding_window
+        eff_len = min(cache_len, window) if window else cache_len
+        attn_c = self.blocks.attn_cache_specs(batch, eff_len)
+        return {"client": stack_specs(attn_c, cfg.cut_layer),
+                "server": stack_specs(attn_c,
+                                      cfg.num_layers - cfg.cut_layer)}
+
+    def init_cache(self, batch: int, cache_len: int,
+                   window: Optional[int] = None, *, device):
+        specs = self.cache_specs(batch, cache_len, window)
+        return L.tree_map(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype or
+                                  self.cfg.torch_dtype, device=device),
+            specs)
+
+    @staticmethod
+    def _to_ring(k_full, cache_len: int):
+        """Full-sequence kv (B, S, Hc, hd) -> a ring cache of length
+        ``cache_len``; positions keep their rotary phase, so ring order
+        is irrelevant to attention."""
+        b, s, hc, hd = k_full.shape
+        c = cache_len
+        buf = k_full.new_zeros((b, c, hc, hd))
+        if c >= s:
+            buf[:, :s] = k_full
+        else:
+            slots = torch.arange(s - c, s, device=k_full.device) % c
+            buf[:, slots] = k_full[:, -c:]
+        return buf
+
+    # ----- prefill -----
+    @torch.no_grad()
+    def prefill(self, params, batch, cache_len: Optional[int] = None,
+                window: Optional[int] = None):
+        """Full-sequence forward that fills the decode cache.
+
+        Returns (last_logits (B, V) fp32, cache, next_pos)."""
+        cfg = self.cfg
+        window = window if window is not None else cfg.sliding_window
+        tokens = batch["tokens"].long()
+        x = params["client"]["embed"][tokens]
+        b, s, _ = x.shape
+        c = cache_len or s
+        if window:
+            c = min(c, window)
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        cache: Dict[str, Any] = {}
+        for side, stacked in self._stacks(params):
+            ks, vs = [], []
+            for i in range(_num_layers(stacked)):
+                x, (k, v) = self.blocks.attn_block(
+                    _layer(stacked, i), x, positions, window=window)
+                ks.append(self._to_ring(k, c))
+                vs.append(self._to_ring(v, c))
+            cache[side] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        srv = params["server"]
+        x = L.rms_norm(x[:, -1:], srv["final_norm"], cfg.norm_eps)
+        logits = (x[:, 0] @ self._lm_head(params)).float()
+        return logits, cache, s
+
+    # ----- decode -----
+    def _pos_vector(self, pos, b: int, device) -> torch.Tensor:
+        pos = torch.as_tensor(pos, device=device).long()
+        return pos.expand(b) if pos.dim() == 0 else pos
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos,
+                    window: Optional[int] = None):
+        """One-token decode. tokens: (B, 1) int; pos: an int, or a (B,)
+        tensor of per-slot positions (continuous batching). Writes the
+        cache in place. Returns (logits (B, 1, V) fp32, cache)."""
+        cfg = self.cfg
+        window = window if window is not None else cfg.sliding_window
+        x = params["client"]["embed"][tokens.long()]
+        pos = self._pos_vector(pos, x.shape[0], x.device)
+        for side, stacked in self._stacks(params):
+            kcs, vcs = cache[side]["k"], cache[side]["v"]
+            for i in range(_num_layers(stacked)):
+                x = self.blocks.attn_block_decode(
+                    _layer(stacked, i), x, kcs[i], vcs[i], pos,
+                    window=window)
+        x = L.rms_norm(x, params["server"]["final_norm"], cfg.norm_eps)
+        return (x @ self._lm_head(params)).float(), cache
+
+    @torch.no_grad()
+    def decode_step_paged(self, params, cache, tokens, pos, page_table):
+        """One-token decode over a paged KV cache. tokens: (B, 1) int;
+        pos: (B,) per-row positions; page_table: (B, M) int32 from
+        :class:`repro_torch.runtime.paging.PagePool` (one table for every
+        layer: cache leaves carry a leading layer axis). Writes the pages
+        in place. Returns (logits (B, 1, V) fp32, cache)."""
+        cfg = self.cfg
+        x = params["client"]["embed"][tokens.long()]
+        pos = self._pos_vector(pos, x.shape[0],
+                               x.device).to(torch.int32).contiguous()
+        psize = cache["client"]["k"].shape[2]
+        page = page_table.gather(1, (pos // psize)[:, None].long())[:, 0]
+        page, off = page.long(), (pos % psize).long()
+        for side, stacked in self._stacks(params):
+            kcs, vcs = cache[side]["k"], cache[side]["v"]
+            for i in range(_num_layers(stacked)):
+                x = self.blocks.attn_block_decode_paged(
+                    _layer(stacked, i), x, kcs[i], vcs[i], pos, page, off,
+                    page_table)
+        x = L.rms_norm(x, params["server"]["final_norm"], cfg.norm_eps)
+        return (x @ self._lm_head(params)).float(), cache
+
+
+def build_model(cfg: ModelConfig) -> LanguageModel:
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "the encoder-decoder family is not ported to repro_torch yet; "
+            "see ROADMAP.md, 'Other model families'")
+    return LanguageModel(cfg)

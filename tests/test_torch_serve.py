@@ -1,0 +1,180 @@
+"""The port's serving runtime against repro's on the same ServeSpec.
+
+Both packages build the same seeded workload from one spec; the port gets
+repro's initial parameters through the weights bridge and serves on the
+CPU. Per-request tokens, step counts, token counts and KV-cache byte
+accounting must equal repro's exactly (greedy decoding, float32 reduced
+granite, VirtualClock).
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import pytest
+import torch
+
+import repro.api as japi
+from repro_torch import api as tapi
+from repro_torch.checkpoint import from_numpy_tree
+from repro_torch.launch import serve as serve_cli
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _spec(pkg, engine="paged", policy="fifo", cache=None, **wl):
+    workload = dict(num_requests=6, prompt_lens=[5, 9, 17],
+                    max_new_tokens=[4, 9])
+    workload.update(wl)
+    return pkg.ServeSpec(
+        model=pkg.ModelSpec(arch="granite-3-2b", reduced=True),
+        engine=pkg.EngineSpec(name=engine, num_slots=4, slot_len=32),
+        admission=pkg.AdmissionSpec(token_budget=4),
+        scheduler=pkg.SchedulerSpec(policy=policy),
+        workload=pkg.WorkloadSpec(**workload),
+        clock=pkg.ClockSpec(kind="virtual"),
+        cache=pkg.CacheSpec(**(cache or {"page_size": 8})))
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    ctx = japi.build_serve_context(_spec(japi))
+    return ctx.params
+
+
+def _serve_both(jax_params, **kw):
+    jspec, tspec = _spec(japi, **kw), _spec(tapi, **kw)
+    assert jspec.to_dict() == tspec.to_dict()      # one JSON, both packages
+    jctx = japi.build_serve_context(jspec, params=jax_params)
+    jrep = japi.run_serve(jspec, ctx=jctx)
+    tctx = tapi.build_serve_context(
+        tspec, params=from_numpy_tree(jax.device_get(jax_params)),
+        device="cpu")
+    trep = tapi.run_serve(tspec, ctx=tctx)
+    return jrep, trep, tctx
+
+
+def _tokens(report):
+    return {r["rid"]: r["tokens"] for r in report.per_request}
+
+
+@pytest.mark.parametrize("engine", ["continuous", "paged"])
+@pytest.mark.parametrize("policy", ["fifo", "ljf"])
+def test_run_serve_matches_repro(jax_params, engine, policy):
+    jrep, trep, tctx = _serve_both(jax_params, engine=engine, policy=policy)
+    assert trep.engine == jrep.engine == engine
+    assert _tokens(trep) == _tokens(jrep)
+    for field in ("steps", "decode_tokens", "prefill_tokens", "max_active",
+                  "step_active", "num_requests", "preemptions"):
+        assert getattr(trep, field) == getattr(jrep, field), field
+    assert trep.cache_utilization == jrep.cache_utilization
+    tctx.engine.pool.check_no_leaks()
+
+
+def test_eviction_stays_token_identical(jax_params):
+    """A page pool too small for the steady state forces engine-level
+    evictions; the port resumes victims exactly as repro does."""
+    cache = {"page_size": 4, "num_pages": 9}
+    jrep, trep, tctx = _serve_both(jax_params, cache=cache,
+                                   max_new_tokens=[9, 14])
+    assert trep.preemptions == jrep.preemptions > 0
+    assert _tokens(trep) == _tokens(jrep)
+    assert trep.cache_utilization == jrep.cache_utilization
+    tctx.engine.pool.check_no_leaks()
+    _, cont, _ = _serve_both(jax_params, engine="continuous",
+                             max_new_tokens=[9, 14])
+    assert _tokens(cont) == _tokens(trep)
+
+
+def test_verify_report_inside_the_port():
+    spec = _spec(tapi).replace(report=tapi.ReportSpec(verify=-1))
+    report = tapi.run_serve(spec, device="cpu")
+    assert report.verified == {"checked": 6, "mismatches": []}
+
+
+def test_importing_the_port_pulls_in_no_jax_and_no_repro():
+    """Every module of repro_torch imports with jax and repro absent."""
+    code = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for name in mods:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(mods), bad)
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 25 and bad.strip() == "[]"
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is valid")
+    spec = _spec(tapi)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.run_serve(spec)
+    from repro_torch.runtime import ContinuousEngine, PagedEngine
+    cfg = tapi.build_model(spec.model).cfg
+    for cls in (ContinuousEngine, PagedEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(cfg, num_slots=2, slot_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--requests", "2"])
+
+
+def test_serve_cli_on_cpu_and_unported_flags(tmp_path, capsys):
+    cfg = tmp_path / "serve.json"
+    cfg.write_text(_spec(japi).to_json())        # written by repro
+    serve_cli.main(["--config", str(cfg), "--device", "cpu", "--verify",
+                    "-1"])
+    out = capsys.readouterr().out
+    assert "[paged] 6 requests" in out
+    assert "verified token-identical: 6 requests" in out
+    for flag in ("--static", "--speculative", "--sample"):
+        with pytest.raises(SystemExit) as exc:
+            serve_cli.main([flag])
+        assert exc.value.code == 2
+        assert "not ported" in capsys.readouterr().err, flag
+
+
+def test_unported_spec_values_fail_clearly(tmp_path):
+    spec = _spec(tapi)
+    with pytest.raises(tapi.SpecError, match="not ported"):
+        spec.replace(model=tapi.ModelSpec(arch="llama3-8b")).validate()
+    with pytest.raises(tapi.SpecError, match="unknown engine"):
+        spec.replace(engine=tapi.EngineSpec(name="static")).validate()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tapi.run_serve(spec.replace(
+            sampling=tapi.SamplingSpec(method="sample")), device="cpu")
+    with pytest.raises(NotImplementedError, match="profiler"):
+        tapi.run_serve(spec.replace(obs=tapi.ObsSpec(
+            enabled=True, jax_profiler_dir=str(tmp_path))), device="cpu")
+    train = tmp_path / "train.json"
+    train.write_text(json.dumps({"kind": "experiment"}))
+    with pytest.raises(tapi.SpecError, match="not ported"):
+        tapi.load_any_spec(str(train))
+
+
+def test_restore_params_from_a_repro_checkpoint(tmp_path, jax_params):
+    from repro.checkpoint import save
+    path = str(tmp_path / "params.npz")
+    save(path, jax_params)
+    spec = _spec(tapi).replace(checkpoint=path)
+    report = tapi.run_serve(spec, device="cpu")
+    _, trep, _ = _serve_both(jax_params)
+    assert _tokens(report) == _tokens(trep)
+    bad = _spec(tapi).replace(
+        model=tapi.ModelSpec(arch="granite-3-2b", reduced=True,
+                             overrides={"d_ff": 256}), checkpoint=path)
+    with pytest.raises(tapi.SpecError, match="leaf shape"):
+        tapi.build_serve_context(bad, device="cpu")
