@@ -6,8 +6,8 @@
 Runs from the repository root, on one CUDA card, and imports nothing of
 JAX or of the JAX package. Phases (any failure exits non-zero):
 
-1. Build. Every CUDA source of the serving path (``src/repro_torch/csrc``)
-   is compiled for sm_90a, one ``nvcc`` per source, all at once.
+1. Build. Every CUDA source of the port (``src/repro_torch/csrc``) is
+   compiled for sm_90a, one ``nvcc`` per source, all at once.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -22,6 +22,27 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    ``reference_generate`` on the card. A token mismatch passes only as a
    near-tie: at the first diverging step the reference's top-2 logit gap
    must be below ``NEAR_TIE_GAP``.
+5. Training kernels. The fused cross-entropy forward and backward (B5) at
+   T = 2048, d = 2048, V = 49155 and the flash-attention backward (B1-bwd)
+   at B = 16, S = 128 (and a ragged S = 100), Hq = 32, Hkv = 8, D = 64,
+   all bf16, held against their plain versions (and the plain versions'
+   autograd), timed beside them, their bounds and the PyTorch yardsticks
+   (``F.cross_entropy`` after ``torch.matmul``, and the
+   ``scaled_dot_product_attention`` backward; the port never calls them).
+   B5 is checked again in fp32 at elementwise fp32 tolerance; its bf16
+   gradients' softmax part is held on its own, and a planted error (the
+   backward fed lse + 0.1) must fail the checks.
+6. Train. ``repro_torch.api.run(default_lm_spec())`` at full width (40
+   layers not cut, global batch 16 x 128 tokens, UGS, AdamW) for
+   ``TRAIN_STEPS`` steps. The launch counts are set to 0 just before and
+   read just after: B1 and B1-bwd must have run 40 times a step, B5 and
+   B5-bwd once. Every loss and grad norm must be finite.
+7. Gradient agreement. Full width at 4 layers (cut 2) on one plan batch:
+   every leaf's gradient through the kernels against the same loss with
+   ``ops.attention`` and ``ops.cross_entropy`` swapped, for that one
+   reference run, for their plain versions (relative L2 error <=
+   ``GRAD_REL_L2``); then the loss on one fixed batch must fall at each
+   of 5 AdamW steps.
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
@@ -49,6 +70,32 @@ BF16_RTOL = 2e-2
 # attention path: at |logit| in [2, 4), where the top logits of the
 # random-init model sit, one bf16 ulp is 2^-6 = 0.0156. Four ulps:
 NEAR_TIE_GAP = 0.0625
+
+# Per-leaf gradient agreement in bf16 (kernel path against plain path):
+# the two differ in fp32 summation order inside the kernels, and every
+# bf16 gradient is rounded once (one ulp is 2^-8 relative); 2e-2 of a
+# leaf's L2 norm leaves room for that rounding and nothing else.
+GRAD_REL_L2 = 2e-2
+TRAIN_STEPS = 4
+# B5 at the training shape. The forward's nll and lse are fp32 sums of the
+# same products in kernel and plain version, in another order: fp32
+# tolerance. A token whose argmax-is-label verdicts disagree must be a
+# near-tie: its label's logit within XENT_TIE of the row's largest.
+XENT_FP32_TOL = dict(atol=2e-4, rtol=1e-4)
+XENT_TIE = 1e-4
+# B5 gradients in fp32 are held elementwise at GRAD_FP32_TOL. In bf16 the
+# one-hot part (g h, g W_y) is orders of magnitude above the softmax part
+# exp(s - lse) g that fills every other column, so the softmax part is held
+# on its own: relative L2 error against the plain version's <=
+# XENT_SOFT_REL_L2 (both round the same fp32 sums to bf16 once). A planted
+# error, the backward fed lse + PLANTED_LSE_SHIFT (softmax part off by
+# 1 - exp(-0.1) ~ 10%), must fail the same checks.
+GRAD_FP32_TOL = dict(atol=2e-5, rtol=1e-4)
+XENT_SOFT_REL_L2 = 2e-2
+PLANTED_LSE_SHIFT = 0.1
+# Training-kernel shapes: full-width granite-3-2b at global batch 16 x 128
+XENT_SHAPE = (2048, 2048, 49155)                  # T, d, V
+ATTN_SHAPE = dict(b=16, hq=32, hkv=8, d=64, seqs=(128, 100))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
@@ -248,8 +295,9 @@ def serve_phase(torch, dev, events_dir: pathlib.Path):
               f"{times['decode_step'][1]}; peak KV bytes "
               f"{report.cache_utilization['peak_in_use_bytes']}",
               flush=True)
-    if min(launches["paged"].values()) < 1:
-        fail(f"the paged run did not launch every kernel: "
+    if min(launches["paged"][k] for k in ("flash_attention",
+                                          "paged_attention")) < 1:
+        fail(f"the paged run did not launch both serving kernels: "
              f"{launches['paged']}")
     if launches["continuous"]["flash_attention"] < 1:
         fail("the continuous run did not launch flash_attention")
@@ -296,6 +344,481 @@ def agreement_phase(reports, ctx, requests):
           flush=True)
 
 
+
+def within_tol(torch, got, want, what: str, atol: float = BF16_ATOL,
+               rtol: float = BF16_RTOL) -> float:
+    err = (got.float() - want.float()).abs()
+    ok = err <= atol + rtol * want.float().abs()
+    if not bool(ok.all()):
+        fail(f"{what} disagrees with its plain version: max_abs_err "
+             f"{err.max().item()} (atol {atol}, rtol {rtol})")
+    return err.max().item()
+
+
+def rel_l2(torch, got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def xent_softmax_part(torch, dh, dw, h, w, labels, g):
+    """The B5 gradients less their one-hot part, in fp32: dh + g W[:, y]^T,
+    and dW with each token's g h added back into its label column."""
+    lab = labels.long()
+    soft_dh = dh.float() + g[:, None] * w[:, lab].T.float()
+    soft_dw = dw.to(torch.float32, copy=True)
+    soft_dw.index_add_(1, lab, (g[:, None] * h.float()).T)
+    return soft_dh, soft_dw
+
+
+def xent_bwd_errors(torch, got, want, h, w, labels, g):
+    """How far the B5 gradients ``got`` = (dh, dW) are from ``want``, and
+    whether that is within the limits: ``whole`` is the largest abs error
+    (fp32: held elementwise at GRAD_FP32_TOL; bf16: within BF16_RTOL of
+    the tensor's largest entry), ``softmax_rel_l2`` the softmax part's
+    relative L2 error (held at XENT_SOFT_REL_L2)."""
+    whole, ok = 0.0, True
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs()
+        whole = max(whole, err.max().item())
+        if a.dtype == torch.float32:
+            ok &= bool((err <= GRAD_FP32_TOL["atol"] + GRAD_FP32_TOL["rtol"]
+                        * b.float().abs()).all())
+        else:
+            ok &= err.max().item() <= BF16_RTOL * b.float().abs().max().item()
+    soft = max(rel_l2(torch, a, b) for a, b in zip(
+        xent_softmax_part(torch, *got, h, w, labels, g),
+        xent_softmax_part(torch, *want, h, w, labels, g)))
+    return {"whole": whole, "softmax_rel_l2": soft,
+            "ok": ok and soft <= XENT_SOFT_REL_L2}
+
+
+def xent_argmax_ties(torch, correct, pcorrect, h, w, labels) -> int:
+    """Tokens where the kernel's and the plain argmax-is-label verdicts
+    disagree; each must be a near-tie: the label's logit within XENT_TIE
+    of the row's largest."""
+    idx = (correct != pcorrect).nonzero()[:, 0]
+    if idx.numel():
+        s = torch.matmul(h[idx].float(), w.float())
+        gap = s.max(dim=1).values - s.gather(
+            1, labels[idx].long()[:, None])[:, 0]
+        if gap.max().item() > XENT_TIE:
+            fail(f"cross_entropy argmax disagrees on {idx.numel()} tokens, "
+                 f"label logit {gap.max().item()} below the row max "
+                 f"(near-tie limit {XENT_TIE})")
+    return int(idx.numel())
+
+
+def xent_case(torch, dev, gen, dtype, timed: bool):
+    """B5 forward and backward at XENT_SHAPE in ``dtype`` against the plain
+    versions and the plain forward's autograd; a backward fed a planted
+    error (lse + PLANTED_LSE_SHIFT) must fail the same checks."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd,
+                                                   cross_entropy_bwd_plain,
+                                                   cross_entropy_fwd_plain)
+    t, d, v = XENT_SHAPE
+    name = str(dtype).replace("torch.", "")
+    h = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((d, v), generator=gen, device=dev) / d ** 0.5).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    g = torch.rand((t,), generator=gen, device=dev)
+
+    nll, lse, correct = ops.cross_entropy(h, w, labels)
+    pnll, plse, pcorrect = cross_entropy_fwd_plain(h, w, labels)
+    err_f = max(within_tol(torch, nll, pnll, f"cross_entropy nll {name}",
+                           **XENT_FP32_TOL),
+                within_tol(torch, lse, plse, f"cross_entropy lse {name}",
+                           **XENT_FP32_TOL))
+    ties = xent_argmax_ties(torch, correct, pcorrect, h, w, labels)
+
+    dh, dw = ops.cross_entropy_bwd(h, w, labels, lse, g)
+    pdh, pdw = cross_entropy_bwd_plain(h, w, labels, plse, g)
+    bwd = xent_bwd_errors(torch, (dh, dw), (pdh, pdw), h, w, labels, g)
+    if not bwd["ok"]:
+        fail(f"cross_entropy_bwd {name} disagrees with its plain version: "
+             f"{bwd}")
+    del dh, dw
+    planted = xent_bwd_errors(
+        torch, cross_entropy_bwd(h, w, labels, lse + PLANTED_LSE_SHIFT, g),
+        (pdh, pdw), h, w, labels, g)
+    if planted["ok"]:
+        fail(f"cross_entropy_bwd {name}: a planted lse + "
+             f"{PLANTED_LSE_SHIFT} passed the checks: {planted}")
+    # the plain backward against autograd of the plain forward
+    hr = h.detach().requires_grad_(True)
+    wr = w.detach().requires_grad_(True)
+    auto = torch.autograd.grad(
+        (cross_entropy_fwd_plain(hr, wr, labels)[0] * g).sum(), (hr, wr))
+    plain_auto = xent_bwd_errors(torch, (pdh, pdw), auto, h, w, labels, g)
+    if not plain_auto["ok"]:
+        fail(f"cross_entropy_bwd_plain {name} disagrees with autograd: "
+             f"{plain_auto}")
+    del auto, hr, wr, pdh, pdw
+    print(f"kernel cross_entropy {name}: nll/lse err {err_f:.3g} (atol "
+          f"{XENT_FP32_TOL['atol']}, rtol {XENT_FP32_TOL['rtol']}), argmax "
+          f"near-ties {ties}; bwd err {bwd['whole']:.3g}, softmax-part rel "
+          f"L2 {bwd['softmax_rel_l2']:.3g} (limit {XENT_SOFT_REL_L2}); "
+          f"planted lse+{PLANTED_LSE_SHIFT} caught: err "
+          f"{planted['whole']:.3g}, softmax-part rel L2 "
+          f"{planted['softmax_rel_l2']:.3g}", flush=True)
+    fwd = {"shape": f"T={t} d={d} V={v} {name}", "max_abs_err": err_f,
+           "argmax_near_ties": ties}
+    bwd_case = {"shape": fwd["shape"], "max_abs_err": bwd["whole"],
+                "softmax_rel_l2": bwd["softmax_rel_l2"],
+                "planted_softmax_rel_l2": planted["softmax_rel_l2"]}
+    if not timed:
+        return fwd, bwd_case
+
+    elt = h.element_size()
+    flops = 2.0 * t * d * v
+    bnd, by = bound_ms(elt * (t * d + d * v) + 4 * t + 3 * 4 * t, flops)
+
+    def library_fwd():
+        return F.cross_entropy(torch.matmul(h, w).float(), labels.long(),
+                               reduction="none")
+
+    fwd.update({
+        "ms": time_ms(torch, lambda: ops.cross_entropy(h, w, labels),
+                      iters=5, warmup=1),
+        "plain_ms": time_ms(torch, lambda: cross_entropy_fwd_plain(
+            h, w, labels), iters=5, warmup=1),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(torch, library_fwd, iters=5, warmup=1)})
+    bnd_b, by_b = bound_ms(2 * elt * (t * d + d * v) + 3 * 4 * t,
+                           3 * flops)
+    hl = h.detach().requires_grad_(True)
+    wl = w.detach().requires_grad_(True)
+    lib_loss = (F.cross_entropy(torch.matmul(hl, wl).float(),
+                                labels.long(), reduction="none") * g).sum()
+    bwd_case.update({
+        "ms": time_ms(torch, lambda: ops.cross_entropy_bwd(
+            h, w, labels, lse, g), iters=5, warmup=1),
+        "plain_ms": time_ms(torch, lambda: cross_entropy_bwd_plain(
+            h, w, labels, plse, g), iters=5, warmup=1),
+        "bound_ms": bnd_b, "bound_by": by_b,
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_loss, (hl, wl), retain_graph=True), iters=5, warmup=1)})
+    for kname, c in (("cross_entropy", fwd),
+                     ("cross_entropy_bwd", bwd_case)):
+        print(f"kernel {kname} {c['shape']}: err {c['max_abs_err']:.3g}; "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}), library "
+              f"{c['library_ms']:.4f} ms", flush=True)
+    return fwd, bwd_case
+
+
+def train_kernel_phase(torch, dev):
+    """B5 fwd/bwd and B1-bwd at the training shapes, against their plain
+    versions; timed beside the plain versions, bounds and yardsticks.
+    B5 runs in bf16 (timed) and again in fp32, where its gradients are
+    held elementwise at fp32 sums' tolerance."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as \
+        fa_kernel
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    b5, b5_bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True)
+    b5["fp32"], b5_bwd["fp32"] = xent_case(torch, dev, gen, torch.float32,
+                                           timed=False)
+
+    b1_bwd = []
+    b, hq, hkv, dd = (ATTN_SHAPE[k] for k in ("b", "hq", "hkv", "d"))
+    for s in ATTN_SHAPE["seqs"]:
+        q = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        k = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        vv = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        do = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        out = ops.attention(q, k, vv, causal=True)
+        if out.grad_fn is None:
+            fail("ops.attention under grad returned no grad_fn")
+        got = torch.autograd.grad(out, (q, k, vv), grad_outputs=do)
+        ref_out = flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2),
+            vv.transpose(1, 2)).transpose(1, 2)
+        want = torch.autograd.grad(ref_out, (q, k, vv), grad_outputs=do)
+        torch.cuda.synchronize()
+        err = max(within_tol(torch, a, bb, f"flash_attention_bwd S={s}")
+                  for a, bb in zip(got, want))
+        qd, kd, vd, od = (x.detach() for x in (q, k, vv, out))
+        lse_b1 = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        fa_kernel(qd.transpose(1, 2), kd.transpose(1, 2),
+                  vd.transpose(1, 2), lse=lse_b1)      # uncounted
+        elt = 2
+        nbytes = (elt * (4 * b * s * hq * dd + 4 * b * s * hkv * dd)
+                  + 4 * b * hq * s)
+        flops = 10.0 * b * hq * dd * (s * (s + 1) / 2)
+        bnd, by = bound_ms(nbytes, flops)
+        qt, kt, vt, ot, dot = (x.transpose(1, 2) for x in (qd, kd, vd, od,
+                                                           do))
+        sd_q, sd_k, sd_v = (x.detach().transpose(1, 2).requires_grad_(True)
+                            for x in (q, k, vv))
+        sd_out = F.scaled_dot_product_attention(sd_q, sd_k, sd_v,
+                                                is_causal=True,
+                                                enable_gqa=True)
+        case = {
+            "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={dd} causal",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: ops.attention_bwd(
+                qd, kd, vd, od, do, lse_b1)),
+            "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
+                qt, kt, vt, ot, dot, lse_b1)),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                sd_out, (sd_q, sd_k, sd_v), grad_outputs=dot,
+                retain_graph=True)),
+        }
+        print(f"kernel flash_attention_bwd {case['shape']}: err "
+              f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
+              f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+              f"bound {bnd:.5f} ms ({by}), sdpa bwd "
+              f"{case['library_ms']:.4f} ms", flush=True)
+        b1_bwd.append(case)
+    return b5, b5_bwd, b1_bwd
+
+
+def train_spec(events_path: str):
+    from repro_torch import api
+    from repro_torch.launch.train import default_lm_spec
+    spec = default_lm_spec()
+    return api.apply_overrides(spec, [
+        f"execution.max_steps={TRAIN_STEPS}", "obs.enabled=true",
+        "obs.monitor=false", f"obs.events_path={events_path}"])
+
+
+def span_means(events_path: str):
+    spans = {}
+    for line in pathlib.Path(events_path).read_text().splitlines():
+        row = json.loads(line)
+        if row.get("kind") == "span":
+            spans.setdefault(row["name"], []).append(row["dur_s"] * 1e3)
+    return spans
+
+
+def train_phase(torch, dev, events_dir: pathlib.Path):
+    """Full-width PSL training through repro_torch.api.run."""
+    import math
+    import statistics
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    events = str(events_dir / "train.jsonl")
+    spec = train_spec(events)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = api.build_context(spec, device=dev)
+    print(f"[train] built in {time.perf_counter() - t0:.2f}s: "
+          f"{ctx.model.cfg.name} {ctx.model.cfg.num_layers} layers "
+          f"d_model {ctx.model.cfg.d_model}, {ctx.data.pop.num_clients} "
+          f"clients, D0 {ctx.data.pop.total_size}, global batch "
+          f"{spec.protocol.global_batch_size} x {spec.data.seq_len}",
+          flush=True)
+    ops.reset_launches()
+    result = api.run(spec, ctx=ctx)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    steps = len(result.step_metrics)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in _leaves(result.params))
+    spans = span_means(events)
+    step_ms = spans["device_step"]
+    for i, m in enumerate(result.step_metrics):
+        print(f"[train] step {i}: loss {m['loss']:.4f} accuracy "
+              f"{m['accuracy']:.4f} tokens {m['tokens']:.0f} grad_norm "
+              f"{m['grad_norm']:.4f} step {step_ms[i]:.1f} ms", flush=True)
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"train step {i} is not finite: {m}")
+    if steps != TRAIN_STEPS:
+        fail(f"train ran {steps} steps, wanted {TRAIN_STEPS}")
+    layers = ctx.model.cfg.num_layers
+    want = {"flash_attention": layers * steps,
+            "flash_attention_bwd": layers * steps,
+            "cross_entropy": steps, "cross_entropy_bwd": steps,
+            "paged_attention": 0}
+    if launches != want:
+        fail(f"train launches {launches}, wanted {want}")
+    median = statistics.median(step_ms[1:])
+    tokens = result.step_metrics[-1]["tokens"]
+    summary = {
+        "params": n_params, "steps": steps,
+        "first_step_ms": step_ms[0], "median_step_ms_after_first": median,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / median * 1e3,
+        "peak_memory_bytes": peak,
+        "span_means_ms": {k: sum(v) / len(v) for k, v in spans.items()},
+        "losses": [m["loss"] for m in result.step_metrics],
+        "launches": launches}
+    print(f"[train] {n_params / 1e9:.3f} B params; first step "
+          f"{step_ms[0]:.1f} ms, median after it {median:.1f} ms, "
+          f"{summary['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; span means (ms) "
+          f"{json.dumps(summary['span_means_ms'])}; launches {launches}",
+          flush=True)
+    summary["profile"] = profile_step(torch, ctx, result.state)
+    return summary
+
+
+# kernel-name groups of the profiled step, first match wins
+_GROUPS = (("B5 cross_entropy (fwd+bwd)", ("xent_", "gemm_kernel")),
+           ("B1-bwd flash_attention_bwd", ("flash_bwd",)),
+           ("B1 flash_attention", ("flash_fwd",)),
+           ("cuBLAS matmul", ("gemm", "sm90", "cutlass", "xmma", "nvjet")),
+           ("other (elementwise, norms, AdamW, copies)", ("",)))
+
+
+def profile_step(torch, ctx, pstate):
+    """One more training step under torch.profiler: device time by kernel
+    group, the busiest kernels, and the device's idle share of the step's
+    wall time (profiler overhead included in that wall time)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.core.sampling import make_plan
+    spec = ctx.spec
+    engine, state = pstate["engine"], pstate["state"]
+    plan = make_plan("ugs", ctx.data.pop, spec.protocol.global_batch_size,
+                     seed=spec.seed)
+    host = next(iter(lm_plan_batches(
+        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
+        spec.protocol.aggregation,
+        np.zeros(len(ctx.data.lm_data), np.int64))))
+    batch = engine.put_batch(host)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step(state, batch)            # ends by reading the metrics
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+    groups = {name: 0.0 for name, _ in _GROUPS}
+    for key, ms in kernels.items():
+        name = next(n for n, pats in _GROUPS
+                    if any(p in key for p in pats))
+        groups[name] += ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+           "groups_ms": groups, "top_kernels_ms": top}
+    print(f"[profile] one step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {out['idle_share']:.3f}); by group "
+          f"{json.dumps({k: round(v, 2) for k, v in groups.items()})}",
+          flush=True)
+    for key, ms in top:
+        print(f"[profile]   {ms:9.3f} ms  {key[:110]}", flush=True)
+    if busy <= 0:
+        print("[profile] the profiler recorded no device time", flush=True)
+    return out
+
+
+def grad_agreement_phase(torch, dev):
+    """Kernel-path gradients against the plain path's, full width at 4
+    layers; then the loss on one fixed batch falls over 5 AdamW steps."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.core.psl import make_train_step, value_and_grad
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.kernels import cross_entropy as xent
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.launch.train import default_lm_spec
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import TrainState
+
+    spec = api.apply_overrides(default_lm_spec(), [
+        "model.overrides.num_layers=4", "model.overrides.cut_layer=2"])
+    ctx = api.build_context(spec, device=dev)
+    plan = make_plan("ugs", ctx.data.pop, spec.protocol.global_batch_size,
+                     seed=spec.seed)
+    host = next(iter(lm_plan_batches(
+        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
+        spec.protocol.aggregation, np.zeros(len(ctx.data.lm_data),
+                                            np.int64))))
+    engine = ShardedPSLEngine(ctx.model, ctx.optimizer, device=dev)
+    state = engine.init_state(spec.seed)
+    batch = engine.put_batch(host)
+
+    ops.reset_launches()
+    (loss, _), grads = value_and_grad(ctx.model.loss_fn, state.params,
+                                      batch)
+    if min(ops.launch_counts()[k] for k in (
+            "flash_attention", "flash_attention_bwd", "cross_entropy",
+            "cross_entropy_bwd")) < 1:
+        fail(f"kernel-path gradients skipped a kernel: "
+             f"{ops.launch_counts()}")
+
+    def plain_attention(q, k, v, *, causal=True, window=None):
+        return flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+
+    kernel_attention, kernel_xent = ops.attention, ops.cross_entropy
+    ops.attention = plain_attention
+    ops.cross_entropy = lambda h, w, labels: xent.cross_entropy_fwd_plain(
+        h, w, labels.to(torch.int32))
+    try:
+        (ref_loss, _), ref_grads = value_and_grad(ctx.model.loss_fn,
+                                                  state.params, batch)
+    finally:
+        ops.attention, ops.cross_entropy = kernel_attention, kernel_xent
+    rels = {}
+    for name, a, b in zip(_leaf_names(grads), tree_leaves(grads),
+                          tree_leaves(ref_grads)):
+        rels[name] = ((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30)).item()
+    worst_leaf = max(rels, key=rels.get)
+    worst = rels[worst_leaf]
+    print(f"[grads] 4-layer full width: loss kernel {float(loss):.5f} vs "
+          f"plain {float(ref_loss):.5f}; worst per-leaf relative L2 "
+          f"error {worst:.3g} ({worst_leaf}) over {len(rels)} leaves "
+          f"(limit {GRAD_REL_L2}); median "
+          f"{sorted(rels.values())[len(rels) // 2]:.3g}", flush=True)
+    if not worst <= GRAD_REL_L2:
+        fail(f"kernel-path gradients disagree: relative L2 {worst}")
+    del grads, ref_grads
+
+    step = make_train_step(ctx.model, ctx.optimizer)
+    losses = []
+    st = TrainState(state.params, state.opt_state, 0)
+    for _ in range(5):
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+    (final, _), _ = value_and_grad(ctx.model.loss_fn, st.params, batch)
+    losses.append(float(final))
+    print(f"[grads] fixed-batch losses over 5 AdamW steps: {losses}",
+          flush=True)
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"the fixed-batch loss did not fall at every step: {losses}")
+    return {"worst_rel_l2": worst, "worst_leaf": worst_leaf,
+            "rel_l2_by_leaf": rels, "fixed_batch_losses": losses}
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted key paths in ``tree_leaves`` order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -315,8 +838,8 @@ def main() -> int:
           flush=True)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    for log in _build.build(["flash_attention", "paged_attention"],
-                            verbose=True):
+    for log in _build.build(["flash_attention", "paged_attention",
+                             "cross_entropy"], verbose=True):
         for line in log.splitlines():
             if line.startswith("[nvcc") or "registers" in line \
                     or "spill" in line:
@@ -328,23 +851,56 @@ def main() -> int:
         reports, launches, ctx, requests = serve_phase(
             torch, dev, pathlib.Path(events_dir))
     agreement_phase(reports, ctx, requests)
+    del ctx, reports
+    b5, b5_bwd, b1_bwd = train_kernel_phase(torch, dev)
+    with tempfile.TemporaryDirectory() as events_dir:
+        train = train_phase(torch, dev, pathlib.Path(events_dir))
+    grad_agreement_phase(torch, dev)
 
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "shape")
     b1 = max(b1_cases, key=lambda c: c["bound_ms"])
+    b1b = b1_bwd[0]                      # the training shape, S = 128
+    by_path = {name: {"serve_paged": launches["paged"][name],
+                      "serve_continuous": launches["continuous"][name],
+                      "train": train["launches"][name]}
+               for name in ops.WRAPPERS}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:78",
-         "launches": launches["paged"]["flash_attention"],
+         "launches": train["launches"]["flash_attention"],
+         "launches_by_path": by_path["flash_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in b1_cases),
-         **{k: b1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "shape")},
-         "cases": b1_cases},
+         **{k: b1[k] for k in timing}, "cases": b1_cases},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/models/layers.py:248",
+         "launches": train["launches"]["flash_attention_bwd"],
+         "launches_by_path": by_path["flash_attention_bwd"],
+         "max_abs_err": max(c["max_abs_err"] for c in b1_bwd),
+         **{k: b1b[k] for k in timing}, "cases": b1_bwd},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:81",
          "launches": launches["paged"]["paged_attention"],
-         **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms", "shape")}},
+         "launches_by_path": by_path["paged_attention"],
+         **{k: b2[k] for k in ("max_abs_err",) + timing}},
+        {"name": "cross_entropy", "route": "cuda",
+         "source": "src/repro_torch/csrc/cross_entropy.cu",
+         "replaces": "src/repro/kernels/cross_entropy.py:68",
+         "launches": train["launches"]["cross_entropy"],
+         "launches_by_path": by_path["cross_entropy"],
+         **{k: b5[k] for k in ("max_abs_err", "argmax_near_ties", "fp32")
+            + timing}},
+        {"name": "cross_entropy_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/cross_entropy.cu",
+         "replaces": "src/repro/kernels/cross_entropy.py:68",
+         "launches": train["launches"]["cross_entropy_bwd"],
+         "launches_by_path": by_path["cross_entropy_bwd"],
+         **{k: b5_bwd[k] for k in ("max_abs_err", "softmax_rel_l2",
+                                     "planted_softmax_rel_l2", "fp32")
+            + timing}},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:
         fail(f"kernel list {sorted(ops.WRAPPERS)} not all reported")

@@ -1,33 +1,56 @@
-"""`repro_torch.api` — the declarative serving API of the port (mirrors
-the serving half of :mod:`repro.api`): one ServeSpec JSON pins a run,
-registries map names to engines and policies, and :func:`run_serve`
-drives every engine."""
+"""`repro_torch.api` — the declarative API of the port (mirrors
+:mod:`repro.api`): one ExperimentSpec or ServeSpec JSON pins a run,
+registries map names to protocols, engines and policies, and :func:`run`
+drives either kind on the CUDA card (``device="cpu"`` for tests)."""
 from repro_torch.api.cli import apply_overrides, load_any_spec, parse_set
-from repro_torch.api.registry import (UnknownPolicyError,
+from repro_torch.api.events import (Callback, CheckpointCallback,
+                                    ConsoleLogger, Event, EventBus,
+                                    PlanStatsCallback, ShardArrivalCallback)
+from repro_torch.api.loop import (DataBundle, History, RunContext,
+                                  RunRecord, RunResult, fit)
+from repro_torch.api.registry import (NOT_PORTED_PROTOCOLS,
+                                      ProtocolStrategy, StepItem,
+                                      UnknownPolicyError,
+                                      UnknownProtocolError,
                                       available_admission_policies,
                                       available_engines,
+                                      available_protocols,
                                       available_scheduler_policies,
                                       get_admission_policy, get_engine,
-                                      get_scheduler_policy,
+                                      get_protocol, get_scheduler_policy,
                                       register_admission_policy,
-                                      register_engine,
+                                      register_engine, register_protocol,
                                       register_scheduler_policy)
+from repro_torch.api.runner import (build_context, build_data,
+                                    build_optimizer, default_callbacks, run)
 from repro_torch.api.serving import (ServeContext, audit_stream,
                                      build_model, build_serve_context,
                                      build_workload, restore_params,
                                      run_serve, verify_report)
 from repro_torch.api.specs import (AdmissionSpec, ArrivalSpec, CacheSpec,
-                                   ClockSpec, DraftSpec, EngineSpec,
-                                   ModelSpec, ObsSpec, ReportSpec,
-                                   SamplingSpec, SchedulerSpec, ServeSpec,
-                                   SpecError, StragglerSpec, StreamSpec,
-                                   TenantSpec, WorkloadSpec)
+                                   ClockSpec, DataSpec, DraftSpec,
+                                   EngineSpec, EvalSpec, ExecutionSpec,
+                                   ExperimentSpec, ModelSpec, ObsSpec,
+                                   OptimizerSpec, ProtocolSpec, ReportSpec,
+                                   SamplerSpec, SamplingSpec, SchedulerSpec,
+                                   ServeSpec, SpecError, StragglerSpec,
+                                   StreamSpec, TenantSpec, WorkloadSpec)
 
 __all__ = [
-    "ServeSpec", "ModelSpec", "EngineSpec", "AdmissionSpec",
+    "ExperimentSpec", "ModelSpec", "OptimizerSpec", "DataSpec",
+    "SamplerSpec", "ProtocolSpec", "ExecutionSpec", "EvalSpec",
+    "ServeSpec", "EngineSpec", "AdmissionSpec",
     "SchedulerSpec", "WorkloadSpec", "ClockSpec", "ReportSpec", "TenantSpec",
     "ArrivalSpec", "CacheSpec", "SamplingSpec", "DraftSpec", "StreamSpec",
     "ObsSpec", "StragglerSpec", "SpecError",
+    "run", "build_context", "build_data", "build_optimizer",
+    "default_callbacks", "fit", "RunContext", "RunRecord", "RunResult",
+    "History", "DataBundle",
+    "Event", "EventBus", "Callback", "PlanStatsCallback",
+    "ShardArrivalCallback", "CheckpointCallback", "ConsoleLogger",
+    "register_protocol", "get_protocol", "available_protocols",
+    "ProtocolStrategy", "StepItem", "UnknownProtocolError",
+    "NOT_PORTED_PROTOCOLS",
     "run_serve", "build_serve_context", "build_workload",
     "build_model", "ServeContext", "restore_params", "verify_report",
     "audit_stream",

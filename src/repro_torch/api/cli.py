@@ -1,19 +1,22 @@
-"""Dotted-override plumbing for the serve CLI (port of the serving half
-of :mod:`repro.api.cli`).
+"""Dotted-override plumbing for the train and serve CLIs (port of
+:mod:`repro.api.cli`).
 
 ``parse_set`` parses one ``key=value`` item (value via JSON, falling back
 to a bare string); ``apply_overrides`` walks the dotted path through the
 spec tree, validating every segment against the dataclass schema except
-inside free-form dict leaves, and returns a new spec. ``load_any_spec``
-loads a spec JSON and dispatches on its ``kind``; the port serves
-``"serve"`` specs only.
+inside free-form dict leaves, and returns a new spec of the same kind.
+``load_any_spec`` loads a spec JSON and dispatches on its ``kind``
+(``"experiment"``, the default, or ``"serve"``), reading ``repro``'s
+JSON of either kind.
 """
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Tuple, Union
 
-from repro_torch.api.specs import ServeSpec, SpecError
+from repro_torch.api.specs import ExperimentSpec, ServeSpec, SpecError
+
+AnySpec = Union[ExperimentSpec, ServeSpec]
 
 # the only free-form dict leaves in the spec tree
 _FREE_FORM = ("kwargs", "overrides")
@@ -55,7 +58,7 @@ def _set_dotted(tree: Dict[str, Any], key: str, value: Any) -> None:
     node[leaf] = value
 
 
-def apply_overrides(spec: ServeSpec, sets: Iterable[str]) -> ServeSpec:
+def apply_overrides(spec: AnySpec, sets: Iterable[str]) -> AnySpec:
     """Apply ``key=value`` dotted overrides, returning a new spec."""
     d = spec.to_dict()
     for item in sets:
@@ -64,15 +67,18 @@ def apply_overrides(spec: ServeSpec, sets: Iterable[str]) -> ServeSpec:
     return type(spec).from_dict(d)
 
 
-def load_any_spec(path: str) -> ServeSpec:
-    """Load a spec JSON; training (``"experiment"``) specs are not ported
-    yet and raise."""
+_SPEC_KINDS = {"experiment": ExperimentSpec, "serve": ServeSpec}
+
+
+def load_any_spec(path: str) -> AnySpec:
+    """Load a spec JSON of either kind (``kind`` field; default
+    "experiment", as in ``repro``)."""
     with open(path) as f:
         d = json.load(f)
     if not isinstance(d, dict):
         raise SpecError(f"{path}: expected a JSON object")
     kind = d.get("kind", "experiment")
-    if kind != "serve":
-        raise SpecError(f"{path}: spec kind {kind!r} is not ported to "
-                        f"repro_torch yet; the port runs 'serve' specs")
-    return ServeSpec.from_dict(d)
+    if kind not in _SPEC_KINDS:
+        raise SpecError(f"{path}: unknown spec kind {kind!r}; known: "
+                        f"{sorted(_SPEC_KINDS)}")
+    return _SPEC_KINDS[kind].from_dict(d)

@@ -1,0 +1,169 @@
+"""The training loop behind every entry point of the port (port of
+:mod:`repro.api.loop`).
+
+``fit(ctx, strategy, callbacks)`` drives a registered protocol strategy:
+per epoch it asks the strategy for a plan, iterates the strategy's batch
+stream, applies the strategy's step, runs the end-of-epoch aggregation
+hook, and emits events (run_begin / epoch_begin / plan / step_end /
+epoch_end / run_end) that callbacks turn into plan statistics, straggler
+accounting and checkpoints. ``repro_torch.api.run`` builds the context
+from an ExperimentSpec.
+
+Telemetry (``ctx.spec.obs``, repro_torch.obs): when enabled, the loop
+wraps each phase in tracer spans — ``plan`` (epoch planning), ``batch``
+(host batch assembly, one per step), ``device_step`` (the strategy's
+step; the PSL engine's step waits for the card, so the span covers its
+device work) and ``eval`` (end-of-epoch callbacks) under per-epoch
+``epoch`` spans inside one ``run`` span. Instrumentation touches no RNG
+and no batch content. The live GPSL invariant monitor
+(``obs.monitor``, on by default in an enabled ObsSpec) and the device
+profiler (``obs.jax_profiler_dir``) are not ported yet and raise when
+asked for (ROADMAP A.9).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+from repro_torch.api.events import EventBus
+from repro_torch.api.registry import ProtocolStrategy
+from repro_torch.obs import check_profiler, tracer_from_spec, write_outputs
+
+
+@dataclasses.dataclass
+class History:
+    """Per-epoch test accuracy (empty until evaluation is ported) +
+    protocol extras (the stable result API)."""
+    test_acc: List[float]
+    extras: Dict[str, Any]
+
+
+@dataclasses.dataclass
+class DataBundle:
+    """The materialized data a run consumes: ``lm_data`` per-client token
+    arrays and ``pop`` their ClientPopulation (synthetic_lm)."""
+    kind: str = "synthetic_lm"
+    lm_data: Optional[List] = None
+    pop: Any = None
+    seq_len: Optional[int] = None       # synthetic_lm: training seq length
+
+
+@dataclasses.dataclass
+class RunContext:
+    """Everything a strategy may consult: built objects + the spec axes,
+    and the torch device the run uses."""
+    model: Any
+    optimizer: Any
+    data: DataBundle
+    spec: Any                       # ExperimentSpec
+    seed: int = 0
+    device: Any = None
+
+    @property
+    def protocol(self):
+        return self.spec.protocol
+
+    @property
+    def sampler(self):
+        return self.spec.sampler
+
+    @property
+    def execution(self):
+        return self.spec.execution
+
+
+@dataclasses.dataclass
+class RunRecord:
+    """Mutable sink the loop and callbacks write into."""
+    test_acc: List[float] = dataclasses.field(default_factory=list)
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    step_metrics: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)
+    steps: int = 0
+
+
+@dataclasses.dataclass
+class RunResult:
+    """What a run returns: the History plus final params and step metrics."""
+    history: History
+    params: Any
+    step_metrics: List[Dict[str, float]]
+    state: Any = None               # final protocol state (engine access)
+
+    @property
+    def test_acc(self) -> List[float]:
+        return self.history.test_acc
+
+
+_END = object()                       # batch-stream exhaustion sentinel
+
+
+def check_monitor(obs) -> None:
+    """The GPSL invariant monitor is not ported: an enabled ObsSpec must
+    set ``monitor: false`` instead of silently running unmonitored."""
+    if obs is not None and obs.enabled and obs.monitor:
+        raise NotImplementedError(
+            "obs.monitor: the live GPSL invariant monitor is not ported to "
+            "repro_torch yet (ROADMAP A.9); set obs.monitor=false")
+
+
+def fit(ctx: RunContext, strategy: ProtocolStrategy,
+        callbacks=(), tracer=None) -> RunResult:
+    """Run ``strategy`` under ``ctx`` for ``ctx.protocol.epochs`` epochs.
+
+    ``tracer`` defaults to one built from ``ctx.spec.obs`` (the shared
+    no-op NullTracer when absent or disabled).
+    """
+    obs = getattr(ctx.spec, "obs", None)
+    check_profiler(obs)
+    check_monitor(obs)
+    if tracer is None:
+        tracer = tracer_from_spec(
+            obs, meta={"kind": "train",
+                       "protocol": getattr(ctx.protocol, "name", "?")})
+    record = RunRecord()
+    bus = EventBus(callbacks, ctx, record)
+    pstate = strategy.setup(ctx)
+    max_steps = ctx.execution.max_steps
+    bus.emit("run_begin")
+    stop = False
+    with tracer.span("run", cat="train"):
+        for epoch in range(ctx.protocol.epochs):
+            with tracer.span("epoch", cat="train", epoch=epoch):
+                bus.emit("epoch_begin", epoch=epoch)
+                with tracer.span("plan", cat="plan", epoch=epoch):
+                    plan = strategy.plan_epoch(ctx, epoch)
+                if plan is not None:
+                    bus.emit("plan", epoch=epoch, plan=plan)
+                batches = iter(strategy.epoch_batches(ctx, pstate, plan,
+                                                      epoch))
+                while True:
+                    with tracer.span("batch", cat="data", epoch=epoch):
+                        item = next(batches, _END)
+                    if item is _END:
+                        break
+                    with tracer.span("device_step", cat="step",
+                                     epoch=epoch, step=record.steps):
+                        pstate, metrics = strategy.step(ctx, pstate, item)
+                    record.step_metrics.append(metrics)
+                    record.steps += 1
+                    bus.emit("step_end", epoch=epoch, step=record.steps,
+                             metrics=metrics, info=item.info)
+                    if max_steps is not None and record.steps >= max_steps:
+                        stop = True
+                        break
+                pstate = strategy.end_epoch(ctx, pstate, epoch)
+                with tracer.span("eval", cat="eval", epoch=epoch):
+                    bus.emit("epoch_end", epoch=epoch,
+                             params=strategy.eval_params(ctx, pstate))
+            if stop:
+                break
+        strategy.finalize(ctx, pstate, record)
+        params = strategy.eval_params(ctx, pstate)
+        bus.emit("run_end", params=params)
+    write_outputs(tracer, obs)
+    step_metrics = [{k: float(v) for k, v in m.items()}
+                    for m in record.step_metrics]
+    return RunResult(history=History(record.test_acc, record.extras),
+                     params=params, step_metrics=step_metrics,
+                     state=pstate)

@@ -1,20 +1,35 @@
-"""Name -> implementation registries for the serving policies (port of
-the serving half of :mod:`repro.api.registry`).
+"""Name -> implementation registries for protocols and serving policies
+(port of :mod:`repro.api.registry`).
 
-The server-side axes of the continuous-batching runtime are pluggable:
-admission order (``@register_scheduler_policy``), the budget controller
-(``@register_admission_policy``) and the engine itself
-(``@register_engine``). Built-ins register as an import side effect of
-:mod:`repro_torch.runtime`, imported lazily on first lookup.
+* **Protocol strategies** (``@register_protocol``) package a training
+  protocol's epoch planning, batch assembly, step and aggregation hook
+  behind one interface driven by :func:`repro_torch.api.loop.fit`. The
+  port registers ``psl``; ``cl``, ``sl``, ``fl`` and ``sfl`` keep their
+  names and raise ``NotImplementedError`` when looked up (ROADMAP A.4).
+* **Serving policies**: admission order (``@register_scheduler_policy``),
+  the budget controller (``@register_admission_policy``) and the engine
+  itself (``@register_engine``).
+
+Built-ins register as an import side effect of their home module
+(:mod:`repro_torch.api.protocols`, :mod:`repro_torch.runtime`), imported
+lazily on first lookup.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Type
+
+
+class UnknownProtocolError(KeyError):
+    """Lookup of a protocol name that was never registered."""
 
 
 class UnknownPolicyError(KeyError):
     """Lookup of a serving policy/engine name that was never registered."""
+
+
+# repro's other built-in protocols: known names the port cannot run yet
+NOT_PORTED_PROTOCOLS = frozenset({"cl", "sl", "fl", "sfl"})
 
 
 class _Registry:
@@ -68,6 +83,8 @@ class _Registry:
             importlib.import_module(self._builtins_module)
 
 
+_PROTOCOLS = _Registry("protocol", "repro_torch.api.protocols",
+                       UnknownProtocolError)
 # importing the repro_torch.runtime package pulls in queue/scheduler/
 # engine/paging, which registers every built-in serving policy and engine
 _SCHEDULER_POLICIES = _Registry("scheduler policy", "repro_torch.runtime",
@@ -76,6 +93,24 @@ _ADMISSION_POLICIES = _Registry("admission policy", "repro_torch.runtime",
                                 UnknownPolicyError)
 _ENGINES = _Registry("serve engine", "repro_torch.runtime",
                      UnknownPolicyError)
+
+
+def register_protocol(name: str, *, replace: bool = False):
+    """Class decorator: make a :class:`ProtocolStrategy` reachable by name."""
+    return _PROTOCOLS.register(name, replace=replace)
+
+
+def get_protocol(name: str) -> Type["ProtocolStrategy"]:
+    if name in NOT_PORTED_PROTOCOLS and name not in _PROTOCOLS._entries:
+        raise NotImplementedError(
+            f"protocol {name!r} is not ported to repro_torch yet; the port "
+            f"trains with 'psl' (ROADMAP A.4 brings the paper's baselines "
+            f"with the CNN slice)")
+    return _PROTOCOLS.get(name)
+
+
+def available_protocols() -> List[str]:
+    return _PROTOCOLS.available()
 
 
 def register_scheduler_policy(name: str, *, replace: bool = False):
@@ -115,3 +150,53 @@ def get_engine(name: str):
 
 def available_engines() -> List[str]:
     return _ENGINES.available()
+
+
+class StepItem:
+    """One unit of work yielded by a strategy's batch assembly: ``batch``
+    is what the strategy's ``step`` consumes; ``scope`` tags a
+    sub-context (None for global streams); ``info`` carries per-step
+    diagnostics forwarded to callbacks on the step event."""
+
+    __slots__ = ("batch", "scope", "info")
+
+    def __init__(self, batch: Any, scope: Any = None,
+                 info: Optional[Dict[str, Any]] = None):
+        self.batch = batch
+        self.scope = scope
+        self.info = info
+
+
+class ProtocolStrategy:
+    """Interface the shared loop (repro_torch.api.loop.fit) drives. Per
+    epoch::
+
+        plan  = strategy.plan_epoch(ctx, epoch)           # may be None
+        for item in strategy.epoch_batches(ctx, pstate, plan, epoch):
+            pstate, metrics = strategy.step(ctx, pstate, item)
+        pstate = strategy.end_epoch(ctx, pstate, epoch)   # aggregation hook
+    """
+
+    name: str = "?"
+
+    def setup(self, ctx) -> Any:
+        raise NotImplementedError
+
+    def plan_epoch(self, ctx, epoch: int):
+        return None
+
+    def epoch_batches(self, ctx, pstate, plan, epoch: int
+                      ) -> Iterator[StepItem]:
+        raise NotImplementedError
+
+    def step(self, ctx, pstate, item: StepItem) -> Tuple[Any, Dict]:
+        raise NotImplementedError
+
+    def end_epoch(self, ctx, pstate, epoch: int) -> Any:
+        return pstate
+
+    def eval_params(self, ctx, pstate) -> Any:
+        raise NotImplementedError
+
+    def finalize(self, ctx, pstate, record) -> None:
+        """Last hook before run_end; may write protocol extras."""

@@ -1,16 +1,19 @@
-"""Declarative serving specifications (port of the ServeSpec half of
-:mod:`repro.api.specs`).
+"""Declarative run specifications (port of :mod:`repro.api.specs`).
 
-The schema is ``repro``'s, field for field, so one ServeSpec JSON document
-drives both packages::
+The schema is ``repro``'s, field for field, so one ExperimentSpec or
+ServeSpec JSON document drives both packages::
+
+    spec = ExperimentSpec.from_json(pathlib.Path("spec.json").read_text())
+    result = repro_torch.api.run(spec)            # RunResult
 
     spec = ServeSpec.from_json(pathlib.Path("serve.json").read_text())
-    report = repro_torch.api.run_serve(spec)      # ServeReport
+    report = repro_torch.api.run(spec)            # ServeReport
 
 ``to_dict``/``from_dict``/``to_json``/``from_json`` round-trip exactly;
 ``from_dict`` rejects unknown keys so stale configs fail loudly. Values
-the port does not serve yet (other archs, engines, sampling methods) fail
-validation or engine construction with a "not ported" error.
+the port does not run yet (other archs, engines, sampling methods,
+protocols, data kinds) fail validation or construction with a "not
+ported" error.
 """
 from __future__ import annotations
 
@@ -159,6 +162,186 @@ class ObsSpec(SpecBase):
     def validate(self) -> "ObsSpec":
         self._require(0.0 < self.monitor_delta < 1.0,
                       "monitor_delta must be in (0, 1)")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerSpec(SpecBase):
+    """Optimizer family + hyperparameters (repro_torch.optim)."""
+    name: str = "sgd"
+    lr: float = 5e-2
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def validate(self) -> "OptimizerSpec":
+        self._require(self.name in ("sgd", "adamw"),
+                      f"unknown optimizer {self.name!r}")
+        self._require(self.lr > 0, "lr must be positive")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpec(SpecBase):
+    """Dataset synthesis + federation layout.
+
+    kind "synthetic_lm": style-skewed token sequences (one shard per
+    client), the kind the port trains. kind "synthetic_classification"
+    (CIFAR-like images for the paper's CNN) keeps its schema but is not
+    ported yet (ROADMAP A.3).
+    """
+    kind: str = "synthetic_classification"
+    num_train: int = 3000
+    num_test: int = 600
+    image_size: int = 16
+    num_classes: int = 10
+    seed: int = 0
+    test_seed: int = 99
+    partition: str = "dirichlet"
+    num_clients: int = 8
+    classes_per_client: int = 2
+    concentration: float = 0.3
+    partition_seed: int = 1
+    straggler: Optional[StragglerSpec] = None
+    # synthetic_lm only
+    sequences: int = 2048
+    seq_len: int = 128
+
+    def validate(self) -> "DataSpec":
+        self._require(self.kind in ("synthetic_classification",
+                                    "synthetic_lm"),
+                      f"unknown data kind {self.kind!r}")
+        self._require(self.partition in ("iid", "dirichlet"),
+                      f"unknown partition {self.partition!r}")
+        self._require(self.num_clients > 0, "num_clients must be positive")
+        self._require(self.num_train > 0, "num_train must be positive")
+        if self.straggler is not None:
+            self.straggler.validate()
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerSpec(SpecBase):
+    """Global sampling policy (repro_torch.core.sampling.make_plan
+    arguments). ``plan_format``: "dense", "sparse" or "auto" (default);
+    draws are format-independent. The port plans with the numpy backend
+    only (``backend="jax"`` raises)."""
+    method: str = "ugs"
+    backend: str = "numpy"
+    plan_format: str = "auto"
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def validate(self) -> "SamplerSpec":
+        self._require(self.method in ("ugs", "lds", "fpls", "fls"),
+                      f"unknown sampling method {self.method!r}")
+        self._require(self.backend in ("numpy", "jax", "auto"),
+                      f"unknown planner backend {self.backend!r}")
+        self._require(self.plan_format in ("dense", "sparse", "auto"),
+                      f"unknown plan format {self.plan_format!r}")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolSpec(SpecBase):
+    """Training protocol and its schedule.
+
+    ``name`` selects a registered strategy (repro_torch.api.registry; the
+    port runs "psl", and "cl"/"sl"/"fl"/"sfl" keep their names but raise
+    when run). PSL composes global batches of ``global_batch_size`` slots.
+    """
+    name: str = "psl"
+    epochs: int = 6
+    global_batch_size: int = 64
+    batch_size: int = 64
+    aggregation: str = "global_mean"
+    local_epochs: Optional[int] = None    # FL; None = paper App. A rule
+    track_tpe: bool = False
+    base_step_ms: float = 60.0
+
+    def validate(self) -> "ProtocolSpec":
+        from repro_torch.api.registry import (NOT_PORTED_PROTOCOLS,
+                                              available_protocols)
+        known = available_protocols() + sorted(NOT_PORTED_PROTOCOLS)
+        self._require(self.name in known,
+                      f"unknown protocol {self.name!r}; known: {known}")
+        self._require(self.epochs > 0, "epochs must be positive")
+        self._require(self.global_batch_size > 0 and self.batch_size > 0,
+                      "batch sizes must be positive")
+        self._require(self.aggregation in ("global_mean", "client_weighted"),
+                      f"unknown aggregation {self.aggregation!r}")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionSpec(SpecBase):
+    """Where and how the step runs: engine, mesh, lowering, microbatches.
+
+    The port runs the fused step on one card: ``mesh`` None (or a
+    one-device spec such as "1x1") and ``lowering="gspmd"``; other meshes
+    and ``shard_map`` raise in the engine (ROADMAP A.7).
+    """
+    engine: str = "fused"
+    mesh: Optional[str] = None
+    sharding: str = "tp"
+    lowering: str = "gspmd"
+    microbatches: int = 1
+    max_steps: Optional[int] = None
+    checkpoint: Optional[str] = None
+
+    def validate(self) -> "ExecutionSpec":
+        self._require(self.engine in ("fused", "sharded"),
+                      f"unknown engine {self.engine!r}")
+        self._require(self.sharding in ("tp", "fsdp", "ddp"),
+                      f"unknown sharding profile {self.sharding!r}")
+        self._require(self.lowering in ("gspmd", "shard_map"),
+                      f"unknown lowering {self.lowering!r}")
+        self._require(self.microbatches >= 1,
+                      "microbatches must be >= 1")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalSpec(SpecBase):
+    """Held-out evaluation cadence (classification workloads; the port's
+    LM runs take none)."""
+    enabled: bool = True
+    batch_size: int = 512
+    every: int = 1
+
+    def validate(self) -> "EvalSpec":
+        self._require(self.batch_size > 0, "batch_size must be positive")
+        self._require(self.every >= 1, "every must be >= 1")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec(SpecBase):
+    """The root: one experiment, fully pinned, JSON round-trippable."""
+    seed: int = 0
+    model: ModelSpec = dataclasses.field(default_factory=ModelSpec)
+    optimizer: OptimizerSpec = dataclasses.field(
+        default_factory=OptimizerSpec)
+    data: DataSpec = dataclasses.field(default_factory=DataSpec)
+    sampler: SamplerSpec = dataclasses.field(default_factory=SamplerSpec)
+    protocol: ProtocolSpec = dataclasses.field(default_factory=ProtocolSpec)
+    execution: ExecutionSpec = dataclasses.field(
+        default_factory=ExecutionSpec)
+    eval: EvalSpec = dataclasses.field(default_factory=EvalSpec)
+    obs: ObsSpec = dataclasses.field(default_factory=ObsSpec)
+    kind: str = "experiment"        # run(spec) / load_any_spec dispatch tag
+
+    def validate(self) -> "ExperimentSpec":
+        self._require(self.kind == "experiment",
+                      f"kind must be 'experiment', got {self.kind!r}")
+        for sub in (self.model, self.optimizer, self.data, self.sampler,
+                    self.protocol, self.execution, self.eval, self.obs):
+            sub.validate()
+        if self.data.kind == "synthetic_lm":
+            self._require(self.protocol.name == "psl",
+                          "synthetic_lm data requires the psl protocol")
+        if self.execution.engine == "sharded":
+            self._require(self.protocol.name == "psl",
+                          "the sharded engine only lowers the psl protocol")
         return self
 
 

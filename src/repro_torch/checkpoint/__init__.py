@@ -1,4 +1,6 @@
-"""Checkpoints of the port: ``repro``'s npz format, read bit-exactly."""
-from repro_torch.checkpoint.io import from_numpy_tree, restore
+"""Checkpoints of the port: ``repro``'s npz format, read and written
+bit-exactly, and the TrainState bridge from ``repro``."""
+from repro_torch.checkpoint.io import (from_numpy_tree, restore, save,
+                                       train_state_from_numpy)
 
-__all__ = ["from_numpy_tree", "restore"]
+__all__ = ["from_numpy_tree", "restore", "save", "train_state_from_numpy"]

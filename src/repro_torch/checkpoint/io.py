@@ -5,13 +5,17 @@ joined by ``/``, list entries keyed ``#i``, bfloat16 leaves stored as
 uint16 and listed in ``__bf16_keys__``. :func:`restore` returns the
 port's parameter tree (nested dicts of tensors) on a given device, and
 :func:`from_numpy_tree` does the same for an in-memory nested dict of
-numpy arrays (e.g. ``jax.device_get`` of a ``repro`` params tree). Both
-are bit-exact: bf16 leaves move as raw 16-bit patterns. The LM keeps
-JAX's ``(d_in, d_out)`` weight layout, so no leaf is transposed.
+numpy arrays (e.g. ``jax.device_get`` of a ``repro`` params tree), and
+:func:`train_state_from_numpy` carries a whole ``repro`` TrainState
+(params, optimizer state, step) across. :func:`save` writes the format
+back. All are bit-exact: bf16 leaves move as raw 16-bit patterns. The LM
+keeps JAX's ``(d_in, d_out)`` weight layout, so no leaf is transposed.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import os
 
 import numpy as np
 import torch
@@ -69,6 +73,49 @@ def from_numpy_tree(tree: Any, device="cpu") -> Any:
     if isinstance(tree, (list, tuple)):
         return [from_numpy_tree(v, device) for v in tree]
     return _leaf_to_tensor(tree).to(device)
+
+
+def train_state_from_numpy(params: Any, opt_state: Any, step,
+                           device="cpu"):
+    """A ``repro`` TrainState's parts, as numpy trees (``jax.device_get``
+    of ``state.params`` / ``state.opt_state``), -> the port's
+    :class:`repro_torch.optim.TrainState` on ``device``: params marked as
+    differentiable leaves, optimizer slots (``mu`` or ``m``, ``v``,
+    ``count``) bit-exact, ``step`` a Python int."""
+    from repro_torch.core.psl import requires_grad_
+    from repro_torch.optim import TrainState
+    return TrainState(params=requires_grad_(from_numpy_tree(params, device)),
+                      opt_state=from_numpy_tree(opt_state, device),
+                      step=int(np.asarray(step)))
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}#{i}{_SEP}"))
+    else:
+        out[prefix[:-len(_SEP)]] = tree
+    return out
+
+
+def save(path: str, tree: Any) -> None:
+    """Write a tree of tensors in ``repro``'s npz format (bf16 leaves as
+    uint16 bit patterns listed in ``__bf16_keys__``)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arrays, bf16 = {}, []
+    for k, t in _flatten(tree).items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            arrays[k] = t.view(torch.int16).numpy().view(np.uint16)
+            bf16.append(k)
+        else:
+            arrays[k] = t.numpy()
+    arrays["__bf16_keys__"] = np.array(sorted(bf16), dtype=object)
+    np.savez(path, **arrays)
 
 
 def restore(path: str, device="cpu") -> Any:

@@ -1,10 +1,14 @@
-"""Prefill attention: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-(``flash_attention``). The kernel lives in ``csrc/flash_attention.cu``
-(design, bound and masking notes there); :func:`flash_attention` launches
-it on CUDA tensors, and :func:`flash_attention_plain` computes the same
-function in plain PyTorch — the CPU path and the on-card oracle.
+(``flash_attention``) and, for training, the plain-JAX custom VJP
+``repro.models.layers._bw_attn_bwd``. The kernels live in
+``csrc/flash_attention.cu`` (design, bound and masking notes there):
+:func:`flash_attention` launches the forward (optionally writing the
+per-row logsumexp the backward needs) and :func:`flash_attention_bwd` the
+backward on CUDA tensors; :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain` compute the same functions in plain
+PyTorch — the CPU path and the on-card oracle.
 
 Layout: q (B, Hq, S, D), k/v (B, Hkv, T, D), any strides with a contiguous
 head_dim axis, so model-layout (B, S, H, D) tensors pass as transposed
@@ -57,59 +61,160 @@ def _strides(t) -> ctypes.Array:
     return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
 
 
-def _kernel():
-    """The loaded library and its launcher, argtypes declared once."""
+def _kernel(name: str = "flash_attention_fwd"):
+    """The loaded library and one of its launchers, argtypes declared
+    once."""
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, p, p, p, p] + [ctypes.c_int] * 6 \
-            + [ctypes.POINTER(ctypes.c_longlong)] * 4 \
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        if name == "flash_attention_fwd":
+            fn.argtypes = [i, p, p, p, p] + [i] * 6 + [strides] * 4 \
+                + [p, i, i, ctypes.c_float, p]
+        else:
+            fn.argtypes = [i] + [p] * 10 + [i] * 6 + [strides] * 8 \
+                + [i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
+def _check_like(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.shape != like.shape or t.dtype != like.dtype \
+            or t.device != like.device or t.stride(3) != 1:
+        raise ValueError(f"flash_attention: bad {name} tensor")
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    b, hq, s, _ = q.shape
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("flash_attention: lse must be a contiguous "
+                         "(B, Hq, S) float32 tensor on q's device")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the CUDA kernel. Shapes as in the module docstring; ``out``
+                    out: Optional[torch.Tensor] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA forward. Shapes as in the module docstring; ``out``
     (B, Hq, S, D), any strides with contiguous head_dim, defaults to a new
-    tensor. Raises on anything the kernel does not take."""
+    tensor; ``lse``, when given, receives the (B, Hq, S) fp32 logsumexp of
+    each query row. Raises on anything the kernel does not take."""
     _check(q, k, v, window)
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if out is None:
         out = torch.empty_like(q)
-    if out.shape != q.shape or out.dtype != q.dtype or out.stride(3) != 1:
-        raise ValueError("flash_attention: bad out tensor")
+    _check_like("out", out, q)
+    if lse is not None:
+        _check_lse(lse, q)
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), out.data_ptr(), b, hq, hkv, s, t, d,
              _strides(q), _strides(k), _strides(v), _strides(out),
-             int(bool(causal)), -1 if window is None else int(window),
-             1.0 / math.sqrt(d), stream)
+             None if lse is None else lse.data_ptr(), int(bool(causal)),
+             -1 if window is None else int(window), 1.0 / math.sqrt(d),
+             stream)
     _build.check(err, lib, "flash_attention")
     return out
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (same layout and masks)."""
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        dq: Optional[torch.Tensor] = None,
+                        dk: Optional[torch.Tensor] = None,
+                        dv: Optional[torch.Tensor] = None):
+    """Launch the CUDA backward: (dq, dk, dv) of ``out`` = attention(q, k,
+    v) for the upstream gradient ``dout``. q, out, dout (B, Hq, S, D) and
+    k, v (B, Hkv, T, D) with a contiguous head_dim; lse (B, Hq, S) fp32
+    from :func:`flash_attention`. The gradients default to new tensors of
+    their input's shape and dtype; given ones may be strided views."""
+    _check(q, k, v, window)
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    kf = k.float().repeat_interleave(rep, dim=1) if rep > 1 else k.float()
-    vf = v.float().repeat_interleave(rep, dim=1) if rep > 1 else v.float()
-    scores = torch.matmul(q.float(), kf.transpose(-1, -2)) / math.sqrt(d)
-    q_pos = torch.arange(s, device=q.device)[:, None]
-    k_pos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    _check_like("out", out, q)
+    _check_like("dout", dout, q)
+    _check_lse(lse, q)
+    dq = torch.empty_like(q) if dq is None else dq
+    dk = torch.empty_like(k) if dk is None else dk
+    dv = torch.empty_like(v) if dv is None else dv
+    _check_like("dq", dq, q)
+    _check_like("dk", dk, k)
+    _check_like("dv", dv, v)
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    lib, fn = _kernel("flash_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, hq, hkv, s, t, d,
+             *(_strides(x) for x in (q, k, v, out, dout, dq, dk, dv)),
+             int(bool(causal)), -1 if window is None else int(window),
+             1.0 / math.sqrt(d), stream)
+    _build.check(err, lib, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _mask(s: int, t: int, causal: bool, window: Optional[int], device):
+    q_pos = torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
+    return mask
+
+
+def _repeat_heads(x, rep: int):
+    return x.float().repeat_interleave(rep, dim=1) if rep > 1 else x.float()
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          with_lse: bool = False):
+    """The kernel's function in plain PyTorch (same layout and masks).
+    With ``with_lse`` it returns ``(out, lse)``, lse (B, Hq, S) fp32 as
+    the kernel writes it."""
+    b, hq, s, d = q.shape
+    rep = hq // k.shape[1]
+    kf, vf = _repeat_heads(k, rep), _repeat_heads(v, rep)
+    scores = torch.matmul(q.float(), kf.transpose(-1, -2)) / math.sqrt(d)
+    mask = _mask(s, k.shape[2], causal, window, q.device)
     scores = scores.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs, vf).to(q.dtype)
+    out = torch.matmul(probs, vf).to(q.dtype)
+    if with_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *,
+                              causal: bool = True,
+                              window: Optional[int] = None):
+    """The backward kernel's function in plain PyTorch, as
+    ``repro.models.layers._bw_attn_bwd`` computes it: P = exp(s - lse)
+    recomputed under the mask, delta = rowsum(dO * out), dS = P (dP -
+    delta); the rep query heads of each kv head are summed into its dk,
+    dv. Everything in fp32; gradients come out in the inputs' dtypes."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = q.float(), dout.float()
+    kf, vf = _repeat_heads(k, rep), _repeat_heads(v, rep)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = _mask(s, t, causal, window, q.device)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    delta = (dof * out.float()).sum(-1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    if rep > 1:
+        dk = dk.reshape(b, hkv, rep, t, d).sum(2)
+        dv = dv.reshape(b, hkv, rep, t, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

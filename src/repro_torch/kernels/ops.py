@@ -6,6 +6,12 @@ launches the CUDA kernel or raises — there is no fallback. Each wrapper
 carries a plain integer ``launches`` that it raises by one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launch_counts``).
+
+Gradients go through ``torch.autograd.Function``s whose backward is a
+kernel too: :class:`FlashAttention` (forward B1 with its logsumexp,
+backward B1-bwd) and :class:`CrossEntropy` (forward B5, backward
+B5-bwd). On the CPU both run the plain versions of both passes, so the
+CPU tests check the backward formulas the kernels implement.
 """
 from __future__ import annotations
 
@@ -13,7 +19,10 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import cross_entropy as xent
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention as
                                                  _paged_attention_kernel,
@@ -28,20 +37,82 @@ def _on_cpu(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
+def _heads_first(*xs):
+    """Model layout (B, S, H, D) -> strided (B, H, S, D) views."""
+    return tuple(x.transpose(1, 2) for x in xs)
+
+
+def _attention_fwd(q, k, v, causal, window, with_lse: bool):
+    """(out, lse or None) in model layout; lse (B, Hq, S) fp32."""
+    qt, kt, vt = _heads_first(q, k, v)
+    if _on_cpu(q, "attention"):
+        if with_lse:
+            out, lse = flash_attention_plain(qt, kt, vt, causal=causal,
+                                             window=window, with_lse=True)
+            return out.transpose(1, 2), lse
+        return flash_attention_plain(qt, kt, vt, causal=causal,
+                                     window=window).transpose(1, 2), None
+    out = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        b, s, hq, _ = q.shape
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    flash_attention(qt, kt, vt, causal=causal, window=window,
+                    out=out.transpose(1, 2), lse=lse)
+    attention.launches += 1
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention in model layout: the B1 forward saves
+    (q, k, v, out, lse); the backward runs :func:`attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _attention_fwd(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse,
+                                   causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def attention(q, k, v, *, causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
     """Model-layout attention. q: (B, S, Hq, D); k, v: (B, T, Hkv, D)
     -> (B, S, Hq, D). The kernel reads and writes the model layout
-    through strided (B, H, S, D) views: no transposed copies."""
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if _on_cpu(q, "attention"):
-        return flash_attention_plain(qt, kt, vt, causal=causal,
-                                     window=window).transpose(1, 2)
-    out = torch.empty_like(q)
-    flash_attention(qt, kt, vt, causal=causal, window=window,
-                    out=out.transpose(1, 2))
-    attention.launches += 1
-    return out
+    through strided (B, H, S, D) views: no transposed copies. With grad
+    enabled the call goes through :class:`FlashAttention`, so the result
+    carries a ``grad_fn``; under ``no_grad`` (serving) it is the plain
+    forward launch."""
+    if torch.is_grad_enabled():
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _attention_fwd(q, k, v, causal, window, with_lse=False)[0]
+
+
+def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """Model-layout attention backward -> (dq, dk, dv), shapes and dtypes
+    of (q, k, v). ``lse`` (B, Hq, S) fp32 comes from the forward."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    qt, kt, vt, ot, dot = _heads_first(q, k, v, out, dout)
+    if _on_cpu(q, "attention_bwd"):
+        grads = flash_attention_bwd_plain(qt, kt, vt, ot, dot, lse,
+                                          causal=causal, window=window)
+        return tuple(g.transpose(1, 2) for g in grads)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    flash_attention_bwd(qt, kt, vt, ot, dot, lse, causal=causal,
+                        window=window,
+                        dq=dq.transpose(1, 2), dk=dk.transpose(1, 2),
+                        dv=dv.transpose(1, 2))
+    attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
@@ -54,10 +125,59 @@ def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
     return out
 
 
-attention.launches = 0
-paged_attention.launches = 0
+class CrossEntropy(torch.autograd.Function):
+    """Per-token NLL through the B5 forward; the backward runs
+    :func:`cross_entropy_bwd`. ``lse`` and ``correct`` carry no
+    gradient."""
 
-WRAPPERS = {"flash_attention": attention, "paged_attention": paged_attention}
+    @staticmethod
+    def forward(ctx, hidden, w, labels):
+        if _on_cpu(hidden, "cross_entropy"):
+            nll, lse, correct = xent.cross_entropy_fwd_plain(hidden, w,
+                                                             labels)
+        else:
+            nll, lse, correct = xent.cross_entropy_fwd(hidden, w, labels)
+            cross_entropy.launches += 1
+        ctx.save_for_backward(hidden, w, labels, lse)
+        ctx.mark_non_differentiable(lse, correct)
+        return nll, lse, correct
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse, g_correct):
+        hidden, w, labels, lse = ctx.saved_tensors
+        dh, dw = cross_entropy_bwd(hidden, w, labels, lse, g_nll)
+        return dh, dw, None
+
+
+def cross_entropy(hidden, w, labels):
+    """Fused LM-head cross-entropy. hidden (T, d), w (d, V), labels (T,)
+    int32 -> (nll (T,) fp32, lse (T,) fp32, correct (T,) int32); ``nll``
+    is differentiable in hidden and w."""
+    return CrossEntropy.apply(hidden.contiguous(), w.contiguous(),
+                              labels.to(torch.int32).contiguous())
+
+
+def cross_entropy_bwd(hidden, w, labels, lse, g):
+    """(dh, dw) of Σ g·nll, in the inputs' dtypes."""
+    g = g.float().contiguous()
+    if _on_cpu(hidden, "cross_entropy_bwd"):
+        return xent.cross_entropy_bwd_plain(hidden, w, labels, lse, g)
+    out = xent.cross_entropy_bwd(hidden, w, labels, lse, g)
+    cross_entropy_bwd.launches += 1
+    return out
+
+
+attention.launches = 0
+attention_bwd.launches = 0
+paged_attention.launches = 0
+cross_entropy.launches = 0
+cross_entropy_bwd.launches = 0
+
+WRAPPERS = {"flash_attention": attention,
+            "flash_attention_bwd": attention_bwd,
+            "paged_attention": paged_attention,
+            "cross_entropy": cross_entropy,
+            "cross_entropy_bwd": cross_entropy_bwd}
 
 
 def reset_launches() -> None:

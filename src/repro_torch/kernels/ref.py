@@ -65,3 +65,12 @@ def paged_attention_ref(q, k_pages, v_pages, page_table,
     out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def cross_entropy_ref(hidden, w_vocab, labels) -> torch.Tensor:
+    """Per-token NLL with full logits. hidden: (T, d); w: (d, V); labels
+    (T,). Returns nll (T,) fp32."""
+    logits = hidden.float() @ w_vocab.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(1, labels.long()[:, None])[:, 0]
+    return lse - tgt

@@ -116,6 +116,10 @@ def main(argv=None):
 
     spec = (api.load_any_spec(args.config) if args.config
             else default_serve_spec())
+    if not isinstance(spec, api.ServeSpec):
+        raise SystemExit(f"{args.config} is a {spec.kind!r} spec; the serve "
+                         f"CLI needs kind 'serve' (use repro_torch.launch."
+                         f"train for training)")
     spec = api.apply_overrides(spec, _legacy_overrides(args) + args.sets)
     if args.print_spec:
         print(spec.to_json())

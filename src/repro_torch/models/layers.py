@@ -1,12 +1,12 @@
 """Neural-net building blocks of the dense LM, in plain PyTorch (port of
-the serving half of :mod:`repro.models.layers`).
+the dense-family half of :mod:`repro.models.layers`).
 
 Parameters are nested dicts of tensors with ``repro``'s key names and its
 ``(d_in, d_out)`` weight layout (``y = x @ W``), so the weights bridge is
 key-for-key with no transposes. Attention in prefill and in paged decode
 goes through :mod:`repro_torch.kernels.ops` (the CUDA kernels on the card,
-their plain versions on the CPU); contiguous decode attention stays plain
-torch, as it is plain JAX in ``repro``.
+their plain versions on the CPU), differentiably in training; contiguous
+decode attention stays plain torch, as it is plain JAX in ``repro``.
 """
 from __future__ import annotations
 
@@ -31,6 +31,12 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """``tree``'s structure with its leaves replaced, in ``tree_leaves``
+    order, by the items of ``leaves``."""
+    return _rebuild(tree, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -117,10 +123,12 @@ def apply_rotary(x, cos, sin):
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
-    """Prefill attention, forward only. q: (B, S, Hq, hd); k, v:
-    (B, T, Hkv, hd). Runs the flash-attention kernel on the card (its
-    plain version on the CPU); ``repro``'s q/kv chunk sizes are TPU
-    schedule knobs that the kernel's own tiling replaces."""
+    """Full-sequence attention for prefill and training. q: (B, S, Hq,
+    hd); k, v: (B, T, Hkv, hd). Runs the flash-attention kernels on the
+    card (their plain versions on the CPU); with grad enabled the result
+    is differentiable through the backward kernel, the counterpart of
+    ``repro``'s custom VJP ``_bw_attn_bwd``. ``repro``'s q/kv chunk sizes
+    are TPU schedule knobs that the kernels' own tiling replaces."""
     return ops.attention(q, k, v, causal=causal, window=window)
 
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM of the dense family, prefill and decode (port of the
-serving half of :mod:`repro.models.transformer`).
+"""Decoder-only LM of the dense family: the training loss, its PSL split,
+prefill and decode (port of the dense-family half of
+:mod:`repro.models.transformer`).
 
 Parameters are split into ``client`` and ``server`` subtrees at the
 paper's cut layer, with every block's leaves stacked on a leading layer
@@ -11,6 +12,13 @@ axis (``repro`` scans them). KV caches keep ``repro``'s layout and its
 Where ``repro``'s decode steps return a new cache (JAX donates the old
 buffers), the port writes the new token's K/V into the cache tensors in
 place and returns the same cache object.
+
+Training runs the same blocks with autograd: attention through the
+flash-attention kernels' ``autograd.Function`` and the loss through the
+fused cross-entropy kernels (:func:`chunked_xent`). ``cfg.remat`` is a
+memory policy in ``repro`` (``jax.checkpoint`` per block); it does not
+change results, and the port keeps every activation instead — the
+full-width granite step fits the card without recomputation.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, ParamSpec
 
@@ -38,6 +47,41 @@ def _num_layers(stacked) -> int:
     return L.tree_leaves(stacked)[0].shape[0]
 
 
+def _unstack(stacked):
+    """Per-layer parameter trees of a stacked tree, through one ``unbind``
+    per leaf: autograd then stacks the layers' gradients once, where
+    indexing layer by layer would add a zero-filled stacked-size gradient
+    for every layer."""
+    parts = L.tree_map(lambda x: x.unbind(0), stacked)
+
+    def pick(tree, i: int):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    return [pick(parts, i) for i in range(_num_layers(stacked))]
+
+
+def chunked_xent(hidden, w_vocab, labels, weights):
+    """Weighted mean cross-entropy through the fused cross-entropy kernels
+    (``repro``'s ``chunked_xent``, whose chunking is a TPU memory schedule
+    the kernels' own vocab tiling replaces: the (B, S, V) logits are
+    never materialized).
+
+    hidden: (B, S, d); w_vocab: (d, V); labels, weights: (B, S).
+    Returns (loss, (weighted_token_count, correct_count)).
+    """
+    d = hidden.shape[-1]
+    nll, _, correct = ops.cross_entropy(hidden.reshape(-1, d), w_vocab,
+                                        labels.reshape(-1))
+    w = weights.reshape(-1).float()
+    tot = (nll * w).sum()
+    cnt = w.sum()
+    cor = (correct.float() * w).sum()
+    loss = tot / torch.clamp(cnt, min=1e-6)
+    return loss, (cnt, cor)
+
+
 class _Blocks:
     """Dense attention block definitions used by LanguageModel."""
 
@@ -53,9 +97,9 @@ class _Blocks:
             "mlp": L.mlp_specs(cfg),
         }
 
-    # ----- prefill -----
-    def attn_block(self, p, x, positions, *, window):
-        """Full-sequence block; returns (x, (k_rep, v_rep)) for the cache."""
+    # ----- train / prefill -----
+    def block(self, p, x, positions, *, window):
+        """Full-sequence block (training and prefill); returns (x, k, v)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -65,6 +109,11 @@ class _Blocks:
         x = x + attn_out.reshape(b, s, -1) @ p["attn"]["wo"]
         hn = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + L.mlp_apply(p["mlp"], hn)
+        return x, k, v
+
+    def attn_block(self, p, x, positions, *, window):
+        """Prefill block; returns (x, (k_rep, v_rep)) for the cache."""
+        x, k, v = self.block(p, x, positions, window=window)
         return x, (self._repeat_kv(k), self._repeat_kv(v))
 
     # ----- decode -----
@@ -186,6 +235,68 @@ class LanguageModel:
     def _stacks(self, params):
         return (("client", params["client"]["blocks"]),
                 ("server", params["server"]["blocks"]))
+
+    # ----- training forward pieces -----
+    def _embed(self, params, batch):
+        return params["client"]["embed"][batch["tokens"].long()]
+
+    @staticmethod
+    def _positions(x):
+        b, s, _ = x.shape
+        return torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+    def _run_stack(self, stacked, x, positions, window):
+        for lp in _unstack(stacked):
+            x, _, _ = self.blocks.block(lp, x, positions, window=window)
+        return x
+
+    def _backbone(self, params, x, positions, window):
+        """Client + server stacks; returns (hidden, aux_loss)."""
+        x = self._run_stack(params["client"]["blocks"], x, positions,
+                            window)
+        srv = params["server"]
+        x = self._run_stack(srv["blocks"], x, positions, window)
+        x = L.rms_norm(x, srv["final_norm"], self.cfg.norm_eps)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss_fn(self, params, batch, window: Optional[int] = None):
+        """Masked-mean LM loss over the PSL global batch.
+
+        batch: tokens (B, S) int, labels (B, S) int32, weights (B, S) f32
+        (slot mask x token mask from the epoch plan). Returns (total,
+        metrics) with ``repro``'s metric keys."""
+        cfg = self.cfg
+        window = window if window is not None else cfg.sliding_window
+        x = self._embed(params, batch)
+        h, aux = self._backbone(params, x, self._positions(x), window)
+        loss, (cnt, cor) = chunked_xent(h, self._lm_head(params),
+                                        batch["labels"], batch["weights"])
+        total = loss + aux
+        return total, {"loss": loss, "aux_loss": aux, "tokens": cnt,
+                       "accuracy": cor / torch.clamp(cnt, min=1.0)}
+
+    # ----- PSL decomposition -----
+    def client_forward(self, params, batch, window: Optional[int] = None):
+        """Client-side FP: embedding + first ``cut_layer`` blocks -> cut
+        activations."""
+        window = window if window is not None else self.cfg.sliding_window
+        x = self._embed(params, batch)
+        return self._run_stack(params["client"]["blocks"], x,
+                               self._positions(x), window)
+
+    def server_loss(self, server_params, cut_acts, batch,
+                    window: Optional[int] = None):
+        """Server-side FP from the cut activations to the loss."""
+        cfg = self.cfg
+        window = window if window is not None else cfg.sliding_window
+        x = self._run_stack(server_params["blocks"], cut_acts,
+                            self._positions(cut_acts), window)
+        x = L.rms_norm(x, server_params["final_norm"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            raise ValueError("PSL decomposed loss needs untied lm_head")
+        loss, _ = chunked_xent(x, server_params["lm_head"], batch["labels"],
+                               batch["weights"])
+        return loss
 
     # ----- caches -----
     def cache_specs(self, batch: int, cache_len: int,

@@ -6,8 +6,9 @@ and repro_torch, so they run on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain version on the same inputs: float32
-at atol 2e-5 (sums in another order), bfloat16 at atol/rtol 2e-2 (one
-rounding of the output; sums in another order).
+at atol 2e-5 (sums in another order; 2e-4 for the cross-entropy values,
+sums over the whole vocab), bfloat16 at atol/rtol 2e-2 (one rounding of
+the output; sums in another order).
 """
 import pytest
 import torch
@@ -108,3 +109,106 @@ def test_reduced_serve_on_the_card_matches_reference(dev, engine):
     counts = ops.launch_counts()
     assert counts["flash_attention"] > 0
     assert (counts["paged_attention"] > 0) == (engine == "paged")
+
+
+# --- training kernels (B5 forward/backward, B1 backward) -------------------
+
+def _xent_inputs(gen, t, d, v, dtype, dev):
+    h = _randn(gen, (t, d), dtype, dev)
+    w = (torch.randn((d, v), generator=gen, device=dev) / d ** 0.5).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return h, w, labels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,v", [
+    (64, 32, 512),          # tile multiples
+    (37, 24, 509),          # ragged tokens and vocab (509 is prime)
+    (130, 64, 4099),        # several vocab splits, one backward chunk
+    (2048, 32, 8300),       # two backward chunks, the second ragged
+])
+def test_cross_entropy_kernels_match_plain(dev, dtype, t, d, v):
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd_plain,
+                                                   cross_entropy_fwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, w, labels = _xent_inputs(gen, t, d, v, dtype, dev)
+    before = dict(ops.launch_counts())
+    nll, lse, correct = ops.cross_entropy(h, w, labels)
+    pnll, plse, pcorrect = cross_entropy_fwd_plain(h, w, labels)
+    g = torch.rand((t,), generator=gen, device=dev)
+    dh, dw = ops.cross_entropy_bwd(h, w, labels, lse, g)
+    pdh, pdw = cross_entropy_bwd_plain(h, w, labels, plse, g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["cross_entropy"] == before["cross_entropy"] + 1
+    assert counts["cross_entropy_bwd"] == before["cross_entropy_bwd"] + 1
+    tol = dict(atol=2e-4, rtol=1e-4)     # fp32 sums in another order
+    torch.testing.assert_close(nll, pnll, **tol)
+    torch.testing.assert_close(lse, plse, **tol)
+    # the kernel's argmax may differ from the plain one only where two
+    # logits tie within the products' rounding
+    assert (correct == pcorrect).float().mean() >= 0.97
+    assert dh.dtype == dtype and dw.dtype == dtype
+    torch.testing.assert_close(dh.float(), pdh.float(), **TOL[dtype])
+    torch.testing.assert_close(dw.float(), pdw.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    (2, 32, 4, 4, 16, None),     # rep 1
+    (2, 50, 8, 2, 16, None),     # rep 4, ragged S
+    (1, 100, 8, 2, 64, 24),      # sliding window
+    (1, 40, 4, 1, 128, None),    # widest head, MQA
+])
+def test_flash_attention_backward_kernel_matches_plain(dev, dtype, b, s, hq,
+                                                       hkv, d, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _randn(gen, (b, s, hq, d), dtype, dev).requires_grad_(True)
+    k = _randn(gen, (b, s, hkv, d), dtype, dev).requires_grad_(True)
+    v = _randn(gen, (b, s, hkv, d), dtype, dev).requires_grad_(True)
+    do = _randn(gen, (b, s, hq, d), dtype, dev)
+    before = ops.attention_bwd.launches
+    out = ops.attention(q, k, v, causal=True, window=window)
+    assert out.grad_fn is not None        # the silent-gradient hazard
+    grads = torch.autograd.grad(out, (q, k, v), grad_outputs=do)
+    torch.cuda.synchronize()
+    assert ops.attention_bwd.launches == before + 1
+    qt, kt, vt, ot, dot = (x.detach().transpose(1, 2)
+                           for x in (q, k, v, out, do))
+    _, lse = flash_attention_plain(qt, kt, vt, causal=True, window=window,
+                                   with_lse=True)
+    want = flash_attention_bwd_plain(qt, kt, vt, ot, dot, lse,
+                                     causal=True, window=window)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got.float(), w.transpose(1, 2).float(),
+                                   **TOL[dtype])
+
+
+def test_reduced_train_step_on_the_card(dev):
+    """One fused step of float32 reduced granite on the card: finite
+    metrics, every training kernel launched."""
+    import numpy as np
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.configs import get_config
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.data.federated import build_lm_client_store
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    model = build_model(get_config("granite-3-2b", reduced=True))
+    data, pop = build_lm_client_store(512, 8, 128, 32, seed=0)
+    plan = make_plan("ugs", pop, 8, seed=0)
+    host = next(iter(lm_plan_batches(data, pop, plan, 32, "global_mean",
+                                     np.zeros(8, np.int64))))
+    engine = ShardedPSLEngine(model, adamw(1e-3), device=dev)
+    state = engine.init_state(0)
+    ops.reset_launches()
+    state, metrics = engine.step(state, engine.put_batch(host))
+    counts = ops.launch_counts()
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert metrics["tokens"] == 8 * 32 and state.step == 1
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 2
+    assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 1

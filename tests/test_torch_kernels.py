@@ -133,8 +133,17 @@ def test_cpu_wrappers_do_not_count_launches():
                         q.reshape(9, 1, 4, 16),
                         torch.zeros((1, 2), dtype=torch.int32),
                         torch.zeros((1,), dtype=torch.int32))
+    # the training wrappers too: forward and backward on the CPU
+    qg = q.clone().requires_grad_(True)
+    h = qg.reshape(9 * 4, 16)
+    nll, _, _ = ops.cross_entropy(h, h[:16].T.contiguous(),
+                                  torch.zeros(36, dtype=torch.int32))
+    torch.autograd.grad(nll.sum() + ops.attention(qg, qg, qg).sum(), qg)
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_attention": 0}
+                                   "flash_attention_bwd": 0,
+                                   "paged_attention": 0,
+                                   "cross_entropy": 0,
+                                   "cross_entropy_bwd": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -106,6 +106,12 @@ for name in mods:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
+want = {"repro_torch.core.psl", "repro_torch.core.sampling",
+        "repro_torch.optim.optimizers", "repro_torch.data.federated",
+        "repro_torch.kernels.cross_entropy", "repro_torch.api.loop",
+        "repro_torch.api.protocols", "repro_torch.launch.train",
+        "repro_torch.launch.distributed"}
+assert want <= set(mods), sorted(want - set(mods))
 print(len(mods), bad)
 assert not bad, bad
 """
@@ -114,7 +120,7 @@ assert not bad, bad
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 25 and bad.strip() == "[]"
+    assert int(n) >= 40 and bad.strip() == "[]"
 
 
 def test_default_device_raises_without_cuda():
@@ -162,7 +168,7 @@ def test_unported_spec_values_fail_clearly(tmp_path):
     train = tmp_path / "train.json"
     train.write_text(json.dumps({"kind": "experiment"}))
     with pytest.raises(tapi.SpecError, match="not ported"):
-        tapi.load_any_spec(str(train))
+        tapi.load_any_spec(str(train)).validate()   # the default arch: CNN
 
 
 def test_restore_params_from_a_repro_checkpoint(tmp_path, jax_params):

@@ -1,0 +1,419 @@
+"""The port's PSL training path against repro's, on the CPU.
+
+Plans, client shards, slot weights and plan-driven batches are numpy in
+both packages and must be bit-identical. The model's loss, metrics and
+gradients, the decomposed six-substep protocol, the fused step and whole
+``api.run`` trajectories are compared on parameters that ``repro``
+initialized and the weights bridge carried across (the two packages'
+init draws differ), on reduced granite (float32, 2 layers, V = 512).
+
+Tolerances, float32:
+- loss and metrics: rtol 1e-5 (one reduction order against another);
+- gradients, per leaf: max |port − repro| <= 3e-4 · max |repro| (and
+  relative L2 error <= 3e-4). Elementwise atol 1e-5 + rtol 1e-4 does not
+  hold: under repro's init rule the client's stacked leaves have fan-in 1
+  (the layer count), so activations reach ~25 and attention scores are
+  sharp, and fp32 reassociation error in the embedding and client-norm
+  gradients reaches 1.2e-4 of the leaf's largest entry (measured);
+- optimizer updates on equal inputs: atol 1e-6 + rtol 1e-5 on parameters
+  and moments;
+- run losses: the first step's loss at rtol 1e-5; later steps follow
+  AdamW updates, whose first step is m̂/√v̂ ≈ sign(g): a gradient element
+  near zero whose sign differs by rounding moves its parameter by 2·lr,
+  so later losses compare at rtol 1e-3.
+"""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api as japi
+from repro import optim as joptim
+from repro.api.protocols import lm_plan_batches as j_lm_plan_batches
+from repro.configs import get_config as jget
+from repro.core import psl as jpsl
+from repro.core import sampling as jsampling
+from repro.core.types import ClientPopulation as JPop
+from repro.data.federated import build_lm_client_store as j_store
+from repro.launch.train import default_lm_spec as j_default_lm_spec
+from repro.models import build_model as jbuild
+import repro_torch.api as tapi
+from repro_torch import optim as toptim
+from repro_torch.api.protocols import lm_plan_batches as t_lm_plan_batches
+from repro_torch.checkpoint import from_numpy_tree, train_state_from_numpy
+from repro_torch.configs import get_config as tget
+from repro_torch.core import psl as tpsl
+from repro_torch.core import sampling as tsampling
+from repro_torch.core.types import ClientPopulation as TPop
+from repro_torch.data.federated import build_lm_client_store as t_store
+from repro_torch.launch import distributed as tdist
+from repro_torch.launch import train as train_cli
+from repro_torch.models import build_model as tbuild
+from repro_torch.models.layers import tree_leaves
+
+ARCH = "granite-3-2b"
+LOSS_RTOL = 1e-5
+GRAD_REL = 3e-4
+OPT = dict(atol=1e-6, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Plans, shards, weights, batches: bit-identical
+# ---------------------------------------------------------------------------
+
+def _populations():
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, 30, size=(13, 4))
+    counts[3] = 0                                   # an empty client
+    skewed = (counts.sum(1), counts, np.zeros(13))
+    _, pop = j_store(512, 8, 256, 32, seed=0)
+    lm = (pop.dataset_sizes, pop.class_counts, pop.delays)
+    return {"skewed": skewed, "lm": lm}
+
+
+def _pair(kind):
+    sizes, counts, delays = _populations()[kind]
+    return JPop(sizes, counts, delays), TPop(sizes, counts, delays)
+
+
+def _plan_arrays(plan):
+    if plan.format == "sparse":
+        return (plan.step_offsets, plan.client_ids, plan.draw_counts)
+    return (plan.local_batch_sizes,)
+
+
+@pytest.mark.parametrize("kind", ["skewed", "lm"])
+@pytest.mark.parametrize("method", ["ugs", "fpls", "fls"])
+@pytest.mark.parametrize("fmt", ["dense", "sparse"])
+def test_plans_are_bit_identical(kind, method, fmt):
+    jpop, tpop = _pair(kind)
+    for seed in (0, 3):
+        jplan = jsampling.make_plan(method, jpop, 16, seed=seed,
+                                    plan_format=fmt)
+        tplan = tsampling.make_plan(method, tpop, 16, seed=seed,
+                                    plan_format=fmt)
+        assert type(tplan).__name__ == type(jplan).__name__
+        assert (tplan.method, tplan.global_batch_size) == \
+            (jplan.method, jplan.global_batch_size)
+        for a, b in zip(_plan_arrays(jplan), _plan_arrays(tplan)):
+            np.testing.assert_array_equal(a, b)
+        if method == "ugs":          # the fixed baselines are not GPSL plans
+            tplan.validate_against(tpop)
+
+
+def test_sequential_ugs_and_unported_planners():
+    jpop, tpop = _pair("skewed")
+    np.testing.assert_array_equal(
+        jsampling.ugs_plan(jpop, 8, seed=2, sequential=True)
+        .local_batch_sizes,
+        tsampling.ugs_plan(tpop, 8, seed=2, sequential=True)
+        .local_batch_sizes)
+    assert tsampling.resolve_backend("auto", 100) == "numpy"
+    with pytest.raises(NotImplementedError, match="A.8"):
+        tsampling.make_plan("lds", tpop, 8)
+    with pytest.raises(NotImplementedError, match="planner"):
+        tsampling.make_plan("ugs", tpop, 8, backend="jax")
+    big = TPop(np.ones(4096, np.int64), np.ones((4096, 1), np.int64),
+               np.zeros(4096))
+    with pytest.raises(NotImplementedError, match="planner"):
+        tsampling.make_plan("ugs", big, 8, backend="auto")
+
+
+def test_lm_client_store_is_bit_identical():
+    jdata, jpop = j_store(512, 8, 256, 33, seed=4)
+    tdata, tpop = t_store(512, 8, 256, 33, seed=4)
+    for a, b in zip(jdata, tdata):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(jpop.class_counts, tpop.class_counts)
+    np.testing.assert_array_equal(jpop.dataset_sizes, tpop.dataset_sizes)
+
+
+@pytest.mark.parametrize("aggregation", ["global_mean", "client_weighted"])
+def test_slot_weights_are_bit_identical(aggregation):
+    rng = np.random.default_rng(6)
+    sizes = rng.integers(1, 50, size=9)
+    cids = rng.integers(-1, 9, size=20)
+    local = rng.integers(0, 5, size=9)
+    np.testing.assert_array_equal(
+        jpsl.slot_weights(cids, local, sizes, aggregation),
+        tpsl.slot_weights(cids, local, sizes, aggregation))
+    counts = rng.integers(1, 6, size=20)
+    np.testing.assert_array_equal(
+        jpsl.slot_weights_segments(cids, counts, sizes, aggregation),
+        tpsl.slot_weights_segments(cids, counts, sizes, aggregation))
+
+
+@pytest.mark.parametrize("aggregation", ["global_mean", "client_weighted"])
+@pytest.mark.parametrize("fmt", ["dense", "sparse"])
+def test_lm_plan_batches_are_bit_identical(aggregation, fmt):
+    jdata, jpop = j_store(512, 8, 256, 32, seed=0)
+    tdata, tpop = t_store(512, 8, 256, 32, seed=0)
+    jplan = jsampling.make_plan("ugs", jpop, 16, seed=1, plan_format=fmt)
+    tplan = tsampling.make_plan("ugs", tpop, 16, seed=1, plan_format=fmt)
+    shards = np.arange(8) % 2
+    jb = list(j_lm_plan_batches(jdata, jpop, jplan, 32, aggregation,
+                                shards, seed=7))
+    tb = list(t_lm_plan_batches(tdata, tpop, tplan, 32, aggregation,
+                                shards, seed=7))
+    assert len(jb) == len(tb) == jplan.num_steps
+    for a, b in zip(jb, tb):
+        assert sorted(a) == sorted(b)
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+# ---------------------------------------------------------------------------
+# Model loss, gradients, decomposed protocol, step
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pair():
+    jm, tm = jbuild(jget(ARCH, reduced=True)), tbuild(tget(ARCH,
+                                                          reduced=True))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+    return jm, tm, jp
+
+
+def _tparams(jp):
+    return tpsl.requires_grad_(from_numpy_tree(jp))
+
+
+def _batch(b=4, s=24, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 512, (b, s + 1)).astype(np.int32)
+    w = np.ones((b, s), np.float32)
+    w[-1] = 0.0                                   # a padding slot
+    w[1] *= 0.5                                   # client-weighted slot
+    host = {"tokens": toks[:, :s], "labels": toks[:, 1:], "weights": w}
+    jb = {k: jnp.asarray(v) for k, v in host.items()}
+    tb = {"tokens": torch.from_numpy(host["tokens"]).long(),
+          "labels": torch.from_numpy(host["labels"]),
+          "weights": torch.from_numpy(host["weights"])}
+    return jb, tb
+
+
+def _assert_grads(tg, jg):
+    for got, want in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
+        got = got.detach().double().numpy()
+        want = np.asarray(want, np.float64)
+        scale = np.abs(want).max()
+        assert np.abs(got - want).max() <= GRAD_REL * scale, want.shape
+        assert np.linalg.norm(got - want) <= GRAD_REL * np.linalg.norm(want)
+
+
+def test_loss_metrics_and_grads_match_repro(pair):
+    jm, tm, jp = pair
+    jb, tb = _batch()
+    (jl, jmet), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(jp, jb)
+    (tl, tmet), tg = tpsl.value_and_grad(tm.loss_fn, _tparams(jp), tb)
+    assert sorted(tmet) == sorted(jmet)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    for key in jmet:
+        np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
+                                   rtol=LOSS_RTOL, atol=1e-7)
+    _assert_grads(tg, jg)
+
+
+def test_decomposed_grads_equal_fused_in_both_packages(pair):
+    jm, tm, jp = pair
+    jb, tb = _batch(seed=1)
+    params = _tparams(jp)
+    tl, tdg, tcut = tpsl.decomposed_grads(tm, params, tb)
+    (tfl, _), tfg = tpsl.value_and_grad(tm.loss_fn, params, tb)
+    np.testing.assert_allclose(float(tl), float(tfl), rtol=LOSS_RTOL)
+    for a, b in zip(tree_leaves(tdg), tree_leaves(tfg)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    jl, jdg, jcut = jpsl.decomposed_grads(jm, jp, jb)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    assert tuple(tcut.shape) == jcut.shape
+    _assert_grads(tdg, jdg)
+    assert tpsl.cut_transfer_bytes(tm, tb) == \
+        jpsl.cut_transfer_bytes(jm, jb)
+
+
+def test_sgd_step_matches_repro(pair):
+    jm, tm, jp = pair
+    jb, tb = _batch(seed=2)
+    jopt, topt = joptim.sgd(0.05, momentum=0.9, weight_decay=5e-4), \
+        toptim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    jstate = joptim.TrainState(jp, jopt.init(jp), jnp.zeros((), jnp.int32))
+    jstate, jmet = jax.jit(jpsl.make_train_step(jm, jopt))(jstate, jb)
+    params = _tparams(jp)
+    tstate = toptim.TrainState(params, topt.init(params), 0)
+    tstate, tmet = tpsl.make_train_step(tm, topt)(tstate, tb)
+    assert tstate.step == 1 and tstate.params is params   # in place
+    np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(tmet["grad_norm"]),
+                               float(jmet["grad_norm"]), rtol=GRAD_REL)
+    # one SGD step moves each param by lr * grad: a gradient difference
+    # of GRAD_REL of the leaf's scale moves it by lr times that
+    for got, want, p0 in zip(tree_leaves(tstate.params),
+                             jax.tree_util.tree_leaves(jstate.params),
+                             jax.tree_util.tree_leaves(jp)):
+        delta = np.abs(np.asarray(want) - np.asarray(p0)).max()
+        err = np.abs(got.detach().numpy() - np.asarray(want)).max()
+        assert err <= 1e-6 + GRAD_REL * max(delta, 1e-3)
+
+
+def test_microbatches_two_equal_one(pair):
+    _, tm, jp = pair
+    _, tb = _batch(b=4, seed=3)
+    g1, m1 = tpsl.fused_grads(tm, _tparams(jp), tb, microbatches=1)
+    g2, m2 = tpsl.fused_grads(tm, _tparams(jp), tb, microbatches=2)
+    for key in ("loss", "accuracy", "tokens", "aux_loss"):
+        torch.testing.assert_close(m2[key], m1[key], atol=1e-6, rtol=1e-5)
+    for a, b in zip(tree_leaves(g2), tree_leaves(g1)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    engine = tdist.ShardedPSLEngine(tm, toptim.sgd(0.05), microbatches=2,
+                                    device="cpu")
+    state = toptim.TrainState(_tparams(jp), None, 0)
+    for a, b in zip(tree_leaves(engine.grads(state, tb)), tree_leaves(g2)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    opt = toptim.sgd(0.05)
+    states = []
+    for m in (1, 2):
+        params = _tparams(jp)
+        st = toptim.TrainState(params, opt.init(params), 0)
+        st, met = tpsl.make_train_step(tm, opt, microbatches=m)(st, tb)
+        states.append((st, met))
+    for a, b in zip(tree_leaves(states[0][0].params),
+                    tree_leaves(states[1][0].params)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(states[0][1]["grad_norm"],
+                               states[1][1]["grad_norm"], rtol=1e-4,
+                               atol=0)
+
+
+def _numpy_grads(params, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda p: (rng.normal(size=p.shape) * rng.choice([1e-6, 1.0])
+                   ).astype(np.float32), params)
+
+
+def test_adamw_on_equal_grads_matches_repro(pair):
+    """Both optimizers see the *same* numpy gradients for two steps (the
+    second from the bridged first-step state), so AdamW's near-zero sign
+    sensitivity compares like with like. The port's in-place
+    ``apply_updates`` is held against repro's ``update`` +
+    ``apply_updates``."""
+    _, _, jp = pair
+    jopt, topt = joptim.adamw(1e-3), toptim.adamw(1e-3)
+    jstate = jopt.init(jp)
+    jparams = jp
+    tparams = _tparams(jp)
+    tstate = topt.init(tparams)
+    for step in range(2):
+        g = _numpy_grads(jp, seed=10 + step)
+        jupd, jstate = jopt.update(g, jstate, jparams)
+        jparams = jax.device_get(joptim.apply_updates(jparams, jupd))
+        tstate = topt.apply_updates(tparams, from_numpy_tree(g), tstate)
+        for got, want in zip(tree_leaves(tparams),
+                             jax.tree_util.tree_leaves(jparams)):
+            np.testing.assert_allclose(got.detach().numpy(), want, **OPT)
+        for key in ("m", "v"):
+            for got, want in zip(tree_leaves(tstate[key]),
+                                 jax.tree_util.tree_leaves(jstate[key])):
+                np.testing.assert_allclose(got.numpy(), want, **OPT)
+        assert int(tstate["count"]) == int(jstate["count"]) == step + 1
+    # a repro TrainState carries across bit-exactly
+    carried = train_state_from_numpy(jparams, jax.device_get(jstate), 2)
+    assert carried.step == 2 and int(carried.opt_state["count"]) == 2
+    for got, want in zip(tree_leaves(carried.opt_state["m"]),
+                         jax.tree_util.tree_leaves(jstate["m"])):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert all(p.requires_grad for p in tree_leaves(carried.params))
+
+
+# ---------------------------------------------------------------------------
+# Whole runs: api.run and the CLI against repro
+# ---------------------------------------------------------------------------
+
+SETS = ["model.reduced=true", "execution.max_steps=3",
+        "protocol.global_batch_size=8", "data.seq_len=32",
+        "data.sequences=256", "sampler.plan_format=sparse"]
+
+
+@pytest.fixture(scope="module")
+def repro_run():
+    spec = japi.apply_overrides(j_default_lm_spec(), SETS)
+    return spec, japi.run(spec)
+
+
+def test_api_run_matches_repro(repro_run, monkeypatch, tmp_path):
+    jspec, jres = repro_run
+    path = tmp_path / "spec.json"
+    path.write_text(j_default_lm_spec().to_json())
+    tspec = tapi.apply_overrides(tapi.load_any_spec(str(path)), SETS)
+    assert json.loads(tspec.to_json()) == json.loads(jspec.to_json())
+    # start from repro's initial parameters (its engine inits from
+    # PRNGKey(seed)); the port's own init draws differ
+    jm = jbuild(jget(ARCH, reduced=True))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(jspec.seed)))
+    init = tdist.ShardedPSLEngine.init_state
+
+    def bridged_init(self, seed=0):
+        state = init(self, seed)
+        return toptim.TrainState(_tparams(jp), state.opt_state, 0)
+
+    monkeypatch.setattr(tdist.ShardedPSLEngine, "init_state", bridged_init)
+    tres = tapi.run(tspec, device="cpu")
+    assert len(tres.step_metrics) == len(jres.step_metrics) == 3
+    assert tres.history.extras == jres.history.extras
+    assert sorted(tres.step_metrics[0]) == sorted(jres.step_metrics[0])
+    for i, (t, j) in enumerate(zip(tres.step_metrics, jres.step_metrics)):
+        rtol = LOSS_RTOL if i == 0 else 1e-3
+        np.testing.assert_allclose(t["loss"], j["loss"], rtol=rtol)
+        np.testing.assert_allclose(t["tokens"], j["tokens"], rtol=0)
+
+
+def test_run_rejects_what_the_port_does_not_run():
+    spec = tapi.apply_overrides(train_cli.default_lm_spec(), SETS)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        tapi.run(spec.replace(execution=spec.execution.replace(
+            mesh="2x1")), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tapi.get_protocol("fl")
+    with pytest.raises(tapi.SpecError, match="requires the psl protocol"):
+        tapi.run(spec.replace(protocol=spec.protocol.replace(name="fl")),
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="monitor"):
+        tapi.run(spec.replace(obs=tapi.ObsSpec(enabled=True)), device="cpu")
+
+
+def test_train_cli_on_cpu_and_default_device(capsys, tmp_path):
+    events = tmp_path / "events.jsonl"
+    train_cli.main(["--reduced", "--device", "cpu", "--steps", "2",
+                    "--global-batch", "8", "--seq-len", "16",
+                    "--sequences", "128", "--set", "obs.enabled=true",
+                    "--set", "obs.monitor=false",
+                    "--set", f"obs.events_path={events}"])
+    out = capsys.readouterr().out
+    assert "params=0.6M" in out and "2 steps in" in out
+    rows = [json.loads(line) for line in events.read_text().splitlines()]
+    spans = [r["name"] for r in rows if r.get("kind") == "span"]
+    assert spans.count("device_step") == 2 and "run" in spans
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_cli.main(["--reduced", "--steps", "1"])
+
+
+def test_run_dispatches_serve_specs():
+    """``api.run`` keeps the serving path: a ServeSpec returns a
+    ServeReport, and training callbacks are refused for it."""
+    spec = tapi.ServeSpec(
+        model=tapi.ModelSpec(arch=ARCH, reduced=True),
+        workload=tapi.WorkloadSpec(num_requests=2, prompt_lens=[5],
+                                   max_new_tokens=[3]),
+        clock=tapi.ClockSpec(kind="virtual"))
+    report = tapi.run(spec, device="cpu")
+    assert len(report.per_request) == 2
+    assert all(len(r["tokens"]) == 3 for r in report.per_request)
+    with pytest.raises(ValueError, match="callbacks"):
+        tapi.run(spec, callbacks=[tapi.ConsoleLogger()], device="cpu")
