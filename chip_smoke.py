@@ -13,15 +13,31 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    timed beside that plain version, the least time the card could take
    (``bound_ms``) and, where one PyTorch call computes the same function,
    that call (``library_ms``; the port never calls it).
+   The speculative-verify kernel (B3) is held against its plain version at
+   the speculative run's geometry (bf16 and a ragged fp32 batch), and with
+   a one-token window against the B2 kernel (bitwise); the selective scan
+   (B4) at full-width falcon-mamba-7b's prefill shape in bf16 and a ragged
+   fp32 shape, at fp32 tolerance (``SCAN_TOL``).
 3. Serve. ``repro_torch.api.run_serve`` at full width (40 layers, d_model
-   2048, random weights from a seeded generator), once with the ``paged``
-   engine and once with ``continuous``. The kernel launch counts are set to
-   0 just before each run and read just after; the paged run must have
-   launched both kernels.
+   2048, random weights from a seeded generator), with the ``paged``, the
+   ``continuous`` and the ``speculative`` engine (draft: the target's
+   first ``SPEC_DRAFT_LAYERS`` layers, gamma ``SPEC_GAMMA``). The kernel
+   launch counts are set to 0 just before each run and read just after:
+   the paged run must have launched B1 and B2; the speculative run B3 40
+   times a verify step, B2 4 times a draft step and B1 40 times a prefill,
+   and leave no page leaked.
 4. Agreement. Every served request is replayed through
    ``reference_generate`` on the card. A token mismatch passes only as a
    near-tie: at the first diverging step the reference's top-2 logit gap
-   must be below ``NEAR_TIE_GAP``.
+   must be below ``NEAR_TIE_GAP``. The speculative run's tokens are also
+   held against the paged run's: at a first difference the top-2 gap along
+   the paged run's own tokens must be below ``NEAR_TIE_GAP``.
+4b. SSM serve. granite's weights are freed; ``run_serve`` then serves
+   full-width falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192,
+   N = 16, random weights from a seeded generator) through ``continuous``
+   with the same requests: B4 must run 64 times a prefill call, and every
+   request must equal ``reference_generate`` or diverge at a near-tie of
+   ``NEAR_TIE_ULPS`` bf16 ulps of the top logit's magnitude.
 5. Training kernels. The fused cross-entropy forward and backward (B5) at
    T = 2048, d = 2048, V = 49155 and the flash-attention backward (B1-bwd)
    at B = 16, S = 128 (and a ragged S = 100), Hq = 32, Hkv = 8, D = 64,
@@ -49,6 +65,7 @@ device record ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -97,8 +114,22 @@ PLANTED_LSE_SHIFT = 0.1
 XENT_SHAPE = (2048, 2048, 49155)                  # T, d, V
 ATTN_SHAPE = dict(b=16, hq=32, hkv=8, d=64, seqs=(128, 100))
 
+# The selective scan's kernel and plain version compute the same unfused
+# fp32 products in the same order (y summed over the states in index
+# order); they can differ only where the device's exp does: a few ulps.
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)
+# falcon-mamba's fan-in init (a stacked leaf's fan-in is its layer count)
+# gives logits of another magnitude than granite's: its near-tie limit is
+# counted in bf16 ulps of the top logit (one ulp at |x| in [2^e, 2^(e+1))
+# is 2^(e-7)).
+NEAR_TIE_ULPS = 4
+SPEC_DRAFT_LAYERS = 4
+SPEC_GAMMA = 4
+SSM_ARCH = "falcon-mamba-7b"
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 
 SERVE = dict(num_requests=8, prompt_lens=[32, 100], max_new_tokens=[16],
              token_budget=8, page_size=16)
@@ -132,9 +163,9 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -231,22 +262,176 @@ def kernel_phase(torch, dev):
           f"{BF16_ATOL}, rtol {BF16_RTOL}); {b2['ms']:.4f} ms, plain "
           f"{b2['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
           flush=True)
-    return b1_cases, b2
+    return b1_cases, b2, verify_kernel_phase(torch, dev, gen), \
+        scan_kernel_phase(torch, dev, gen)
 
 
-def serve_spec(engine: str, events_dir: pathlib.Path):
-    from repro_torch.api import (AdmissionSpec, CacheSpec, EngineSpec,
-                                 ModelSpec, ObsSpec, ServeSpec, WorkloadSpec)
+def verify_case(torch, dev, gen, dtype, w, wlens, starts):
+    """B3 inputs at the speculative run's geometry: 8 rows, a table of 8
+    logical pages of 16 plus the always-scratch last column, a 64-page
+    pool plus the scratch page; row r's window holds wlens[r] + 1 live
+    lanes from position starts[r], its other lanes at the scratch
+    position, as the engine builds them."""
+    b, hq, hc, d, psize, m = 8, 32, 16, 64, 16, 9
+    num_pages = b * (m - 1) + 1
+    q = torch.randn((b, w, hq, d), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((num_pages, psize, hc, d), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((num_pages, psize, hc, d), generator=gen,
+                     device=dev).to(dtype)
+    table = torch.full((b, m), num_pages - 1, dtype=torch.int32, device=dev)
+    table[:, :m - 1] = torch.randperm(num_pages - 1, generator=gen,
+                                      device=dev).reshape(b, m - 1)
+    q_pos = torch.full((b, w), (m - 1) * psize, dtype=torch.int32,
+                       device=dev)
+    for r in range(b):
+        q_pos[r, :wlens[r] + 1] = starts[r] + torch.arange(wlens[r] + 1,
+                                                           device=dev)
+    return q, kp, vp, table, q_pos
+
+
+def verify_bound(q, kp, table, q_pos):
+    """Least time for B3's work on these inputs: q and out once, the K/V
+    of the positions each row's walk covers (0..max q_pos) once, the table
+    and q_pos; 4 D flops per (query head, visible key) of each lane."""
+    b, w, hq, d = q.shape
+    psize, hc = kp.shape[1], kp.shape[2]
+    walk = (q_pos.max(dim=1).values.long() + 1).clamp(
+        max=table.shape[1] * psize).cpu()
+    elt = q.element_size()
+    nbytes = (elt * (2 * q.numel() + 2 * int(walk.sum()) * hc * d)
+              + 4 * int((-(-walk // psize)).sum()) + 4 * q_pos.numel())
+    keys = int((q_pos.long() + 1).clamp(
+        max=table.shape[1] * psize).sum())
+    return bound_ms(nbytes, 4.0 * hq * d * keys)
+
+
+def verify_kernel_phase(torch, dev, gen):
+    """B3 against its plain version: the serving window (W = 5, every row
+    a full window, row 0 crossing a page) in bf16, timed; a ragged batch
+    (mixed window lengths, scratch lanes) in bf16 and fp32; a one-token
+    window against the B2 kernel, bitwise."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spec_verify import spec_verify_plain
+    w = SPEC_GAMMA + 1
+    starts = [14] + [int(x) for x in torch.randint(
+        32, 111, (7,), generator=gen, device=dev).tolist()]
+    full = verify_case(torch, dev, gen, torch.bfloat16, w, [w - 1] * 8,
+                       starts)
+    err = within(torch, ops.spec_verify(*full), spec_verify_plain(*full))
+    ragged_wl = [4, 2, 0, 3, 4, 1, 0, 4]
+    ragged_start = [13, 30, 47, 95, 111, 0, 64, 15]
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, dict(atol=BF16_ATOL,
+                                             rtol=BF16_RTOL)),
+                       (torch.float32, dict(atol=2e-5, rtol=1e-4))):
+        case = verify_case(torch, dev, gen, dtype, w, ragged_wl,
+                           ragged_start)
+        name = str(dtype).replace("torch.", "")
+        errs[name] = within_tol(torch, ops.spec_verify(*case),
+                                spec_verify_plain(*case),
+                                f"spec_verify ragged {name}", **tol)
+    q, kp, vp, table, q_pos = verify_case(torch, dev, gen, torch.bfloat16,
+                                          1, [0] * 8, starts)
+    one = ops.spec_verify(q, kp, vp, table, q_pos)[:, 0]
+    b2 = ops.paged_attention(q[:, 0].contiguous(), kp, vp, table,
+                             q_pos[:, 0].contiguous())
+    torch.cuda.synchronize()
+    if not torch.equal(one, b2):
+        fail(f"spec_verify with W = 1 differs from the paged-attention "
+             f"kernel: max {(one.float() - b2.float()).abs().max().item()}")
+    bnd, by = verify_bound(full[0], full[1], full[3], full[4])
+    case = {
+        "shape": f"B=8 W={w} Hq=32 Hc=16 D=64 P=16 M=9 (8 pages + scratch "
+                 f"column) starts={starts}",
+        "max_abs_err": max(err, errs["bfloat16"]),
+        "ragged_max_abs_err": errs, "w1_equals_paged_attention": True,
+        "ms": time_ms(torch, lambda: ops.spec_verify(*full)),
+        "plain_ms": time_ms(torch, lambda: spec_verify_plain(*full)),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+    print(f"kernel spec_verify {case['shape']}: err {err:.3g} (atol "
+          f"{BF16_ATOL}, rtol {BF16_RTOL}); ragged err {errs}; W=1 bitwise "
+          f"equal to paged_attention; {case['ms']:.4f} ms, plain "
+          f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
+          flush=True)
+    return case
+
+
+def scan_case(torch, dev, gen, dtype, b, l, d, n):
+    x = torch.randn((b, l, d), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, d), generator=gen, device=dev) - 1.0)
+    base = torch.log(torch.arange(1, n + 1, device=dev,
+                                  dtype=torch.float32))
+    a = -torch.exp(base.expand(d, n) + 0.1 * torch.randn(
+        (d, n), generator=gen, device=dev))
+    bm = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    return x, dt, a.contiguous(), bm, cm
+
+
+def scan_kernel_phase(torch, dev, gen):
+    """B4 against its plain version at SCAN_TOL: full-width falcon-mamba's
+    prefill shape (B = 8, L = 100, D = 8192, N = 16; x, B, C in bf16),
+    timed, and a ragged fp32 shape (3, 37, 200, 16)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    out = {}
+    for dtype, shape in ((torch.bfloat16, (8, 100, 8192, 16)),
+                         (torch.float32, (3, 37, 200, 16))):
+        args = scan_case(torch, dev, gen, dtype, *shape)
+        y, h = ops.selective_scan(*args)
+        py, ph = ssm_scan_plain(*args)
+        name = str(dtype).replace("torch.", "")
+        err = max(within_tol(torch, y, py, f"ssm_scan y {name}", **SCAN_TOL),
+                  within_tol(torch, h, ph, f"ssm_scan h_last {name}",
+                             **SCAN_TOL))
+        out[name] = {"shape": f"B={shape[0]} L={shape[1]} D={shape[2]} "
+                              f"N={shape[3]} x/B/C {name}",
+                     "max_abs_err": err}
+        if dtype == torch.bfloat16:
+            full = args
+    b, l, d, n = 8, 100, 8192, 16
+    elt = 2
+    nbytes = (b * l * d * (elt + 4 + 4) + 2 * b * l * n * elt + d * n * 4
+              + b * d * n * 4)
+    exps = b * l * d * n
+    bnd, by = bound_ms(nbytes, 6.0 * exps, peak=FP32_FLOPS)
+    case = {**out["bfloat16"], "fp32_case": out["float32"],
+            "exp_count": exps,
+            "ms": time_ms(torch, lambda: ops.selective_scan(*full)),
+            "plain_ms": time_ms(torch, lambda: ssm_scan_plain(*full),
+                                iters=3, warmup=1),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    print(f"kernel ssm_scan {case['shape']}: err "
+          f"{case['max_abs_err']:.3g}, fp32 {out['float32']['shape']} err "
+          f"{out['float32']['max_abs_err']:.3g} (atol {SCAN_TOL['atol']}, "
+          f"rtol {SCAN_TOL['rtol']}); {case['ms']:.4f} ms, plain "
+          f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB; {exps / 1e6:.1f} M exp, "
+          f"{6 * exps / 1e9:.2f} GFLOP at fp32 peak)", flush=True)
+    return case
+
+
+def serve_spec(engine: str, events_dir: pathlib.Path,
+               arch: str = "granite-3-2b"):
+    from repro_torch.api import (AdmissionSpec, CacheSpec, DraftSpec,
+                                 EngineSpec, ModelSpec, ObsSpec, ServeSpec,
+                                 WorkloadSpec)
+    draft = (DraftSpec(num_layers=SPEC_DRAFT_LAYERS, gamma=SPEC_GAMMA)
+             if engine == "speculative" else DraftSpec())
     return ServeSpec(
-        model=ModelSpec(arch="granite-3-2b", reduced=False),
+        model=ModelSpec(arch=arch, reduced=False),
         engine=EngineSpec(name=engine, seed=0),
         admission=AdmissionSpec(token_budget=SERVE["token_budget"]),
         workload=WorkloadSpec(num_requests=SERVE["num_requests"],
                               prompt_lens=SERVE["prompt_lens"],
                               max_new_tokens=SERVE["max_new_tokens"]),
         cache=CacheSpec(page_size=SERVE["page_size"]),
+        draft=draft,
         obs=ObsSpec(enabled=True,
-                    events_path=str(events_dir / f"{engine}.jsonl")))
+                    events_path=str(events_dir / f"{arch}-{engine}.jsonl")))
 
 
 def phase_times(events_path: str):
@@ -261,15 +446,48 @@ def phase_times(events_path: str):
             for k, v in spans.items()}
 
 
-def serve_phase(torch, dev, events_dir: pathlib.Path):
-    from repro_torch.api import build_serve_context, build_workload, \
-        run_serve
+def count_prefills(engine):
+    """Count the engine's prefill calls (each one batched forward over a
+    group of same-length prompts) by wrapping its prefill hook."""
+    calls = [0]
+    run = engine._run_prefill
+
+    def counted(tokens, plen):
+        calls[0] += 1
+        return run(tokens, plen)
+    engine._run_prefill = counted
+    return calls
+
+
+def serve_run(torch, ctx, spec, engine: str):
+    """One ``run_serve`` with the launch counts set to 0 just before and
+    read just after; prints the report, launches and phase times."""
+    from repro_torch.api import run_serve
     from repro_torch.kernels import ops
+    prefills = count_prefills(ctx.engine)
+    ops.reset_launches()
+    report = run_serve(spec, ctx=ctx)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    times = phase_times(spec.obs.events_path)
+    print(report.summary(), flush=True)
+    print(f"[{engine}] launches {launches}; prefill calls {prefills[0]}, "
+          f"steps {report.steps}, prefill_tokens {report.prefill_tokens}, "
+          f"decode_tokens {report.decode_tokens}; mean admit (prefill) "
+          f"{times['admit'][0]:.2f} ms over {times['admit'][1]}, mean "
+          f"decode step {times['decode_step'][0]:.2f} ms over "
+          f"{times['decode_step'][1]}; peak KV bytes "
+          f"{report.cache_utilization['peak_in_use_bytes']}", flush=True)
+    return report, launches, prefills[0]
+
+
+def serve_phase(torch, dev, events_dir: pathlib.Path):
+    from repro_torch.api import build_serve_context, build_workload
 
     reports, ctx = {}, None
     params = None
     launches = {}
-    for engine in ("paged", "continuous"):
+    for engine in ("paged", "continuous", "speculative"):
         spec = serve_spec(engine, events_dir)
         t0 = time.perf_counter()
         ctx = build_serve_context(spec, params=params, device=dev)
@@ -279,22 +497,11 @@ def serve_phase(torch, dev, events_dir: pathlib.Path):
               f"({sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
               f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
               f"allocated)", flush=True)
-        ops.reset_launches()
-        report = run_serve(spec, ctx=ctx)
-        torch.cuda.synchronize()
-        launches[engine] = ops.launch_counts()
+        report, launches[engine], prefills = serve_run(torch, ctx, spec,
+                                                       engine)
         reports[engine] = report
-        times = phase_times(spec.obs.events_path)
-        print(report.summary(), flush=True)
-        print(f"[{engine}] launches {launches[engine]}; steps "
-              f"{report.steps}, prefill_tokens {report.prefill_tokens}, "
-              f"decode_tokens {report.decode_tokens}; mean admit "
-              f"(prefill) {times['admit'][0]:.2f} ms over "
-              f"{times['admit'][1]}, mean decode step "
-              f"{times['decode_step'][0]:.2f} ms over "
-              f"{times['decode_step'][1]}; peak KV bytes "
-              f"{report.cache_utilization['peak_in_use_bytes']}",
-              flush=True)
+        if engine == "speculative":
+            spec_checks(ctx, report, launches[engine], prefills)
     if min(launches["paged"][k] for k in ("flash_attention",
                                           "paged_attention")) < 1:
         fail(f"the paged run did not launch both serving kernels: "
@@ -305,24 +512,80 @@ def serve_phase(torch, dev, events_dir: pathlib.Path):
     return reports, launches, ctx, requests
 
 
+def spec_checks(ctx, report, launches, prefills: int) -> None:
+    """The speculative run's launches follow its steps, its pages all came
+    home, and its acceptance is printed."""
+    engine = ctx.engine
+    layers = ctx.model.cfg.num_layers
+    want = {"spec_verify": layers * report.steps,
+            "paged_attention": SPEC_DRAFT_LAYERS * engine.draft_steps,
+            "flash_attention": layers * prefills}
+    got = {k: launches[k] for k in want}
+    if got != want or report.steps < 1:
+        fail(f"[speculative] launches {got}, wanted {want} (40 B3 a verify "
+             f"step, {SPEC_DRAFT_LAYERS} B2 a draft step, 40 B1 a prefill)")
+    engine.pool.check_no_leaks()
+    if engine.pool.pages_in_use:
+        fail(f"[speculative] {engine.pool.pages_in_use} pages still held")
+    s = report.speculation
+    ttft = report.to_json()["ttft_ms"]
+    print(f"[speculative] draft {s['draft']} gamma {s['gamma']}: "
+          f"{report.steps} verify steps, {engine.draft_steps} draft steps, "
+          f"{s['windows']} row windows, proposed {s['proposed']}, accepted "
+          f"{s['accepted']} (acceptance {s['acceptance_rate']:.4f}), "
+          f"{s['tokens_per_step']:.3f} tokens a step; TTFT p50/p95 "
+          f"{ttft['p50']:.1f}/{ttft['p95']:.1f} ms; decode "
+          f"{report.decode_tok_per_s:.1f} tok/s; no page leaked",
+          flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
 
 
-def agreement_phase(reports, ctx, requests):
+def _tokens_of(report, rid):
+    return next(r["tokens"] for r in report.per_request if r["rid"] == rid)
+
+
+def forced_gaps(torch, ctx, prompt, tokens):
+    """Top-2 logit gaps along ``tokens`` (teacher-forced batch-1 greedy
+    decoding on the card): how near a tie each of those picks was."""
+    model, params = ctx.model, ctx.params
+    toks = torch.as_tensor(prompt[None], device=params["client"][
+        "embed"].device)
+    logits, cache, pos = model.prefill(params, {"tokens": toks},
+                                       cache_len=ctx.engine.pool.slot_len)
+    posv = torch.tensor([pos], device=toks.device)
+    gaps = []
+    for tok in tokens:
+        top2 = torch.topk(logits.reshape(-1), 2).values
+        gaps.append(float(top2[0] - top2[1]))
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([[tok]], device=toks.device), posv)
+        posv = posv + 1
+    return gaps
+
+
+def agreement_phase(torch, reports, ctx, requests, limit=None):
+    """Every report's requests against ``reference_generate``: equal, or a
+    first divergence where the reference's top-2 gap is below the limit
+    (``NEAR_TIE_GAP``, or ``limit(top_logit)``). Prints the largest
+    |top logit| seen."""
     from repro_torch.runtime import reference_generate
     vocab = ctx.engine.cfg.vocab_size
     exact = near = 0
+    biggest = 0.0
     for req in requests:
-        gaps = []
+        gaps, tops = [], []
         want = reference_generate(ctx.model, ctx.params, req.prompt,
                                   req.max_new_tokens,
-                                  ctx.engine.pool.slot_len, gaps=gaps)
+                                  ctx.engine.pool.slot_len, gaps=gaps,
+                                  tops=tops)
+        biggest = max(biggest, max(abs(t) for t in tops))
         for engine, report in reports.items():
-            got = next(r["tokens"] for r in report.per_request
-                       if r["rid"] == req.rid)
+            got = _tokens_of(report, req.rid)
             if len(got) != req.max_new_tokens or \
                     not all(0 <= t < vocab for t in got):
                 fail(f"[{engine}] request {req.rid}: malformed tokens "
@@ -331,18 +594,87 @@ def agreement_phase(reports, ctx, requests):
                 exact += 1
                 continue
             i = next(j for j in range(len(want)) if got[j] != want[j])
-            if gaps[i] >= NEAR_TIE_GAP:
+            lim = NEAR_TIE_GAP if limit is None else limit(tops[i])
+            if gaps[i] >= lim:
                 fail(f"[{engine}] request {req.rid} diverges at token {i} "
                      f"where the reference's top-2 gap is {gaps[i]:.4f} "
-                     f">= {NEAR_TIE_GAP}")
+                     f">= {lim}")
             near += 1
             print(f"[{engine}] request {req.rid}: near-tie at token {i} "
-                  f"(reference top-2 gap {gaps[i]:.4f} < {NEAR_TIE_GAP})",
+                  f"(reference top-2 gap {gaps[i]:.4f} < {lim:.4g})",
                   flush=True)
     print(f"agreement with reference_generate: {exact} exact, {near} "
-          f"near-tie, of {len(requests) * len(reports)} served requests",
-          flush=True)
+          f"near-tie, of {len(requests) * len(reports)} served requests; "
+          f"largest |top logit| {biggest:.4f}", flush=True)
+    if "speculative" in reports and "paged" in reports:
+        same = 0
+        for req in requests:
+            a = _tokens_of(reports["paged"], req.rid)
+            b = _tokens_of(reports["speculative"], req.rid)
+            if a == b:
+                same += 1
+                continue
+            i = next(j for j in range(len(a)) if a[j] != b[j])
+            gap = forced_gaps(torch, ctx, req.prompt, a)[i]
+            if gap >= NEAR_TIE_GAP:
+                fail(f"speculative request {req.rid} differs from paged at "
+                     f"token {i} where the top-2 gap is {gap:.4f}")
+            print(f"[speculative] request {req.rid}: differs from paged at "
+                  f"token {i}, a near-tie (gap {gap:.4f})", flush=True)
+        print(f"speculative vs paged: {same} of {len(requests)} requests "
+              f"token-identical, the rest near-ties", flush=True)
 
+
+def ssm_phase(torch, dev, events_dir: pathlib.Path):
+    """Full-width falcon-mamba-7b through ``continuous``: launches, state
+    bytes, agreement at a near-tie limit in bf16 ulps of the top logit.
+    Returns the run's launch counts."""
+    import math
+    from repro_torch.api import build_serve_context, build_workload
+    from repro_torch.runtime.kvcache import tree_nbytes
+
+    spec = serve_spec("continuous", events_dir, arch=SSM_ARCH)
+    gc.collect()                 # granite's engine holds a reference cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = build_serve_context(spec, device=dev)
+    torch.cuda.synchronize()
+    cfg = ctx.model.cfg
+    n_params = sum(t.numel() for t in _leaves(ctx.params))
+    pool = ctx.engine.pool
+    per_slot = tree_nbytes(pool.buffers) / pool.num_slots
+    elt = torch.finfo(cfg.torch_dtype).bits // 8     # conv state's dtype
+    reckoned = cfg.num_layers * ((cfg.ssm_conv - 1) * cfg.d_inner * elt
+                                 + cfg.d_inner * cfg.ssm_state * 4)
+    print(f"[ssm] built {cfg.name} in {time.perf_counter() - t0:.2f}s: "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, N {cfg.ssm_state}, dt_rank {cfg.dt_rank}, V "
+          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params; init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; state "
+          f"{per_slot / 1e6:.2f} MB a slot (reckoned {reckoned / 1e6:.2f}) "
+          f"x {pool.num_slots} slots", flush=True)
+    if per_slot != reckoned:
+        fail(f"[ssm] state bytes a slot {per_slot}, reckoned {reckoned}")
+    torch.cuda.reset_peak_memory_stats()
+    report, launches, prefills = serve_run(torch, ctx, spec, "ssm")
+    peak = torch.cuda.max_memory_allocated()
+    want = {"selective_scan": cfg.num_layers * prefills,
+            "flash_attention": 0, "paged_attention": 0, "spec_verify": 0}
+    got = {k: launches[k] for k in want}
+    if got != want or prefills < 1:
+        fail(f"[ssm] launches {got}, wanted {want} (64 B4 a prefill)")
+    ttft = report.to_json()["ttft_ms"]
+    print(f"[ssm] TTFT p50/p95 {ttft['p50']:.1f}/{ttft['p95']:.1f} "
+          f"ms; decode {report.decode_tok_per_s:.1f} tok/s; serving peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+
+    def limit(top):
+        e = math.floor(math.log2(max(abs(top), 2.0 ** -126)))
+        return NEAR_TIE_ULPS * 2.0 ** (e - 7)
+    requests = build_workload(spec, cfg.vocab_size)
+    agreement_phase(torch, {"ssm": report}, ctx, requests, limit=limit)
+    return launches
 
 
 def within_tol(torch, got, want, what: str, atol: float = BF16_ATOL,
@@ -644,7 +976,7 @@ def train_phase(torch, dev, events_dir: pathlib.Path):
     want = {"flash_attention": layers * steps,
             "flash_attention_bwd": layers * steps,
             "cross_entropy": steps, "cross_entropy_bwd": steps,
-            "paged_attention": 0}
+            "paged_attention": 0, "spec_verify": 0, "selective_scan": 0}
     if launches != want:
         fail(f"train launches {launches}, wanted {want}")
     median = statistics.median(step_ms[1:])
@@ -834,28 +1166,34 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
 
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    for log in _build.build(["flash_attention", "paged_attention",
-                             "cross_entropy"], verbose=True):
+    for log in _build.build(_build.SOURCES, verbose=True):
         for line in log.splitlines():
             if line.startswith("[nvcc") or "registers" in line \
                     or "spill" in line:
                 print(line.strip())
     print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    b1_cases, b2 = kernel_phase(torch, dev)
+    b1_cases, b2, b3, b4 = kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory() as events_dir:
         reports, launches, ctx, requests = serve_phase(
             torch, dev, pathlib.Path(events_dir))
-    agreement_phase(reports, ctx, requests)
+    agreement_phase(torch, reports, ctx, requests)
     del ctx, reports
+    with tempfile.TemporaryDirectory() as events_dir:
+        launches["ssm"] = ssm_phase(torch, dev, pathlib.Path(events_dir))
+    gc.collect()
+    torch.cuda.empty_cache()
     b5, b5_bwd, b1_bwd = train_kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory() as events_dir:
         train = train_phase(torch, dev, pathlib.Path(events_dir))
     grad_agreement_phase(torch, dev)
+    print(f"command time {time.perf_counter() - t_start:.1f} s (kernel "
+          f"build included)", flush=True)
 
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape")
@@ -863,6 +1201,8 @@ def main() -> int:
     b1b = b1_bwd[0]                      # the training shape, S = 128
     by_path = {name: {"serve_paged": launches["paged"][name],
                       "serve_continuous": launches["continuous"][name],
+                      "serve_speculative": launches["speculative"][name],
+                      "serve_ssm": launches["ssm"][name],
                       "train": train["launches"][name]}
                for name in ops.WRAPPERS}
     kernels = [
@@ -886,6 +1226,20 @@ def main() -> int:
          "launches": launches["paged"]["paged_attention"],
          "launches_by_path": by_path["paged_attention"],
          **{k: b2[k] for k in ("max_abs_err",) + timing}},
+        {"name": "spec_verify", "route": "cuda",
+         "source": "src/repro_torch/csrc/spec_verify.cu",
+         "replaces": "src/repro/kernels/spec_verify.py:91",
+         "launches": launches["speculative"]["spec_verify"],
+         "launches_by_path": by_path["spec_verify"],
+         **{k: b3[k] for k in ("max_abs_err", "ragged_max_abs_err",
+                               "w1_equals_paged_attention") + timing}},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:58",
+         "launches": launches["ssm"]["selective_scan"],
+         "launches_by_path": by_path["selective_scan"],
+         **{k: b4[k] for k in ("max_abs_err", "fp32_case", "exp_count")
+            + timing}},
         {"name": "cross_entropy", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:68",

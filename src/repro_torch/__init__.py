@@ -6,8 +6,10 @@ The port mirrors ``repro``'s layout (``configs/``, ``models/``,
 and numpy, never jax, and nothing from ``repro``. Its entry points run on
 the CUDA card unless the caller asks for the CPU (``device="cpu"``).
 
-Slice 1 ports split-inference serving of the dense LM family: the
-``continuous`` and ``paged`` engines, with prefill attention and paged
-decode attention running on hand-written CUDA kernels
+Slice 1 ports split-inference serving of the dense LM family (the
+``continuous`` and ``paged`` engines), slice 2 PSL training of it, and
+slice 3 the ``speculative`` engine and serving of the Mamba-1 (ssm)
+family. Attention, the speculative window's attention, the selective
+scan and the LM-head cross-entropy run on hand-written CUDA kernels
 (``repro_torch/csrc``).
 """

@@ -11,6 +11,7 @@ from typing import Dict, List
 
 _MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -7,6 +7,10 @@ carries a plain integer ``launches`` that it raises by one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launch_counts``).
 
+``spec_verify`` (B3) and ``selective_scan`` (B4) are forward only;
+``selective_scan`` raises on the card under grad instead of returning a
+result that would silently drop the gradient.
+
 Gradients go through ``torch.autograd.Function``s whose backward is a
 kernel too: :class:`FlashAttention` (forward B1 with its logsumexp,
 backward B1-bwd) and :class:`CrossEntropy` (forward B5, backward
@@ -27,6 +31,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.paged_attention import (paged_attention as
                                                  _paged_attention_kernel,
                                                  paged_attention_plain)
+from repro_torch.kernels.spec_verify import (spec_verify as
+                                             _spec_verify_kernel,
+                                             spec_verify_plain)
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 
 
 def _on_cpu(t: torch.Tensor, what: str) -> bool:
@@ -125,6 +133,39 @@ def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
     return out
 
 
+def spec_verify(q, k_pages, v_pages, page_table, q_pos) -> torch.Tensor:
+    """Speculative-verify window attention. q: (B, W, Hq, D); pages (NP, P,
+    Hc, D); page_table (B, M) int32; q_pos (B, W) int32 -> (B, W, Hq, D)."""
+    if _on_cpu(q, "spec_verify"):
+        return spec_verify_plain(q, k_pages, v_pages, page_table, q_pos)
+    out = _spec_verify_kernel(q, k_pages, v_pages, page_table, q_pos)
+    spec_verify.launches += 1
+    return out
+
+
+def selective_scan(x, dt, a, bmat, cmat):
+    """Mamba-1 selective scan from a zero state. x (B, L, D) and B, C
+    (B, L, N) in the model dtype, dt (B, L, D) and a (D, N) fp32 -> (y
+    (B, L, D) fp32, h_last (B, D, N) fp32).
+
+    The kernel is forward only: on a CUDA tensor under grad it raises
+    rather than return a result without a ``grad_fn`` (training the SSM
+    family needs a backward kernel, ROADMAP A.2). On the CPU the plain
+    version is differentiable."""
+    if _on_cpu(x, "selective_scan"):
+        return ssm_scan_plain(x, dt, a, bmat, cmat)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bmat, cmat)):
+        raise NotImplementedError(
+            "selective_scan: the CUDA kernel has no backward yet; training "
+            "the SSM family on the card is ROADMAP A.2 (SSM training, "
+            "B4 backward)")
+    out = ssm_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
+                   bmat.contiguous(), cmat.contiguous())
+    selective_scan.launches += 1
+    return out
+
+
 class CrossEntropy(torch.autograd.Function):
     """Per-token NLL through the B5 forward; the backward runs
     :func:`cross_entropy_bwd`. ``lse`` and ``correct`` carry no
@@ -170,12 +211,16 @@ def cross_entropy_bwd(hidden, w, labels, lse, g):
 attention.launches = 0
 attention_bwd.launches = 0
 paged_attention.launches = 0
+spec_verify.launches = 0
+selective_scan.launches = 0
 cross_entropy.launches = 0
 cross_entropy_bwd.launches = 0
 
 WRAPPERS = {"flash_attention": attention,
             "flash_attention_bwd": attention_bwd,
             "paged_attention": paged_attention,
+            "spec_verify": spec_verify,
+            "selective_scan": selective_scan,
             "cross_entropy": cross_entropy,
             "cross_entropy_bwd": cross_entropy_bwd}
 

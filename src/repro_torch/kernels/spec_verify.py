@@ -1,0 +1,121 @@
+"""Speculative-verify window attention: the hand-written CUDA kernel and
+its plain version.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/spec_verify.py``
+(``spec_verify``). The kernel lives in ``csrc/spec_verify.cu`` (design
+and bound notes there); :func:`spec_verify` launches it on CUDA tensors
+and :func:`spec_verify_plain` computes the same function in plain
+PyTorch — the CPU path and the on-card oracle.
+
+Layout: q (B, W, Hq, D) contiguous (W = gamma + 1 window lanes per row);
+k_pages/v_pages (NP, P, Hc, D) contiguous (one layer's slice of the page
+pool, scratch page included); page_table (B, M) int32; q_pos (B, W)
+int32, the absolute position of every lane. Key k of row b is visible to
+lane i iff k <= q_pos[b, i]; q head h reads cache head h // (Hq / Hc).
+Returns (B, W, Hq, D). With W == 1 and q_pos = pos[:, None] this is the
+paged decode attention of ``paged_attention``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+_NEG_INF = -1e30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_D = 128
+_MAX_REP = 16
+MAX_W = 16
+
+
+def _check(q, k_pages, v_pages, page_table, q_pos):
+    dev = q.device
+    if not q.is_cuda or any(t.device != dev for t in
+                            (k_pages, v_pages, page_table, q_pos)):
+        raise ValueError("spec_verify: every input must be a CUDA tensor "
+                         "on one device")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError(f"spec_verify: unsupported dtypes "
+                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if page_table.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise ValueError("spec_verify: page_table and q_pos must be int32")
+    if q.dim() != 4:
+        raise ValueError(f"spec_verify: q must be (B, W, Hq, D), got "
+                         f"{tuple(q.shape)}")
+    b, w, hq, d = q.shape
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"spec_verify: window {w} must be in 1..{MAX_W}")
+    if k_pages.shape != v_pages.shape or k_pages.dim() != 4 \
+            or k_pages.shape[3] != d:
+        raise ValueError(f"spec_verify: pages {tuple(k_pages.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    hc = k_pages.shape[2]
+    if hq % hc or hq // hc > _MAX_REP:
+        raise ValueError(f"spec_verify: Hq {hq} must be a multiple of Hc "
+                         f"{hc}, at most {_MAX_REP}x")
+    if d > _MAX_D or d % 8:
+        raise ValueError(f"spec_verify: head_dim {d} must be a multiple of "
+                         f"8 and at most {_MAX_D}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or q_pos.shape != (b, w):
+        raise ValueError("spec_verify: page_table (B, M) / q_pos (B, W) "
+                         "shapes disagree with q")
+    if not all(t.is_contiguous() for t in
+               (q, k_pages, v_pages, page_table, q_pos)):
+        raise ValueError("spec_verify: inputs must be contiguous")
+
+
+def _kernel():
+    """The loaded library and its launcher, argtypes declared once."""
+    lib = _build.load("spec_verify")
+    fn = lib.spec_verify_fwd
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p] + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def spec_verify(q, k_pages, v_pages, page_table, q_pos) -> torch.Tensor:
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    _check(q, k_pages, v_pages, page_table, q_pos)
+    b, w, hq, d = q.shape
+    num_pages, psize, hc = k_pages.shape[:3]
+    m = page_table.shape[1]
+    out = torch.empty_like(q)
+    lib, fn = _kernel()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
+             out.data_ptr(), b, w, hq, hc, psize, d, m, num_pages,
+             1.0 / math.sqrt(d), stream)
+    _build.check(err, lib, "spec_verify")
+    return out
+
+
+def spec_verify_plain(q, k_pages, v_pages, page_table,
+                      q_pos) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (``repro``'s
+    ``spec_verify_ref``): gather the row's pages in logical order, mask
+    key k for lane i unless k <= q_pos[b, i], dense fp32 softmax, P.V in
+    fp32 as the kernel keeps it."""
+    b, w, hq, d = q.shape
+    psize, hc = k_pages.shape[1], k_pages.shape[2]
+    m = page_table.shape[1]
+    rep = hq // hc
+    idx = page_table.long()
+    k = k_pages[idx].reshape(b, m * psize, hc, d).float()
+    v = v_pages[idx].reshape(b, m * psize, hc, d).float()
+    qr = q.float().reshape(b, w, hc, rep, d)
+    scores = torch.einsum("bwhrd,bkhd->bwhrk", qr, k) / math.sqrt(d)
+    valid = (torch.arange(m * psize, device=q.device)[None, None, :]
+             <= q_pos.long()[:, :, None])                    # (B, W, K)
+    scores = scores.masked_fill(~valid[:, :, None, None, :], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bwhrk,bkhd->bwhrd", probs, v)
+    return out.reshape(b, w, hq, d).to(q.dtype)

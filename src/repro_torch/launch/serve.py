@@ -8,6 +8,10 @@ CUDA card unless ``--device cpu``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
+      --speculative --draft-layers 4 --gamma 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --config serve.json \\
       --set scheduler.policy=ljf --set workload.num_requests=64
   ... --device cpu          # reduced configs on the CPU
@@ -39,8 +43,13 @@ def _legacy_overrides(args) -> List[str]:
         add("model.reduced", "true" if args.reduced else "false")
     if args.paged:
         add("engine.name", "paged")
+    if args.speculative:
+        add("engine.name", "speculative")
     add("cache.page_size", args.page_size)
     add("cache.num_pages", args.num_pages)
+    add("draft.num_layers", args.draft_layers)
+    add("draft.arch", args.draft_arch)
+    add("draft.gamma", args.gamma)
     if args.stream is not None:
         add("stream.enabled", "true")
         if args.stream:
@@ -86,7 +95,14 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None,
                     help="paged engine: physical page count")
     ap.add_argument("--speculative", action="store_true",
-                    help="speculative decoding (not ported yet)")
+                    help="draft-model speculative decoding "
+                         "(engine.name=speculative)")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="speculative: draft = the target's first N layers")
+    ap.add_argument("--draft-arch", default=None,
+                    help="speculative: draft = an independent configs arch")
+    ap.add_argument("--gamma", type=int, default=None,
+                    help="speculative: draft tokens proposed per window")
     ap.add_argument("--stream", nargs="?", const="", default=None,
                     metavar="JSONL",
                     help="stream every emitted token (stream.enabled); with "
@@ -108,7 +124,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None)
     args = ap.parse_args(argv)
     for flag, what in (("static", "the static engine"),
-                       ("speculative", "the speculative engine"),
                        ("sample", "sampled decoding")):
         if getattr(args, flag):
             ap.error(f"--{flag}: {what} is not ported to repro_torch yet "
@@ -129,6 +144,12 @@ def main(argv=None):
     print(f"arch={report.arch} " + report.summary())
     for r in report.per_request[:3]:
         print(f"  req {r['rid']}: {r['tokens'][:12]}...")
+    if report.speculation is not None:
+        s = report.speculation
+        print(f"speculation: draft {s['draft']} gamma {s['gamma']}, "
+              f"{s['windows']} windows, acceptance "
+              f"{s['acceptance_rate']:.3f}, {s['tokens_per_step']:.2f} "
+              f"tokens per step")
     if report.verified is not None:
         print(f"verified token-identical: {report.verified['checked']} "
               f"requests")

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder LM (prefill + decode)."""
+"""Model zoo of the port: the decoder LM of the dense and ssm (Mamba-1)
+families (training loss, prefill, decode)."""
 from repro_torch.models.config import ModelConfig, ParamSpec
 from repro_torch.models.transformer import LanguageModel, build_model
 

@@ -10,6 +10,7 @@ the cache allocators materialize. Dtypes are torch dtypes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -100,13 +101,21 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, math.ceil(self.d_model / 16))
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """Declarative description of one parameter leaf."""
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axis per dim
-    init: str = "normal"              # normal | zeros | ones | embed
+    init: str = "normal"              # normal | zeros | ones | embed | ssm_a
     dtype: Any = None                 # None -> model dtype
     scale: float = 1.0
 

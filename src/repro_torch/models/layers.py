@@ -1,12 +1,17 @@
-"""Neural-net building blocks of the dense LM, in plain PyTorch (port of
-the dense-family half of :mod:`repro.models.layers`).
+"""Neural-net building blocks of the dense LM and the Mamba-1 SSM, in
+plain PyTorch (port of the dense and Mamba-1 parts of
+:mod:`repro.models.layers`).
 
 Parameters are nested dicts of tensors with ``repro``'s key names and its
 ``(d_in, d_out)`` weight layout (``y = x @ W``), so the weights bridge is
 key-for-key with no transposes. Attention in prefill and in paged decode
 goes through :mod:`repro_torch.kernels.ops` (the CUDA kernels on the card,
 their plain versions on the CPU), differentiably in training; contiguous
-decode attention stays plain torch, as it is plain JAX in ``repro``.
+decode attention stays plain torch, as it is plain JAX in ``repro``. The
+speculative window's attention goes through the spec-verify kernel and a
+Mamba-1 prefill's scan through the selective-scan kernel; the one-token
+SSM decode update stays plain torch, as ``repro`` computes it outside any
+kernel.
 """
 from __future__ import annotations
 
@@ -61,6 +66,12 @@ def materialize(spec_tree, generator: torch.Generator, dtype: torch.dtype,
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=device)
+        if spec.init == "ssm_a":
+            # mamba: A = -exp(A_log); A_log = log(1..N) broadcast, in fp32
+            n = spec.shape[-1]
+            base = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                          device=device))
+            return base.expand(spec.shape).to(torch.float32).contiguous()
         noise = torch.randn(spec.shape, generator=generator,
                             dtype=torch.float32, device=device)
         if spec.init == "embed":
@@ -170,6 +181,19 @@ def paged_decode_attention(q, k_pages, v_pages, page_table,
     return out.reshape(b, 1, hq, hd)
 
 
+def paged_window_attention(q, k_pages, v_pages, page_table,
+                           q_pos) -> torch.Tensor:
+    """W-query speculative-window attention over a paged KV cache. q: (B,
+    W, Hq, hd); pages (NP, P, Hc, hd); page_table (B, M) int32; q_pos (B,
+    W) int32, the absolute position of each window lane (lanes past a
+    row's window point at a scratch position whose output is discarded).
+    Key k is visible to lane i iff k <= q_pos[b, i], so a one-token window
+    is plain paged decode. Runs the spec-verify kernel on the card (its
+    plain version on the CPU)."""
+    return ops.spec_verify(q.contiguous(), k_pages, v_pages, page_table,
+                           q_pos)
+
+
 def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -220,3 +244,97 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def mlp_apply(p, x):
     g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# State-space block (Mamba-1)
+# ---------------------------------------------------------------------------
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv. x: (B, S, C); w: (C, K); b: (C,).
+
+    If ``state`` (B, K-1, C) is given, performs streaming conv (decode) and
+    returns (y, new_state)."""
+    k = w.shape[1]
+    if state is not None:
+        xin = torch.cat([state, x], dim=1)                   # (B, K-1+S, C)
+        new_state = xin[:, -(k - 1):, :]
+    else:
+        xin = F.pad(x, (0, 0, k - 1, 0))
+        new_state = None
+    y = sum(xin[:, i:i + x.shape[1], :] * w[:, i][None, None, :]
+            for i in range(k))
+    y = y + b[None, None, :]
+    y = F.silu(y.float()).to(x.dtype)
+    return (y, new_state) if state is not None else y
+
+
+def mamba1_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    return {
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "inner")),
+        "conv_w": ParamSpec((di, cfg.ssm_conv), ("inner", None)),
+        "conv_b": ParamSpec((di,), ("inner",), init="zeros"),
+        "x_proj": ParamSpec((di, r + 2 * n), ("inner", None)),
+        "dt_proj": ParamSpec((r, di), (None, "inner")),
+        "dt_bias": ParamSpec((di,), ("inner",), init="zeros"),
+        "a_log": ParamSpec((di, n), ("inner", None), init="ssm_a",
+                           dtype=torch.float32),
+        "d_skip": ParamSpec((di,), ("inner",), init="ones",
+                            dtype=torch.float32),
+        "out_proj": ParamSpec((di, d), ("inner", "embed")),
+    }
+
+
+def mamba1_apply(p, x, cfg: ModelConfig, state=None,
+                 return_state: bool = False):
+    """Mamba-1 selective SSM. x: (B, S, d).
+
+    state: None (training/prefill from zero) or dict(conv (B, K-1, di),
+    ssm (B, di, N)) for streaming decode. Returns y or (y, new_state);
+    ``return_state=True`` makes the stateless (prefill) path also return
+    the final streaming state. The prefill scan runs the selective-scan
+    kernel (``ops.selective_scan``) on the card; ``repro`` computes the
+    same recurrence with its chunked associative scan in plain JAX."""
+    s = x.shape[1]
+    di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    xz = x @ p["in_proj"]
+    xs, z = xz.split(di, dim=-1)                              # (B,S,di) each
+    if state is not None:
+        xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"],
+                                      state["conv"])
+    else:
+        kq = cfg.ssm_conv - 1
+        conv_in_tail = F.pad(xs, (0, 0, max(kq - s, 0), 0))[:, -kq:, :]
+        xs = _causal_conv(xs, p["conv_w"], p["conv_b"])
+        conv_state = conv_in_tail if return_state else None
+
+    proj = xs @ p["x_proj"]                                   # (B,S,r+2N)
+    dt_in, bmat, cmat = proj.split([r, n, n], dim=-1)
+    dt = F.softplus((dt_in @ p["dt_proj"] + p["dt_bias"]).float())
+    a = -torch.exp(p["a_log"])                                # (di,N) f32
+
+    if state is not None:
+        # one-token update, plain torch as in repro: a_bar = exp(dt*A),
+        # b_bar*x = dt * B * x
+        a_bar = torch.exp(dt[:, 0, :, None] * a[None])        # (B,di,N)
+        bx = (dt[:, 0] * xs[:, 0].float())[..., None] \
+            * bmat[:, 0].float()[:, None, :]
+        h = a_bar * state["ssm"] + bx
+        y = (h * cmat[:, 0].float()[:, None, :]).sum(-1)[:, None]
+        new_ssm = h
+    else:
+        y, new_ssm = ops.selective_scan(xs, dt, a, bmat, cmat)
+    y = y + p["d_skip"][None, None] * xs.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ p["out_proj"]
+    if state is not None or return_state:
+        return out, {"conv": conv_state, "ssm": new_ssm}
+    return out
+
+
+def ssm_state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
+    """Decode-state shapes for one Mamba-1 block."""
+    k = cfg.ssm_conv - 1
+    return {"conv": (batch, k, cfg.d_inner),
+            "ssm": (batch, cfg.d_inner, cfg.ssm_state)}

@@ -1,6 +1,6 @@
-"""Decoder-only LM of the dense family: the training loss, its PSL split,
-prefill and decode (port of the dense-family half of
-:mod:`repro.models.transformer`).
+"""Decoder-only LM of the dense and ssm (Mamba-1) families: the training
+loss, its PSL split, prefill and decode (port of the dense and ssm parts
+of :mod:`repro.models.transformer`).
 
 Parameters are split into ``client`` and ``server`` subtrees at the
 paper's cut layer, with every block's leaves stacked on a leading layer
@@ -10,8 +10,11 @@ axis (``repro`` scans them). KV caches keep ``repro``'s layout and its
 ``repro``'s.
 
 Where ``repro``'s decode steps return a new cache (JAX donates the old
-buffers), the port writes the new token's K/V into the cache tensors in
-place and returns the same cache object.
+buffers), the port writes the new token's K/V (or an SSM block's new conv
+and ssm state) into the cache tensors in place and returns the same cache
+object. The speculative verify step (:meth:`LanguageModel.
+decode_window_paged`) writes every window position's K/V in place the same
+way.
 
 Training runs the same blocks with autograd: attention through the
 flash-attention kernels' ``autograd.Function`` and the loss through the
@@ -83,12 +86,23 @@ def chunked_xent(hidden, w_vocab, labels, weights):
 
 
 class _Blocks:
-    """Dense attention block definitions used by LanguageModel."""
+    """Dense attention and Mamba-1 block definitions used by
+    LanguageModel."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
     def block_specs(self) -> Dict[str, Any]:
+        if self.cfg.family == "ssm":
+            return self.ssm_block_specs()
+        return self.attn_block_specs()
+
+    def ssm_block_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {"norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "mixer": L.mamba1_specs(cfg)}
+
+    def attn_block_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         return {
             "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
@@ -115,6 +129,16 @@ class _Blocks:
         """Prefill block; returns (x, (k_rep, v_rep)) for the cache."""
         x, k, v = self.block(p, x, positions, window=window)
         return x, (self._repeat_kv(k), self._repeat_kv(v))
+
+    def ssm_block(self, p, x):
+        hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
+        return x + L.mamba1_apply(p["mixer"], hn, self.cfg)
+
+    def ssm_block_prefill(self, p, x):
+        """Prefill block; returns (x, {"conv", "ssm"}) decode state."""
+        hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
+        y, st = L.mamba1_apply(p["mixer"], hn, self.cfg, return_state=True)
+        return x + y, st
 
     # ----- decode -----
     def _mlp_tail(self, p, x, attn_out):
@@ -157,6 +181,40 @@ class _Blocks:
         attn_out = L.paged_decode_attention(q, kc, vc, page_table, pos)
         return self._mlp_tail(p, x, attn_out)
 
+    def attn_block_decode_window_paged(self, p, x, kc, vc, q_pos, pages,
+                                       offs, page_table):
+        """Speculative-window block over page buffers: W tokens per row at
+        absolute positions ``q_pos`` (B, W). Each position's K/V goes to
+        physical page ``pages`` (= ``table[b, q_pos // P]``) at offset
+        ``offs`` (= ``q_pos % P``) in place — lanes past a row's window
+        carry a q_pos that resolves to the always-scratch last table
+        column — then every lane attends causally over the row's pages
+        (key k visible to lane i iff k <= q_pos[b, i])."""
+        cfg = self.cfg
+        hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], hn, cfg, q_pos)
+        kc[pages, offs] = self._repeat_kv(k)
+        vc[pages, offs] = self._repeat_kv(v)
+        attn_out = L.paged_window_attention(q, kc, vc, page_table, q_pos)
+        return self._mlp_tail(p, x, attn_out)
+
+    def ssm_block_decode(self, p, x, conv, ssm):
+        """One-token Mamba-1 block; writes the new conv and ssm state into
+        ``conv`` (B, K-1, di) and ``ssm`` (B, di, N) in place."""
+        hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
+        y, st = L.mamba1_apply(p["mixer"], hn, self.cfg,
+                               state={"conv": conv, "ssm": ssm})
+        conv.copy_(st["conv"])
+        ssm.copy_(st["ssm"])
+        return x + y
+
+    def ssm_cache_specs(self, batch: int):
+        shapes = L.ssm_state_shapes(self.cfg, batch)
+        return {"conv": ParamSpec(shapes["conv"], ("batch", None, "inner"),
+                                  init="zeros"),
+                "ssm": ParamSpec(shapes["ssm"], ("batch", "inner", None),
+                                 init="zeros", dtype=torch.float32)}
+
     # ----- cache helpers -----
     def kv_cache_heads(self) -> int:
         return self.cfg.num_kv_heads * self.kv_repeat()
@@ -194,13 +252,18 @@ class _Blocks:
 
 
 class LanguageModel:
-    """Decoder-only LM with a PSL cut; the port serves the dense family."""
+    """Decoder-only LM with a PSL cut; the port runs the dense and ssm
+    (Mamba-1) families."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported to "
                 f"repro_torch yet; see ROADMAP.md, 'Other model families'")
+        if cfg.family == "ssm" and cfg.ssm_variant != "mamba1":
+            raise NotImplementedError(
+                f"ssm_variant {cfg.ssm_variant!r} ({cfg.name}) is not "
+                f"ported to repro_torch yet (Mamba-2: ROADMAP.md)")
         self.cfg = cfg
         self.blocks = _Blocks(cfg)
 
@@ -247,7 +310,10 @@ class LanguageModel:
 
     def _run_stack(self, stacked, x, positions, window):
         for lp in _unstack(stacked):
-            x, _, _ = self.blocks.block(lp, x, positions, window=window)
+            if self.cfg.family == "ssm":
+                x = self.blocks.ssm_block(lp, x)
+            else:
+                x, _, _ = self.blocks.block(lp, x, positions, window=window)
         return x
 
     def _backbone(self, params, x, positions, window):
@@ -304,9 +370,12 @@ class LanguageModel:
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
         eff_len = min(cache_len, window) if window else cache_len
-        attn_c = self.blocks.attn_cache_specs(batch, eff_len)
-        return {"client": stack_specs(attn_c, cfg.cut_layer),
-                "server": stack_specs(attn_c,
+        if cfg.family == "ssm":
+            layer_c = self.blocks.ssm_cache_specs(batch)
+        else:
+            layer_c = self.blocks.attn_cache_specs(batch, eff_len)
+        return {"client": stack_specs(layer_c, cfg.cut_layer),
+                "server": stack_specs(layer_c,
                                       cfg.num_layers - cfg.cut_layer)}
 
     def init_cache(self, batch: int, cache_len: int,
@@ -350,6 +419,9 @@ class LanguageModel:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         cache: Dict[str, Any] = {}
         for side, stacked in self._stacks(params):
+            if cfg.family == "ssm":
+                x, cache[side] = self._prefill_stack(stacked, x)
+                continue
             ks, vs = [], []
             for i in range(_num_layers(stacked)):
                 x, (k, v) = self.blocks.attn_block(
@@ -362,10 +434,37 @@ class LanguageModel:
         logits = (x[:, 0] @ self._lm_head(params)).float()
         return logits, cache, s
 
+    def _prefill_stack(self, stacked, x):
+        """SSM prefill of one stack: (x, {"conv", "ssm"} stacked over its
+        layers)."""
+        states = []
+        for i in range(_num_layers(stacked)):
+            x, st = self.blocks.ssm_block_prefill(_layer(stacked, i), x)
+            states.append(st)
+        return x, {k: torch.stack([st[k] for st in states])
+                   for k in ("conv", "ssm")}
+
     # ----- decode -----
     def _pos_vector(self, pos, b: int, device) -> torch.Tensor:
         pos = torch.as_tensor(pos, device=device).long()
         return pos.expand(b) if pos.dim() == 0 else pos
+
+    def _decode_stack(self, stacked, side_cache, x, pos, window):
+        for i in range(_num_layers(stacked)):
+            lp = _layer(stacked, i)
+            if self.cfg.family == "ssm":
+                x = self.blocks.ssm_block_decode(
+                    lp, x, side_cache["conv"][i], side_cache["ssm"][i])
+            else:
+                x = self.blocks.attn_block_decode(
+                    lp, x, side_cache["k"][i], side_cache["v"][i], pos,
+                    window=window)
+        return x
+
+    def _check_paged(self):
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(
+                "paged decode supports attention-cache families only")
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos,
@@ -378,11 +477,7 @@ class LanguageModel:
         x = params["client"]["embed"][tokens.long()]
         pos = self._pos_vector(pos, x.shape[0], x.device)
         for side, stacked in self._stacks(params):
-            kcs, vcs = cache[side]["k"], cache[side]["v"]
-            for i in range(_num_layers(stacked)):
-                x = self.blocks.attn_block_decode(
-                    _layer(stacked, i), x, kcs[i], vcs[i], pos,
-                    window=window)
+            x = self._decode_stack(stacked, cache[side], x, pos, window)
         x = L.rms_norm(x, params["server"]["final_norm"], cfg.norm_eps)
         return (x @ self._lm_head(params)).float(), cache
 
@@ -394,6 +489,7 @@ class LanguageModel:
         layer: cache leaves carry a leading layer axis). Writes the pages
         in place. Returns (logits (B, 1, V) fp32, cache)."""
         cfg = self.cfg
+        self._check_paged()
         x = params["client"]["embed"][tokens.long()]
         pos = self._pos_vector(pos, x.shape[0],
                                x.device).to(torch.int32).contiguous()
@@ -406,6 +502,43 @@ class LanguageModel:
                 x = self.blocks.attn_block_decode_paged(
                     _layer(stacked, i), x, kcs[i], vcs[i], pos, page, off,
                     page_table)
+        x = L.rms_norm(x, params["server"]["final_norm"], cfg.norm_eps)
+        return (x @ self._lm_head(params)).float(), cache
+
+    def _decode_window_stack_paged(self, stacked, side_cache, x, q_pos,
+                                   pages, offs, page_table):
+        kcs, vcs = side_cache["k"], side_cache["v"]
+        for i in range(_num_layers(stacked)):
+            x = self.blocks.attn_block_decode_window_paged(
+                _layer(stacked, i), x, kcs[i], vcs[i], q_pos, pages, offs,
+                page_table)
+        return x
+
+    @torch.no_grad()
+    def decode_window_paged(self, params, cache, tokens, q_pos, page_table):
+        """W-token speculative-verify decode over a paged KV cache.
+
+        tokens: (B, W) int — per row, the last emitted token followed by
+        the draft's W-1 proposals; q_pos: (B, W) int32 absolute positions
+        (``pos + i`` inside a row's window; lanes beyond it point at a
+        scratch column of ``page_table``); page_table: (B, M) int32. One
+        batched target step scores the whole window: logits[:, i] is the
+        next-token distribution after ``tokens[:, :i+1]``, and every
+        window position's K/V lands in the pages, in place, where W
+        single-token :meth:`decode_step_paged` calls would have put it.
+        Attention-cache families only. Returns (logits (B, W, V) fp32,
+        cache)."""
+        cfg = self.cfg
+        self._check_paged()
+        x = params["client"]["embed"][tokens.long()]
+        q_pos = q_pos.to(torch.int32).contiguous()
+        psize = cache["client"]["k"].shape[2]
+        pages = page_table.gather(1, (q_pos // psize).long()).long()
+        offs = (q_pos % psize).long()
+        for side, stacked in self._stacks(params):
+            x = self._decode_window_stack_paged(stacked, cache[side], x,
+                                                q_pos, pages, offs,
+                                                page_table)
         x = L.rms_norm(x, params["server"]["final_norm"], cfg.norm_eps)
         return (x @ self._lm_head(params)).float(), cache
 

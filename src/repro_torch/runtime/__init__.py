@@ -2,8 +2,9 @@
 :mod:`repro.runtime`).
 
 Engines register with :mod:`repro_torch.api.registry` as an import side
-effect of this package: ``"continuous"`` (:class:`ContinuousEngine`) and
-``"paged"`` (:class:`PagedEngine`), scheduler policies ``"fifo"``/
+effect of this package: ``"continuous"`` (:class:`ContinuousEngine`),
+``"paged"`` (:class:`PagedEngine`) and ``"speculative"``
+(:class:`SpeculativeEngine`), scheduler policies ``"fifo"``/
 ``"ljf"``, and the ``"budget"``/``"tenant"`` admission controllers.
 """
 from repro_torch.runtime.engine import (ContinuousEngine, ServeReport,
@@ -16,6 +17,7 @@ from repro_torch.runtime.queue import (AdmissionController, RequestQueue,
 from repro_torch.runtime.sampling import TokenSampler
 from repro_torch.runtime.scheduler import (Scheduler, VirtualClock,
                                            WallClock, make_clock)
+from repro_torch.runtime.spec_decode import SpeculativeEngine
 from repro_torch.runtime.workload import (bursty_arrivals, diurnal_arrivals,
                                           generate_arrivals,
                                           heavy_tail_arrivals,
@@ -24,7 +26,8 @@ from repro_torch.runtime.workload import (bursty_arrivals, diurnal_arrivals,
 
 __all__ = ["AdmissionController", "ContinuousEngine", "KVCachePool",
            "PagePool", "PagedEngine", "RequestQueue", "Scheduler",
-           "ServeReport", "ServeRequest", "TenantAdmissionController",
+           "ServeReport", "ServeRequest", "SpeculativeEngine",
+           "TenantAdmissionController",
            "TokenSampler", "VirtualClock", "WallClock", "apportion",
            "bursty_arrivals", "diurnal_arrivals", "generate_arrivals",
            "heavy_tail_arrivals", "make_clock", "poisson_arrivals",

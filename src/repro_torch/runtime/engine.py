@@ -88,6 +88,9 @@ class ServeReport:
     # streaming run only: per-token emission audit (stream order ==
     # final token order, checked in api.serving.audit_stream).
     stream: Optional[Dict[str, Any]] = None
+    # speculative engine only: windows/proposed/accepted counters,
+    # acceptance rate and tokens per verify step.
+    speculation: Optional[Dict[str, Any]] = None
 
     @property
     def requests_per_s(self) -> float:
@@ -133,6 +136,8 @@ class ServeReport:
             out["cache_utilization"] = self.cache_utilization
         if self.stream is not None:
             out["stream"] = self.stream
+        if self.speculation is not None:
+            out["speculation"] = self.speculation
         if self.verified is not None:
             out["verified"] = self.verified
         return out
@@ -179,6 +184,7 @@ class ContinuousEngine:
     def __init__(self, cfg, params=None, *, num_slots: int,
                  slot_len: int, seed: int = 0, model=None, sampling=None,
                  device="cuda"):
+        self._check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model if model is not None else build_model(cfg)
@@ -206,6 +212,14 @@ class ContinuousEngine:
         self._tracer = null_tracer()   # rebound by serve()
 
     # subclass hooks ------------------------------------------------------
+    @staticmethod
+    def _check_family(cfg) -> None:
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                "the encoder-decoder family decodes with a scalar position "
+                "(learned absolute embeddings) and is not served by the "
+                "continuous runtime; use the static server")
+
     def _make_pool(self, num_slots: int, slot_len: int):
         return KVCachePool(self.model, num_slots, slot_len,
                            device=self.device)
@@ -214,10 +228,10 @@ class ContinuousEngine:
         return self.model.prefill(self.params, {"tokens": tokens},
                                   cache_len=self.pool.slot_len)
 
-    def _device_step(self, tokens, pos):
+    def _device_step(self, tokens, pos, rids, idxs):
         logits, _ = self.model.decode_step(self.params, self.pool.buffers,
                                            tokens, pos)
-        return self.sampler.sample(logits[:, -1])
+        return self.sampler.sample(logits[:, -1], rids, idxs)
 
     def drain_evicted(self) -> List[ServeRequest]:
         """Resume requests for victims the *engine* evicted mid-step.
@@ -333,7 +347,12 @@ class ContinuousEngine:
         tokens = torch.from_numpy(
             np.stack([r.prompt for r in chunk])).to(self.device)
         logits, cache, _ = self._run_prefill(tokens, plen)
-        firsts = self.sampler.sample(logits).cpu().numpy()   # syncs
+        rids = torch.as_tensor([r.rid for r in chunk], dtype=torch.int32,
+                               device=self.device)
+        idxs = torch.as_tensor([self._resume_index(r) for r in chunk],
+                               dtype=torch.int32, device=self.device)
+        firsts = self.sampler.sample(logits, rids,
+                                     idxs).cpu().numpy()     # syncs
         t = _resolve_now(now)          # after the sync: TTFT covers prefill
         self.prefill_tokens += plen * len(chunk)
         for row, req in enumerate(chunk):
@@ -435,7 +454,12 @@ class ContinuousEngine:
             np.where(active, self._tok, 0)[:, None]).to(self.device)
         pos = torch.from_numpy(np.where(active, self.pool.pos, 0)
                                .astype(np.int64)).to(self.device)
-        nxt = self._device_step(tokens, pos).cpu().numpy()     # syncs
+        rids = torch.from_numpy(np.where(active, self._rid, 0)
+                                .astype(np.int32)).to(self.device)
+        idxs = torch.from_numpy(np.where(active, self._idx, 0)
+                                .astype(np.int32)).to(self.device)
+        nxt = self._device_step(tokens, pos, rids,
+                                idxs).cpu().numpy()            # syncs
         t = _resolve_now(now)        # after the sync: latency covers decode
         self.steps += 1
         self.decode_tokens += n_active
@@ -493,14 +517,16 @@ class ContinuousEngine:
 
 def reference_generate(model, params, prompt: np.ndarray,
                        max_new_tokens: int, cache_len: int,
-                       gaps: Optional[List[float]] = None) -> List[int]:
+                       gaps: Optional[List[float]] = None,
+                       tops: Optional[List[float]] = None) -> List[int]:
     """Single-request greedy decoding — the runtime's ground truth.
 
     Exact-length batch-1 prefill followed by one decode step per token, the
     same code path a continuous slot takes, with nothing else in the batch.
     Runs on the device the params live on. When ``gaps`` is a list, the
     top-2 logit gap of every step is appended to it (how close each greedy
-    pick was to a tie).
+    pick was to a tie); when ``tops`` is a list, the top logit of every
+    step (the magnitude that sets the rounding of that gap).
     """
     device = params["client"]["embed"].device
     tokens = torch.as_tensor(np.asarray(prompt)[None], device=device)
@@ -510,9 +536,12 @@ def reference_generate(model, params, prompt: np.ndarray,
     posv = torch.tensor([pos], device=device)
     for i in range(max_new_tokens):
         row = logits.reshape(-1)
-        if gaps is not None:
+        if gaps is not None or tops is not None:
             top2 = torch.topk(row, 2).values
-            gaps.append(float(top2[0] - top2[1]))
+            if gaps is not None:
+                gaps.append(float(top2[0] - top2[1]))
+            if tops is not None:
+                tops.append(float(top2[0]))
         toks.append(int(torch.argmax(row)))
         if i == max_new_tokens - 1:
             break

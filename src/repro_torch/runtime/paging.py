@@ -1,6 +1,6 @@
 """Paged KV cache: fixed-size pages, free-list pool, per-request tables
-(port of :mod:`repro.runtime.paging`, without the speculative-decoding
-fork API, which waits for the speculative engine).
+(port of :mod:`repro.runtime.paging`, with its speculative-window fork
+API).
 
 KV storage is one physical buffer of ``num_pages`` fixed-size pages
 (``page_size`` tokens each, every layer's K and V for those positions); a
@@ -23,7 +23,7 @@ plain PyTorch version on the CPU. The page tables live host-side
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -98,6 +98,13 @@ class PagePool:
         self.page_alloc_count = 0
         self.page_release_count = 0
         self.peak_pages = 0
+        # Speculative-window forks: slot -> {"pages": [...], "shared": n}.
+        # A fork copies the row's table (the first ``shared`` entries are
+        # the refcounted pages the main table also holds) and grows with
+        # fork-private pages the draft window writes into; commit moves
+        # the accepted prefix into the main table, rollback frees only
+        # the private tail. At most one fork per row.
+        self._forks: Dict[int, Dict[str, Any]] = {}
 
     # ----- row lifecycle (KVCachePool surface) -----
     @property
@@ -128,6 +135,10 @@ class PagePool:
     def release(self, slot: int) -> None:
         if slot not in self._live:
             raise ValueError(f"releasing row {slot} that is not live")
+        if slot in self._forks:
+            # mid-window preemption/eviction: roll the draft fork back
+            # first so only the row's committed pages are returned below
+            self.release_fork(slot)
         self._live.remove(slot)
         self._free.append(slot)
         self.release_count += 1
@@ -139,9 +150,14 @@ class PagePool:
         self.pos[slot] = 0
 
     def check_no_leaks(self) -> None:
-        """Rows and physical pages each partition exactly into free +
-        held, the scratch page never circulates, and the counters
-        balance."""
+        """Rows and physical pages each partition exactly into free + held.
+
+        A page may appear in two tables only under the refcounting the
+        speculative fork introduces: a live fork's shared prefix aliases
+        its own row's main table (and nothing else). Everything past a
+        fork's shared prefix is fork-private and must not appear in any
+        main table; alloc/release counters balance against *physical*
+        pages (forking a page is not an allocation)."""
         if self.num_free + self.num_live != self.num_slots:
             raise RuntimeError(
                 f"row leak: {self.num_free} free + {self.num_live} live "
@@ -151,15 +167,36 @@ class PagePool:
         held = [p for t in self._tables for p in t]
         if len(set(held)) != len(held):
             raise RuntimeError("page held by two rows")
-        if len(self._free_pages) + len(held) != self.num_pages:
+        main_set = set(held)
+        private: List[int] = []
+        for slot, f in self._forks.items():
+            if slot not in self._live:
+                raise RuntimeError(f"fork on non-live row {slot}")
+            pages, shared = f["pages"], f["shared"]
+            if pages[:shared] != self._tables[slot][:shared]:
+                raise RuntimeError(
+                    f"fork of row {slot} shares pages its main table "
+                    f"does not hold (refcount mismatch)")
+            # while a fork is live its private tail must stay out of
+            # every main table (commit_fork transfers ownership and
+            # drops the fork in the same move)
+            if set(pages[shared:]) & main_set:
+                raise RuntimeError(
+                    f"fork-private page of row {slot} also held by a "
+                    f"main table (missing refcount)")
+            private.extend(pages[shared:])
+        held_all = held + private
+        if len(self._free_pages) + len(held_all) != self.num_pages:
             raise RuntimeError(
                 f"page leak: {len(self._free_pages)} free + "
-                f"{len(held)} held != {self.num_pages} pages")
-        if set(self._free_pages) & set(held):
+                f"{len(held_all)} held != {self.num_pages} pages")
+        if set(self._free_pages) & set(held_all):
             raise RuntimeError("page both free and held")
-        if self.scratch_page in set(self._free_pages) | set(held):
+        if len(set(private)) != len(private):
+            raise RuntimeError("page private to two forks")
+        if self.scratch_page in set(self._free_pages) | set(held_all):
             raise RuntimeError("scratch page entered circulation")
-        if self.page_alloc_count - self.page_release_count != len(held):
+        if self.page_alloc_count - self.page_release_count != len(held_all):
             raise RuntimeError("page alloc/release counters out of balance")
 
     # ----- page growth -----
@@ -182,6 +219,90 @@ class PagePool:
             self.page_alloc_count += 1
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
         return True
+
+    # ----- speculative-window table forks -----
+    def fork_table(self, slot: int) -> None:
+        """Fork ``slot``'s page table for a draft window.
+
+        The fork is a copy of the table, not of any KV: its leading
+        entries alias (refcount) the pages the main table holds, and
+        :meth:`fork_extend` grows it with fork-private pages for the
+        window's speculative positions. Exactly one fork per row; it ends
+        in :meth:`commit_fork` (accept a prefix) or :meth:`release_fork`
+        (full rollback — also taken when a forked row is released)."""
+        if slot not in self._live:
+            raise ValueError(f"forking row {slot} that is not live")
+        if slot in self._forks:
+            raise RuntimeError(f"row {slot} already has a live fork")
+        table = self._tables[slot]
+        self._forks[slot] = {"pages": list(table), "shared": len(table)}
+
+    def fork_extend(self, slot: int, last_pos: int) -> int:
+        """Grow ``slot``'s fork to cover writes up to ``last_pos``.
+
+        Allocates fork-private pages until logical page ``last_pos //
+        page_size`` is covered, stopping early (no eviction from here —
+        the engine shrinks the draft window instead) when the free list
+        runs dry or the row's logical capacity is reached. Returns the
+        highest position the fork can hold, which may be below
+        ``last_pos``."""
+        f = self._forks[slot]
+        pages = f["pages"]
+        need = min(int(last_pos) // self.page_size,
+                   self.max_pages_per_slot - 1)
+        while len(pages) <= need and self._free_pages:
+            pages.append(self._free_pages.pop())
+            self.page_alloc_count += 1
+        self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        return len(pages) * self.page_size - 1
+
+    def fork_row(self, slot: int) -> np.ndarray:
+        """The fork's fixed-width table row for the verify step's upload:
+        ``max_pages_per_slot + 1`` entries, scratch-padded, with the last
+        column always scratch so out-of-window lanes (q_pos ==
+        max_pages_per_slot * page_size) write and read there."""
+        row = np.full(self.max_pages_per_slot + 1, self.scratch_page,
+                      np.int32)
+        pages = self._forks[slot]["pages"]
+        row[:len(pages)] = pages
+        return row
+
+    def commit_fork(self, slot: int, new_pos: int) -> None:
+        """Accept a verified prefix: the fork's pages covering positions
+        ``< new_pos`` transfer into the main table (ownership moves — no
+        allocation, no copy), the rejected tail's fork-private pages go
+        back to the free list, and the shared prefix drops its extra
+        reference. Advances ``pos[slot]``."""
+        f = self._forks.pop(slot)
+        pages = f["pages"]
+        table = self._tables[slot]
+        need = (-(-int(new_pos) // self.page_size)
+                if new_pos > 0 else 0)
+        need = max(min(need, len(pages)), len(table))
+        for i in range(len(table), need):
+            self.tables_np[slot, i] = pages[i]
+            table.append(pages[i])
+        for pid in pages[need:]:
+            self._free_pages.append(pid)
+            self.page_release_count += 1
+        self.pos[slot] = int(new_pos)
+
+    def release_fork(self, slot: int) -> None:
+        """Roll a draft window back entirely: free only the fork-private
+        pages; the shared prefix stays with the main table untouched."""
+        f = self._forks.pop(slot)
+        for pid in f["pages"][f["shared"]:]:
+            self._free_pages.append(pid)
+            self.page_release_count += 1
+
+    @property
+    def forked_rows(self) -> int:
+        return len(self._forks)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages currently referenced by both a main table and a fork."""
+        return sum(f["shared"] for f in self._forks.values())
 
     # ----- device-side placement -----
     def insert(self, src_cache, slot: int, length: int,
@@ -210,23 +331,29 @@ class PagePool:
         table.extend(ids)
         self.tables_np[slot, :n_pages] = ids
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        self._scatter(self.buffers, src_cache, ids, row)
+        self.pos[slot] = length
+
+    def _scatter(self, buffers, src_cache, ids: List[int], row: int) -> None:
+        """Copy row ``row`` of a prefilled cache into pages ``ids`` of
+        ``buffers`` (this pool's, or a separate-arch draft's over the same
+        page-id space), in place."""
         page_ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        p = self.page_size
-        for leaf, src in zip(tree_leaves(self.buffers),
-                             tree_leaves(src_cache)):
+        n_pages, p = len(ids), self.page_size
+        for leaf, src in zip(tree_leaves(buffers), tree_leaves(src_cache)):
             # src: (layers, batch, cache_len, heads, head_dim) with
             # cache_len == n_pages * page_size (prefill rounds up).
             chunk = src[:, row, :n_pages * p]
             layers, _, heads, hd = chunk.shape
             leaf[:, page_ids] = chunk.reshape(layers, n_pages, p, heads, hd)
-        self.pos[slot] = length
 
     # ----- memory accounting -----
     def cache_stats(self) -> dict:
         """Same schema as ``repro``'s ``PagePool.cache_stats``, ``kind ==
-        "page"``; ``capacity_bytes`` excludes the scratch page. The port
-        has no speculative forks yet, so ``forked_rows`` and
-        ``shared_pages`` are always 0."""
+        "page"``; ``capacity_bytes`` excludes the scratch page.
+        ``pages_in_use`` counts physical pages, so a page shared between a
+        main table and a live speculative fork is charged once; the
+        sharing itself is reported as ``shared_pages``/``forked_rows``."""
         used = int(sum(int(self.pos[s]) for s in self._live))
         allocated = self.pages_in_use * self.page_size
         peak_alloc = self.peak_pages * self.page_size
@@ -241,8 +368,8 @@ class PagePool:
             "fragmentation": (1.0 - used / allocated) if allocated else 0.0,
             "pages_in_use": self.pages_in_use,
             "peak_pages_in_use": self.peak_pages,
-            "forked_rows": 0,
-            "shared_pages": 0,
+            "forked_rows": self.forked_rows,
+            "shared_pages": self.shared_pages,
         }
 
     def reset(self) -> None:
@@ -255,24 +382,29 @@ class PagePool:
         self._tables = [[] for _ in range(self.num_slots)]
         self.tables_np[:, :] = self.scratch_page
         self.peak_pages = 0
+        self._forks = {}
 
 
 class _PageBudgeter:
     """Admission budget in pages (the GPSL invariant, page-denominated).
 
     A candidate is admissible while a row is free AND, after charging its
-    prompt pages, the free list still holds one page for every request
-    that will be active — the worst case of the next decode step (each
-    active row crossing a page boundary at once). The budgeter tracks its
+    prompt pages, the free list still holds ``growth_per_active`` pages
+    for every request that will be active — the worst case of the next
+    decode step (each active row crossing a page boundary at once; the
+    speculative engine passes the window's worst case instead, since one
+    of its steps writes gamma+1 positions per row). The budgeter tracks its
     own reservations so several admissions in one scheduler iteration
     stay jointly covered.
     """
 
-    def __init__(self, pool: PagePool, active_now: int):
+    def __init__(self, pool: PagePool, active_now: int,
+                 growth_per_active: int = 1):
         self._rows = pool.num_free
         self._pages = pool.num_free_pages
         self._active = active_now
         self._page_size = pool.page_size
+        self._growth = int(growth_per_active)
 
     def can_take(self, req: ServeRequest) -> bool:
         need = -(-int(req.prompt.shape[0]) // self._page_size)
@@ -282,9 +414,10 @@ class _PageBudgeter:
             # progress guarantee: an idle engine admits any fitting
             # prompt even when the growth reserve cannot be met (tiny
             # pools otherwise livelock — nobody active, nobody ever
-            # admissible); the eviction valve covers later pressure
+            # admissible); the eviction valve and the speculative
+            # window shrink cover later pressure
             return True
-        return self._pages - need >= self._active + 1
+        return self._pages - need >= (self._active + 1) * self._growth
 
     def take(self, req: ServeRequest) -> None:
         self._rows -= 1
@@ -307,16 +440,25 @@ class PagedEngine(ContinuousEngine):
                  seed: int = 0, model=None, sampling=None,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  device="cuda"):
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                "sliding-window caches are fixed-size rings; the paged "
-                "pool only pays off for caches that grow with context")
         self.page_size = int(page_size)
         self.num_pages = num_pages
         self._evicted: List[ServeRequest] = []
         super().__init__(cfg, params=params, num_slots=num_slots,
                          slot_len=slot_len, seed=seed, model=model,
                          sampling=sampling, device=device)
+
+    @staticmethod
+    def _check_family(cfg) -> None:
+        ContinuousEngine._check_family(cfg)
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                "ssm/hybrid families carry recurrent state, not a KV "
+                "ring — there is nothing to page; serve them with the "
+                "continuous engine")
+        if cfg.sliding_window:
+            raise NotImplementedError(
+                "sliding-window caches are fixed-size rings; the paged "
+                "pool only pays off for caches that grow with context")
 
     def _make_pool(self, num_slots: int, slot_len: int) -> PagePool:
         return PagePool(self.model, num_slots, slot_len,
@@ -332,11 +474,11 @@ class PagedEngine(ContinuousEngine):
         return self.model.prefill(self.params, {"tokens": tokens},
                                   cache_len=self._page_rounded(plen))
 
-    def _device_step(self, tokens, pos):
+    def _device_step(self, tokens, pos, rids, idxs):
         tables = torch.from_numpy(self.pool.tables_np).to(self.device)
         logits, _ = self.model.decode_step_paged(
             self.params, self.pool.buffers, tokens, pos, tables)
-        return self.sampler.sample(logits[:, -1])
+        return self.sampler.sample(logits[:, -1], rids, idxs)
 
     def admission_budgeter(self) -> _PageBudgeter:
         return _PageBudgeter(self.pool, self.num_active())

@@ -20,7 +20,15 @@ class TokenSampler:
                 f"sampling.method={self.method!r} is not ported to "
                 f"repro_torch yet; only greedy decoding is (see ROADMAP.md)")
 
-    def sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy pick: (B, V) logits -> (B,) int32 argmax (first index on
-        ties, as ``jnp.argmax``)."""
+    @property
+    def greedy(self) -> bool:
+        return self.method == "greedy"
+
+    def sample(self, logits: torch.Tensor, rids: torch.Tensor,
+               idxs: torch.Tensor) -> torch.Tensor:
+        """One token per row: (B, V) logits, (B,) request ids and 0-based
+        output token indices -> (B,) int32. Greedy ignores the keys and
+        takes the argmax (first index on ties, as ``jnp.argmax``); the keys
+        are the (rid, token index) a sampled draw would fold into its
+        seed, as in ``repro``."""
         return torch.argmax(logits, dim=-1).to(torch.int32)

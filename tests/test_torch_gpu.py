@@ -8,7 +8,9 @@ and repro_torch, so they run on a machine without JAX:
 Each kernel is held against its plain version on the same inputs: float32
 at atol 2e-5 (sums in another order; 2e-4 for the cross-entropy values,
 sums over the whole vocab), bfloat16 at atol/rtol 2e-2 (one rounding of
-the output; sums in another order).
+the output; sums in another order). The selective scan (fp32 outputs in
+every case) is held at SCAN_TOL: both compute the same unfused fp32
+products in the same order, y summed over the states in index order.
 """
 import pytest
 import torch
@@ -17,11 +19,14 @@ from repro_torch import api
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.spec_verify import spec_verify_plain
+from repro_torch.kernels.ssm_scan import ssm_scan_plain
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 @pytest.fixture
@@ -212,3 +217,168 @@ def test_reduced_train_step_on_the_card(dev):
     assert metrics["tokens"] == 8 * 32 and state.step == 1
     assert counts["flash_attention"] == counts["flash_attention_bwd"] == 2
     assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 1
+
+
+# --- serving kernels of slice 3 (B3 spec-verify, B4 selective scan) --------
+
+def _verify_case(gen, dev, dtype, b, w, hq, hc, d, psize, m, wlens):
+    """Pages, permuted tables with an always-scratch last column, and
+    per-lane positions: row r's window has wlens[r] + 1 live lanes from a
+    random start (row 0 starts two keys before a page boundary); the
+    other lanes point at the scratch column, as the engine builds them."""
+    num_pages = b * (m - 1) + 1
+    q = _randn(gen, (b, w, hq, d), dtype, dev)
+    kp = _randn(gen, (num_pages, psize, hc, d), dtype, dev)
+    vp = _randn(gen, (num_pages, psize, hc, d), dtype, dev)
+    table = torch.full((b, m), num_pages - 1, dtype=torch.int32, device=dev)
+    table[:, :m - 1] = torch.randperm(num_pages - 1, generator=gen,
+                                      device=dev).reshape(b, m - 1)
+    scratch = (m - 1) * psize
+    q_pos = torch.full((b, w), scratch, dtype=torch.int32, device=dev)
+    starts = torch.randint(0, scratch - w, (b,), generator=gen, device=dev)
+    starts[0] = psize - 2
+    for r in range(b):
+        n = wlens[r] + 1
+        q_pos[r, :n] = starts[r] + torch.arange(n, device=dev)
+    return q, kp, vp, table, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,hq,hc,d,psize,m,wlens", [
+    (8, 5, 32, 16, 64, 16, 9, [4] * 8),            # full-width verify
+    (4, 5, 32, 16, 64, 16, 9, [4, 2, 0, 3]),       # ragged windows
+    (3, 8, 8, 2, 32, 4, 12, [7, 1, 5]),            # 2 row groups, tiny pages
+    (2, 16, 16, 1, 128, 7, 8, [15, 9]),            # widest: 16 groups
+    (2, 3, 8, 8, 16, 16, 4, [2, 2]),               # rep 1, small head_dim
+])
+def test_spec_verify_kernel_matches_plain(dev, dtype, b, w, hq, hc, d, psize,
+                                          m, wlens):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, kp, vp, table, q_pos = _verify_case(gen, dev, dtype, b, w, hq, hc, d,
+                                           psize, m, wlens)
+    before = ops.spec_verify.launches
+    got = ops.spec_verify(q, kp, vp, table, q_pos)
+    want = spec_verify_plain(q, kp, vp, table, q_pos)
+    torch.cuda.synchronize()
+    assert ops.spec_verify.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_token_verify_equals_the_paged_kernel(dev, dtype):
+    """W = 1 runs B2's arithmetic step for step: bitwise equal to B2."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, kp, vp, table, q_pos = _verify_case(gen, dev, dtype, 8, 1, 32, 16,
+                                           64, 16, 9, [0] * 8)
+    got = ops.spec_verify(q, kp, vp, table, q_pos)
+    want = ops.paged_attention(q[:, 0].contiguous(), kp, vp, table,
+                               q_pos[:, 0].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], want)
+
+
+def test_spec_verify_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 17, 4, 16), device=dev)            # W > 16
+    pages = torch.zeros((3, 4, 2, 16), device=dev)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        ops.spec_verify(q, pages, pages, table,
+                        torch.zeros((1, 17), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="int32"):
+        ops.spec_verify(q[:, :2].contiguous(), pages, pages, table,
+                        torch.zeros((1, 2), dtype=torch.int64, device=dev))
+
+
+def _scan_case(gen, dev, dtype, b, l, d, n):
+    x = _randn(gen, (b, l, d), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, d), generator=gen, device=dev) - 1.0)
+    a = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev,
+                                          dtype=torch.float32))
+                   .expand(d, n) + 0.1 * torch.randn(
+                       (d, n), generator=gen, device=dev))
+    bm = _randn(gen, (b, l, n), dtype, dev)
+    cm = _randn(gen, (b, l, n), dtype, dev)
+    return x, dt, a.contiguous(), bm, cm
+
+
+@pytest.mark.parametrize("dtype,b,l,d,n", [
+    (torch.bfloat16, 8, 100, 8192, 16),     # full-width falcon-mamba prefill
+    (torch.float32, 3, 37, 200, 16),        # ragged L and D tile
+    (torch.float32, 2, 33, 256, 8),         # reduced N, L past one chunk
+    (torch.float32, 1, 5, 130, 5),          # N not a power of two
+    (torch.bfloat16, 2, 40, 128, 64),       # widest state
+])
+def test_ssm_scan_kernel_matches_plain(dev, dtype, b, l, d, n):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dt, a, bm, cm = _scan_case(gen, dev, dtype, b, l, d, n)
+    before = ops.selective_scan.launches
+    y, h = ops.selective_scan(x, dt, a, bm, cm)
+    py, ph = ssm_scan_plain(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ops.selective_scan.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, py, **SCAN_TOL)
+    torch.testing.assert_close(h, ph, **SCAN_TOL)
+
+
+def test_selective_scan_raises_under_grad_on_the_card(dev):
+    """No backward kernel yet: a CUDA input that requires grad raises
+    instead of returning a result without a grad_fn."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, dt, a, bm, cm = _scan_case(gen, dev, torch.float32, 1, 8, 128, 8)
+    before = ops.selective_scan.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.selective_scan(x.requires_grad_(True), dt, a, bm, cm)
+    assert ops.selective_scan.launches == before
+    with torch.no_grad():
+        y, _ = ops.selective_scan(x, dt, a, bm, cm)
+    assert y.grad_fn is None
+    with pytest.raises(ValueError, match="state size"):
+        ops.selective_scan(x.detach(), dt, torch.zeros((128, 65), device=dev),
+                           torch.zeros((1, 8, 65), device=dev),
+                           torch.zeros((1, 8, 65), device=dev))
+
+
+def test_reduced_speculative_serve_on_the_card(dev):
+    """Float32 reduced granite through the speculative engine on the card:
+    every request equals single-request decoding, no page leaks, and the
+    verify step ran B3 once per layer per window step."""
+    spec = api.ServeSpec(
+        model=api.ModelSpec(arch="granite-3-2b", reduced=True),
+        engine=api.EngineSpec(name="speculative"),
+        workload=api.WorkloadSpec(num_requests=6, prompt_lens=[5, 17, 33],
+                                  max_new_tokens=[4, 9]),
+        clock=api.ClockSpec(kind="virtual"),
+        cache=api.CacheSpec(page_size=8),
+        draft=api.DraftSpec(num_layers=1, gamma=3),
+        report=api.ReportSpec(verify=-1))
+    ctx = api.build_serve_context(spec)
+    ops.reset_launches()
+    report = api.run_serve(spec, ctx=ctx)
+    counts = ops.launch_counts()
+    assert report.verified["checked"] == 6
+    ctx.engine.pool.check_no_leaks()
+    layers = ctx.model.cfg.num_layers
+    assert counts["spec_verify"] == layers * report.steps > 0
+    assert counts["paged_attention"] == ctx.engine.draft_steps > 0
+
+
+def test_reduced_falcon_mamba_serve_on_the_card(dev):
+    """Float32 reduced falcon-mamba through the continuous engine on the
+    card: every request equals single-request decoding and each prefill
+    ran B4 once per layer."""
+    spec = api.ServeSpec(
+        model=api.ModelSpec(arch="falcon-mamba-7b", reduced=True),
+        engine=api.EngineSpec(name="continuous"),
+        workload=api.WorkloadSpec(num_requests=6, prompt_lens=[5, 17, 33],
+                                  max_new_tokens=[4, 9]),
+        clock=api.ClockSpec(kind="virtual"),
+        report=api.ReportSpec(verify=-1))
+    ops.reset_launches()
+    report = api.run_serve(spec)
+    counts = ops.launch_counts()
+    assert report.verified["checked"] == 6
+    assert counts["selective_scan"] > 0
+    assert counts["selective_scan"] % 2 == 0          # 2 layers a prefill
+    assert counts["flash_attention"] == counts["paged_attention"] == 0

@@ -139,9 +139,19 @@ def test_cpu_wrappers_do_not_count_launches():
     nll, _, _ = ops.cross_entropy(h, h[:16].T.contiguous(),
                                   torch.zeros(36, dtype=torch.int32))
     torch.autograd.grad(nll.sum() + ops.attention(qg, qg, qg).sum(), qg)
+    # and the serving wrappers of B3 and B4
+    ops.spec_verify(q[:, :2].contiguous(), q.reshape(9, 1, 4, 16),
+                    q.reshape(9, 1, 4, 16),
+                    torch.zeros((1, 2), dtype=torch.int32),
+                    torch.zeros((1, 2), dtype=torch.int32))
+    x = q.reshape(1, 9, 64)
+    ops.selective_scan(x, x.abs(), -torch.ones((64, 4)), x[:, :, :4],
+                       x[:, :, 4:8])
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "paged_attention": 0,
+                                   "spec_verify": 0,
+                                   "selective_scan": 0,
                                    "cross_entropy": 0,
                                    "cross_entropy_bwd": 0}
 

@@ -205,7 +205,7 @@ def test_bridge_round_trip_is_bitwise(tmp_path):
             np.testing.assert_array_equal(a, b.numpy())
 
 
-@pytest.mark.parametrize("family_arch", ["falcon-mamba-7b", "whisper-tiny",
+@pytest.mark.parametrize("family_arch", ["zamba2-2.7b", "whisper-tiny",
                                          "granite-moe-3b-a800m"])
 def test_other_families_raise_not_implemented(family_arch):
     cfg = jget(family_arch, reduced=True)

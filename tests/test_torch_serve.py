@@ -110,7 +110,9 @@ want = {"repro_torch.core.psl", "repro_torch.core.sampling",
         "repro_torch.optim.optimizers", "repro_torch.data.federated",
         "repro_torch.kernels.cross_entropy", "repro_torch.api.loop",
         "repro_torch.api.protocols", "repro_torch.launch.train",
-        "repro_torch.launch.distributed"}
+        "repro_torch.launch.distributed", "repro_torch.runtime.spec_decode",
+        "repro_torch.kernels.spec_verify", "repro_torch.kernels.ssm_scan",
+        "repro_torch.configs.falcon_mamba_7b"}
 assert want <= set(mods), sorted(want - set(mods))
 print(len(mods), bad)
 assert not bad, bad
@@ -129,11 +131,18 @@ def test_default_device_raises_without_cuda():
     spec = _spec(tapi)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.run_serve(spec)
-    from repro_torch.runtime import ContinuousEngine, PagedEngine
+    from repro_torch.runtime import (ContinuousEngine, PagedEngine,
+                                     SpeculativeEngine)
     cfg = tapi.build_model(spec.model).cfg
     for cls in (ContinuousEngine, PagedEngine):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(cfg, num_slots=2, slot_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeculativeEngine(cfg, num_slots=2, slot_len=16,
+                          draft=tapi.DraftSpec(num_layers=1))
+    ssm = tapi.build_model(tapi.ModelSpec(arch="falcon-mamba-7b")).cfg
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousEngine(ssm, num_slots=2, slot_len=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cli.main(["--requests", "2"])
 
@@ -146,7 +155,7 @@ def test_serve_cli_on_cpu_and_unported_flags(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[paged] 6 requests" in out
     assert "verified token-identical: 6 requests" in out
-    for flag in ("--static", "--speculative", "--sample"):
+    for flag in ("--static", "--sample"):
         with pytest.raises(SystemExit) as exc:
             serve_cli.main([flag])
         assert exc.value.code == 2
