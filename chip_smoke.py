@@ -7,12 +7,18 @@ Runs from the repository root, on one CUDA card, and imports nothing of
 JAX or of the JAX package. Phases (any failure exits non-zero):
 
 1. Build. Every CUDA source of the port (``src/repro_torch/csrc``) is
-   compiled for sm_90a, one ``nvcc`` per source, all at once.
+   compiled for sm_90a, one ``nvcc`` per source, all at once; the SASS
+   of the two tensor-core libraries (flash_attention, cross_entropy) must
+   hold HGMMA (wgmma) instructions, counted with ``cuobjdump -sass``.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
    (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call (``library_ms``; the port never calls it).
+   that call (``library_ms``; the port never calls it). B1 is also held
+   and timed at the training shape (B = 16, S = 128) with its lse; B1 and
+   the B5 backward print their achieved TFLOP/s and share of the bound
+   (``bound_ms / ms``); B1 also its device time from torch.profiler
+   (``device_ms``), since small calls are bound by the host.
    The speculative-verify kernel (B3) is held against its plain version at
    the speculative run's geometry (bf16 and a ragged fp32 batch), and with
    a one-token window against the B2 kernel (bitwise); the selective scan
@@ -53,12 +59,14 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    ``TRAIN_STEPS`` steps. The launch counts are set to 0 just before and
    read just after: B1 and B1-bwd must have run 40 times a step, B5 and
    B5-bwd once. Every loss and grad norm must be finite.
-7. Gradient agreement. Full width at 4 layers (cut 2) on one plan batch:
-   every leaf's gradient through the kernels against the same loss with
-   ``ops.attention`` and ``ops.cross_entropy`` swapped, for that one
-   reference run, for their plain versions (relative L2 error <=
-   ``GRAD_REL_L2``); then the loss on one fixed batch must fall at each
-   of 5 AdamW steps.
+7. Gradient agreement. Full width at 4 layers (cut 2) on one plan batch,
+   the stacked weights rescaled to fan-in d_in (``rescale_to_fan_in``
+   says why): every leaf's gradient through the kernels against the same
+   loss with ``ops.attention`` and ``ops.cross_entropy`` swapped, for
+   that one reference run, for their plain versions (relative L2 error
+   <= ``GRAD_REL_L2``); the attention backward fed lse +
+   ``PLANTED_ATTN_LSE_SHIFT`` must fail that limit; then the loss on one
+   fixed batch must fall at each of 5 AdamW steps.
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
@@ -93,12 +101,19 @@ NEAR_TIE_GAP = 0.0625
 # bf16 gradient is rounded once (one ulp is 2^-8 relative); 2e-2 of a
 # leaf's L2 norm leaves room for that rounding and nothing else.
 GRAD_REL_L2 = 2e-2
+# The check's 4-layer model is rescaled to fan-in d_in (see
+# rescale_to_fan_in), and a planted fault, the attention backward fed
+# lse + PLANTED_ATTN_LSE_SHIFT (its gradients ~5% small), must fail it.
+PLANTED_ATTN_LSE_SHIFT = 0.05
 TRAIN_STEPS = 4
 # B5 at the training shape. The forward's nll and lse are fp32 sums of the
 # same products in kernel and plain version, in another order: fp32
 # tolerance. A token whose argmax-is-label verdicts disagree must be a
 # near-tie: its label's logit within XENT_TIE of the row's largest.
 XENT_FP32_TOL = dict(atol=2e-4, rtol=1e-4)
+# B1's lse against the plain version's: fp32 sums of the same products in
+# another order, exp2 in the kernel against exp in the plain version.
+LSE_TOL = dict(atol=1e-3, rtol=1e-4)
 XENT_TIE = 1e-4
 # B5 gradients in fp32 are held elementwise at GRAD_FP32_TOL. In bf16 the
 # one-hot part (g h, g W_y) is orders of magnitude above the softmax part
@@ -163,6 +178,26 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, match: str, iters: int = 20) -> float:
+    """Mean device time a call of the kernels whose names contain
+    ``match``, from torch.profiler: what ``time_ms`` reads when the host
+    issues the calls faster than the card runs them, and less when the
+    host is the slower (small calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if match in evt.key:
+            us = getattr(evt, "self_device_time_total", None)
+            total_us += us if us is not None else evt.self_cuda_time_total
+    return total_us / iters / 1e3
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -193,6 +228,7 @@ def kernel_phase(torch, dev):
 
     b1_cases = []
     hq, hkv, d = 32, 8, 64
+    serve_attention = torch.no_grad()(ops.attention)   # as serving calls it
     for b in (1, 16):
         for s in (100, 512):
             q, k, v = rn(b, s, hq, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
@@ -210,7 +246,7 @@ def kernel_phase(torch, dev):
             case = {
                 "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal",
                 "max_abs_err": err,
-                "ms": time_ms(torch, lambda: ops.attention(q, k, v)),
+                "ms": time_ms(torch, lambda: serve_attention(q, k, v)),
                 "plain_ms": time_ms(torch, lambda: flash_attention_plain(
                     qt, kt, vt, causal=True)),
                 "bound_ms": bnd, "bound_by": by,
@@ -218,11 +254,16 @@ def kernel_phase(torch, dev):
                     torch, lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True)),
             }
+            case["device_ms"] = device_ms(
+                torch, lambda: serve_attention(q, k, v), "flash_fwd_tc")
+            add_rates(case, flops)
             print(f"kernel flash_attention {case['shape']}: err "
                   f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
-                  f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-                  f"bound {bnd:.5f} ms ({by}), sdpa "
-                  f"{case['library_ms']:.4f} ms", flush=True)
+                  f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), "
+                  f"plain {case['plain_ms']:.4f} ms, bound {bnd:.5f} ms "
+                  f"({by}), sdpa {case['library_ms']:.4f} ms; "
+                  f"{case['tflops']:.1f} TFLOP/s, "
+                  f"{case['bound_share']:.3f} of the bound", flush=True)
             b1_cases.append(case)
 
     # B2 at the paged run's geometry: 8 rows, 8 logical pages of 16, a
@@ -262,8 +303,81 @@ def kernel_phase(torch, dev):
           f"{BF16_ATOL}, rtol {BF16_RTOL}); {b2['ms']:.4f} ms, plain "
           f"{b2['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
           flush=True)
-    return b1_cases, b2, verify_kernel_phase(torch, dev, gen), \
-        scan_kernel_phase(torch, dev, gen)
+    b3 = verify_kernel_phase(torch, dev, gen)
+    b4 = scan_kernel_phase(torch, dev, gen)
+    # last: B2-B4 draw their inputs from gen without depending on it
+    b1_cases.append(attention_train_case(torch, dev, gen, rn))
+    return b1_cases, b2, b3, b4
+
+
+def attention_train_case(torch, dev, gen, rn):
+    """B1 at the training shape (B = 16, S = 128, Hq = 32, Hkv = 8,
+    D = 64, causal) with the lse the backward reads, against the plain
+    version's output and lse, timed beside it and the SDPA forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    b, hq, hkv, d = (ATTN_SHAPE[k] for k in ("b", "hq", "hkv", "d"))
+    s = ATTN_SHAPE["seqs"][0]
+    qt, kt, vt = (rn(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv))
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    got = flash_attention(qt, kt, vt, causal=True, lse=lse)   # uncounted
+    want, want_lse = flash_attention_plain(qt, kt, vt, causal=True,
+                                           with_lse=True)
+    torch.cuda.synchronize()
+    err = within(torch, got, want)
+    lse_err = within_tol(torch, lse, want_lse, "flash_attention lse",
+                         **LSE_TOL)
+    flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
+    bnd, by = bound_ms(2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+                       + 4 * b * hq * s, flops)
+    case = {
+        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal, with lse "
+                 f"(training)",
+        "max_abs_err": err, "lse_max_abs_err": lse_err,
+        "ms": time_ms(torch, lambda: flash_attention(qt, kt, vt, lse=lse)),
+        "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+            qt, kt, vt, causal=True, with_lse=True)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "device_ms": device_ms(
+            torch, lambda: flash_attention(qt, kt, vt, lse=lse),
+            "flash_fwd_tc"),
+    }
+    add_rates(case, flops)
+    print(f"kernel flash_attention {case['shape']}: err {err:.3g}, lse err "
+          f"{lse_err:.3g} (atol {LSE_TOL['atol']}, rtol {LSE_TOL['rtol']}); "
+          f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), plain "
+          f"{case['plain_ms']:.4f} ms, bound "
+          f"{bnd:.5f} ms ({by}), sdpa {case['library_ms']:.4f} ms; "
+          f"{case['tflops']:.1f} TFLOP/s, {case['bound_share']:.3f} of the "
+          f"bound", flush=True)
+    return case
+
+
+def add_rates(case, flops: float) -> None:
+    """Achieved TFLOP/s and the share of the bound (bound_ms / ms)."""
+    case["tflops"] = flops / (case["ms"] * 1e-3) / 1e12
+    case["bound_share"] = case["bound_ms"] / case["ms"]
+
+
+def hgmma_counts(names=("flash_attention", "cross_entropy")):
+    """HGMMA (wgmma) instructions in the SASS of each built library."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"HGMMA instructions in the SASS: {counts}", flush=True)
+    if min(counts.values()) < 1:
+        fail(f"a tensor-core library holds no HGMMA instruction: {counts}")
+    return counts
 
 
 def verify_case(torch, dev, gen, dtype, w, wlens, starts):
@@ -832,12 +946,15 @@ def xent_case(torch, dev, gen, dtype, timed: bool):
         "bound_ms": bnd_b, "bound_by": by_b,
         "library_ms": time_ms(torch, lambda: torch.autograd.grad(
             lib_loss, (hl, wl), retain_graph=True), iters=5, warmup=1)})
+    add_rates(bwd_case, 3 * flops)
     for kname, c in (("cross_entropy", fwd),
                      ("cross_entropy_bwd", bwd_case)):
+        rates = (f"; {c['tflops']:.1f} TFLOP/s, {c['bound_share']:.3f} of "
+                 f"the bound" if "tflops" in c else "")
         print(f"kernel {kname} {c['shape']}: err {c['max_abs_err']:.3g}; "
               f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
               f"{c['bound_ms']:.5f} ms ({c['bound_by']}), library "
-              f"{c['library_ms']:.4f} ms", flush=True)
+              f"{c['library_ms']:.4f} ms{rates}", flush=True)
     return fwd, bwd_case
 
 
@@ -1060,21 +1177,36 @@ def profile_step(torch, ctx, pstate):
     return out
 
 
-def grad_agreement_phase(torch, dev):
-    """Kernel-path gradients against the plain path's, full width at 4
-    layers; then the loss on one fixed batch falls over 5 AdamW steps."""
+def rescale_to_fan_in(torch, params) -> None:
+    """Multiply every stacked per-layer matrix (L, d_in, d_out) by
+    sqrt(L / d_in), in place: the std of fan-in d_in instead of the
+    stack's layer count L, which is what the model's init takes as the
+    fan-in of a stacked leaf (as repro's does). At 4 layers that init
+    gives weights of std 0.5, attention scores near 5,000 and softmaxes
+    that are near-argmaxes, where the gradient is not defined to better
+    than ~80%: the plain path's own gradients move by a median per-leaf
+    relative L2 of 0.70 when its fp32 scores are computed exactly (fp64,
+    then rounded) and of 0.80 in TF32 (tools/grad_conditioning.py), so
+    there only score sums bitwise equal to the plain version's fp32
+    product could agree. Rescaled, the scores are O(1)."""
+    import math
+    from repro_torch.models.layers import tree_leaves
+    with torch.no_grad():
+        for leaf in tree_leaves(params):
+            if leaf.dim() == 3:
+                leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[1]))
+
+
+def grad_check_setup(torch, dev, rescale: bool = True):
+    """The gradient check's model, state and batch: full width at 4 layers
+    (cut 2), one UGS plan batch, the weights rescaled to fan-in d_in
+    unless ``rescale`` is false. Returns (ctx, state, batch)."""
     import numpy as np
     from repro_torch import api
     from repro_torch.api.protocols import lm_plan_batches
-    from repro_torch.core.psl import make_train_step, value_and_grad
     from repro_torch.core.sampling import make_plan
-    from repro_torch.kernels import cross_entropy as xent
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.launch.distributed import ShardedPSLEngine
     from repro_torch.launch.train import default_lm_spec
-    from repro_torch.models.layers import tree_leaves
-    from repro_torch.optim import TrainState
 
     spec = api.apply_overrides(default_lm_spec(), [
         "model.overrides.num_layers=4", "model.overrides.cut_layer=2"])
@@ -1087,8 +1219,24 @@ def grad_agreement_phase(torch, dev):
                                             np.int64))))
     engine = ShardedPSLEngine(ctx.model, ctx.optimizer, device=dev)
     state = engine.init_state(spec.seed)
-    batch = engine.put_batch(host)
+    if rescale:
+        rescale_to_fan_in(torch, state.params)
+    return ctx, state, engine.put_batch(host)
 
+
+def grad_agreement_phase(torch, dev):
+    """Kernel-path gradients against the plain path's, full width at 4
+    layers rescaled to fan-in d_in (``rescale_to_fan_in``), and a planted
+    fault in the attention backward that must fail the same limit; then
+    the loss on one fixed batch falls over 5 AdamW steps."""
+    from repro_torch.core.psl import make_train_step, value_and_grad
+    from repro_torch.kernels import cross_entropy as xent
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import TrainState
+
+    ctx, state, batch = grad_check_setup(torch, dev)
     ops.reset_launches()
     (loss, _), grads = value_and_grad(ctx.model.loss_fn, state.params,
                                       batch)
@@ -1112,21 +1260,41 @@ def grad_agreement_phase(torch, dev):
                                                   state.params, batch)
     finally:
         ops.attention, ops.cross_entropy = kernel_attention, kernel_xent
-    rels = {}
-    for name, a, b in zip(_leaf_names(grads), tree_leaves(grads),
-                          tree_leaves(ref_grads)):
-        rels[name] = ((a.float() - b.float()).norm()
-                      / b.float().norm().clamp_min(1e-30)).item()
+
+    def leaf_errors(got):
+        return {name: ((a.float() - b.float()).norm()
+                       / b.float().norm().clamp_min(1e-30)).item()
+                for name, a, b in zip(_leaf_names(got), tree_leaves(got),
+                                      tree_leaves(ref_grads))}
+
+    rels = leaf_errors(grads)
     worst_leaf = max(rels, key=rels.get)
     worst = rels[worst_leaf]
-    print(f"[grads] 4-layer full width: loss kernel {float(loss):.5f} vs "
-          f"plain {float(ref_loss):.5f}; worst per-leaf relative L2 "
-          f"error {worst:.3g} ({worst_leaf}) over {len(rels)} leaves "
-          f"(limit {GRAD_REL_L2}); median "
+    print(f"[grads] 4-layer full width (fan-in d_in): loss kernel "
+          f"{float(loss):.5f} vs plain {float(ref_loss):.5f}; worst "
+          f"per-leaf relative L2 error {worst:.3g} ({worst_leaf}) over "
+          f"{len(rels)} leaves (limit {GRAD_REL_L2}); median "
           f"{sorted(rels.values())[len(rels) // 2]:.3g}", flush=True)
     if not worst <= GRAD_REL_L2:
         fail(f"kernel-path gradients disagree: relative L2 {worst}")
-    del grads, ref_grads
+    kernel_bwd = ops.flash_attention_bwd
+
+    def planted_bwd(q, k, v, out, dout, lse, **kw):
+        return kernel_bwd(q, k, v, out, dout, lse + PLANTED_ATTN_LSE_SHIFT,
+                          **kw)
+    ops.flash_attention_bwd = planted_bwd
+    try:
+        _, planted = value_and_grad(ctx.model.loss_fn, state.params, batch)
+    finally:
+        ops.flash_attention_bwd = kernel_bwd
+    planted_worst = max(leaf_errors(planted).values())
+    print(f"[grads] planted attention-backward lse + "
+          f"{PLANTED_ATTN_LSE_SHIFT} caught: worst per-leaf relative L2 "
+          f"{planted_worst:.3g}", flush=True)
+    if planted_worst <= GRAD_REL_L2:
+        fail(f"a planted lse + {PLANTED_ATTN_LSE_SHIFT} in the attention "
+             f"backward passed the gradient check: {planted_worst}")
+    del grads, ref_grads, planted
 
     step = make_train_step(ctx.model, ctx.optimizer)
     losses = []
@@ -1141,7 +1309,8 @@ def grad_agreement_phase(torch, dev):
     if not all(b < a for a, b in zip(losses, losses[1:])):
         fail(f"the fixed-batch loss did not fall at every step: {losses}")
     return {"worst_rel_l2": worst, "worst_leaf": worst_leaf,
-            "rel_l2_by_leaf": rels, "fixed_batch_losses": losses}
+            "rel_l2_by_leaf": rels, "planted_worst_rel_l2": planted_worst,
+            "fixed_batch_losses": losses}
 
 
 def _leaf_names(tree, prefix=""):
@@ -1177,6 +1346,7 @@ def main() -> int:
                     or "spill" in line:
                 print(line.strip())
     print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
+    hgmma = hgmma_counts()
 
     b1_cases, b2, b3, b4 = kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory() as events_dir:
@@ -1197,7 +1367,8 @@ def main() -> int:
 
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape")
-    b1 = max(b1_cases, key=lambda c: c["bound_ms"])
+    rates = ("tflops", "bound_share")      # from ms, as measured
+    b1 = max(b1_cases, key=lambda c: c["bound_ms"])      # B=16 S=512
     b1b = b1_bwd[0]                      # the training shape, S = 128
     by_path = {name: {"serve_paged": launches["paged"][name],
                       "serve_continuous": launches["continuous"][name],
@@ -1212,7 +1383,9 @@ def main() -> int:
          "launches": train["launches"]["flash_attention"],
          "launches_by_path": by_path["flash_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in b1_cases),
-         **{k: b1[k] for k in timing}, "cases": b1_cases},
+         **{k: b1[k] for k in timing + rates + ("device_ms",)},
+         "cases": b1_cases,
+         "hgmma_count": hgmma["flash_attention"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/layers.py:248",
@@ -1254,7 +1427,8 @@ def main() -> int:
          "launches_by_path": by_path["cross_entropy_bwd"],
          **{k: b5_bwd[k] for k in ("max_abs_err", "softmax_rel_l2",
                                      "planted_softmax_rel_l2", "fp32")
-            + timing}},
+            + timing + rates},
+         "hgmma_count": hgmma["cross_entropy"]},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:
         fail(f"kernel list {sorted(ops.WRAPPERS)} not all reported")

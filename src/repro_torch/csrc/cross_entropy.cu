@@ -29,23 +29,43 @@
 // combines the splits in order, so the result does not depend on timing.
 //
 // Backward. ds = (exp(s - lse) - onehot(label)) * g, recomputed chunk by
-// chunk of the vocab axis (chunk columns chosen by the wrapper so the
-// fp32 ds scratch stays ~64 MB): one pass writes ds for the chunk, one
-// product writes dW[:, chunk] = h^T . ds (each output element sums over
-// all T tokens in one thread, rounded once to W's dtype), and one product
-// accumulates dh += ds . W[:, chunk]^T into an fp32 buffer, rounded to
-// h's dtype after the last chunk. No atomics: the result is deterministic.
+// chunk of the vocab axis (chunk columns chosen by the wrapper so the ds
+// scratch stays bounded): one product writes ds for the chunk, one writes
+// dW[:, chunk] = h^T . ds (rounded once to W's dtype), and one
+// accumulates dh += ds . W[:, chunk]^T into an fp32 buffer, rounded to h's
+// dtype after the last chunk. No atomics: the result is deterministic.
+// The dtype picks the kernels in cross_entropy_bwd (a plain dispatch):
 //
-// What bounds it. At T = 2048, d = 2048, V = 49155 the forward is
-// 2*T*d*V = 4.12e11 flops against ~210 MB of bytes, the backward three
-// times the flops: operations bound the card (0.42 ms forward at the bf16
-// tensor-core peak). This first version runs fp32 on the CUDA cores, far
-// from that bound; wgmma tiles fed by TMA are the later step.
+// bf16 / fp16: tensor-core products (namespace tc). What bounds it: at
+// T = 2048, d = 2048, V = 49155 the three products are 1.24e12 flops
+// (1.25 ms at the 989 TFLOP/s bf16 peak) against ~0.5 GB of bytes, so
+// operations bound the card. Design: every product is wgmma m64n128k16
+// with fp32 accumulators, 128 x 128 tiles, fed by TMA (128-byte swizzle)
+// through a 4-stage mbarrier ring by a producer warp, so loads overlap
+// the products. Each operand is read as it lies: h is K-major for ds and
+// MN-major (h^T) for dW, W MN-major for ds and K-major (W^T) for dh, ds
+// MN-major for dW and K-major for dh. ds is staged in the input dtype,
+// half the bytes of fp32, and is then directly a wgmma operand
+// (jax.grad of repro's chunked_xent rounds ds to bf16 as well). A tensor
+// map needs rows 16-byte aligned: at an odd V the wrapper hands over a
+// copy of W with its rows padded to a multiple of 8 (the map still
+// stops at V, so the padding is never read), and dW is written with
+// element stores straight into the unpadded (d, V) output.
+//
+// float32: the CUDA-core products below (tile_product), with ds staged in
+// fp32; wgmma in fp32 would be TF32 and break the fp32 tolerances.
+//
+// What bounds the forward. 2*T*d*V = 4.12e11 flops against ~210 MB of
+// bytes: operations bound the card (0.42 ms at the bf16 tensor-core
+// peak). It runs fp32 on the CUDA cores, far from that bound; wgmma
+// tiles fed by TMA are its later step.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -368,6 +388,285 @@ int bwd(const void* hv, const void* wv, const int* labels, const float* lse,
   return 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward on the tensor cores (bf16 and fp16 inputs; see the note at the
+// top of the file). One product kernel, xent_tc_gemm, serves the three
+// products of a vocab chunk: C (M x N) = A (M x K) . B (K x N) in 128 x 128
+// tiles, two consumer warpgroups of 64 rows each and one producer warp
+// that keeps kStages K-steps of 64 in flight by TMA. A and B are read
+// K-major or MN-major as they lie in memory (template flags), so no
+// operand is ever transposed in memory. The epilogue is the product's:
+// ds (softmax minus one-hot, times g, rounded to the input dtype), dW
+// (rounded once into the unpadded (d, V) output) or dh (summed in fp32
+// across chunks, rounded after the last).
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 4, kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers + 32;
+constexpr int kTileBytes = kBM * kBK * 2;     // one stage of A, and of B
+constexpr int kSmem = 1024 + 2 * kStages * kTileBytes + 8 * 2 * kStages;
+
+enum { kEpiDs = 0, kEpiDw = 1, kEpiDh = 2 };
+
+struct Epi {
+  const int* labels;      // labels, lse, g of each token
+  const float* lse;
+  const float* g;
+  int c0;                 // first vocab column of the chunk
+  void* out;              // ds (T x ld), dW (d x ld, from column c0), dh
+  long long ld;
+  float* acc;             // dh: fp32 running sum (T x ld)
+  int first, last;        // dh: first / last chunk
+  const void* src;        // the one-hot part's operand: W (dh), h (dW)
+  long long src_ld;
+  const int* order;       // dW: tokens sorted by label (stable) and the
+  const int* starts;      // first sorted position of each label (V + 1)
+};
+
+template <typename T, int AMN, int BMN, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
+             const __grid_constant__ CUtensorMap bmap, int M, int N, int K,
+             int b_n_off, int b_k_off, Epi ep) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* a_s = smem;
+  unsigned char* b_s = a_s + kStages * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int ktiles = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);    // one arrival a warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {            // producer
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int k0 = kt * kBK;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * kTileBytes);
+        unsigned char* a_dst = a_s + stage * kTileBytes;
+        unsigned char* b_dst = b_s + stage * kTileBytes;
+        if (AMN) {                         // two atoms of 64 rows of M
+          tma_load_2d(a_dst, &amap, &full[stage], m0, k0);
+          tma_load_2d(a_dst + kAtomBytes, &amap, &full[stage], m0 + 64, k0);
+        } else {                           // 128 rows of M, K along a row
+          tma_load_2d(a_dst, &amap, &full[stage], k0, m0);
+        }
+        if (BMN) {
+          tma_load_2d(b_dst, &bmap, &full[stage], b_n_off + n0, b_k_off + k0);
+          tma_load_2d(b_dst + kAtomBytes, &bmap, &full[stage],
+                      b_n_off + n0 + 64, b_k_off + k0);
+        } else {
+          tma_load_2d(b_dst, &bmap, &full[stage], b_k_off + k0, b_n_off + n0);
+        }
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int g = warp >> 2, w = warp & 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int stage = 0, phase = 0, prev = 0;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t a_addr = smem_u32(a_s + stage * kTileBytes + g * kAtomBytes);
+    const uint32_t b_addr = smem_u32(b_s + stage * kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      const uint64_t da = AMN ? make_desc(a_addr + ks * 2048, kAtomBytes)
+                              : make_desc(a_addr + ks * 32, 16);
+      const uint64_t db = BMN ? make_desc(b_addr + ks * 2048, kAtomBytes)
+                              : make_desc(b_addr + ks * 32, 16);
+      wgmma_ss_n128<T, AMN, BMN>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();          // this warp's previous products are done
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: register 4c + e is row rl + 8(e/2), column 8c + 2(l%4) + e%2
+  const int rl = m0 + 64 * g + 16 * w + (lane >> 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = rl + 8 * half;
+    if (EPI == kEpiDw || row >= M) continue;
+    if (EPI == kEpiDs) {
+      const float lr = ep.lse[row], gr = ep.g[row];
+      T* out = static_cast<T*>(ep.out) + row * ep.ld;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int col = n0 + 8 * c + 2 * (lane & 3);
+        if (col >= N) continue;
+        const float v0 = expf(acc[4 * c + 2 * half] - lr) * gr;
+        const float v1 = expf(acc[4 * c + 2 * half + 1] - lr) * gr;
+        if (col + 1 < N)
+          *reinterpret_cast<uint32_t*>(out + col) = pack2<T>(v0, v1);
+        else
+          out[col] = from_f<T>(v0);
+      }
+    } else if (EPI == kEpiDh) {
+      const long long base = row * ep.ld;
+      // the one-hot part, once: dh[t, i] -= g[t] W[i, label[t]]
+      const T* w_lab = static_cast<const T*>(ep.src) + ep.labels[row];
+      const float gr = ep.g[row];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int col = n0 + 8 * c + 2 * (lane & 3);
+        if (col >= N) continue;       // N (= d) is even: col + 1 < N too
+        float2 v = make_float2(acc[4 * c + 2 * half],
+                               acc[4 * c + 2 * half + 1]);
+        if (!ep.first) {
+          const float2 old =
+              *reinterpret_cast<const float2*>(ep.acc + base + col);
+          v.x += old.x;
+          v.y += old.y;
+        }
+        if (ep.last) {
+          v.x -= gr * to_f(w_lab[col * ep.src_ld]);
+          v.y -= gr * to_f(w_lab[(col + 1) * ep.src_ld]);
+          *reinterpret_cast<uint32_t*>(static_cast<T*>(ep.out) + base + col) =
+              pack2<T>(v.x, v.y);
+        } else {
+          *reinterpret_cast<float2*>(ep.acc + base + col) = v;
+        }
+      }
+    }
+  }
+  if (EPI != kEpiDw) return;
+
+  // dW: the tile goes through shared memory (the pipeline's, now idle)
+  // in fp32, where the one-hot part is applied exactly, then out in rows.
+  constexpr int kLd = kBN + 4;
+  float* tile = reinterpret_cast<float*>(smem);
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
+  const int tr = 64 * g + 16 * w + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int col = 8 * c + 2 * (lane & 3);
+    tile[tr * kLd + col] = acc[4 * c];
+    tile[tr * kLd + col + 1] = acc[4 * c + 1];
+    tile[(tr + 8) * kLd + col] = acc[4 * c + 2];
+    tile[(tr + 8) * kLd + col + 1] = acc[4 * c + 3];
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
+  // dW[i, c] -= g[t] h[t, i] for each token t labelled c, in sorted order;
+  // thread r owns row r, so no two threads touch one element
+  const int tid = threadIdx.x;
+  const int v_lo = ep.c0 + n0, v_hi = ep.c0 + min(n0 + kBN, N);
+  const int j_end = ep.starts[v_hi];
+  if (tid < kBM && m0 + tid < M) {
+    const T* hcol = static_cast<const T*>(ep.src) + m0 + tid;
+    for (int j = ep.starts[v_lo]; j < j_end; ++j) {
+      const int t = ep.order[j];
+      tile[tid * kLd + ep.labels[t] - v_lo] -=
+          ep.g[t] * to_f(hcol[t * ep.src_ld]);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
+  for (int idx = tid; idx < kBM * kBN; idx += 128 * kConsumers) {
+    const int r = idx / kBN, c = idx % kBN;
+    if (m0 + r < M && n0 + c < N)
+      static_cast<T*>(ep.out)[(m0 + r) * ep.ld + ep.c0 + n0 + c] =
+          from_f<T>(tile[r * kLd + c]);
+  }
+}
+
+// A 2-D map over a row-major (rows x cols) 16-bit matrix with row stride
+// ld elements and a box of box_cols x box_rows (the encoder refuses a row
+// stride or address that is not a 16-byte multiple).
+template <typename T>
+int map2d(CUtensorMap* map, const void* ptr, int rows, int cols, long long ld,
+          int box_cols, int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols),
+                            static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(ld * 2)};
+  const uint32_t box[2] = {static_cast<uint32_t>(box_cols),
+                           static_cast<uint32_t>(box_rows)};
+  return hopper_host::encode(map, std::is_same<T, __nv_bfloat16>::value, 2,
+                             ptr, dims, strides, box);
+}
+
+template <typename T, int AMN, int BMN, int EPI>
+int gemm(const CUtensorMap& a, const CUtensorMap& b, int M, int N, int K,
+         int b_n_off, int b_k_off, const Epi& ep, cudaStream_t stream) {
+  static bool sized = false;            // once per kernel and process
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        xent_tc_gemm<T, AMN, BMN, EPI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  xent_tc_gemm<T, AMN, BMN, EPI><<<grid, kThreads, kSmem, stream>>>(
+      a, b, M, N, K, b_n_off, b_k_off, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h (Tn, D) contiguous; w (D, V) with row stride ldw (a multiple of 8);
+// ds (Tn, chunk) in T.
+template <typename T>
+int bwd(const void* h, const void* w, int ldw, const int* labels,
+        const int* order, const int* starts, const float* lse,
+        const float* g, int Tn, int D, int V, int chunk, void* ds,
+        float* dh_acc, void* dh, void* dw, cudaStream_t stream) {
+  CUtensorMap h_k, h_mn, w_mn, w_k;
+  int err = map2d<T>(&h_k, h, Tn, D, D, 64, kBM);     // A of ds: K = D
+  if (err == 0) err = map2d<T>(&h_mn, h, Tn, D, D, 64, 64);   // A of dW
+  if (err == 0) err = map2d<T>(&w_mn, w, D, V, ldw, 64, 64);  // B of ds
+  if (err == 0) err = map2d<T>(&w_k, w, D, V, ldw, 64, kBN);  // B of dh
+  if (err != 0) return err;
+  for (int c0 = 0; c0 < V; c0 += chunk) {
+    const int cw = imin(chunk, V - c0);
+    CUtensorMap ds_mn, ds_k;
+    err = map2d<T>(&ds_mn, ds, Tn, cw, chunk, 64, 64);        // B of dW
+    if (err == 0) err = map2d<T>(&ds_k, ds, Tn, cw, chunk, 64, kBM);
+    if (err != 0) return err;
+    // ds (Tn x cw) = softmax(h . W[:, c0:c0+cw]) * g, the softmax part
+    Epi e_ds{labels, lse, g, c0, ds, chunk, nullptr, 0, 0, nullptr, 0,
+             nullptr, nullptr};
+    err = gemm<T, 0, 1, kEpiDs>(h_k, w_mn, Tn, cw, D, c0, 0, e_ds, stream);
+    if (err != 0) return err;
+    // dW[:, c0:c0+cw] = h^T . ds, less g h of each token labelled there
+    Epi e_dw{labels, lse, g, c0, dw, V, nullptr, 0, 0, h, D, order, starts};
+    err = gemm<T, 1, 1, kEpiDw>(h_mn, ds_mn, D, cw, Tn, 0, 0, e_dw, stream);
+    if (err != 0) return err;
+    // dh (+)= ds . W[:, c0:c0+cw]^T; after the last chunk less g W[:, label]
+    Epi e_dh{labels, lse, g, c0, dh, D, dh_acc, c0 == 0, c0 + cw >= V, w, ldw,
+             nullptr, nullptr};
+    err = gemm<T, 0, 0, kEpiDh>(ds_k, w_k, Tn, D, cw, 0, c0, e_dh, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -394,22 +693,33 @@ int cross_entropy_fwd(int dtype, const void* h, const void* w,
   }
 }
 
-// g (T,) fp32 = dLoss/dnll. ds is fp32 scratch of T * chunk, dh_acc fp32
-// scratch of T * D; dh (T, D) and dW (D, V) come out in the input dtype.
-int cross_entropy_bwd(int dtype, const void* h, const void* w,
-                      const int* labels, const float* lse, const float* g,
-                      int Tn, int D, int V, int chunk, float* ds,
+// g (T,) fp32 = dLoss/dnll. 16-bit inputs also take order (T,) int32,
+// the tokens sorted by label (stable), and starts (V + 1,) int32, the
+// first sorted position of each label (unused for float32; may be null).
+// w is (D, V) with row stride ldw (V for
+// float32; for 16-bit inputs a multiple of 8, so rows start 16-byte
+// aligned). ds is scratch of T * chunk in the input dtype (fp32 for
+// float32), dh_acc fp32 scratch of T * D; dh (T, D) and dW (D, V), unpadded,
+// come out in the input dtype. float32 runs the CUDA-core kernels, bf16
+// and fp16 the tensor-core ones (the dispatch rule noted at the top).
+int cross_entropy_bwd(int dtype, const void* h, const void* w, int ldw,
+                      const int* labels, const int* order,
+                      const int* starts, const float* lse, const float* g,
+                      int Tn, int D, int V, int chunk, void* ds,
                       float* dh_acc, void* dh, void* dw, void* stream) {
-  if (Tn <= 0 || D <= 0 || V <= 0 || chunk <= 0)
+  if (Tn <= 0 || D <= 0 || V <= 0 || chunk <= 0 || ldw < V)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return bwd<float>(h, w, labels, lse, g, Tn, D, V, chunk, ds,
-                              dh_acc, dh, dw, s);
-    case 1: return bwd<__nv_bfloat16>(h, w, labels, lse, g, Tn, D, V, chunk,
-                                      ds, dh_acc, dh, dw, s);
-    case 2: return bwd<__half>(h, w, labels, lse, g, Tn, D, V, chunk, ds,
-                               dh_acc, dh, dw, s);
+    case 0:
+      if (ldw != V) return static_cast<int>(cudaErrorInvalidValue);
+      return bwd<float>(h, w, labels, lse, g, Tn, D, V, chunk,
+                        static_cast<float*>(ds), dh_acc, dh, dw, s);
+    case 1: return tc::bwd<__nv_bfloat16>(h, w, ldw, labels, order, starts,
+                                          lse, g, Tn, D, V, chunk, ds,
+                                          dh_acc, dh, dw, s);
+    case 2: return tc::bwd<__half>(h, w, ldw, labels, order, starts, lse, g,
+                                   Tn, D, V, chunk, ds, dh_acc, dh, dw, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

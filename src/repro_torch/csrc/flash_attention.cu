@@ -5,14 +5,47 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> pl.pallas_call). Same arithmetic: fp32 scores and
 // accumulation, -1e30 masking, running max/denominator across kv tiles,
-// denominator clamped at 1e-20, output in the input dtype. Causal and
+// denominator clamped at 1e-20, output in the input dtype (the bf16/fp16
+// kernel feeds P to the tensor cores as two 16-bit parts, so it keeps
+// ~16 of fp32's 24 mantissa bits; see below). Causal and
 // window masks align query and key *starts* (q_pos = k_pos = row index),
 // as the TPU kernel and repro.models.layers.blockwise_attention do.
 //
-// Design. One block per (q tile of 16 rows, q head, batch row); a loop
-// over kv tiles of 32 keys takes the place of the TPU kernel's sequential
-// kv grid axis, and the running max, sum and output live in registers
-// across it. K and V tiles are staged through shared memory as fp32 and
+// Two forward kernels, chosen by the input dtype in flash_attention_fwd
+// (a plain dispatch, not a fallback: nothing catches a failed launch).
+//
+// bf16 / fp16: the tensor-core kernel (namespace tc). What bounds it: at
+// B = 16, S = 512, Hq = 32, Hkv = 8, D = 64 causal the work is 17.2 GFLOP
+// (17 us at the 989 TFLOP/s bf16 peak) against 25 us of bytes (q, k, v
+// and out once each at 3.35 TB/s), so bytes bound the card and the
+// products have to run on the tensor cores to come near it. Design: one
+// block per (128 query rows, q head, batch row); two consumer warpgroups
+// own 64 rows each and one producer warp streams K/V tiles of 64 keys by
+// TMA (128-byte swizzle, mbarrier ring of 2-3 stages) while the
+// consumers compute, so loads overlap compute. TMA, not cp.async: one
+// thread issues a whole tile, the hardware zero-fills rows past S or T and
+// columns past D (head_dim 8..56 runs as 64, 72..120 as 128), and a 4-D
+// tensor map reads the model layout (B, S, H, D) through its strides (a
+// multiple of 16 bytes for any head_dim that is a multiple of 8; the
+// wrapper refuses other strides). S = Q K^T is a wgmma m64n64k16 with
+// both operands K-major in shared memory; the online softmax runs on the
+// fp32 accumulator fragment (row max and sum over the 4 lanes that share
+// a row); P is fed as the register A operand of O += P V (wgmma
+// m64nDk16, V MN-major with the transpose bit) in two parts of the input
+// dtype, hi = P rounded and lo = P - hi, so P keeps ~16 of fp32's 24
+// mantissa bits for twice the P.V products. Rounding P once, as
+// repro.models.layers.blockwise_attention does, moved the 4-layer
+// gradient check of chip_smoke.py to 0.023 (limit 0.02; 0.013 with
+// scores computed exactly): see PERF.md. Tiles past the causal diagonal
+// or before the window are skipped; only a tile that straddles an edge
+// is masked. lse is m + log l of the fp32 scores, what the backward
+// reads.
+//
+// float32: the CUDA-core kernel (wgmma in fp32 would be TF32 and break
+// the fp32 tolerances). One block per (q tile of 16 rows, q head, batch
+// row); a loop over kv tiles of 32 keys takes the place of the TPU
+// kernel's sequential kv grid axis, and the running max, sum and output
+// live in registers across it. K and V tiles are staged through shared memory as fp32 and
 // shared by the block's 4 warps; each warp owns 4 query rows. For one row
 // a lane scores one key of the tile (a D-long dot product against the
 // padded K row, conflict-free), the warp reduces the tile max and sum with
@@ -21,18 +54,14 @@
 // it is given, so the wrapper passes model-layout (B, S, H, D) tensors as
 // strided (B, H, S, D) views without copying. Ragged lengths (S or T not a
 // multiple of the tile) are masked in both the q and the kv tile; kv tiles
-// past the causal diagonal or before the window are skipped.
-//
-// What bounds it. At serving prefill shapes (S <= 512, D = 64) the bytes
-// are small (q, k, v and out once each) and the work is ~4*S*S/2*D*H
-// flops per row; this first version does that work in fp32 on the CUDA
-// cores, not the tensor cores, so it is bound by operations, far above the
-// bf16 tensor-core bound. mma/wgmma tiles with TMA staging are the later
-// step (ROADMAP); this version is the simple, right one.
+// past the causal diagonal or before the window are skipped. It does its
+// work in fp32 on the CUDA cores and is bound by operations.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -547,6 +576,339 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Forward on the tensor cores (bf16 and fp16 inputs; see the note at the
+// top of the file). One block per (128 query rows, q head, batch row):
+// two consumer warpgroups own 64 query rows each, and one producer warp
+// keeps K/V tiles of 64 keys in flight by TMA in a ring of kStages
+// stages (mbarriers "full" and "empty" per stage). Both consumers see the
+// same K/V tiles (one head); a consumer skips, but still releases, a
+// tile its own rows cannot see.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kRows = 64;                  // query rows of a warpgroup
+constexpr int kKeys = 64;                  // keys of a kv tile
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers + 32;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DP>
+__host__ __device__ constexpr int stages() { return DP == 64 ? 3 : 2; }
+template <int DP>
+__host__ __device__ constexpr int tile_bytes() { return kRows * DP * 2; }
+template <int DP>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + (kConsumers + 2 * stages<DP>()) * tile_bytes<DP>() +
+         8 * (2 * stages<DP>() + 1);
+}
+
+// A map's dims are (D, then the head, sequence and batch axes ordered by
+// stride); perm holds the position (1..3) of the head axis in bits 0-1,
+// of the sequence axis in bits 2-3 (the batch axis takes the third).
+__device__ __forceinline__ void coords(int perm, int h, int s, int b,
+                                       int& c1, int& c2, int& c3) {
+  const int ph = perm & 3, ps = (perm >> 2) & 3;
+  c1 = ph == 1 ? h : ps == 1 ? s : b;
+  c2 = ph == 2 ? h : ps == 2 ? s : b;
+  c3 = ph == 3 ? h : ps == 3 ? s : b;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, int qperm,
+                    int kperm, int vperm, T* __restrict__ o, long long o_sb,
+                    long long o_sh, long long o_ss, int S, int T_len, int D,
+                    int rep, float* __restrict__ lse, int causal, int window,
+                    float scale_log2) {
+  constexpr int ST = stages<DP>();
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int kAtoms = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  unsigned char* k_s = q_s + kConsumers * TB;
+  unsigned char* v_s = k_s + ST * TB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * TB);
+  uint64_t* empty = full + ST;
+  uint64_t* q_full = empty + ST;
+
+  const int q_blk = blockIdx.x * (kRows * kConsumers);
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // kv tiles some row of the block can see: [t_first, t_end)
+  const int blk_last = min(q_blk + kRows * kConsumers, S) - 1;
+  const int k_hi = causal ? min(T_len, blk_last + 1) : T_len;
+  const int k_lo = window > 0 ? max(0, q_blk - window + 1) : 0;
+  const int t_first = k_lo / kKeys;
+  const int t_end = (k_hi + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);    // one arrival a warp
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {            // producer
+    if (lane == 0) {
+      int c1, c2, c3;
+      mbar_expect_tx(q_full, kConsumers * TB);
+      for (int g = 0; g < kConsumers; ++g) {
+        coords(qperm, h, q_blk + kRows * g, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(q_s + g * TB + a * kAtomBytes, &qmap, q_full, 64 * a,
+                      c1, c2, c3);
+      }
+      int stage = 0, phase = 0;
+      for (int t = t_first; t < t_end; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * TB);
+        coords(kperm, hk, t * kKeys, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(k_s + stage * TB + a * kAtomBytes, &kmap, &full[stage],
+                      64 * a, c1, c2, c3);
+        coords(vperm, hk, t * kKeys, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(v_s + stage * TB + a * kAtomBytes, &vmap, &full[stage],
+                      64 * a, c1, c2, c3);
+        if (++stage == ST) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g owns rows [q0, q0 + 64); this thread rows r0, r1
+  const int g = warp >> 2, w = warp & 3;
+  const int q0 = q_blk + kRows * g;
+  const int r0 = q0 + 16 * w + (lane >> 2), r1 = r0 + 8;
+  const bool active = q0 < S;
+  const int g_last = min(q0 + kRows, S) - 1;
+  const int my_hi = causal ? min(T_len, g_last + 1) : T_len;
+  const int my_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const uint32_t q_addr = smem_u32(q_s + g * TB);
+  mbar_wait(q_full, 0);
+
+  int stage = 0, phase = 0;
+  for (int t = t_first; t < t_end; ++t) {
+    mbar_wait(&full[stage], phase);
+    const int k0 = t * kKeys;
+    if (active && k0 < my_hi && k0 + kKeys > my_lo) {
+      const uint32_t k_addr = smem_u32(k_s + stage * TB);
+      const uint32_t v_addr = smem_u32(v_s + stage * TB);
+      // S = Q K^T: both K-major, D along the swizzled rows
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const uint32_t off = (ks / 4) * kAtomBytes + (ks % 4) * 32;
+        wgmma_ss_n64<T, 0, 0>(s, make_desc(q_addr + off, 16),
+                              make_desc(k_addr + off, 16), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // scores in log2 units; mask only a tile that straddles an edge
+      const bool edge = k0 + kKeys > T_len ||
+                        (causal && k0 + kKeys - 1 > q0) ||
+                        (window > 0 && k0 <= g_last - window);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = s[i] * scale_log2;
+        if (edge) {
+          const int kj = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const int qi = (i & 2) ? r1 : r0;
+          const bool valid = (!causal || kj <= qi) &&
+                             (window <= 0 || kj > qi - window);
+          x = kj >= T_len ? -INFINITY : (valid ? x : kNegInf);
+        }
+        s[i] = x;
+        if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = exp2f(s[i] - ((i & 2) ? mn1 : mn0));
+        s[i] = p;
+        if (i & 2) ps1 += p; else ps0 += p;
+      }
+      l0 = l0 * al0 + ps0;          // this thread's share; summed at the end
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
+      // O += P V with P as the register A operand in two parts of the
+      // input dtype, hi = P rounded and lo = P - hi, so P keeps ~16
+      // mantissa bits (V is MN-major: D contiguous, one atom per 64
+      // columns)
+      uint32_t pa[4][4], pl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
+          pa[kk][j] = pack2<T>(x0, x1);
+          const float2 hi = unpack2<T>(pa[kk][j]);
+          pl[kk][j] = pack2<T>(x0 - hi.x, x1 - hi.y);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = make_desc(v_addr + kk * 2048, kAtomBytes);
+        if constexpr (DP == 64) {
+          wgmma_rs_n64<T, 1>(acc, pa[kk], dv, 1);
+          wgmma_rs_n64<T, 1>(acc, pl[kk], dv, 1);
+        } else {
+          wgmma_rs_n128<T, 1>(acc, pa[kk], dv, 1);
+          wgmma_rs_n128<T, 1>(acc, pl[kk], dv, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      fence_regs(pl);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with it
+    if (++stage == ST) { stage = 0; phase ^= 1; }
+  }
+  if (!active) return;
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+  const float inv0 = 1.f / d0, inv1 = 1.f / d1;
+  T* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c) {
+    const int col = 8 * c + 2 * (lane & 3);
+    if (col >= D) continue;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
+          pack2<T>(acc[4 * c] * inv0, acc[4 * c + 1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
+          pack2<T>(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+    const long long row0 = (static_cast<long long>(b) * gridDim.y + h) * S;
+    if (r0 < S) lse[row0 + r0] = (m0 + log2f(d0)) * kLn2;
+    if (r1 < S) lse[row0 + r1] = (m1 + log2f(d1)) * kLn2;
+  }
+}
+
+// Tensor map of one (B, H, S, D) operand with element strides st (batch,
+// head, sequence; D contiguous) and a box of 64 rows x 64 columns.
+// Size-1 axes get a harmless stride. Returns 0, or non-zero where the
+// encoder refuses strides or an address that are not 16-byte multiples.
+template <typename T>
+int make_map(CUtensorMap* map, int* perm, const void* ptr, int D, int H,
+             int S, int B, const long long* st) {
+  const long long size[3] = {H, S, B};          // head, seq, batch
+  long long stride[3] = {st[1], st[2], st[0]};
+  int order[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    if (size[i] == 1) stride[i] = 0;            // any stride will do
+  for (int i = 1; i < 3; ++i)                   // sort axes by stride
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int tmp = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = tmp;
+    }
+  uint64_t dims[4] = {static_cast<uint64_t>(D)}, strides[3];
+  uint32_t box[4] = {64, 1, 1, 1};
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    const int ax = order[i];
+    dims[i + 1] = static_cast<uint64_t>(size[ax]);
+    strides[i] = static_cast<uint64_t>(2 * (stride[ax] == 0 ? D : stride[ax]));
+    if (ax == 1) box[i + 1] = 64;
+    if (ax == 0) *perm |= i + 1;
+    if (ax == 1) *perm |= (i + 1) << 2;
+  }
+  return hopper_host::encode(map, std::is_same<T, __nv_bfloat16>::value, 4,
+                             ptr, dims, strides, box);
+}
+
+template <typename T, int DP>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int S, int T_len, int D, const long long* qs,
+           const long long* ks, const long long* vs, const long long* os,
+           float* lse, int causal, int window, float scale,
+           cudaStream_t stream) {
+  if (hopper_host::encode_fn() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm;
+  int qp, kp, vp;
+  // out is written in pairs of 16-bit values: 4-byte aligned
+  bool ok = reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+            os[0] % 2 == 0 && os[1] % 2 == 0 && os[2] % 2 == 0;
+  ok = ok && make_map<T>(&qm, &qp, q, D, Hq, S, B, qs) == 0 &&
+       make_map<T>(&km, &kp, k, D, Hkv, T_len, B, ks) == 0 &&
+       make_map<T>(&vm, &vp, v, D, Hkv, T_len, B, vs) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidPitchValue);
+  constexpr int smem = smem_bytes<DP>();
+  static bool sized = false;            // once per kernel and process
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<T, DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  dim3 grid((S + kRows * kConsumers - 1) / (kRows * kConsumers), Hq, B);
+  flash_fwd_tc_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, qp, kp, vp, static_cast<T*>(o), os[0], os[1], os[2], S,
+      T_len, D, Hq / Hkv, lse, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int S, int T_len, int D, const long long* qs,
+               const long long* ks, const long long* vs, const long long* os,
+               float* lse, int causal, int window, float scale,
+               cudaStream_t stream) {
+  if (D <= 64)
+    return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, T_len, D, qs, ks, vs, os,
+                         lse, causal, window, scale, stream);
+  return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, T_len, D, qs, ks, vs, os,
+                        lse, causal, window, scale, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -570,14 +932,15 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
                            k_strides, v_strides, o_strides, lse, causal,
                            window, scale, stream);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, S, T_len, D,
-                                   q_strides, k_strides, v_strides,
-                                   o_strides, lse, causal, window, scale,
-                                   stream);
+      return tc::launch_fwd<__nv_bfloat16>(
+          q, k, v, o, B, Hq, Hkv, S, T_len, D, q_strides, k_strides,
+          v_strides, o_strides, lse, causal, window, scale,
+          static_cast<cudaStream_t>(stream));
     case 2:
-      return launch<__half>(q, k, v, o, B, Hq, Hkv, S, T_len, D, q_strides,
-                            k_strides, v_strides, o_strides, lse, causal,
-                            window, scale, stream);
+      return tc::launch_fwd<__half>(
+          q, k, v, o, B, Hq, Hkv, S, T_len, D, q_strides, k_strides,
+          v_strides, o_strides, lse, causal, window, scale,
+          static_cast<cudaStream_t>(stream));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,8 +6,9 @@ so ``nvcc`` takes seconds per file. The command is::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded. Output goes to
+The library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
+never loaded. Output goes to
 ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1(CSRC.joinpath(f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared headers, e.g.
+        digest.update(header.read_bytes())       # hopper.cuh
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

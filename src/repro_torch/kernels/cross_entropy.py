@@ -15,6 +15,16 @@ PyTorch — the CPU path and the on-card oracle.
 
 Shapes: hidden (T, d), w (d, V), both float32, bfloat16 or float16 of
 one dtype; labels (T,) int32 in [0, V). Products and sums are fp32.
+
+The backward dispatches on the dtype (``uses_tensor_cores``): bf16 and
+fp16 run the tensor-core products, with the softmax part of ds,
+exp(s - lse) g, staged in the input dtype (:func:`ds_chunk` columns at a
+time) and its one-hot part, -g at each token's label, applied exactly in
+fp32 where dh and dW are written (:func:`label_index` lists the tokens
+of each label for dW). W is read through a tensor map, so its rows must
+start 16-byte aligned: :func:`pad_vocab` hands over a row-padded copy
+when V is not a multiple of 8 (d must be). float32 runs the CUDA-core
+products with the whole ds staged in fp32.
 """
 from __future__ import annotations
 
@@ -24,11 +34,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import uses_tensor_cores
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE = 64                       # the kernels' token and vocab tile
 _TARGET_BLOCKS = 528             # forward: ~4 blocks per SM of an H100
-_DS_SCRATCH_ELEMS = 16 * 2 ** 20  # backward: fp32 ds chunk of ~64 MB
+_DS_SCRATCH_ELEMS = 16 * 2 ** 20  # backward: ds chunk of ~32 MB in bf16/fp16,
+                                  # ~64 MB in float32
 
 
 def _check(hidden, w, labels) -> None:
@@ -60,7 +72,7 @@ def _kernel(name: str):
         if name == "cross_entropy_fwd":
             fn.argtypes = [i, p, p, p, i, i, i, i, p, p, p, p, p]
         else:
-            fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p, p, p, p, p]
+            fn.argtypes = [i, p, p, i] + [p] * 5 + [i] * 4 + [p] * 5
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -79,6 +91,39 @@ def ds_chunk(num_tokens: int, vocab: int) -> int:
     cols = max(_TILE, _DS_SCRATCH_ELEMS // max(num_tokens, 1))
     cols = (cols // _TILE) * _TILE
     return min(cols, -(-vocab // _TILE) * _TILE)
+
+
+def padded_vocab(vocab: int, dtype: torch.dtype) -> int:
+    """W's row length as the tensor-core backward reads it: the least
+    multiple of 16 bytes that holds ``vocab`` values of ``dtype``."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-vocab // per) * per
+
+
+def pad_vocab(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (d, V) as a (d, V_pad) buffer whose rows start 16-byte
+    aligned (V_pad = :func:`padded_vocab`); ``w`` itself when it already
+    is. The padding columns are zero; the kernel never reads them."""
+    d, v = w.shape
+    v_pad = padded_vocab(v, w.dtype)
+    if v_pad == v and w.is_contiguous() and w.data_ptr() % 16 == 0:
+        return w
+    out = torch.empty((d, v_pad), dtype=w.dtype, device=w.device)
+    out[:, :v].copy_(w)
+    out[:, v:].zero_()
+    return out
+
+
+def label_index(labels: torch.Tensor, vocab: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, starts), both int32: the tokens sorted by label, ties in
+    token order, and for each label c the first position of c in that
+    order (``starts[vocab]`` = T), so the tokens labelled c are
+    ``order[starts[c]:starts[c + 1]]``."""
+    sorted_labels, order = torch.sort(labels.long(), stable=True)
+    starts = torch.searchsorted(
+        sorted_labels, torch.arange(vocab + 1, device=labels.device))
+    return order.to(torch.int32), starts.to(torch.int32)
 
 
 def cross_entropy_fwd(hidden, w, labels
@@ -117,16 +162,26 @@ def cross_entropy_bwd(hidden, w, labels, lse, g
                              f"contiguous (T,) float32 tensor on the card")
     chunk = ds_chunk(t, v)
     dev = hidden.device
-    ds = torch.empty((t, chunk), dtype=torch.float32, device=dev)
+    tc = uses_tensor_cores(hidden.dtype)
+    if tc and (d % 8 or hidden.data_ptr() % 16):
+        raise ValueError(f"cross_entropy_bwd: the tensor-core kernel needs "
+                         f"d a multiple of 8 (got {d}) and hidden 16-byte "
+                         f"aligned")
+    w_rows = pad_vocab(w) if tc else w
+    order, starts = label_index(labels, v) if tc else (None, None)
+    ds = torch.empty((t, chunk), dtype=hidden.dtype if tc else torch.float32,
+                     device=dev)
     dh_acc = torch.empty((t, d), dtype=torch.float32, device=dev)
     dh = torch.empty_like(hidden)
     dw = torch.empty_like(w)
     lib, fn = _kernel("cross_entropy_bwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_DTYPE_CODES[hidden.dtype], hidden.data_ptr(), w.data_ptr(),
-             labels.data_ptr(), lse.data_ptr(), g.data_ptr(), t, d, v, chunk,
-             ds.data_ptr(), dh_acc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-             stream)
+    err = fn(_DTYPE_CODES[hidden.dtype], hidden.data_ptr(),
+             w_rows.data_ptr(), w_rows.stride(0), labels.data_ptr(),
+             None if order is None else order.data_ptr(),
+             None if starts is None else starts.data_ptr(),
+             lse.data_ptr(), g.data_ptr(), t, d, v, chunk, ds.data_ptr(),
+             dh_acc.data_ptr(), dh.data_ptr(), dw.data_ptr(), stream)
     _build.check(err, lib, "cross_entropy_bwd")
     return dh, dw
 

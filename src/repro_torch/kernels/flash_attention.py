@@ -15,9 +15,19 @@ head_dim axis, so model-layout (B, S, H, D) tensors pass as transposed
 views. GQA: q head h reads kv head h // (Hq / Hkv). Causal and window
 masks align query and key starts, as ``repro.models.layers.
 blockwise_attention`` does (equal to ``ref.attention_ref``'s end
-alignment when S == T, the prefill case). Probabilities stay in fp32 for
-P.V, as in the TPU kernel (``blockwise_attention`` rounds them to v's
-dtype first: in bf16 the two differ at bf16 rounding, ~1e-2).
+alignment when S == T, the prefill case).
+
+The forward dispatches on the dtype (:func:`uses_tensor_cores`): bf16 and
+fp16 run the tensor-core kernel, which feeds the probabilities to P.V as
+two parts in the input dtype (P rounded, and the remainder: ~16 mantissa
+bits); float32 runs the CUDA-core kernel. Both stay near the TPU kernel
+and the plain version, which keep P in fp32 (``blockwise_attention``
+rounds it to v's dtype: in bf16 that differs at bf16 rounding, ~1e-2).
+The tensor-core kernel reads q, k and v through TMA tensor maps: their
+batch, head and sequence strides must be multiples of 16 bytes (any
+model-layout view with head_dim a multiple of 8 is) and their data 16-byte
+aligned; the kernel refuses anything else before it launches and the
+wrapper raises.
 """
 from __future__ import annotations
 
@@ -32,6 +42,9 @@ from repro_torch.kernels import _build
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128
+# cudaErrorInvalidPitchValue: what the tensor-core forward returns, before
+# launching, for an operand its tensor maps cannot describe
+_BAD_PITCH = 12
 
 
 def _check(q, k, v, window):
@@ -55,6 +68,13 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention: head_dim must be contiguous")
     if window is not None and window < 1:
         raise ValueError("flash_attention: window must be >= 1 (or None)")
+
+
+def uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """The kernels' dispatch rule: bf16 and fp16 run on the tensor cores
+    (wgmma); float32 stays on the CUDA cores, since wgmma in fp32 is TF32
+    and would break the fp32 tolerances."""
+    return dtype in (torch.bfloat16, torch.float16)
 
 
 def _strides(t) -> ctypes.Array:
@@ -117,6 +137,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
              None if lse is None else lse.data_ptr(), int(bool(causal)),
              -1 if window is None else int(window), 1.0 / math.sqrt(d),
              stream)
+    if err == _BAD_PITCH:
+        raise ValueError(f"flash_attention: strides or alignment of q "
+                         f"{q.stride()}, k {k.stride()}, v {v.stride()}, "
+                         f"out {out.stride()} do not suit the tensor-core "
+                         f"kernel (16-byte multiples; out 4-byte)")
     _build.check(err, lib, "flash_attention")
     return out
 

@@ -8,7 +8,7 @@ and repro_torch, so they run on a machine without JAX:
 Each kernel is held against its plain version on the same inputs: float32
 at atol 2e-5 (sums in another order; 2e-4 for the cross-entropy values,
 sums over the whole vocab), bfloat16 at atol/rtol 2e-2 (one rounding of
-the output; sums in another order). The selective scan (fp32 outputs in
+the output; sums in another order; fp16 alike). The selective scan (fp32 outputs in
 every case) is held at SCAN_TOL: both compute the same unfused fp32
 products in the same order, y summed over the states in index order.
 """
@@ -25,7 +25,8 @@ from repro_torch.kernels.ssm_scan import ssm_scan_plain
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
-       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+       torch.float16: dict(atol=2e-2, rtol=2e-2)}
 SCAN_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -382,3 +383,129 @@ def test_reduced_falcon_mamba_serve_on_the_card(dev):
     assert counts["selective_scan"] > 0
     assert counts["selective_scan"] % 2 == 0          # 2 layers a prefill
     assert counts["flash_attention"] == counts["paged_attention"] == 0
+
+
+# --- tensor-core kernels: B1 forward and B5 backward in bf16 / fp16 --------
+# Both round where their plain versions do not (B1: P to two 16-bit parts
+# before P.V; B5-bwd: the softmax part of ds to the input dtype before its
+# two products); the bf16 tolerance of 2e-2 holds them (one bf16 ulp of
+# O(1) values is 2^-7).
+
+LSE_TOL = dict(atol=1e-3, rtol=1e-4)     # fp32 sums, exp2 vs exp
+
+
+def _attn_case(gen, dev, dtype, b, s, t, hq, hkv, d):
+    return (_randn(gen, (b, s, hq, d), dtype, dev),
+            _randn(gen, (b, t, hkv, d), dtype, dev),
+            _randn(gen, (b, t, hkv, d), dtype, dev))
+
+
+def _check_attention_with_lse(dev, dtype, q, k, v, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, s, hq, _ = q.shape
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window,
+                          lse=lse)
+    want, want_lse = flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 24, 40, 128])
+@pytest.mark.parametrize("s", [1, 17, 512])
+def test_tensor_core_attention_head_dims_and_lengths(dev, dtype, d, s):
+    """Every padded head_dim (8..56 run as 64, 72..128 as 128), one row,
+    a ragged tile and several tiles; rep 4; out and lse."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = _attn_case(gen, dev, dtype, 2, s, s, 8, 2, d)
+    _check_attention_with_lse(dev, dtype, q, k, v, True, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window", [
+    (16, 128, 128, 32, 8, 64, True, None),   # the training shape, rep 4
+    (16, 100, 100, 32, 8, 64, True, None),   # serving prefill, ragged
+    (2, 300, 300, 8, 2, 64, True, 100),      # window straddling tiles
+    (2, 200, 200, 4, 4, 128, True, 70),      # window, widest head
+    (2, 50, 130, 8, 2, 64, False, None),     # S != T, non-causal
+    (2, 130, 50, 8, 2, 40, True, None),      # S > T, causal
+    (1, 70, 70, 8, 1, 32, False, None),      # MQA
+])
+def test_tensor_core_attention_shapes(dev, dtype, b, s, t, hq, hkv, d,
+                                      causal, window):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = _attn_case(gen, dev, dtype, b, s, t, hq, hkv, d)
+    _check_attention_with_lse(dev, dtype, q, k, v, causal, window)
+
+
+def test_tensor_core_attention_reads_strided_views(dev):
+    """A (B, H, S, D)-contiguous q and a k/v sliced out of a wider buffer
+    (strides that are not the model layout's)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q = _randn(gen, (2, 8, 77, 64), torch.bfloat16, dev).transpose(1, 2)
+    kv = _randn(gen, (2, 77, 2, 3, 64), torch.bfloat16, dev)
+    _check_attention_with_lse(dev, torch.bfloat16, q, kv[:, :, :, 0],
+                              kv[:, :, :, 2], True, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_lse_feeds_the_backward(dev, dtype):
+    """The tensor-core forward's lse, fed to B1-bwd, gives the plain
+    backward's gradients (computed from the plain forward's lse)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (x.transpose(1, 2) for x in _attn_case(
+        gen, dev, dtype, 4, 128, 128, 8, 2, 64))
+    do = _randn(gen, (4, 8, 128, 64), dtype, dev)
+    lse = torch.empty((4, 8, 128), dtype=torch.float32, device=dev)
+    out = flash_attention(q, k, v, lse=lse)
+    got = flash_attention_bwd(q, k, v, out, do, lse)
+    pout, plse = flash_attention_plain(q, k, v, with_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, pout, do, plse)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **TOL[dtype])
+
+
+def test_tensor_core_kernels_refuse_what_they_do_not_take(dev):
+    base = torch.zeros((1, 8, 2, 25), dtype=torch.bfloat16, device=dev)
+    q = base[..., :24]                        # rows 50 bytes apart
+    with pytest.raises(ValueError, match="strides"):
+        ops.attention(q, q, q)
+    h = torch.zeros((4, 20), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((20, 64), dtype=torch.bfloat16, device=dev)
+    labels = torch.zeros((4,), dtype=torch.int32, device=dev)
+    g = torch.ones((4,), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.cross_entropy_bwd(h, w, labels, torch.zeros((4,), device=dev), g)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t,d,v", [
+    (37, 24, 509),          # odd V (padded W), d not a multiple of 16
+    (2048, 32, 8300),       # two chunks, the second ragged; V % 8 = 4
+    (200, 64, 512),         # V a multiple of 8: W read unpadded
+    (300, 128, 4096),       # unpadded, one chunk of 4096
+    (2048, 2048, 49155),    # the training shape: 7 chunks, odd V
+])
+def test_tensor_core_cross_entropy_backward(dev, dtype, t, d, v):
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd_plain,
+                                                   cross_entropy_fwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    h, w, labels = _xent_inputs(gen, t, d, v, dtype, dev)
+    _, lse, _ = cross_entropy_fwd_plain(h, w, labels)
+    g = torch.rand((t,), generator=gen, device=dev)
+    before = ops.cross_entropy_bwd.launches
+    dh, dw = ops.cross_entropy_bwd(h, w, labels, lse, g)
+    pdh, pdw = cross_entropy_bwd_plain(h, w, labels, lse, g)
+    torch.cuda.synchronize()
+    assert ops.cross_entropy_bwd.launches == before + 1
+    assert dh.dtype == dw.dtype == dtype and dw.shape == (d, v)
+    torch.testing.assert_close(dh.float(), pdh.float(), **TOL[dtype])
+    torch.testing.assert_close(dw.float(), pdw.float(), **TOL[dtype])
