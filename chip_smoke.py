@@ -7,9 +7,11 @@ Runs from the repository root, on one CUDA card, and imports nothing of
 JAX or of the JAX package. Phases (any failure exits non-zero):
 
 1. Build. Every CUDA source of the port (``src/repro_torch/csrc``) is
-   compiled for sm_90a, one ``nvcc`` per source, all at once; the SASS
-   of the two tensor-core libraries (flash_attention, cross_entropy) must
-   hold HGMMA (wgmma) instructions, counted with ``cuobjdump -sass``.
+   compiled for sm_90a, one ``nvcc`` per source, all at once; HGMMA
+   (wgmma) instructions are counted with ``cuobjdump -sass`` per kernel
+   function, and every instantiation of each tensor-core kernel
+   (``TC_KERNELS``: B1 forward, both B1-bwd passes, B5 forward, B5-bwd)
+   must hold some.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -50,7 +52,9 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    all bf16, held against their plain versions (and the plain versions'
    autograd), timed beside them, their bounds and the PyTorch yardsticks
    (``F.cross_entropy`` after ``torch.matmul``, and the
-   ``scaled_dot_product_attention`` backward; the port never calls them).
+   ``scaled_dot_product_attention`` backward; the port never calls them),
+   with their achieved TFLOP/s and share of the bound; B1-bwd and the
+   SDPA backward also by device time (``device_ms``).
    B5 is checked again in fp32 at elementwise fp32 tolerance; its bf16
    gradients' softmax part is held on its own, and a planted error (the
    backward fed lse + 0.1) must fail the checks.
@@ -363,21 +367,48 @@ def add_rates(case, flops: float) -> None:
     case["bound_share"] = case["bound_ms"] / case["ms"]
 
 
-def hgmma_counts(names=("flash_attention", "cross_entropy")):
-    """HGMMA (wgmma) instructions in the SASS of each built library."""
+# The tensor-core kernels, by library: every instantiation of each must
+# hold HGMMA (wgmma) instructions in its SASS.
+TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",
+                                  "flash_bwd_dq_tc_kernel",
+                                  "flash_bwd_dkdv_tc_kernel"),
+              "cross_entropy": ("xent_fwd_tc_kernel", "xent_tc_gemm")}
+
+
+def hgmma_counts():
+    """HGMMA (wgmma) instructions in the SASS of each built tensor-core
+    library and of each of its tensor-core kernels (``cuobjdump -sass``
+    prints a ``Function :`` block per kernel instantiation; a kernel's
+    count is summed over its instantiations, each of which must hold
+    some)."""
+    import re
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    counts = {}
-    for name in names:
+    libs, kernels = {}, {}
+    for name, names in TC_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"HGMMA instructions in the SASS: {counts}", flush=True)
-    if min(counts.values()) < 1:
-        fail(f"a tensor-core library holds no HGMMA instruction: {counts}")
-    return counts
+        per_fn, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                per_fn[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                per_fn[fn] += 1
+        libs[name] = sum(per_fn.values())
+        for kname in names:
+            insts = [c for f, c in per_fn.items() if kname in f]
+            if not insts or min(insts) < 1:
+                fail(f"tensor-core kernel {kname} holds no HGMMA "
+                     f"instruction in some instantiation: {insts}")
+            kernels[kname] = {"hgmma": sum(insts),
+                              "instantiations": len(insts)}
+    print(f"HGMMA instructions in the SASS: {libs}; per kernel "
+          f"{json.dumps(kernels)}", flush=True)
+    return {"libraries": libs, "kernels": kernels}
 
 
 def verify_case(torch, dev, gen, dtype, w, wlens, starts):
@@ -932,6 +963,7 @@ def xent_case(torch, dev, gen, dtype, timed: bool):
             h, w, labels), iters=5, warmup=1),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(torch, library_fwd, iters=5, warmup=1)})
+    add_rates(fwd, flops)
     bnd_b, by_b = bound_ms(2 * elt * (t * d + d * v) + 3 * 4 * t,
                            3 * flops)
     hl = h.detach().requires_grad_(True)
@@ -949,12 +981,12 @@ def xent_case(torch, dev, gen, dtype, timed: bool):
     add_rates(bwd_case, 3 * flops)
     for kname, c in (("cross_entropy", fwd),
                      ("cross_entropy_bwd", bwd_case)):
-        rates = (f"; {c['tflops']:.1f} TFLOP/s, {c['bound_share']:.3f} of "
-                 f"the bound" if "tflops" in c else "")
         print(f"kernel {kname} {c['shape']}: err {c['max_abs_err']:.3g}; "
               f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
               f"{c['bound_ms']:.5f} ms ({c['bound_by']}), library "
-              f"{c['library_ms']:.4f} ms{rates}", flush=True)
+              f"{c['library_ms']:.4f} ms ({c['ms'] / c['library_ms']:.3f}x); "
+              f"{c['tflops']:.1f} TFLOP/s, {c['bound_share']:.3f} of the "
+              f"bound", flush=True)
     return fwd, bwd_case
 
 
@@ -1014,23 +1046,41 @@ def train_kernel_phase(torch, dev):
         sd_out = F.scaled_dot_product_attention(sd_q, sd_k, sd_v,
                                                 is_causal=True,
                                                 enable_gqa=True)
+        def kernel_bwd():
+            return ops.attention_bwd(qd, kd, vd, od, do, lse_b1)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sd_out, (sd_q, sd_k, sd_v),
+                                       grad_outputs=dot, retain_graph=True)
         case = {
             "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={dd} causal",
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: ops.attention_bwd(
-                qd, kd, vd, od, do, lse_b1)),
+            "ms": time_ms(torch, kernel_bwd),
             "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
                 qt, kt, vt, ot, dot, lse_b1)),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-                sd_out, (sd_q, sd_k, sd_v), grad_outputs=dot,
-                retain_graph=True)),
+            "library_ms": time_ms(torch, sdpa_bwd),
+            # device time: the port's two passes, and every kernel of
+            # the SDPA backward call
+            "device_ms": device_ms(torch, kernel_bwd, "flash_bwd"),
+            "device_ms_by_pass": {
+                name: device_ms(torch, kernel_bwd, f"flash_bwd_{name}")
+                for name in ("dq", "dkdv")},
+            "library_device_ms": device_ms(torch, sdpa_bwd, ""),
         }
+        add_rates(case, flops)
+        case["device_bound_share"] = bnd / case["device_ms"]
         print(f"kernel flash_attention_bwd {case['shape']}: err "
               f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
-              f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-              f"bound {bnd:.5f} ms ({by}), sdpa bwd "
-              f"{case['library_ms']:.4f} ms", flush=True)
+              f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}: "
+              f"{json.dumps(case['device_ms_by_pass'])}), plain "
+              f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}), sdpa "
+              f"bwd {case['library_ms']:.4f} ms (device "
+              f"{case['library_device_ms']:.4f}; kernel/sdpa device "
+              f"{case['device_ms'] / case['library_device_ms']:.3f}x); "
+              f"{case['tflops']:.1f} TFLOP/s, {case['bound_share']:.3f} of "
+              f"the bound ({case['device_bound_share']:.3f} by device "
+              f"time)", flush=True)
         b1_bwd.append(case)
     return b5, b5_bwd, b1_bwd
 
@@ -1117,7 +1167,8 @@ def train_phase(torch, dev, events_dir: pathlib.Path):
 
 
 # kernel-name groups of the profiled step, first match wins
-_GROUPS = (("B5 cross_entropy (fwd+bwd)", ("xent_", "gemm_kernel")),
+_GROUPS = (("B5 cross_entropy fwd", ("xent_fwd", "xent_combine")),
+           ("B5 cross_entropy_bwd", ("xent_", "gemm_kernel")),
            ("B1-bwd flash_attention_bwd", ("flash_bwd",)),
            ("B1 flash_attention", ("flash_fwd",)),
            ("cuBLAS matmul", ("gemm", "sm90", "cutlass", "xmma", "nvjet")),
@@ -1385,14 +1436,19 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in b1_cases),
          **{k: b1[k] for k in timing + rates + ("device_ms",)},
          "cases": b1_cases,
-         "hgmma_count": hgmma["flash_attention"]},
+         "hgmma_count": hgmma["kernels"]["flash_fwd_tc_kernel"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/layers.py:248",
          "launches": train["launches"]["flash_attention_bwd"],
          "launches_by_path": by_path["flash_attention_bwd"],
          "max_abs_err": max(c["max_abs_err"] for c in b1_bwd),
-         **{k: b1b[k] for k in timing}, "cases": b1_bwd},
+         **{k: b1b[k] for k in timing + rates + (
+             "device_ms", "device_ms_by_pass", "library_device_ms",
+             "device_bound_share")},
+         "cases": b1_bwd,
+         "hgmma_count": {k: hgmma["kernels"][k] for k in (
+             "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:81",
@@ -1419,7 +1475,8 @@ def main() -> int:
          "launches": train["launches"]["cross_entropy"],
          "launches_by_path": by_path["cross_entropy"],
          **{k: b5[k] for k in ("max_abs_err", "argmax_near_ties", "fp32")
-            + timing}},
+            + timing + rates},
+         "hgmma_count": hgmma["kernels"]["xent_fwd_tc_kernel"]},
         {"name": "cross_entropy_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:68",
@@ -1428,7 +1485,7 @@ def main() -> int:
          **{k: b5_bwd[k] for k in ("max_abs_err", "softmax_rel_l2",
                                      "planted_softmax_rel_l2", "fp32")
             + timing + rates},
-         "hgmma_count": hgmma["cross_entropy"]},
+         "hgmma_count": hgmma["kernels"]["xent_tc_gemm"]},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:
         fail(f"kernel list {sorted(ops.WRAPPERS)} not all reported")

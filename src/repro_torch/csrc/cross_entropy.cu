@@ -12,21 +12,40 @@
 // argmax-correct flag (first index on ties, as jnp.argmax) that
 // chunked_xent feeds to the accuracy metric.
 //
-// Core. One register-tiled product C = A . B on the CUDA cores: a block
-// of 256 threads owns a 64 x 64 tile of C, the K axis streams through
-// shared memory 16 at a time (converted to fp32), and each thread keeps a
-// 4 x 4 micro-tile of C in registers. A and B are read through two strides
-// each, so the same code serves h . W, ds . W^T and h^T . ds without
-// transposed copies. Every edge is masked: M, N and K need not be
-// multiples of the tile (V = 49155 is odd; T may be anything).
+// Core (float32). One register-tiled product C = A . B on the CUDA
+// cores: a block of 256 threads owns a 64 x 64 tile of C, the K axis
+// streams through shared memory 16 at a time (converted to fp32), and
+// each thread keeps a 4 x 4 micro-tile of C in registers. A and B are
+// read through two strides each, so the same code serves h . W, ds . W^T
+// and h^T . ds without transposed copies. Every edge is masked: M, N and
+// K need not be multiples of the tile (V = 49155 is odd; T may be
+// anything).
 //
-// Forward. Grid (token tiles of 64, vocab splits). A block streams its
-// split's vocab tiles: after each 64 x 64 logit tile it folds the tile
-// into per-row running (max, sum of exp, best logit, its index, target
-// logit) with half-warp shuffles; columns past V are left out. Splitting
-// the vocab axis across blocks gives T = 2048 tokens 32 x 17 blocks
-// instead of 32 (the TPU's sequential vocab axis); a second small kernel
-// combines the splits in order, so the result does not depend on timing.
+// Forward. The dtype picks the kernel in cross_entropy_fwd (a plain
+// dispatch, as in the backward). What bounds it: 2*T*d*V = 4.12e11 flops
+// at T = 2048, d = 2048, V = 49155 against ~210 MB of bytes, so operations
+// bound the card (0.42 ms at the bf16 tensor-core peak).
+//
+// bf16 / fp16: tensor cores (tc::xent_fwd_tc_kernel). The logits tile
+// h[m0:m0+128] . W[:, n0:n0+128] is the backward's product (wgmma
+// m64n128k16, fp32 accumulators, h K-major and W MN-major fed by TMA
+// through the 4-stage ring by a producer warp). A block walks a run of
+// vocab tiles (a split) for its 128 tokens, and the ring runs on across
+// tiles, so the next tile's loads overlap this tile's epilogue. The
+// epilogue folds the tile into per-row running (max, sum of exp, best
+// logit, its index, label logit) in registers: a row's 128 columns sit
+// in the 4 lanes lane & 3 of one warp, so the row reduction is two
+// shuffles. Columns past V (zero-filled by TMA) are left out. The splits
+// (one wave of blocks: SMs / token tiles) are combined in split order by
+// xent_combine_kernel, so the result does not depend on timing. W is read
+// through a tensor map: its rows must start 16-byte aligned (the wrapper
+// hands over a row-padded copy at odd V, made once a step and kept for
+// the backward).
+//
+// float32: CUDA cores (xent_fwd_kernel). Grid (token tiles of 64, vocab
+// splits); a block streams its split's 64 x 64 logit tiles (tile_product)
+// and folds each into the same running state with half-warp shuffles.
+// wgmma in fp32 would be TF32 and break the fp32 tolerances.
 //
 // Backward. ds = (exp(s - lse) - onehot(label)) * g, recomputed chunk by
 // chunk of the vocab axis (chunk columns chosen by the wrapper so the ds
@@ -54,11 +73,6 @@
 //
 // float32: the CUDA-core products below (tile_product), with ds staged in
 // fp32; wgmma in fp32 would be TF32 and break the fp32 tolerances.
-//
-// What bounds the forward. 2*T*d*V = 4.12e11 flops against ~210 MB of
-// bytes: operations bound the card (0.42 ms at the bf16 tensor-core
-// peak). It runs fp32 on the CUDA cores, far from that bound; wgmma
-// tiles fed by TMA are its later step.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -413,6 +427,82 @@ constexpr int kSmem = 1024 + 2 * kStages * kTileBytes + 8 * 2 * kStages;
 
 enum { kEpiDs = 0, kEpiDw = 1, kEpiDh = 2 };
 
+// The ring of kStages K-steps in dynamic shared memory (1024-aligned
+// for the 128-byte swizzle): A tiles, B tiles, then a "full" and an
+// "empty" mbarrier per stage. Every thread calls it; it initialises the
+// barriers and syncs the block.
+struct Ring {
+  unsigned char* a;
+  unsigned char* b;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+__device__ __forceinline__ Ring make_ring(unsigned char* smem_raw) {
+  Ring r;
+  r.a = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  r.b = r.a + kStages * kTileBytes;
+  r.full = reinterpret_cast<uint64_t*>(r.b + kStages * kTileBytes);
+  r.empty = r.full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 4 * kConsumers);    // one arrival a warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// One K-step (kBK deep) of a 128 x 128 tile into ring stage `stage`,
+// issued by the producer: A rows m0.. from column k0, B columns bn.. from
+// row bk. MN-major A (AMN) is two atoms of 64 rows of M, K-major A one
+// box of 128 rows; B alike.
+template <int AMN, int BMN>
+__device__ __forceinline__ void load_kstep(const Ring& r, int stage,
+                                           const CUtensorMap* amap,
+                                           const CUtensorMap* bmap, int m0,
+                                           int k0, int bn, int bk) {
+  uint64_t* bar = &r.full[stage];
+  unsigned char* a_dst = r.a + stage * kTileBytes;
+  unsigned char* b_dst = r.b + stage * kTileBytes;
+  mbar_expect_tx(bar, 2 * kTileBytes);
+  if (AMN) {
+    tma_load_2d(a_dst, amap, bar, m0, k0);
+    tma_load_2d(a_dst + kAtomBytes, amap, bar, m0 + 64, k0);
+  } else {
+    tma_load_2d(a_dst, amap, bar, k0, m0);
+  }
+  if (BMN) {
+    tma_load_2d(b_dst, bmap, bar, bn, bk);
+    tma_load_2d(b_dst + kAtomBytes, bmap, bar, bn + 64, bk);
+  } else {
+    tma_load_2d(b_dst, bmap, bar, bk, bn);
+  }
+}
+
+// Consumer warpgroup g's products of one K-step in ring stage `stage`:
+// acc (64 x 128) += A (its 64 rows) . B, four wgmma k16 steps committed
+// as one group.
+template <typename T, int AMN, int BMN>
+__device__ __forceinline__ void mma_kstep(float (&acc)[64], const Ring& r,
+                                          int stage, int g) {
+  const uint32_t a_addr = smem_u32(r.a + stage * kTileBytes + g * kAtomBytes);
+  const uint32_t b_addr = smem_u32(r.b + stage * kTileBytes);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kBK / 16; ++ks) {
+    const uint64_t da = AMN ? make_desc(a_addr + ks * 2048, kAtomBytes)
+                            : make_desc(a_addr + ks * 32, 16);
+    const uint64_t db = BMN ? make_desc(b_addr + ks * 2048, kAtomBytes)
+                            : make_desc(b_addr + ks * 32, 16);
+    wgmma_ss_n128<T, AMN, BMN>(acc, da, db, 1);
+  }
+  wgmma_commit();
+}
+
 struct Epi {
   const int* labels;      // labels, lse, g of each token
   const float* lse;
@@ -434,48 +524,18 @@ xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
              const __grid_constant__ CUtensorMap bmap, int M, int N, int K,
              int b_n_off, int b_k_off, Epi ep) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* a_s = smem;
-  unsigned char* b_s = a_s + kStages * kTileBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kStages * kTileBytes);
-  uint64_t* empty = full + kStages;
-
+  const Ring ring = make_ring(smem_raw);
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   const int ktiles = (K + kBK - 1) / kBK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * kConsumers);    // one arrival a warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
 
   if (warp == 4 * kConsumers) {            // producer
     if (lane == 0) {
       int stage = 0, phase = 0;
       for (int kt = 0; kt < ktiles; ++kt) {
-        const int k0 = kt * kBK;
-        mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], 2 * kTileBytes);
-        unsigned char* a_dst = a_s + stage * kTileBytes;
-        unsigned char* b_dst = b_s + stage * kTileBytes;
-        if (AMN) {                         // two atoms of 64 rows of M
-          tma_load_2d(a_dst, &amap, &full[stage], m0, k0);
-          tma_load_2d(a_dst + kAtomBytes, &amap, &full[stage], m0 + 64, k0);
-        } else {                           // 128 rows of M, K along a row
-          tma_load_2d(a_dst, &amap, &full[stage], k0, m0);
-        }
-        if (BMN) {
-          tma_load_2d(b_dst, &bmap, &full[stage], b_n_off + n0, b_k_off + k0);
-          tma_load_2d(b_dst + kAtomBytes, &bmap, &full[stage],
-                      b_n_off + n0 + 64, b_k_off + k0);
-        } else {
-          tma_load_2d(b_dst, &bmap, &full[stage], b_k_off + k0, b_n_off + n0);
-        }
+        mbar_wait(&ring.empty[stage], phase ^ 1);
+        load_kstep<AMN, BMN>(ring, stage, &amap, &bmap, m0, kt * kBK,
+                             b_n_off + n0, b_k_off + kt * kBK);
         if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
     }
@@ -488,21 +548,10 @@ xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   int stage = 0, phase = 0, prev = 0;
   for (int kt = 0; kt < ktiles; ++kt) {
-    mbar_wait(&full[stage], phase);
-    const uint32_t a_addr = smem_u32(a_s + stage * kTileBytes + g * kAtomBytes);
-    const uint32_t b_addr = smem_u32(b_s + stage * kTileBytes);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const uint64_t da = AMN ? make_desc(a_addr + ks * 2048, kAtomBytes)
-                              : make_desc(a_addr + ks * 32, 16);
-      const uint64_t db = BMN ? make_desc(b_addr + ks * 2048, kAtomBytes)
-                              : make_desc(b_addr + ks * 32, 16);
-      wgmma_ss_n128<T, AMN, BMN>(acc, da, db, 1);
-    }
-    wgmma_commit();
+    mbar_wait(&ring.full[stage], phase);
+    mma_kstep<T, AMN, BMN>(acc, ring, stage, g);
     wgmma_wait<1>();          // this warp's previous products are done
-    if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+    if (kt > 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
     prev = stage;
     if (++stage == kStages) { stage = 0; phase ^= 1; }
   }
@@ -562,7 +611,7 @@ xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
   // dW: the tile goes through shared memory (the pipeline's, now idle)
   // in fp32, where the one-hot part is applied exactly, then out in rows.
   constexpr int kLd = kBN + 4;
-  float* tile = reinterpret_cast<float*>(smem);
+  float* tile = reinterpret_cast<float*>(ring.a);
   asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
   const int tr = 64 * g + 16 * w + (lane >> 2);
 #pragma unroll
@@ -596,6 +645,142 @@ xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+// Forward on the tensor cores: block (token tile m0, split) walks vocab
+// tiles [vt_begin, vt_end) of 128 columns. The producer runs the ring
+// over every (tile, K-step) of the walk without a break; a consumer
+// releases each stage once its products are done, and after a tile's
+// last K-step folds the tile into its rows' running state (fold_tile).
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct RowState {
+  float m, l, best, tgt;      // running max, sum of exp(s - m), best logit,
+  int best_i, label;          // label logit; best's index; the row's label
+};
+
+// Fold one 64 x 128 logit tile (this warpgroup's rows) into the state of
+// the thread's two rows (register 4c + 2 half + e: row + 8 half, column
+// n0 + 8c + 2(lane & 3) + e). Columns at or past V are left out; the
+// argmax keeps the first index on ties (columns ascend within a lane,
+// lanes compare indices, tiles ascend and replace only a larger logit).
+__device__ __forceinline__ void fold_tile(const float (&acc)[64], int n0,
+                                          int V, int lane,
+                                          RowState (&st)[2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    RowState& r = st[half];
+    float tmax = -INFINITY, tt = 0.f;
+    int targ = 0x7fffffff;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * c + 2 * (lane & 3) + e;
+        const float x = acc[4 * c + 2 * half + e];
+        if (col < V) {
+          if (x > tmax) { tmax = x; targ = col; }
+          if (col == r.label) tt += x;
+        }
+      }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {      // the row's 4 lanes
+      const float ov = __shfl_xor_sync(0xffffffffu, tmax, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, targ, o);
+      if (ov > tmax || (ov == tmax && oi < targ)) { tmax = ov; targ = oi; }
+      tt += __shfl_xor_sync(0xffffffffu, tt, o);
+    }
+    const float m_new = fmaxf(r.m, tmax);
+    float se = 0.f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (n0 + 8 * c + 2 * (lane & 3) + e < V)
+          se += exp2f((acc[4 * c + 2 * half + e] - m_new) * kLog2e);
+    se += __shfl_xor_sync(0xffffffffu, se, 1);
+    se += __shfl_xor_sync(0xffffffffu, se, 2);
+    r.l = r.l * exp2f((r.m - m_new) * kLog2e) + se;
+    r.m = m_new;
+    if (tmax > r.best) { r.best = tmax; r.best_i = targ; }
+    r.tgt += tt;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+xent_fwd_tc_kernel(const __grid_constant__ CUtensorMap hmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const int* __restrict__ labels, int Tn, int D, int V,
+                   int tiles_per_split, int nsplit,
+                   float* __restrict__ part) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring ring = make_ring(smem_raw);
+  const int m0 = blockIdx.x * kBM, split = blockIdx.y;
+  const int vt_begin = split * tiles_per_split;
+  const int vt_end = min((V + kBN - 1) / kBN, vt_begin + tiles_per_split);
+  const int ktiles = (D + kBK - 1) / kBK;
+  const int steps = (vt_end - vt_begin) * ktiles;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 4 * kConsumers) {            // producer
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int it = 0; it < steps; ++it) {
+        const int n0 = (vt_begin + it / ktiles) * kBN;
+        const int k0 = (it % ktiles) * kBK;
+        mbar_wait(&ring.empty[stage], phase ^ 1);
+        load_kstep<0, 1>(ring, stage, &hmap, &wmap, m0, k0, n0, k0);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int g = warp >> 2, w = warp & 3;
+  const int rl = m0 + 64 * g + 16 * w + (lane >> 2);
+  RowState st[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = rl + 8 * half;
+    st[half] = RowState{-INFINITY, 0.f, -INFINITY, 0.f, 0x7fffffff,
+                        row < Tn ? labels[row] : -1};
+  }
+  float acc[64];
+  int stage = 0, phase = 0, prev = -1;
+  for (int it = 0; it < steps; ++it) {
+    const int kt = it % ktiles;
+    if (kt == 0) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    }
+    mbar_wait(&ring.full[stage], phase);
+    mma_kstep<T, 0, 1>(acc, ring, stage, g);
+    wgmma_wait<1>();          // this warp's previous products are done
+    if (prev >= 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
+    prev = stage;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+    if (kt == ktiles - 1) {   // the tile is complete: fold it
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&ring.empty[prev]);
+      prev = -1;
+      fold_tile(acc, (vt_begin + it / ktiles) * kBN, V, lane, st);
+    }
+  }
+  if ((lane & 3) != 0) return;
+  const long long plane = static_cast<long long>(nsplit) * Tn;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = rl + 8 * half;
+    if (row >= Tn) continue;
+    const long long base = static_cast<long long>(split) * Tn + row;
+    part[kPartM * plane + base] = st[half].m;
+    part[kPartL * plane + base] = st[half].l;
+    part[kPartBest * plane + base] = st[half].best;
+    part[kPartIdx * plane + base] = __int_as_float(st[half].best_i);
+    part[kPartTgt * plane + base] = st[half].tgt;
+  }
+}
+
 // A 2-D map over a row-major (rows x cols) 16-bit matrix with row stride
 // ld elements and a box of box_cols x box_rows (the encoder refuses a row
 // stride or address that is not a 16-byte multiple).
@@ -625,6 +810,37 @@ int gemm(const CUtensorMap& a, const CUtensorMap& b, int M, int N, int K,
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   xent_tc_gemm<T, AMN, BMN, EPI><<<grid, kThreads, kSmem, stream>>>(
       a, b, M, N, K, b_n_off, b_k_off, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h (Tn, D) contiguous; w (D, V) with row stride ldw (a multiple of 8).
+// The splits come out of the kernel into part and are combined in order.
+template <typename T>
+int fwd(const void* h, const void* w, int ldw, const int* labels, int Tn,
+        int D, int V, int nsplit, float* part, float* nll, float* lse,
+        int* correct, cudaStream_t stream) {
+  CUtensorMap h_k, w_mn;
+  int err = map2d<T>(&h_k, h, Tn, D, D, 64, kBM);       // A: K = D
+  if (err == 0) err = map2d<T>(&w_mn, w, D, V, ldw, 64, 64);   // B
+  if (err != 0) return err;
+  const int vtiles = cdiv(V, kBN);
+  const int per = cdiv(vtiles, nsplit);
+  nsplit = cdiv(vtiles, per);               // no empty split
+  static bool sized = false;                // once per kernel and process
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        xent_fwd_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  xent_fwd_tc_kernel<T><<<dim3(cdiv(Tn, kBM), nsplit), kThreads, kSmem,
+                          stream>>>(h_k, w_mn, labels, Tn, D, V, per, nsplit,
+                                    part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  xent_combine_kernel<<<cdiv(Tn, 256), 256, 0, stream>>>(
+      part, labels, Tn, nsplit, nll, lse, correct);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,23 +888,28 @@ int bwd(const void* h, const void* w, int ldw, const int* labels,
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (hidden and W alike). hidden
-// (T, D) and W (D, V) contiguous; labels (T,) int32 in [0, V). part is
-// fp32 scratch of 5 * nsplit * T; nll, lse (T,) fp32; correct (T,) int32.
-// Returns cudaGetLastError().
-int cross_entropy_fwd(int dtype, const void* h, const void* w,
+// (T, D) contiguous; W (D, V) with row stride ldw (V for float32; for
+// 16-bit inputs a multiple of 8, so rows start 16-byte aligned); labels
+// (T,) int32 in [0, V). part is fp32 scratch of 5 * nsplit * T; nll, lse
+// (T,) fp32; correct (T,) int32. float32 runs the CUDA-core kernel, bf16
+// and fp16 the tensor-core one. Returns cudaGetLastError().
+int cross_entropy_fwd(int dtype, const void* h, const void* w, int ldw,
                       const int* labels, int Tn, int D, int V, int nsplit,
                       float* part, float* nll, float* lse, int* correct,
                       void* stream) {
-  if (Tn <= 0 || D <= 0 || V <= 0 || nsplit <= 0)
+  if (Tn <= 0 || D <= 0 || V <= 0 || nsplit <= 0 || ldw < V)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return fwd<float>(h, w, labels, Tn, D, V, nsplit, part, nll, lse,
-                              correct, s);
-    case 1: return fwd<__nv_bfloat16>(h, w, labels, Tn, D, V, nsplit, part,
-                                      nll, lse, correct, s);
-    case 2: return fwd<__half>(h, w, labels, Tn, D, V, nsplit, part, nll,
-                               lse, correct, s);
+    case 0:
+      if (ldw != V) return static_cast<int>(cudaErrorInvalidValue);
+      return fwd<float>(h, w, labels, Tn, D, V, nsplit, part, nll, lse,
+                        correct, s);
+    case 1: return tc::fwd<__nv_bfloat16>(h, w, ldw, labels, Tn, D, V,
+                                          nsplit, part, nll, lse, correct,
+                                          s);
+    case 2: return tc::fwd<__half>(h, w, ldw, labels, Tn, D, V, nsplit, part,
+                                   nll, lse, correct, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

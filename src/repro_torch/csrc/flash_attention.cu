@@ -11,8 +11,12 @@
 // window masks align query and key *starts* (q_pos = k_pos = row index),
 // as the TPU kernel and repro.models.layers.blockwise_attention do.
 //
-// Two forward kernels, chosen by the input dtype in flash_attention_fwd
-// (a plain dispatch, not a fallback: nothing catches a failed launch).
+// Two forward kernels and two backward kernel pairs, chosen by the input
+// dtype in flash_attention_fwd / flash_attention_bwd (a plain dispatch,
+// not a fallback: nothing catches a failed launch): bf16 and fp16 run on
+// the tensor cores (namespace tc), float32 on the CUDA cores. The
+// tensor-core backward is described where it is defined, below the
+// forward.
 //
 // bf16 / fp16: the tensor-core kernel (namespace tc). What bounds it: at
 // B = 16, S = 512, Hq = 32, Hkv = 8, D = 64 causal the work is 17.2 GFLOP
@@ -232,6 +236,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // ---------------------------------------------------------------------------
 // Backward (training): the counterpart of repro.models.layers._bw_attn_bwd.
 // P is recomputed from q, k and the forward's lse; delta = rowsum(dO * out).
+// The float32 kernels (bf16/fp16 run the tensor-core pair, namespace tc).
 // Two passes, both deterministic (no atomics):
 //   dq   — one block per (q tile of 16 rows, q head, batch row), as the
 //          forward: warp w owns 4 rows, a lane scores one key of each
@@ -246,8 +251,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // Tiles live in dynamic shared memory sized to D (above 48 KB at D = 128).
 // What bounds it: at training shapes (B = 16, S = 128, D = 64) the bytes
 // (q, k, v, out, dO in; dq, dk, dv out) are ~42 MB against ~2.7 GFLOP of
-// work, so bytes bound the card; this first version recomputes in fp32 on
-// the CUDA cores and is bound by operations well above that.
+// work, so bytes bound the card; in fp32 on the CUDA cores (wgmma in fp32
+// would be TF32) these kernels are bound by operations well above that.
 // ---------------------------------------------------------------------------
 
 struct Str {
@@ -894,6 +899,461 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward on the tensor cores (bf16 and fp16 inputs). Two passes, both
+// deterministic (no atomics), one kernel body (bwd_body) in two modes:
+//   dq   — block (128 query rows, q head, batch row). Own tiles X = Q and
+//          Y = dO of each consumer's 64 rows; streamed U = K, W = V over
+//          the kv tiles the rows can see. It also writes
+//          delta = rowsum(dO * O) for the second pass.
+//   dk,dv — block (128 keys, kv head, batch row). Own X = K, Y = V;
+//          streamed U = Q, W = dO over the q tiles of all rep q heads of
+//          the kv head, so the GQA sum stays in registers.
+// Per streamed tile, a consumer warpgroup computes
+//   S = X U^T and dP = Y W^T     (wgmma m64n64k16, both K-major),
+//   P = exp(S scale - lse), dS = P (dP - delta)   (fp32 fragments; lse and
+//          delta are per row in the dq pass, per column in the dk/dv pass),
+//   dq:   dQ += dS U             (register A, U = K MN-major),
+//   dk,dv: dV += P W, dK += dS U (register A, W = dO and U = Q MN-major),
+// with P and dS fed to the tensor cores in two parts of the input dtype
+// (hi = rounded, lo = the remainder), as the forward feeds P: rounding
+// them once moved chip_smoke.py's gradient check towards its limit (see
+// PERF.md and tools/grad_conditioning.py). The producer warp streams U
+// and W by TMA through an mbarrier ring, as in the forward; tiles past
+// the causal diagonal or before the window are skipped, and only tiles
+// that straddle an edge are masked. In the dk/dv pass the producer warp
+// also stages the streamed q rows' lse and delta in shared memory beside
+// each tile, once for both consumers, instead of 16 columns' worth of
+// global loads by every consumer thread. What bounds it: at the training shape
+// (B = 16, S = 128, Hq = 32, Hkv = 8, D = 64) the bytes are ~42 MB and the
+// work ~2.7 GFLOP, so bytes bound the card (0.013 ms).
+// ---------------------------------------------------------------------------
+
+struct BwdParams {
+  int xperm, yperm, uperm, wperm;   // the four maps' axis orders (coords)
+  const void* o;                    // dq pass: O and dO for delta
+  const void* dout;
+  long long o_sb, o_sh, o_ss, do_sb, do_sh, do_ss;
+  const float* lse;                 // (B, Hq, S) fp32
+  float* delta;                     // (B, Hq, S) fp32: dq pass writes it
+  void* g0;                         // dQ (dq pass) or dK (dk/dv pass)
+  long long g0_sb, g0_sh, g0_ss;
+  void* g1;                         // dV (dk/dv pass)
+  long long g1_sb, g1_sh, g1_ss;
+  int S, T_len, D, rep, Hq, causal, window;
+  float scale, scale_log2;
+};
+
+// Shared memory of a backward block: own X, Y tiles of both consumers,
+// the ring's U, W tiles, its barriers, and per stage the streamed q
+// rows' lse and delta (dk/dv pass).
+template <int DP>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return 1024 + (2 * kConsumers + 2 * stages<DP>()) * tile_bytes<DP>() +
+         8 * (2 * stages<DP>() + 1) + 2 * stages<DP>() * kKeys * 4;
+}
+
+// acc (64 x DP) += A (64 x 16, registers) . B (16 x DP, MN-major smem)
+template <typename T, int DP>
+__device__ __forceinline__ void mma_rs(float (&acc)[DP / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DP == 64) wgmma_rs_n64<T, 1>(acc, a, db, 1);
+  else wgmma_rs_n128<T, 1>(acc, a, db, 1);
+}
+
+// A 64 x 64 fp32 fragment as the register A operand of four k16 steps, in
+// two parts of the input dtype: hi = x rounded, lo = x - hi rounded.
+template <typename T>
+__device__ __forceinline__ void split2(const float (&x)[32],
+                                       uint32_t (&hi)[4][4],
+                                       uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = x[8 * kk + 2 * j], x1 = x[8 * kk + 2 * j + 1];
+      hi[kk][j] = pack2<T>(x0, x1);
+      const float2 h = unpack2<T>(hi[kk][j]);
+      lo[kk][j] = pack2<T>(x0 - h.x, x1 - h.y);
+    }
+}
+
+// Rows ra and rb (< n) of a 64 x DP fp32 fragment, times `scale`, into
+// out (row stride ss), columns below D, in pairs of 16-bit values.
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
+                                           float scale, T* out, long long ss,
+                                           int ra, int rb, int n, int D,
+                                           int lane) {
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c) {
+    const int col = 8 * c + 2 * (lane & 3);
+    if (col >= D) continue;
+    if (ra < n)
+      *reinterpret_cast<uint32_t*>(out + ra * ss + col) =
+          pack2<T>(acc[4 * c] * scale, acc[4 * c + 1] * scale);
+    if (rb < n)
+      *reinterpret_cast<uint32_t*>(out + rb * ss + col) =
+          pack2<T>(acc[4 * c + 2] * scale, acc[4 * c + 3] * scale);
+  }
+}
+
+template <typename T, int DP, bool KV>
+__device__ __forceinline__ void bwd_body(const CUtensorMap* xmap,
+                                         const CUtensorMap* ymap,
+                                         const CUtensorMap* umap,
+                                         const CUtensorMap* wmap,
+                                         const BwdParams& p) {
+  constexpr int ST = stages<DP>();
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int kAtoms = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* x_s = smem;
+  unsigned char* y_s = x_s + kConsumers * TB;
+  unsigned char* u_s = y_s + kConsumers * TB;
+  unsigned char* w_s = u_s + ST * TB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(w_s + ST * TB);
+  uint64_t* empty = full + ST;
+  uint64_t* own_full = empty + ST;
+  float* lse_s = reinterpret_cast<float*>(own_full + 1);   // [ST][kKeys]
+  float* del_s = lse_s + ST * kKeys;                       // [ST][kKeys]
+
+  const int S = p.S, T_len = p.T_len, causal = p.causal, window = p.window;
+  const int blk = blockIdx.x * (kRows * kConsumers);   // first own row
+  const int hb = blockIdx.y, b = blockIdx.z;   // q head (dq), kv head (kv)
+  const int n_own = KV ? T_len : S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // streamed tiles of 64: dq — kv tiles [s_first, s_end); dk/dv — for
+  // each of the rep q heads, q tiles [s_first, s_end)
+  const int blk_last = min(blk + kRows * kConsumers, n_own) - 1;
+  int lo, hi;
+  if (KV) {
+    lo = causal ? blk : 0;
+    hi = window > 0 ? min(S, blk_last + window) : S;
+  } else {
+    lo = window > 0 ? max(0, blk - window + 1) : 0;
+    hi = causal ? min(T_len, blk_last + 1) : T_len;
+  }
+  const int s_first = lo / kKeys;
+  const int per_head = max(0, (hi + kKeys - 1) / kKeys - s_first);
+  const int n_stream = KV ? p.rep * per_head : per_head;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      // dk/dv pass: the TMA's arrival and one a producer lane (lse, delta)
+      mbar_init(&full[s], KV ? 1 + 32 : 1);
+      mbar_init(&empty[s], 4 * kConsumers);    // one arrival a warp
+    }
+    mbar_init(own_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {            // producer
+    int c1, c2, c3;
+    if (lane == 0) {
+      mbar_expect_tx(own_full, 2 * kConsumers * TB);
+      for (int g = 0; g < kConsumers; ++g) {
+        coords(p.xperm, hb, blk + kRows * g, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(x_s + g * TB + a * kAtomBytes, xmap, own_full, 64 * a,
+                      c1, c2, c3);
+        coords(p.yperm, hb, blk + kRows * g, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(y_s + g * TB + a * kAtomBytes, ymap, own_full, 64 * a,
+                      c1, c2, c3);
+      }
+    }
+    if (!KV && lane != 0) return;
+    // the ring: lane 0 issues the tiles; in the dk/dv pass every lane
+    // also stages two of the tile's q rows' lse (log2 units) and delta
+    int stage = 0, phase = 0;
+    for (int i = 0; i < n_stream; ++i) {
+      const int head = KV ? hb * p.rep + i / per_head : hb / p.rep;
+      const int pos = kKeys * (s_first + (KV ? i % per_head : i));
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[stage], 2 * TB);
+        coords(p.uperm, head, pos, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(u_s + stage * TB + a * kAtomBytes, umap, &full[stage],
+                      64 * a, c1, c2, c3);
+        coords(p.wperm, head, pos, b, c1, c2, c3);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(w_s + stage * TB + a * kAtomBytes, wmap, &full[stage],
+                      64 * a, c1, c2, c3);
+      }
+      if constexpr (KV) {
+        const long long row0 = (static_cast<long long>(b) * p.Hq + head) * S;
+        for (int j = lane; j < kKeys; j += 32) {
+          const int qi = pos + j;
+          lse_s[stage * kKeys + j] = qi < S ? p.lse[row0 + qi] * kLog2e : 0.f;
+          del_s[stage * kKeys + j] = qi < S ? p.delta[row0 + qi] : 0.f;
+        }
+        mbar_arrive(&full[stage]);     // release: the stores above
+      }
+      if (++stage == ST) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g owns rows [r_first, r_first + 64) (queries in
+  // the dq pass, keys in the dk/dv pass); this thread rows ra, rb
+  const int g = warp >> 2, w = warp & 3;
+  const int r_first = blk + kRows * g;
+  const int ra = r_first + 16 * w + (lane >> 2), rb = ra + 8;
+  const bool active = r_first < n_own;
+
+  // dq pass: lse (log2 units) and delta of the thread's two rows
+  float lse_a = 0.f, lse_b = 0.f, del_a = 0.f, del_b = 0.f;
+  if (!KV && active) {
+    const long long row0 = (static_cast<long long>(b) * p.Hq + hb) * S;
+    const T* ob = static_cast<const T*>(p.o) + b * p.o_sb + hb * p.o_sh;
+    const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + hb * p.do_sh;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = 8 * c + 2 * (lane & 3);
+      if (col >= p.D) continue;
+      if (ra < S) {
+        const float2 x = unpack2<T>(
+            *reinterpret_cast<const uint32_t*>(ob + ra * p.o_ss + col));
+        const float2 y = unpack2<T>(
+            *reinterpret_cast<const uint32_t*>(dob + ra * p.do_ss + col));
+        del_a = fmaf(x.x, y.x, fmaf(x.y, y.y, del_a));
+      }
+      if (rb < S) {
+        const float2 x = unpack2<T>(
+            *reinterpret_cast<const uint32_t*>(ob + rb * p.o_ss + col));
+        const float2 y = unpack2<T>(
+            *reinterpret_cast<const uint32_t*>(dob + rb * p.do_ss + col));
+        del_b = fmaf(x.x, y.x, fmaf(x.y, y.y, del_b));
+      }
+    }
+    del_a += __shfl_xor_sync(0xffffffffu, del_a, 1);
+    del_a += __shfl_xor_sync(0xffffffffu, del_a, 2);
+    del_b += __shfl_xor_sync(0xffffffffu, del_b, 1);
+    del_b += __shfl_xor_sync(0xffffffffu, del_b, 2);
+    if (ra < S) lse_a = p.lse[row0 + ra] * kLog2e;
+    if (rb < S) lse_b = p.lse[row0 + rb] * kLog2e;
+    if ((lane & 3) == 0) {
+      if (ra < S) p.delta[row0 + ra] = del_a;
+      if (rb < S) p.delta[row0 + rb] = del_b;
+    }
+  }
+
+  float acc0[DP / 2], acc1[KV ? DP / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (KV ? DP / 2 : 1); ++i) acc1[i] = 0.f;
+  const uint32_t x_addr = smem_u32(x_s + g * TB);
+  const uint32_t y_addr = smem_u32(y_s + g * TB);
+  mbar_wait(own_full, 0);
+
+  int stage = 0, phase = 0;
+  for (int i = 0; i < n_stream; ++i) {
+    const int c0 = kKeys * (s_first + (KV ? i % per_head : i));
+    const int q_lo = KV ? c0 : r_first, k_lo = KV ? r_first : c0;
+    mbar_wait(&full[stage], phase);
+    if (active && (!causal || k_lo <= q_lo + kKeys - 1) &&
+        (window <= 0 || k_lo + kKeys - 1 > q_lo - window)) {
+      const uint32_t u_addr = smem_u32(u_s + stage * TB);
+      const uint32_t w_addr = smem_u32(w_s + stage * TB);
+      // S = X U^T and dP = Y W^T: all K-major, D along the swizzled rows
+      float s[32], dp[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const uint32_t off = (ks / 4) * kAtomBytes + (ks % 4) * 32;
+        wgmma_ss_n64<T, 0, 0>(s, make_desc(x_addr + off, 16),
+                              make_desc(u_addr + off, 16), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const uint32_t off = (ks / 4) * kAtomBytes + (ks % 4) * 32;
+        wgmma_ss_n64<T, 0, 0>(dp, make_desc(y_addr + off, 16),
+                              make_desc(w_addr + off, 16), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P and dS on the fragments (register j: row ra or rb by j & 2,
+      // column c0 + 8(j / 4) + 2(lane % 4) + j % 2); mask only a tile that
+      // straddles an edge
+      const bool edge = k_lo + kKeys > T_len || q_lo + kKeys > S ||
+                        (causal && k_lo + kKeys - 1 > q_lo) ||
+                        (window > 0 && k_lo <= q_lo + kKeys - 1 - window);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int row = (j & 2) ? rb : ra;
+        const int col = c0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        float l2, dl;
+        if constexpr (KV) {             // the column's, staged by the producer
+          l2 = lse_s[stage * kKeys + col - c0];
+          dl = del_s[stage * kKeys + col - c0];
+        } else {
+          l2 = (j & 2) ? lse_b : lse_a;
+          dl = (j & 2) ? del_b : del_a;
+        }
+        float pv = exp2f(s[j] * p.scale_log2 - l2);
+        if (edge) {
+          const int qi = KV ? col : row, kj = KV ? row : col;
+          const bool valid = qi < S && kj < T_len &&
+                             (!causal || kj <= qi) &&
+                             (window <= 0 || kj > qi - window);
+          if (!valid) pv = 0.f;
+        }
+        s[j] = pv;
+        dp[j] = pv * (dp[j] - dl);
+      }
+      uint32_t dsh[4][4], dsl[4][4], ph[4][4], pl[4][4];
+      split2<T>(dp, dsh, dsl);
+      if constexpr (KV) split2<T>(s, ph, pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t du = make_desc(u_addr + kk * 2048, kAtomBytes);
+        mma_rs<T, DP>(acc0, dsh[kk], du);
+        mma_rs<T, DP>(acc0, dsl[kk], du);
+        if constexpr (KV) {
+          const uint64_t dw = make_desc(w_addr + kk * 2048, kAtomBytes);
+          mma_rs<T, DP>(acc1, ph[kk], dw);
+          mma_rs<T, DP>(acc1, pl[kk], dw);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc0);
+      fence_regs(dsh);
+      fence_regs(dsl);
+      if constexpr (KV) {
+        fence_regs(acc1);
+        fence_regs(ph);
+        fence_regs(pl);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with it
+    if (++stage == ST) { stage = 0; phase ^= 1; }
+  }
+  if (!active) return;
+
+  // dQ or dK (times the scale) and dV, in pairs of 16-bit values
+  store_rows<T, DP>(acc0, p.scale, static_cast<T*>(p.g0) + b * p.g0_sb +
+                    hb * p.g0_sh, p.g0_ss, ra, rb, n_own, p.D, lane);
+  if constexpr (KV)
+    store_rows<T, DP>(acc1, 1.f, static_cast<T*>(p.g1) + b * p.g1_sb +
+                      hb * p.g1_sh, p.g1_ss, ra, rb, n_own, p.D, lane);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const BwdParams p) {
+  bwd_body<T, DP, false>(&qmap, &domap, &kmap, &vmap, p);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const BwdParams p) {
+  bwd_body<T, DP, true>(&kmap, &vmap, &qmap, &domap, p);
+}
+
+inline bool pairs_ok(const void* ptr, const long long* st) {
+  return reinterpret_cast<uintptr_t>(ptr) % 4 == 0 && st[0] % 2 == 0 &&
+         st[1] % 2 == 0 && st[2] % 2 == 0;
+}
+
+template <typename T, int DP>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int Hq, int Hkv, int S, int T_len,
+               int D, const long long* const* st, int causal, int window,
+               float scale, cudaStream_t stream) {
+  if (hopper_host::encode_fn() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  // st: q, k, v, o, dO, dq, dk, dv strides (three each). q, k, v and dO
+  // are read by TMA; o is read and dq, dk, dv written in 4-byte pairs.
+  CUtensorMap qm, km, vm, dom;
+  BwdParams p{};
+  bool ok = pairs_ok(o, st[3]) && pairs_ok(dq, st[5]) && pairs_ok(dk, st[6]) &&
+            pairs_ok(dv, st[7]);
+  ok = ok && make_map<T>(&qm, &p.xperm, q, D, Hq, S, B, st[0]) == 0 &&
+       make_map<T>(&dom, &p.yperm, dout, D, Hq, S, B, st[4]) == 0 &&
+       make_map<T>(&km, &p.uperm, k, D, Hkv, T_len, B, st[1]) == 0 &&
+       make_map<T>(&vm, &p.wperm, v, D, Hkv, T_len, B, st[2]) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidPitchValue);
+  constexpr int smem = bwd_smem_bytes<DP>();
+  static bool sized = false;            // once per kernel pair and process
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<T, DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<T, DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  p.o = o;
+  p.dout = dout;
+  p.o_sb = st[3][0]; p.o_sh = st[3][1]; p.o_ss = st[3][2];
+  p.do_sb = st[4][0]; p.do_sh = st[4][1]; p.do_ss = st[4][2];
+  p.lse = lse;
+  p.delta = delta;
+  p.S = S; p.T_len = T_len; p.D = D; p.rep = Hq / Hkv; p.Hq = Hq;
+  p.causal = causal; p.window = window;
+  p.scale = scale; p.scale_log2 = scale * kLog2e;
+  // pass 1: dq (and delta); maps X = Q, Y = dO, U = K, W = V
+  p.g0 = dq; p.g0_sb = st[5][0]; p.g0_sh = st[5][1]; p.g0_ss = st[5][2];
+  p.g1 = nullptr;
+  const int rows = kRows * kConsumers;
+  flash_bwd_dq_tc_kernel<T, DP><<<dim3((S + rows - 1) / rows, Hq, B),
+                                  kThreads, smem, stream>>>(qm, dom, km, vm,
+                                                            p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // pass 2: dk, dv; maps X = K, Y = V, U = Q, W = dO
+  const int qperm = p.xperm, doperm = p.yperm;
+  p.xperm = p.uperm; p.yperm = p.wperm; p.uperm = qperm; p.wperm = doperm;
+  p.g0 = dk; p.g0_sb = st[6][0]; p.g0_sh = st[6][1]; p.g0_ss = st[6][2];
+  p.g1 = dv; p.g1_sb = st[7][0]; p.g1_sh = st[7][1]; p.g1_ss = st[7][2];
+  flash_bwd_dkdv_tc_kernel<T, DP><<<dim3((T_len + rows - 1) / rows, Hkv,
+                                         B), kThreads, smem, stream>>>(
+      km, vm, qm, dom, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const float* lse, float* delta, void* dq,
+                  void* dk, void* dv, int B, int Hq, int Hkv, int S,
+                  int T_len, int D, const long long* const* st, int causal,
+                  int window, float scale, cudaStream_t stream) {
+  if (D <= 64)
+    return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                             Hkv, S, T_len, D, st, causal, window, scale,
+                             stream);
+  return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                            Hkv, S, T_len, D, st, causal, window, scale,
+                            stream);
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int S, int T_len, int D, const long long* qs,
@@ -975,13 +1435,14 @@ int flash_attention_bwd(int dtype, const void* q, const void* k,
                                Hq, Hkv, S, T_len, D, st, causal, window,
                                scale, s);
     case 1:
-      return launch_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
+      return tc::launch_bwd_tc<__nv_bfloat16>(q, k, v, o, dout, lse, delta,
+                                              dq, dk, dv, B, Hq, Hkv, S,
+                                              T_len, D, st, causal, window,
+                                              scale, s);
+    case 2:
+      return tc::launch_bwd_tc<__half>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, B, Hq, Hkv, S, T_len, D, st,
                                        causal, window, scale, s);
-    case 2:
-      return launch_bwd<__half>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                Hq, Hkv, S, T_len, D, st, causal, window,
-                                scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

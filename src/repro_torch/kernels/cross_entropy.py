@@ -16,15 +16,21 @@ PyTorch — the CPU path and the on-card oracle.
 Shapes: hidden (T, d), w (d, V), both float32, bfloat16 or float16 of
 one dtype; labels (T,) int32 in [0, V). Products and sums are fp32.
 
-The backward dispatches on the dtype (``uses_tensor_cores``): bf16 and
-fp16 run the tensor-core products, with the softmax part of ds,
-exp(s - lse) g, staged in the input dtype (:func:`ds_chunk` columns at a
-time) and its one-hot part, -g at each token's label, applied exactly in
-fp32 where dh and dW are written (:func:`label_index` lists the tokens
-of each label for dW). W is read through a tensor map, so its rows must
-start 16-byte aligned: :func:`pad_vocab` hands over a row-padded copy
-when V is not a multiple of 8 (d must be). float32 runs the CUDA-core
-products with the whole ds staged in fp32.
+Both passes dispatch on the dtype (``uses_tensor_cores``): bf16 and fp16
+run the tensor-core kernels, float32 the CUDA-core ones. The tensor-core
+forward walks 128-column vocab tiles per block, :func:`tc_vocab_splits`
+splits a wave of blocks (float32: :func:`num_vocab_splits`). The
+tensor-core backward stages the softmax part of ds, exp(s - lse) g, in
+the input dtype (:func:`ds_chunk` columns at a time) and applies its
+one-hot part, -g at each token's label, exactly in fp32 where dh and dW
+are written (:func:`label_index` lists the tokens of each label for dW).
+The tensor-core kernels read hidden and W through tensor maps: d must be
+a multiple of 8, hidden 16-byte aligned, and W's rows must start 16-byte
+aligned: :func:`aligned_rows` hands over the first V columns of a
+row-padded copy (:func:`pad_vocab`) when V is not a multiple of 8, and
+``ops.CrossEntropy`` makes that copy once in the forward and keeps it for
+the backward. float32 runs the CUDA-core products with the whole ds
+staged in fp32, on a contiguous W.
 """
 from __future__ import annotations
 
@@ -38,12 +44,17 @@ from repro_torch.kernels.flash_attention import uses_tensor_cores
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE = 64                       # the kernels' token and vocab tile
-_TARGET_BLOCKS = 528             # forward: ~4 blocks per SM of an H100
+_TARGET_BLOCKS = 528             # float32 forward: ~4 blocks an H100 SM
+_TC_TILE = 128                   # tensor-core forward: token and vocab tile
 _DS_SCRATCH_ELEMS = 16 * 2 ** 20  # backward: ds chunk of ~32 MB in bf16/fp16,
                                   # ~64 MB in float32
 
 
 def _check(hidden, w, labels) -> None:
+    """What both passes take: CUDA tensors of one supported dtype and
+    agreeing shapes; hidden and labels contiguous; W contiguous (float32;
+    bf16/fp16 W may have any strides: the wrappers read it through
+    :func:`aligned_rows`)."""
     if not (hidden.is_cuda and w.device == hidden.device
             and labels.device == hidden.device):
         raise ValueError("cross_entropy: hidden, w, labels must be CUDA "
@@ -58,10 +69,15 @@ def _check(hidden, w, labels) -> None:
         raise ValueError(f"cross_entropy: shapes hidden "
                          f"{tuple(hidden.shape)}, w {tuple(w.shape)}, "
                          f"labels {tuple(labels.shape)} disagree")
-    if not (hidden.is_contiguous() and w.is_contiguous()
-            and labels.is_contiguous()):
-        raise ValueError("cross_entropy: hidden, w, labels must be "
-                         "contiguous")
+    w_ok = uses_tensor_cores(w.dtype) or w.is_contiguous()
+    if not (hidden.is_contiguous() and labels.is_contiguous() and w_ok):
+        raise ValueError("cross_entropy: hidden, labels (and a float32 w) "
+                         "must be contiguous")
+    if uses_tensor_cores(hidden.dtype) and (hidden.shape[1] % 8
+                                            or hidden.data_ptr() % 16):
+        raise ValueError(f"cross_entropy: the tensor-core kernels need d a "
+                         f"multiple of 8 (got {hidden.shape[1]}) and hidden "
+                         f"16-byte aligned")
 
 
 def _kernel(name: str):
@@ -70,7 +86,7 @@ def _kernel(name: str):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "cross_entropy_fwd":
-            fn.argtypes = [i, p, p, p, i, i, i, i, p, p, p, p, p]
+            fn.argtypes = [i, p, p, i, p, i, i, i, i, p, p, p, p, p]
         else:
             fn.argtypes = [i, p, p, i] + [p] * 5 + [i] * 4 + [p] * 5
         fn.restype = ctypes.c_int
@@ -78,11 +94,21 @@ def _kernel(name: str):
 
 
 def num_vocab_splits(num_tokens: int, vocab: int) -> int:
-    """Vocab splits of the forward grid: enough blocks to fill the card
-    (``_TARGET_BLOCKS``), never more splits than vocab tiles."""
+    """Vocab splits of the float32 forward grid: enough blocks to fill the
+    card (``_TARGET_BLOCKS``), never more splits than vocab tiles."""
     t_tiles = -(-num_tokens // _TILE)
     v_tiles = -(-vocab // _TILE)
     return max(1, min(v_tiles, -(-_TARGET_BLOCKS // t_tiles)))
+
+
+def tc_vocab_splits(num_tokens: int, vocab: int, num_sms: int) -> int:
+    """Vocab splits of the tensor-core forward: one wave of blocks (a
+    block of 128 tokens a split, one a streaming multiprocessor, since
+    its ring takes most of an SM's shared memory), never more splits
+    than 128-column vocab tiles."""
+    t_tiles = -(-num_tokens // _TC_TILE)
+    v_tiles = -(-vocab // _TC_TILE)
+    return max(1, min(v_tiles, num_sms // t_tiles))
 
 
 def ds_chunk(num_tokens: int, vocab: int) -> int:
@@ -114,6 +140,17 @@ def pad_vocab(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def aligned_rows(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (d, V) as a (d, V) tensor whose rows start 16-byte aligned,
+    what the tensor-core kernels read: ``w`` itself when they already do
+    (any row stride), else the first V columns of :func:`pad_vocab`'s
+    copy. Applied to its own result it returns it: no second copy."""
+    row_bytes = w.stride(0) * w.element_size() if w.shape[0] > 1 else 0
+    if w.stride(1) == 1 and row_bytes % 16 == 0 and w.data_ptr() % 16 == 0:
+        return w
+    return pad_vocab(w)[:, :w.shape[1]]
+
+
 def label_index(labels: torch.Tensor, vocab: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(order, starts), both int32: the tokens sorted by label, ties in
@@ -129,12 +166,19 @@ def label_index(labels: torch.Tensor, vocab: int
 def cross_entropy_fwd(hidden, w, labels
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA forward -> (nll (T,) fp32, lse (T,) fp32,
-    correct (T,) int32). Raises on anything the kernel does not take."""
+    correct (T,) int32). bf16/fp16 W is read through :func:`aligned_rows`
+    (pass its result to skip the copy). Raises on anything the kernel
+    does not take."""
     _check(hidden, w, labels)
     t, d = hidden.shape
     v = w.shape[1]
-    nsplit = num_vocab_splits(t, v)
     dev = hidden.device
+    if uses_tensor_cores(hidden.dtype):
+        w = aligned_rows(w)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nsplit = tc_vocab_splits(t, v, sms)
+    else:
+        nsplit = num_vocab_splits(t, v)
     part = torch.empty((5, nsplit, t), dtype=torch.float32, device=dev)
     nll = torch.empty(t, dtype=torch.float32, device=dev)
     lse = torch.empty(t, dtype=torch.float32, device=dev)
@@ -142,16 +186,18 @@ def cross_entropy_fwd(hidden, w, labels
     lib, fn = _kernel("cross_entropy_fwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_DTYPE_CODES[hidden.dtype], hidden.data_ptr(), w.data_ptr(),
-             labels.data_ptr(), t, d, v, nsplit, part.data_ptr(),
-             nll.data_ptr(), lse.data_ptr(), correct.data_ptr(), stream)
+             w.stride(0), labels.data_ptr(), t, d, v, nsplit,
+             part.data_ptr(), nll.data_ptr(), lse.data_ptr(),
+             correct.data_ptr(), stream)
     _build.check(err, lib, "cross_entropy_fwd")
     return nll, lse, correct
 
 
 def cross_entropy_bwd(hidden, w, labels, lse, g
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA backward -> (dh (T, d), dw (d, V)) in the inputs'
-    dtype, for ``g`` = dLoss/dnll (T,) and the forward's ``lse``."""
+    """Launch the CUDA backward -> (dh (T, d), dw (d, V), contiguous) in
+    the inputs' dtype, for ``g`` = dLoss/dnll (T,) and the forward's
+    ``lse``. bf16/fp16 W as in :func:`cross_entropy_fwd`."""
     _check(hidden, w, labels)
     t, d = hidden.shape
     v = w.shape[1]
@@ -163,21 +209,18 @@ def cross_entropy_bwd(hidden, w, labels, lse, g
     chunk = ds_chunk(t, v)
     dev = hidden.device
     tc = uses_tensor_cores(hidden.dtype)
-    if tc and (d % 8 or hidden.data_ptr() % 16):
-        raise ValueError(f"cross_entropy_bwd: the tensor-core kernel needs "
-                         f"d a multiple of 8 (got {d}) and hidden 16-byte "
-                         f"aligned")
-    w_rows = pad_vocab(w) if tc else w
+    if tc:
+        w = aligned_rows(w)
     order, starts = label_index(labels, v) if tc else (None, None)
     ds = torch.empty((t, chunk), dtype=hidden.dtype if tc else torch.float32,
                      device=dev)
     dh_acc = torch.empty((t, d), dtype=torch.float32, device=dev)
     dh = torch.empty_like(hidden)
-    dw = torch.empty_like(w)
+    dw = torch.empty((d, v), dtype=w.dtype, device=dev)
     lib, fn = _kernel("cross_entropy_bwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_DTYPE_CODES[hidden.dtype], hidden.data_ptr(),
-             w_rows.data_ptr(), w_rows.stride(0), labels.data_ptr(),
+             w.data_ptr(), w.stride(0), labels.data_ptr(),
              None if order is None else order.data_ptr(),
              None if starts is None else starts.data_ptr(),
              lse.data_ptr(), g.data_ptr(), t, d, v, chunk, ds.data_ptr(),

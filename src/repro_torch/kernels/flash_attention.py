@@ -17,17 +17,20 @@ masks align query and key starts, as ``repro.models.layers.
 blockwise_attention`` does (equal to ``ref.attention_ref``'s end
 alignment when S == T, the prefill case).
 
-The forward dispatches on the dtype (:func:`uses_tensor_cores`): bf16 and
-fp16 run the tensor-core kernel, which feeds the probabilities to P.V as
-two parts in the input dtype (P rounded, and the remainder: ~16 mantissa
-bits); float32 runs the CUDA-core kernel. Both stay near the TPU kernel
-and the plain version, which keep P in fp32 (``blockwise_attention``
-rounds it to v's dtype: in bf16 that differs at bf16 rounding, ~1e-2).
-The tensor-core kernel reads q, k and v through TMA tensor maps: their
-batch, head and sequence strides must be multiples of 16 bytes (any
-model-layout view with head_dim a multiple of 8 is) and their data 16-byte
-aligned; the kernel refuses anything else before it launches and the
-wrapper raises.
+Both passes dispatch on the dtype (:func:`uses_tensor_cores`): bf16 and
+fp16 run the tensor-core kernels, float32 the CUDA-core ones. The
+tensor-core forward feeds the probabilities to P.V as two parts in the
+input dtype (P rounded, and the remainder: ~16 mantissa bits); the
+tensor-core backward feeds P (to dV) and dS (to dQ and dK) the same way.
+Both stay near the TPU kernel and the plain version, which keep P in
+fp32 (``blockwise_attention`` rounds it to v's dtype: in bf16 that
+differs at bf16 rounding, ~1e-2). The tensor-core kernels read q, k, v
+(and the backward dout) through TMA tensor maps: their batch, head and
+sequence strides must be multiples of 16 bytes (any model-layout view
+with head_dim a multiple of 8 is, :func:`tma_ready`) and their data
+16-byte aligned; they write out (and read the backward's out) and the
+gradients in pairs: 4-byte aligned, even strides. The kernels refuse
+anything else before they launch and the wrappers raise.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ from repro_torch.kernels import _build
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128
-# cudaErrorInvalidPitchValue: what the tensor-core forward returns, before
-# launching, for an operand its tensor maps cannot describe
+# cudaErrorInvalidPitchValue: what the tensor-core kernels return, before
+# launching, for an operand their tensor maps or pair stores cannot take
 _BAD_PITCH = 12
 
 
@@ -75,6 +78,18 @@ def uses_tensor_cores(dtype: torch.dtype) -> bool:
     (wgmma); float32 stays on the CUDA cores, since wgmma in fp32 is TF32
     and would break the fp32 tolerances."""
     return dtype in (torch.bfloat16, torch.float16)
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels' tensor maps can read ``t``
+    (B, H, S, D) as it lies: 16-byte aligned data, a contiguous last
+    axis, and every other axis of more than one element at a non-zero
+    stride that is a multiple of 16 bytes."""
+    elt = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st > 0 and (st * elt) % 16 == 0
+                    for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                    if n > 1))
 
 
 def _strides(t) -> ctypes.Array:
@@ -178,6 +193,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
              *(_strides(x) for x in (q, k, v, out, dout, dq, dk, dv)),
              int(bool(causal)), -1 if window is None else int(window),
              1.0 / math.sqrt(d), stream)
+    if err == _BAD_PITCH:
+        raise ValueError(f"flash_attention_bwd: strides or alignment of q, "
+                         f"k, v, dout {[x.stride() for x in (q, k, v, dout)]}"
+                         f" or out, dq, dk, dv "
+                         f"{[x.stride() for x in (out, dq, dk, dv)]} do not "
+                         f"suit the tensor-core kernels (16-byte multiples; "
+                         f"4-byte)")
     _build.check(err, lib, "flash_attention_bwd")
     return dq, dk, dv
 

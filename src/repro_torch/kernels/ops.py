@@ -27,7 +27,9 @@ from repro_torch.kernels import cross_entropy as xent
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 tma_ready,
+                                                 uses_tensor_cores)
 from repro_torch.kernels.paged_attention import (paged_attention as
                                                  _paged_attention_kernel,
                                                  paged_attention_plain)
@@ -107,7 +109,8 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                   window: Optional[int] = None):
     """Model-layout attention backward -> (dq, dk, dv), shapes and dtypes
     of (q, k, v). ``lse`` (B, Hq, S) fp32 comes from the forward."""
-    if dout.stride(-1) != 1:
+    if dout.stride(-1) != 1 or (uses_tensor_cores(dout.dtype)
+                                and not tma_ready(dout)):
         dout = dout.contiguous()
     qt, kt, vt, ot, dot = _heads_first(q, k, v, out, dout)
     if _on_cpu(q, "attention_bwd"):
@@ -169,7 +172,9 @@ def selective_scan(x, dt, a, bmat, cmat):
 class CrossEntropy(torch.autograd.Function):
     """Per-token NLL through the B5 forward; the backward runs
     :func:`cross_entropy_bwd`. ``lse`` and ``correct`` carry no
-    gradient."""
+    gradient. On the card a bf16/fp16 W is read through
+    ``aligned_rows``: at an odd V that is a row-padded copy, made here
+    once and saved for the backward, which then reads it as it is."""
 
     @staticmethod
     def forward(ctx, hidden, w, labels):
@@ -177,6 +182,8 @@ class CrossEntropy(torch.autograd.Function):
             nll, lse, correct = xent.cross_entropy_fwd_plain(hidden, w,
                                                              labels)
         else:
+            if uses_tensor_cores(w.dtype):
+                w = xent.aligned_rows(w)
             nll, lse, correct = xent.cross_entropy_fwd(hidden, w, labels)
             cross_entropy.launches += 1
         ctx.save_for_backward(hidden, w, labels, lse)

@@ -509,3 +509,187 @@ def test_tensor_core_cross_entropy_backward(dev, dtype, t, d, v):
     assert dh.dtype == dw.dtype == dtype and dw.shape == (d, v)
     torch.testing.assert_close(dh.float(), pdh.float(), **TOL[dtype])
     torch.testing.assert_close(dw.float(), pdw.float(), **TOL[dtype])
+
+
+# --- tensor-core kernels: B5 forward and B1 backward in bf16 / fp16 --------
+# The B5 forward's nll and lse are fp32 sums of the same bf16 products as
+# the plain version's, in another order (fp32 tolerance); an argmax-is-
+# label verdict may differ only at a near-tie (label logit within
+# XENT_TIE of the row's largest). B1-bwd rounds P and dS to two 16-bit
+# parts before its tensor-core products; held at the bf16 tolerance.
+
+XENT_FWD_TOL = dict(atol=2e-4, rtol=1e-4)
+XENT_TIE = 1e-4
+
+
+def _check_xent_forward(h, w, labels):
+    from repro_torch.kernels.cross_entropy import cross_entropy_fwd_plain
+    before = ops.cross_entropy.launches
+    nll, lse, correct = ops.cross_entropy(h, w, labels)
+    pnll, plse, pcorrect = cross_entropy_fwd_plain(h, w, labels)
+    torch.cuda.synchronize()
+    assert ops.cross_entropy.launches == before + 1
+    torch.testing.assert_close(nll, pnll, **XENT_FWD_TOL)
+    torch.testing.assert_close(lse, plse, **XENT_FWD_TOL)
+    idx = (correct != pcorrect).nonzero()[:, 0]
+    if idx.numel():
+        s = torch.matmul(h[idx].float(), w.float())
+        gap = s.max(dim=1).values - s.gather(
+            1, labels[idx].long()[:, None])[:, 0]
+        assert gap.max().item() <= XENT_TIE
+    return correct
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t,d,v", [
+    (37, 24, 509),          # odd V (padded W), T below one tile
+    (200, 64, 100),         # V below one 128-column tile
+    (129, 8, 127),          # T one past a tile, narrowest d
+    (130, 32, 4099),        # many splits, the last tile 3 columns
+    (300, 128, 8300),       # V % 8 = 4
+    (2048, 2048, 49155),    # the training shape: 8 splits, odd V
+])
+def test_tensor_core_cross_entropy_forward(dev, dtype, t, d, v):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    h, w, labels = _xent_inputs(gen, t, d, v, dtype, dev)
+    last_tile = (v - 1) // 128 * 128
+    labels[:3] = torch.tensor([v - 1, last_tile, v - 2 if v > 1 else 0],
+                              dtype=torch.int32, device=dev)
+    _check_xent_forward(h, w, labels)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_cross_entropy_forward_first_index_wins_ties(dev, dtype):
+    """Planted exact ties (every product and sum exact): across splits
+    (5, 300), in one lane (130, 131), across lanes (260, 263) and into
+    the last partial tile (6000, 8299). The first index is the argmax."""
+    t, d, v = 8, 64, 8300
+    gen = torch.Generator(device=dev).manual_seed(14)
+    h, w, labels = _xent_inputs(gen, t, d, v, dtype, dev)
+    pairs = [(5, 300), (130, 131), (260, 263), (6000, 8299)]
+    h[:t] = 0
+    for i, (a, b) in enumerate(pairs):
+        dims = slice(8 * i, 8 * i + 8)
+        h[i, dims] = 1
+        h[i + 4, dims] = 1
+        for col in (a, b):
+            w[:, col] = 0
+            w[dims, col] = 4                   # logit 32, the row's largest
+        labels[i], labels[i + 4] = a, b
+    correct = _check_xent_forward(h, w, labels)
+    assert correct.tolist() == [1, 1, 1, 1, 0, 0, 0, 0]
+
+
+def test_tensor_core_cross_entropy_forward_refuses_what_it_does_not_take(dev):
+    labels = torch.zeros((4,), dtype=torch.int32, device=dev)
+    w = torch.zeros((20, 64), dtype=torch.bfloat16, device=dev)
+    h = torch.zeros((4, 20), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.cross_entropy(h, w, labels)
+    base = torch.zeros((4 * 64 + 1,), dtype=torch.bfloat16, device=dev)
+    h = base[1:].view(4, 64)                     # 2 bytes off
+    w = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.cross_entropy(h, w, labels)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_cross_entropy_autograd_matches_plain(dev, dtype):
+    """Forward and backward through ops.cross_entropy at an odd V: the
+    backward reads the forward's padded W and gives the plain gradients."""
+    from repro_torch.kernels.cross_entropy import cross_entropy_bwd_plain
+    t, d, v = 300, 64, 4099
+    gen = torch.Generator(device=dev).manual_seed(15)
+    h, w, labels = _xent_inputs(gen, t, d, v, dtype, dev)
+    g = torch.rand((t,), generator=gen, device=dev)
+    hr, wr = h.requires_grad_(True), w.requires_grad_(True)
+    nll, lse, _ = ops.cross_entropy(hr, wr, labels)
+    dh, dw = torch.autograd.grad((nll * g).sum(), (hr, wr))
+    pdh, pdw = cross_entropy_bwd_plain(h.detach(), w.detach(), labels,
+                                       lse, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dh.float(), pdh.float(), **TOL[dtype])
+    torch.testing.assert_close(dw.float(), pdw.float(), **TOL[dtype])
+
+
+def _check_attention_backward(dtype, q, k, v, do, causal, window,
+                              grads=None):
+    """B1-bwd against the plain backward, both fed the plain forward's out
+    and lse. q, do (B, S, Hq, D) and k, v (B, T, Hkv, D) model layout;
+    ``grads`` optional (dq, dk, dv) views of the heads-first shape."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = flash_attention_plain(qt, kt, vt, causal=causal,
+                                     window=window, with_lse=True)
+    dq, dk, dv = grads if grads is not None else (None, None, None)
+    got = flash_attention_bwd(qt, kt, vt, out, dot, lse, causal=causal,
+                              window=window, dq=dq, dk=dk, dv=dv)
+    want = flash_attention_bwd_plain(qt, kt, vt, out, dot, lse,
+                                     causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w.float(), **TOL[dtype])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 128])
+@pytest.mark.parametrize("s", [1, 17, 100, 128, 512])
+def test_tensor_core_attention_backward_head_dims_and_lengths(dev, dtype, d,
+                                                              s):
+    """Every padded head_dim (8..56 run as 64, 72..128 as 128), one row,
+    ragged tiles and several tiles; causal, rep 4."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = _attn_case(gen, dev, dtype, 2, s, s, 8, 2, d)
+    do = _randn(gen, (2, s, 8, d), dtype, dev)
+    _check_attention_backward(dtype, q, k, v, do, True, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window", [
+    (16, 128, 128, 32, 8, 64, True, None),   # the training shape, rep 4
+    (16, 100, 100, 32, 8, 64, True, None),   # ragged training length
+    (2, 100, 100, 8, 2, 64, False, None),    # non-causal
+    (2, 300, 300, 8, 2, 64, True, 100),      # window straddling tiles
+    (2, 300, 300, 8, 2, 64, False, 100),     # window alone
+    (2, 200, 200, 4, 4, 128, True, 70),      # rep 1, widest head, window
+    (2, 130, 130, 4, 4, 40, True, None),     # rep 1
+    (2, 50, 130, 8, 2, 64, False, None),     # S < T, non-causal
+    (2, 130, 50, 8, 2, 40, True, None),      # S > T, causal
+    (1, 70, 70, 8, 1, 32, False, None),      # MQA
+])
+def test_tensor_core_attention_backward_shapes(dev, dtype, b, s, t, hq, hkv,
+                                               d, causal, window):
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = _attn_case(gen, dev, dtype, b, s, t, hq, hkv, d)
+    do = _randn(gen, (b, s, hq, d), dtype, dev)
+    _check_attention_backward(dtype, q, k, v, do, causal, window)
+
+
+def test_tensor_core_attention_backward_writes_strided_views(dev):
+    """dq, dk, dv as views into wider buffers (not the model layout);
+    the buffers' other columns stay untouched."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b, s, hq, hkv, d = 2, 77, 8, 2, 40
+    q, k, v = _attn_case(gen, dev, torch.bfloat16, b, s, s, hq, hkv, d)
+    do = _randn(gen, (b, s, hq, d), torch.bfloat16, dev)
+    bufs = [torch.full((b, h, s, d + 8), 7.0, dtype=torch.bfloat16,
+                       device=dev) for h in (hq, hkv, hkv)]
+    views = tuple(x[..., 4:4 + d] for x in bufs)
+    got = _check_attention_backward(torch.bfloat16, q, k, v, do, True, None,
+                                    grads=views)
+    assert all(g.data_ptr() == x.data_ptr() for g, x in zip(got, views))
+    for x in bufs:
+        assert bool((x[..., :4] == 7).all() and (x[..., 4 + d:] == 7).all())
+
+
+def test_tensor_core_attention_backward_refuses_odd_strides(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q = torch.zeros((1, 2, 8, 24), dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    dq = torch.zeros((1, 2, 8, 25), dtype=torch.bfloat16, device=dev)[
+        ..., :24]                            # rows 50 bytes apart
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention_bwd(q, q, q, q, q, lse, dq=dq)

@@ -1,14 +1,20 @@
 """What surrounds the tensor-core kernels, on the CPU.
 
-The wgmma kernels (B1 forward and B5 backward in bf16/fp16) run only on
-the card; here the code around them is checked: the dtype dispatch rule,
-the W row padding of the B5 backward, the size of its ds scratch, and a
-plain-PyTorch emulation of how the new kernels round — P fed to P.V as
-two parts in the input dtype, P rounded and the remainder (B1), the
-softmax part of ds rounded to the input dtype before the dh and dW
-products, its one-hot part kept exact (B5-bwd) — held in bf16 against
-``repro``'s ``blockwise_attention`` and ``jax.grad`` of ``chunked_xent``
-and against the port's plain versions at the card tests' shapes.
+The wgmma kernels (B1 forward and backward, B5 forward and backward in
+bf16/fp16) run only on the card; here the code around them is checked:
+the dtype dispatch rule, the W row padding of B5 (made once a step by
+``ops.CrossEntropy``), the size of the B5-bwd ds scratch and the B5
+forward's vocab splits, and plain-PyTorch emulations of how the kernels
+compute: B1 feeds P to P.V as two parts in the input dtype (P rounded and
+the remainder); B1-bwd feeds P (to dV) and dS (to dQ and dK) the same
+way; B5-bwd rounds the softmax part of ds to the input dtype before the
+dh and dW products and keeps its one-hot part exact; the B5 forward folds
+128-column logit tiles into per-row partials (columns past V, which TMA
+fills with zeros, left out) and combines its splits in order. They are
+held in bf16 against ``repro``'s ``blockwise_attention`` (and
+``jax.grad`` of it), ``jax.grad`` of ``chunked_xent``, the Pallas
+``fused_cross_entropy`` in interpret mode and ``repro.kernels.ref``, and
+against the port's plain versions at the card tests' shapes.
 
 Margins (measured on these inputs): the attention emulation is within
 7.8e-3 (one bf16 ulp at |x| < 2, where fp32 sums round differently) of
@@ -27,14 +33,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jref
+from repro.kernels.cross_entropy import fused_cross_entropy
 from repro.models.layers import blockwise_attention as jax_blockwise
 from repro.models.transformer import chunked_xent as jchunked_xent
 from repro_torch.kernels import cross_entropy as xent
-from repro_torch.kernels.flash_attention import (flash_attention_plain,
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
+                                                 flash_attention_plain,
                                                  uses_tensor_cores)
 
 CARD_TOL = 2e-2           # bf16 atol/rtol of tests/test_torch_gpu.py
 GRAD_REL_L2 = 2e-2        # chip_smoke.py's [grads] limit
+XENT_FP32_TOL = dict(atol=2e-4, rtol=1e-4)   # chip_smoke.py's B5 nll/lse
 
 
 def test_dispatch_rule_sends_16_bit_types_to_the_tensor_cores():
@@ -214,3 +225,302 @@ def test_ds_rounding_matches_jax_grad_of_chunked_xent(t, d, v):
             <= GRAD_REL_L2 / 4
         torch.testing.assert_close(got.float(), pwant.float(),
                                    atol=CARD_TOL, rtol=CARD_TOL)
+
+
+# --- B1 backward: P and dS in two parts --------------------------------------
+
+def attention_bwd_two_part(q, k, v, out, dout, lse, *, causal=True,
+                           window=None):
+    """B1-bwd as the tensor-core kernels round it: fp32 scores, P =
+    exp(s - lse) and dS = P (dP - delta) in fp32, P fed to dV and dS to
+    dQ and dK as two parts in the input dtype (rounded, then the
+    remainder), fp32 sums, one final rounding. Layout as
+    flash_attention_bwd_plain's."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    qf, dof = q.float(), dout.float()
+    qp = torch.arange(s)[:, None]
+    kp = torch.arange(t)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    p = torch.where(mask, torch.exp(torch.matmul(qf, kf.transpose(-1, -2))
+                                    * scale - lse[..., None]),
+                    torch.zeros(()))
+    delta = (dof * out.float()).sum(-1)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+
+    def two_parts(x):
+        hi = x.to(q.dtype).float()
+        return hi, (x - hi).to(q.dtype).float()
+
+    p_hi, p_lo = two_parts(p)
+    ds_hi, ds_lo = two_parts(ds)
+    dv = (torch.matmul(p_hi.transpose(-1, -2), dof)
+          + torch.matmul(p_lo.transpose(-1, -2), dof))
+    dq = (torch.matmul(ds_hi, kf) + torch.matmul(ds_lo, kf)) * scale
+    dk = (torch.matmul(ds_hi.transpose(-1, -2), qf)
+          + torch.matmul(ds_lo.transpose(-1, -2), qf)) * scale
+    if rep > 1:
+        dk = dk.reshape(b, hkv, rep, t, d).sum(2)
+        dv = dv.reshape(b, hkv, rep, t, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window", [
+    (2, 17, 17, 8, 2, 8, True, None),
+    (2, 17, 17, 8, 2, 24, True, None),
+    (2, 512, 512, 8, 2, 40, True, None),
+    (1, 512, 512, 8, 2, 128, True, None),
+    (16, 128, 128, 32, 8, 64, True, None),    # the training shape
+    (2, 300, 300, 8, 2, 64, True, 100),
+    (1, 70, 70, 8, 1, 32, False, None),
+])
+def test_two_part_backward_matches_plain_and_jax_grad(b, s, t, hq, hkv, d,
+                                                      causal, window):
+    """bf16: the kernels' two-part P and dS against the plain backward
+    (P and dS in fp32; elementwise within the card tests' 2e-2, and
+    relative L2 within GRAD_REL_L2 / 4) and against jax.grad of repro's
+    blockwise_attention (its own forward's out and lse; relative L2 of
+    each gradient within GRAD_REL_L2)."""
+    rng = np.random.default_rng(s + d + 1)
+    q, k, v, do = (rng.normal(size=sh).astype(np.float32) for sh in (
+        (b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, hq, d)))
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, bb, c: jax_blockwise(
+        a, bb, c, causal=causal, window=window, q_chunk=64, kv_chunk=64),
+        jq, jk, jv)
+    jgrads = vjp(jdo)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2)
+                       for x in (q, k, v, do))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal,
+                                     window=window, with_lse=True)
+    got = attention_bwd_two_part(tq, tk, tv, out, tdo, lse, causal=causal,
+                                 window=window)
+    plain = flash_attention_bwd_plain(tq, tk, tv, out, tdo, lse,
+                                      causal=causal, window=window)
+    for g, pw, jw in zip(got, plain, jgrads):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), pw.float(), atol=CARD_TOL,
+                                   rtol=CARD_TOL)
+        assert _rel_l2(g.float().numpy(), pw.float().numpy()) \
+            <= GRAD_REL_L2 / 4
+        jw = np.asarray(jw.astype(jnp.float32)).transpose(0, 2, 1, 3)
+        assert _rel_l2(g.float().numpy(), jw) <= GRAD_REL_L2
+
+
+# --- B5 forward: 128-column tiles, splits combined in order ------------------
+
+def cross_entropy_fwd_tiles(h, w, labels, nsplit):
+    """The tensor-core B5 forward's algorithm in plain PyTorch: fp32
+    logits of 128-column tiles of a W zero-filled past V (as TMA fills the
+    last tile); each tile folded into per-row running (max, sum of exp,
+    best logit and its first index, label logit) with the columns past V
+    left out; ``nsplit`` runs of tiles (the kernel's splits) combined in
+    split order. -> (nll, lse, correct) as cross_entropy_fwd."""
+    t, v = h.shape[0], w.shape[1]
+    tiles = -(-v // 128)
+    per = -(-tiles // nsplit)
+    wf = torch.zeros((w.shape[0], tiles * 128))
+    wf[:, :v] = w.float()
+    logits = torch.matmul(h.float(), wf)
+    lab = labels.long()
+    rows = torch.arange(t)
+    parts = []
+    for first in range(0, tiles, per):
+        m = torch.full((t,), -math.inf)
+        l = torch.zeros(t)
+        best = torch.full((t,), -math.inf)
+        best_i = torch.full((t,), 2 ** 31 - 1, dtype=torch.long)
+        tgt = torch.zeros(t)
+        for j in range(first, min(tiles, first + per)):
+            cols = torch.arange(128 * j, 128 * j + 128)
+            s = logits[:, cols].masked_fill(cols[None, :] >= v, -math.inf)
+            tmax, targ = s.max(dim=1)       # first index of the max
+            m_new = torch.maximum(m, tmax)
+            l = l * torch.exp(m - m_new) + torch.exp(
+                s - m_new[:, None]).sum(1)
+            m = m_new
+            better = tmax > best
+            best = torch.where(better, tmax, best)
+            best_i = torch.where(better, 128 * j + targ, best_i)
+            here = (lab >= 128 * j) & (lab < 128 * j + 128)
+            tgt = tgt + torch.where(here, logits[rows, lab], 0.0)
+        parts.append((m, l, best, best_i, tgt))
+    m = torch.stack([pt[0] for pt in parts]).max(0).values
+    l = sum(pt[1] * torch.exp(pt[0] - m) for pt in parts)
+    tg = sum(pt[4] for pt in parts)
+    best = torch.full((t,), -math.inf)
+    best_i = torch.zeros(t, dtype=torch.long)
+    for pt in parts:                          # split order: first wins ties
+        better = pt[2] > best
+        best = torch.where(better, pt[2], best)
+        best_i = torch.where(better, pt[3], best_i)
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return lse - tg, lse, (best_i == lab).to(torch.int32)
+
+
+def _xent_case(t, d, v, seed, ties=False):
+    """bf16 h, W (d, V), labels; with ``ties``, exact planted ties as in
+    the card test: rows i and i + 4 share a block of 8 dims on which two
+    columns hold 4 (logit 32), labels the first of the pair (row i) and
+    the second (row i + 4)."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(t, d)).astype(np.float32)
+    w = (rng.normal(size=(d, v)) / np.sqrt(d)).astype(np.float32)
+    labels = rng.integers(0, v, size=t).astype(np.int32)
+    labels[:2] = [v - 1, (v - 1) // 128 * 128]     # in the last tile
+    if ties:
+        pairs = [(5, 300), (130, 131), (260, 263), (v - 300, v - 1)]
+        h[:8] = 0
+        for i, (a, bb) in enumerate(pairs):
+            dims = slice(8 * i, 8 * i + 8)
+            h[i, dims] = h[i + 4, dims] = 1
+            w[:, [a, bb]] = 0
+            w[dims, a] = w[dims, bb] = 4
+            labels[i], labels[i + 4] = a, bb
+    return (torch.from_numpy(h).to(torch.bfloat16),
+            torch.from_numpy(w).to(torch.bfloat16),
+            torch.from_numpy(labels))
+
+
+@pytest.mark.parametrize("t,d,v,ties", [
+    (37, 24, 509, False), (200, 64, 100, False), (129, 16, 1000, False),
+    (64, 32, 4099, False), (16, 64, 8300, True), (300, 40, 2000, True),
+])
+def test_tile_partials_match_plain_and_fused_cross_entropy(t, d, v, ties):
+    """bf16 inputs, fp32 logits: the kernel's tile-and-split algorithm
+    (splits as the card's 132 SMs give them) against the plain forward
+    (nll and lse within XENT_FP32_TOL; argmax verdicts equal, planted
+    ties included: the first index wins), the Pallas fused_cross_entropy
+    in interpret mode and repro.kernels.ref (nll)."""
+    h, w, labels = _xent_case(t, d, v, t + v, ties)
+    nsplit = xent.tc_vocab_splits(t, v, 132)
+    nll, lse, correct = cross_entropy_fwd_tiles(h, w, labels, nsplit)
+    pnll, plse, pcorrect = xent.cross_entropy_fwd_plain(h, w, labels)
+    torch.testing.assert_close(nll, pnll, **XENT_FP32_TOL)
+    torch.testing.assert_close(lse, plse, **XENT_FP32_TOL)
+    assert torch.equal(correct, pcorrect)
+    if ties:
+        assert correct[:8].tolist() == [1, 1, 1, 1, 0, 0, 0, 0]
+    jh, jw = (jnp.asarray(x.float().numpy()) for x in (h, w))
+    jl = jnp.asarray(labels.numpy())
+    for want in (fused_cross_entropy(jh, jw, jl, block_t=t, block_v=v,
+                                     interpret=True),
+                 jref.cross_entropy_ref(jh, jw, jl)):
+        np.testing.assert_allclose(nll.numpy(), np.asarray(want),
+                                   **XENT_FP32_TOL)
+
+
+def test_columns_past_v_must_be_left_out():
+    """Rows whose every logit is negative: the zero-filled columns of the
+    last tile would be the max (and the argmax) if they were not masked;
+    the emulation, masked as the kernel is, equals the plain forward."""
+    t, d, v = 8, 16, 200                     # last tile: 56 columns past V
+    h = torch.ones((t, d), dtype=torch.bfloat16)
+    w = -torch.rand((d, v), generator=torch.Generator().manual_seed(3)
+                    ).to(torch.bfloat16) - 0.5
+    labels = torch.arange(t, dtype=torch.int32)
+    nll, lse, correct = cross_entropy_fwd_tiles(h, w, labels, 1)
+    pnll, plse, pcorrect = xent.cross_entropy_fwd_plain(h, w, labels)
+    torch.testing.assert_close(lse, plse, **XENT_FP32_TOL)
+    assert torch.equal(correct, pcorrect)
+    # unmasked, the padding's zeros would win: lse would grow by log(1 +
+    # 56 exp(0 - max)), a large shift here
+    wz = torch.zeros((d, 256), dtype=torch.bfloat16)
+    wz[:, :v] = w
+    unmasked = torch.logsumexp(torch.matmul(h.float(), wz.float()), dim=1)
+    assert (unmasked - plse).min().item() > 1.0
+
+
+@pytest.mark.parametrize("t,v,sms,nsplit", [
+    (2048, 49155, 132, 8),      # the training shape: 16 x 8 = 128 blocks
+    (37, 509, 132, 4),          # never more splits than vocab tiles
+    (200, 100, 132, 1),
+    (4096, 49155, 132, 4),
+    (100000, 49155, 132, 1),    # more token tiles than SMs
+])
+def test_tensor_core_forward_splits_fill_one_wave(t, v, sms, nsplit):
+    assert xent.tc_vocab_splits(t, v, sms) == nsplit
+    assert -(-t // 128) * nsplit <= max(sms, -(-t // 128))
+
+
+def test_cross_entropy_pads_w_once_a_step(monkeypatch):
+    """ops.CrossEntropy on the card path (the launches replaced by the
+    plain versions): at an odd V the padded W is made once, in the
+    forward, and the backward gets that same tensor, which the kernels'
+    own alignment step passes through without a copy."""
+    made, seen = [], {}
+    pad = xent.pad_vocab
+
+    def counting_pad(w):
+        out = pad(w)
+        made.append(out)
+        return out
+
+    def fwd(hidden, w, labels):
+        seen["fwd"] = w
+        return xent.cross_entropy_fwd_plain(hidden, w, labels)
+
+    def bwd(hidden, w, labels, lse, g):
+        seen["bwd"] = w
+        assert xent.aligned_rows(w) is w          # no second copy
+        return xent.cross_entropy_bwd_plain(hidden, w, labels, lse, g)
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t, what: False)
+    monkeypatch.setattr(xent, "pad_vocab", counting_pad)
+    monkeypatch.setattr(xent, "cross_entropy_fwd", fwd)
+    monkeypatch.setattr(xent, "cross_entropy_bwd", bwd)
+    gen = torch.Generator().manual_seed(4)
+    h = torch.randn((12, 16), generator=gen).to(torch.bfloat16)
+    w = torch.randn((16, 509), generator=gen).to(torch.bfloat16)
+    labels = torch.randint(0, 509, (12,), generator=gen, dtype=torch.int32)
+    hr, wr = h.requires_grad_(True), w.requires_grad_(True)
+    nll, lse, _ = ops.cross_entropy(hr, wr, labels)
+    dh, dw = torch.autograd.grad(nll.sum(), (hr, wr))
+    assert len(made) == 1
+    assert seen["fwd"] is seen["bwd"]
+    assert seen["fwd"].shape == (16, 509) and seen["fwd"].stride(0) == 512
+    assert seen["fwd"].data_ptr() == made[0].data_ptr()
+    assert torch.equal(seen["fwd"], w.detach())
+    assert dw.shape == (16, 509) and dw.is_contiguous()
+    pdh, pdw = xent.cross_entropy_bwd_plain(h.detach(), w.detach(), labels,
+                                            lse, torch.ones(12))
+    torch.testing.assert_close(dw.float(), pdw.float())
+    torch.testing.assert_close(dh.float(), pdh.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("v,copies", [(509, True), (8300, True),
+                                      (4096, False), (49160, False)])
+def test_aligned_rows_copies_only_misaligned_rows(dtype, v, copies):
+    """The (d, V) view the tensor-core kernels read: W itself when its
+    rows start 16-byte aligned, else the first V columns of the padded
+    copy; applied again, it returns its own result."""
+    w = torch.randn((24, v), generator=torch.Generator().manual_seed(v)
+                    ).to(dtype)
+    rows = xent.aligned_rows(w)
+    assert rows.shape == w.shape and torch.equal(rows, w)
+    assert (rows is not w) == copies
+    assert (rows.stride(0) * rows.element_size()) % 16 == 0
+    assert rows.stride(1) == 1 and rows.data_ptr() % 16 == 0
+    assert xent.aligned_rows(rows) is rows
+
+
+def test_tma_ready_takes_model_layout_views_and_refuses_the_rest():
+    from repro_torch.kernels.flash_attention import tma_ready
+    x = torch.zeros((2, 100, 8, 24), dtype=torch.bfloat16)
+    assert tma_ready(x.transpose(1, 2))            # (B, H, S, D) view
+    assert tma_ready(x[:, :, 2:4].transpose(1, 2))
+    odd = torch.zeros((2, 100, 8, 25), dtype=torch.bfloat16)[..., :24]
+    assert not tma_ready(odd.transpose(1, 2))      # rows 50 bytes apart
+    assert not tma_ready(x.transpose(2, 3))        # D not contiguous
+    assert not tma_ready(torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16
+                                     ).expand(2, 8, 5, 24))   # stride 0
+    assert tma_ready(torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16))

@@ -20,10 +20,15 @@ these are held against it (worst and median per-leaf relative L2 error):
 - ``P rounded once``: the plain path with P rounded to bf16 before P.V
   (the tensor-core kernel feeds P in two bf16 parts instead);
 - ``P in two parts``: the plain path with P as bf16 hi + lo, the
-  kernel's arithmetic.
+  forward kernel's arithmetic;
+- ``bwd P, dS rounded once``: the plain forward, and a backward that
+  rounds P (before dV = P^T dO) and dS (before dQ = dS K and dK = dS^T Q)
+  to bf16 once;
+- ``bwd P, dS in two parts``: the same with P and dS as bf16 hi + lo,
+  the backward kernels' arithmetic.
 
-The last four use the plain backward formula on their own forward's out
-and lse. Needs one CUDA card; imports no JAX.
+The ``scores`` and ``P`` variants use the plain backward formula on their
+own forward's out and lse. Needs one CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -36,10 +41,49 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
-def attention_variant(torch, scores: str, p_parts: int):
+def bwd_rounded(torch, q, k, v, out, dout, lse, causal, window,
+                parts: int):
+    """The plain backward formula (heads-first layout, fp32 sums) with P
+    and dS fed to their products in ``parts`` parts of q's dtype (1: P and
+    dS rounded once; 2: rounded, plus the rounded remainder)."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    qf, dof = q.float(), dout.float()
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(t, device=q.device)[None, :]
+    mask = kp <= qp if causal else torch.ones((s, t), dtype=bool,
+                                              device=q.device)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    p = torch.where(mask, torch.exp(torch.matmul(qf, kf.transpose(-1, -2))
+                                    * scale - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    delta = (dof * out.float()).sum(-1)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+
+    def rounded(x):
+        hi = x.to(q.dtype).float()
+        return hi if parts == 1 else hi + (x - hi).to(q.dtype).float()
+
+    p, ds = rounded(p), rounded(ds)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    if rep > 1:
+        dk = dk.reshape(b, hkv, rep, t, d).sum(2)
+        dv = dv.reshape(b, hkv, rep, t, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_variant(torch, scores: str, p_parts: int, bwd_parts: int = 0):
     """ops.attention's signature; forward in plain PyTorch with the given
     score arithmetic ("fp32", "exact", "tf32") and P fed to P.V in
-    ``p_parts`` bf16 parts (0: fp32); backward the plain formula."""
+    ``p_parts`` bf16 parts (0: fp32); backward the plain formula, with P
+    and dS in ``bwd_parts`` bf16 parts (0: fp32; ``bwd_rounded``)."""
     from repro_torch.kernels import flash_attention as fa
 
     def forward(qt, kt, vt, causal, window):
@@ -85,10 +129,15 @@ def attention_variant(torch, scores: str, p_parts: int):
         @staticmethod
         def backward(ctx, dout):
             q, k, v, out, lse = ctx.saved_tensors
-            grads = fa.flash_attention_bwd_plain(
-                *(x.transpose(1, 2) for x in (q, k, v, out,
-                                              dout.contiguous())),
-                lse, causal=ctx.causal, window=ctx.window)
+            heads_first = (x.transpose(1, 2) for x in (
+                q, k, v, out, dout.contiguous()))
+            if bwd_parts:
+                grads = bwd_rounded(torch, *heads_first, lse, ctx.causal,
+                                    ctx.window, bwd_parts)
+            else:
+                grads = fa.flash_attention_bwd_plain(
+                    *heads_first, lse, causal=ctx.causal,
+                    window=ctx.window)
             return tuple(g.transpose(1, 2) for g in grads) + (None, None)
 
     return lambda q, k, v, *, causal=True, window=None: Variant.apply(
@@ -127,6 +176,10 @@ def main() -> int:
         "tf32 scores": (attention_variant(torch, "tf32", 0), plain_xent),
         "P rounded once": (attention_variant(torch, "fp32", 1), plain_xent),
         "P in two parts": (attention_variant(torch, "fp32", 2), plain_xent),
+        "bwd P, dS rounded once": (attention_variant(torch, "fp32", 0, 1),
+                                   plain_xent),
+        "bwd P, dS in two parts": (attention_variant(torch, "fp32", 0, 2),
+                                   plain_xent),
     }
     reference = (plain_attention, plain_xent)
     for rescale in (False, True):
