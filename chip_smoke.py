@@ -8,10 +8,11 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
 
 1. Build. Every CUDA source of the port (``src/repro_torch/csrc``) is
    compiled for sm_90a, one ``nvcc`` per source, all at once; HGMMA
-   (wgmma) instructions are counted with ``cuobjdump -sass`` per kernel
-   function, and every instantiation of each tensor-core kernel
-   (``TC_KERNELS``: B1 forward, both B1-bwd passes, B5 forward, B5-bwd)
-   must hold some.
+   (wgmma) and async-copy (LDGSTS for cp.async, UTMALDG for TMA)
+   instructions are counted with ``cuobjdump -sass`` per kernel function
+   (``SASS_CHECKS``): every instantiation of each tensor-core kernel (B1
+   forward, both B1-bwd passes, B5 forward, B5-bwd) must hold HGMMA, and
+   every instantiation of B2 and B4 an async copy.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -20,12 +21,12 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    and timed at the training shape (B = 16, S = 128) with its lse; B1 and
    the B5 backward print their achieved TFLOP/s and share of the bound
    (``bound_ms / ms``); B1 also its device time from torch.profiler
-   (``device_ms``), since small calls are bound by the host.
+   (``device_ms``), since small calls are bound by the host; B2 and B3
+   too, and B2's wrapper its host time a call (``host_us``).
    The speculative-verify kernel (B3) is held against its plain version at
    the speculative run's geometry (bf16 and a ragged fp32 batch), and with
-   a one-token window against the B2 kernel (bitwise); the selective scan
-   (B4) at full-width falcon-mamba-7b's prefill shape in bf16 and a ragged
-   fp32 shape, at fp32 tolerance (``SCAN_TOL``).
+   a one-token window against the B2 kernel and the plain paged attention
+   (each pair at ``BF16_ATOL``/``BF16_RTOL``).
 3. Serve. ``repro_torch.api.run_serve`` at full width (40 layers, d_model
    2048, random weights from a seeded generator), with the ``paged``, the
    ``continuous`` and the ``speculative`` engine (draft: the target's
@@ -45,7 +46,13 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    N = 16, random weights from a seeded generator) through ``continuous``
    with the same requests: B4 must run 64 times a prefill call, and every
    request must equal ``reference_generate`` or diverge at a near-tie of
-   ``NEAR_TIE_ULPS`` bf16 ulps of the top logit's magnitude.
+   ``NEAR_TIE_ULPS`` bf16 ulps of the top logit's magnitude. The B4
+   launches are counted by (B, L, D, N) (``record_scan_shapes``); then
+   the selective scan is held against its plain version at fp32
+   tolerance (``SCAN_TOL``) in a ragged fp32 shape and, in bf16, at every
+   shape the run launched and at ``SCAN_CONTINUITY_SHAPE``, each timed by
+   events and device time beside its bound (exponentials at the SFUs'
+   rate, ``scan_bound``).
 5. Training kernels. The fused cross-entropy forward and backward (B5) at
    T = 2048, d = 2048, V = 49155 and the flash-attention backward (B1-bwd)
    at B = 16, S = 128 (and a ragged S = 100), Hq = 32, Hkv = 8, D = 64,
@@ -147,6 +154,8 @@ SPEC_GAMMA = 4
 SSM_ARCH = "falcon-mamba-7b"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+SMS = 132                        # H100 SXM streaming multiprocessors
+SFU_EXP_PER_CLOCK = 16           # MUFU.EX2 results a clock an SM
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 
@@ -200,6 +209,31 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
             us = getattr(evt, "self_device_time_total", None)
             total_us += us if us is not None else evt.self_cuda_time_total
     return total_us / iters / 1e3
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host time of one call in microseconds: ``time.perf_counter`` over
+    ``calls`` calls with no synchronize inside (the card runs behind the
+    host as long as each call's device work is shorter than its host
+    work)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -270,19 +304,10 @@ def kernel_phase(torch, dev):
                   f"{case['bound_share']:.3f} of the bound", flush=True)
             b1_cases.append(case)
 
-    # B2 at the paged run's geometry: 8 rows, 8 logical pages of 16, a
-    # 64-page pool plus the scratch page; permuted tables, one row
-    # mid-page and one at position 0.
-    b, hq, hc, d, psize, m = 8, 32, 16, 64, 16, 8
-    num_pages = b * m + 1
-    q = rn(b, hq, d)
-    kp, vp = rn(num_pages, psize, hc, d), rn(num_pages, psize, hc, d)
-    table = torch.randperm(num_pages - 1, generator=gen, device=dev)[
-        :b * m].reshape(b, m).to(torch.int32)
-    pos = torch.randint(0, m * psize, (b,), generator=gen,
-                        device=dev).to(torch.int32)
-    pos[0] = psize // 2
-    pos[-1] = 0
+    q, kp, vp, table, pos = paged_case(torch, dev, gen)
+    b, hq, d = q.shape
+    psize, hc = kp.shape[1], kp.shape[2]
+    m = table.shape[1]
     got = ops.paged_attention(q, kp, vp, table, pos)
     want = paged_attention_plain(q, kp, vp, table, pos)
     torch.cuda.synchronize()
@@ -302,16 +327,41 @@ def kernel_phase(torch, dev):
         "plain_ms": time_ms(torch, lambda: paged_attention_plain(
             q, kp, vp, table, pos)),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "device_ms": device_ms(torch, lambda: ops.paged_attention(
+            q, kp, vp, table, pos), DEVICE_MATCH["paged_attention"]),
+        "host_us": host_us(torch, lambda: ops.paged_attention(
+            q, kp, vp, table, pos)),
     }
     print(f"kernel paged_attention {b2['shape']}: err {err:.3g} (atol "
-          f"{BF16_ATOL}, rtol {BF16_RTOL}); {b2['ms']:.4f} ms, plain "
-          f"{b2['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
-          flush=True)
+          f"{BF16_ATOL}, rtol {BF16_RTOL}); {b2['ms']:.4f} ms (device "
+          f"{b2['device_ms']:.4f}; wrapper {b2['host_us']:.1f} us of host "
+          f"a call), plain {b2['plain_ms']:.4f} ms, bound {bnd:.5f} ms "
+          f"({by})", flush=True)
     b3 = verify_kernel_phase(torch, dev, gen)
-    b4 = scan_kernel_phase(torch, dev, gen)
-    # last: B2-B4 draw their inputs from gen without depending on it
+    # last: B2 and B3 draw their inputs from gen without depending on it
     b1_cases.append(attention_train_case(torch, dev, gen, rn))
-    return b1_cases, b2, b3, b4
+    return b1_cases, b2, b3
+
+
+def paged_case(torch, dev, gen):
+    """B2's inputs at the paged run's geometry, bf16: 8 rows, 8 logical
+    pages of 16, a 64-page pool plus the scratch page; permuted tables,
+    one row mid-page and one at position 0."""
+    b, hq, hc, d, psize, m = 8, 32, 16, 64, 16, 8
+    num_pages = b * m + 1
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q = rn(b, hq, d)
+    kp, vp = rn(num_pages, psize, hc, d), rn(num_pages, psize, hc, d)
+    table = torch.randperm(num_pages - 1, generator=gen, device=dev)[
+        :b * m].reshape(b, m).to(torch.int32)
+    pos = torch.randint(0, m * psize, (b,), generator=gen,
+                        device=dev).to(torch.int32)
+    pos[0] = psize // 2
+    pos[-1] = 0
+    return q, kp, vp, table, pos
 
 
 def attention_train_case(torch, dev, gen, rn):
@@ -367,17 +417,27 @@ def add_rates(case, flops: float) -> None:
     case["bound_share"] = case["bound_ms"] / case["ms"]
 
 
-# The tensor-core kernels, by library: every instantiation of each must
-# hold HGMMA (wgmma) instructions in its SASS.
-TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",
-                                  "flash_bwd_dq_tc_kernel",
-                                  "flash_bwd_dkdv_tc_kernel"),
-              "cross_entropy": ("xent_fwd_tc_kernel", "xent_tc_gemm")}
+# Kernels whose every instantiation must hold some instruction of a kind in
+# its SASS, by library: the tensor-core kernels HGMMA (wgmma), the
+# redesigned B2 and B4 an async copy into shared memory (LDGSTS for
+# cp.async, UTMALDG for a TMA load).
+SASS_CHECKS = {
+    "HGMMA": (("HGMMA",), {
+        "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                            "flash_bwd_dkdv_tc_kernel"),
+        "cross_entropy": ("xent_fwd_tc_kernel", "xent_tc_gemm")}),
+    "async copy": (("LDGSTS", "UTMALDG"), {
+        "ssm_scan": ("ssm_scan",),
+        "paged_attention": ("paged_fwd",)}),
+}
+# Substring of each serving kernel's name in a profiler trace.
+DEVICE_MATCH = {"paged_attention": "paged_fwd", "spec_verify": "spec_verify",
+                "selective_scan": "ssm_scan"}
 
 
-def hgmma_counts():
-    """HGMMA (wgmma) instructions in the SASS of each built tensor-core
-    library and of each of its tensor-core kernels (``cuobjdump -sass``
+def sass_counts():
+    """For each kind of ``SASS_CHECKS``, its instructions in the SASS of
+    each named library and of each named kernel (``cuobjdump -sass``
     prints a ``Function :`` block per kernel instantiation; a kernel's
     count is summed over its instantiations, each of which must hold
     some)."""
@@ -385,30 +445,35 @@ def hgmma_counts():
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    libs, kernels = {}, {}
-    for name, names in TC_KERNELS.items():
-        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
-        per_fn, fn = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                per_fn[fn] = 0
-            elif fn is not None and "HGMMA" in line:
-                per_fn[fn] += 1
-        libs[name] = sum(per_fn.values())
-        for kname in names:
-            insts = [c for f, c in per_fn.items() if kname in f]
-            if not insts or min(insts) < 1:
-                fail(f"tensor-core kernel {kname} holds no HGMMA "
-                     f"instruction in some instantiation: {insts}")
-            kernels[kname] = {"hgmma": sum(insts),
-                              "instantiations": len(insts)}
-    print(f"HGMMA instructions in the SASS: {libs}; per kernel "
-          f"{json.dumps(kernels)}", flush=True)
-    return {"libraries": libs, "kernels": kernels}
+    out = {}
+    for kind, (opcodes, by_lib) in SASS_CHECKS.items():
+        libs, kernels = {}, {}
+        for name, names in by_lib.items():
+            sass = subprocess.run(
+                [tool, "-sass", str(_build._lib_path(name))],
+                capture_output=True, text=True, check=True,
+                timeout=300).stdout
+            per_fn, fn = {}, None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    fn = m.group(1)
+                    per_fn[fn] = 0
+                elif fn is not None and any(op in line for op in opcodes):
+                    per_fn[fn] += 1
+            libs[name] = sum(per_fn.values())
+            for kname in names:
+                insts = [c for f, c in per_fn.items() if kname in f]
+                if not insts or min(insts) < 1:
+                    fail(f"kernel {kname} holds no {kind} instruction "
+                         f"({'/'.join(opcodes)}) in some instantiation: "
+                         f"{insts}")
+                kernels[kname] = {"count": sum(insts),
+                                  "instantiations": len(insts)}
+        print(f"{kind} instructions ({'/'.join(opcodes)}) in the SASS: "
+              f"{libs}; per kernel {json.dumps(kernels)}", flush=True)
+        out[kind] = {"libraries": libs, "kernels": kernels}
+    return out
 
 
 def verify_case(torch, dev, gen, dtype, w, wlens, starts):
@@ -455,8 +520,9 @@ def verify_kernel_phase(torch, dev, gen):
     """B3 against its plain version: the serving window (W = 5, every row
     a full window, row 0 crossing a page) in bf16, timed; a ragged batch
     (mixed window lengths, scratch lanes) in bf16 and fp32; a one-token
-    window against the B2 kernel, bitwise."""
+    window against the B2 kernel and the plain paged attention."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_plain
     from repro_torch.kernels.spec_verify import spec_verify_plain
     w = SPEC_GAMMA + 1
     starts = [14] + [int(x) for x in torch.randint(
@@ -479,25 +545,32 @@ def verify_kernel_phase(torch, dev, gen):
     q, kp, vp, table, q_pos = verify_case(torch, dev, gen, torch.bfloat16,
                                           1, [0] * 8, starts)
     one = ops.spec_verify(q, kp, vp, table, q_pos)[:, 0]
-    b2 = ops.paged_attention(q[:, 0].contiguous(), kp, vp, table,
-                             q_pos[:, 0].contiguous())
-    torch.cuda.synchronize()
-    if not torch.equal(one, b2):
-        fail(f"spec_verify with W = 1 differs from the paged-attention "
-             f"kernel: max {(one.float() - b2.float()).abs().max().item()}")
+    args = (q[:, 0].contiguous(), kp, vp, table, q_pos[:, 0].contiguous())
+    b2 = ops.paged_attention(*args)
+    plain = paged_attention_plain(*args)
+    # B2's warps split the key walk (another summation order than B3's):
+    # each agrees with the plain version, and with the other, at BF16_*.
+    w1_err = {"spec_verify": within_tol(torch, one, plain, "W=1 spec_verify"),
+              "paged_attention": within_tol(torch, b2, plain,
+                                            "W=1 paged_attention"),
+              "each_other": within_tol(torch, one, b2,
+                                       "W=1 spec_verify vs paged_attention")}
     bnd, by = verify_bound(full[0], full[1], full[3], full[4])
     case = {
         "shape": f"B=8 W={w} Hq=32 Hc=16 D=64 P=16 M=9 (8 pages + scratch "
                  f"column) starts={starts}",
         "max_abs_err": max(err, errs["bfloat16"]),
-        "ragged_max_abs_err": errs, "w1_equals_paged_attention": True,
+        "ragged_max_abs_err": errs, "w1_max_abs_err": w1_err,
         "ms": time_ms(torch, lambda: ops.spec_verify(*full)),
         "plain_ms": time_ms(torch, lambda: spec_verify_plain(*full)),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "device_ms": device_ms(torch, lambda: ops.spec_verify(*full),
+                               DEVICE_MATCH["spec_verify"]),
     }
     print(f"kernel spec_verify {case['shape']}: err {err:.3g} (atol "
-          f"{BF16_ATOL}, rtol {BF16_RTOL}); ragged err {errs}; W=1 bitwise "
-          f"equal to paged_attention; {case['ms']:.4f} ms, plain "
+          f"{BF16_ATOL}, rtol {BF16_RTOL}); ragged err {errs}; W=1 err "
+          f"{w1_err}; {case['ms']:.4f} ms (device "
+          f"{case['device_ms']:.4f}), plain "
           f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
           flush=True)
     return case
@@ -516,47 +589,81 @@ def scan_case(torch, dev, gen, dtype, b, l, d, n):
     return x, dt, a.contiguous(), bm, cm
 
 
-def scan_kernel_phase(torch, dev, gen):
-    """B4 against its plain version at SCAN_TOL: full-width falcon-mamba's
-    prefill shape (B = 8, L = 100, D = 8192, N = 16; x, B, C in bf16),
-    timed, and a ragged fp32 shape (3, 37, 200, 16)."""
+# B4 at the (B, L, D, N) that chip_smoke.py timed before it recorded the
+# shapes the ssm run launches (never one of them), kept for continuity.
+SCAN_CONTINUITY_SHAPE = (8, 100, 8192, 16)
+
+
+def scan_bound(b, l, d, n, elt):
+    """Least time for B4's work: x (elt bytes), dt and y (fp32) once per
+    (b, t, d), B and C once per (b, t, n), a and h_last once; against
+    its operations, the larger of B L D N exponentials at the SFUs' rate
+    (one MUFU.EX2 each, ``SFU_EXP_PER_CLOCK`` a clock on each of ``SMS``
+    SMs at the card's maximum SM clock) and 6 fp32 flops for each at the
+    fp32 peak (dt a, the state's multiply and add, C's product and sum).
+    Returns (ms, "bytes" or "operations", bytes, exps)."""
+    nbytes = (b * l * d * (elt + 4 + 4) + 2 * b * l * n * elt + d * n * 4
+              + b * d * n * 4)
+    exps = b * l * d * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(exps / (SMS * SFU_EXP_PER_CLOCK * sm_clock_hz()),
+                6.0 * exps / FP32_FLOPS) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (nbytes, exps)
+
+
+def scan_kernel_phase(torch, dev, shapes):
+    """B4 against its plain version at SCAN_TOL: a ragged fp32 shape
+    (3, 37, 200, 16), then in bf16 every (B, L, D, N) the ssm run
+    launched (``shapes``: a count of launches by shape) and
+    ``SCAN_CONTINUITY_SHAPE``, each timed by CUDA events and by its
+    device time (``device_ms``) beside its plain version and its bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
-    out = {}
-    for dtype, shape in ((torch.bfloat16, (8, 100, 8192, 16)),
-                         (torch.float32, (3, 37, 200, 16))):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def check(dtype, shape):
         args = scan_case(torch, dev, gen, dtype, *shape)
         y, h = ops.selective_scan(*args)
         py, ph = ssm_scan_plain(*args)
         name = str(dtype).replace("torch.", "")
-        err = max(within_tol(torch, y, py, f"ssm_scan y {name}", **SCAN_TOL),
-                  within_tol(torch, h, ph, f"ssm_scan h_last {name}",
+        err = max(within_tol(torch, y, py, f"ssm_scan y {name} {shape}",
+                             **SCAN_TOL),
+                  within_tol(torch, h, ph, f"ssm_scan h_last {name} {shape}",
                              **SCAN_TOL))
-        out[name] = {"shape": f"B={shape[0]} L={shape[1]} D={shape[2]} "
-                              f"N={shape[3]} x/B/C {name}",
-                     "max_abs_err": err}
-        if dtype == torch.bfloat16:
-            full = args
-    b, l, d, n = 8, 100, 8192, 16
-    elt = 2
-    nbytes = (b * l * d * (elt + 4 + 4) + 2 * b * l * n * elt + d * n * 4
-              + b * d * n * 4)
-    exps = b * l * d * n
-    bnd, by = bound_ms(nbytes, 6.0 * exps, peak=FP32_FLOPS)
-    case = {**out["bfloat16"], "fp32_case": out["float32"],
-            "exp_count": exps,
-            "ms": time_ms(torch, lambda: ops.selective_scan(*full)),
-            "plain_ms": time_ms(torch, lambda: ssm_scan_plain(*full),
-                                iters=3, warmup=1),
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
-    print(f"kernel ssm_scan {case['shape']}: err "
-          f"{case['max_abs_err']:.3g}, fp32 {out['float32']['shape']} err "
-          f"{out['float32']['max_abs_err']:.3g} (atol {SCAN_TOL['atol']}, "
-          f"rtol {SCAN_TOL['rtol']}); {case['ms']:.4f} ms, plain "
-          f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}: "
-          f"{nbytes / 1e6:.1f} MB; {exps / 1e6:.1f} M exp, "
-          f"{6 * exps / 1e9:.2f} GFLOP at fp32 peak)", flush=True)
-    return case
+        return args, err
+
+    _, fp32_err = check(torch.float32, (3, 37, 200, 16))
+    cases = []
+    for shape in sorted(set(shapes) | {SCAN_CONTINUITY_SHAPE}):
+        args, err = check(torch.bfloat16, shape)
+        bnd, by, nbytes, exps = scan_bound(*shape, elt=2)
+        case = {"shape": "B={} L={} D={} N={} x/B/C bfloat16".format(*shape),
+                "launches": shapes.get(shape, 0), "max_abs_err": err,
+                "exp_count": exps,
+                "ms": time_ms(torch, lambda: ops.selective_scan(*args)),
+                "device_ms": device_ms(
+                    torch, lambda: ops.selective_scan(*args),
+                    DEVICE_MATCH["selective_scan"]),
+                "plain_ms": time_ms(torch, lambda: ssm_scan_plain(*args),
+                                    iters=3, warmup=1),
+                "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        print(f"kernel ssm_scan {case['shape']} ({case['launches']} "
+              f"launches in the ssm run): err {err:.3g} (atol "
+              f"{SCAN_TOL['atol']}, rtol {SCAN_TOL['rtol']}); "
+              f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), plain "
+              f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB; {exps / 1e6:.1f} M exp at "
+              f"{SFU_EXP_PER_CLOCK} a clock an SM)", flush=True)
+        cases.append(case)
+    print(f"kernel ssm_scan fp32 B=3 L=37 D=200 N=16: err {fp32_err:.3g}; "
+          f"bounds at a max SM clock of {sm_clock_hz() / 1e6:.0f} MHz",
+          flush=True)
+    # the kernels line reports the shape the ssm run launched most
+    top = max(cases, key=lambda c: c["launches"])
+    return {**top, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "fp32_max_abs_err": fp32_err, "cases": cases}
 
 
 def serve_spec(engine: str, events_dir: pathlib.Path,
@@ -802,8 +909,16 @@ def ssm_phase(torch, dev, events_dir: pathlib.Path):
     if per_slot != reckoned:
         fail(f"[ssm] state bytes a slot {per_slot}, reckoned {reckoned}")
     torch.cuda.reset_peak_memory_stats()
-    report, launches, prefills = serve_run(torch, ctx, spec, "ssm")
+    shapes = record_scan_shapes()
+    try:
+        report, launches, prefills = serve_run(torch, ctx, spec, "ssm")
+    finally:
+        shapes = shapes.stop()
     peak = torch.cuda.max_memory_allocated()
+    print(f"[ssm] B4 launches by (B, L, D, N): {shapes}", flush=True)
+    if sum(shapes.values()) != launches["selective_scan"]:
+        fail(f"[ssm] recorded B4 shapes {shapes} do not add up to "
+             f"{launches['selective_scan']} launches")
     want = {"selective_scan": cfg.num_layers * prefills,
             "flash_attention": 0, "paged_attention": 0, "spec_verify": 0}
     got = {k: launches[k] for k in want}
@@ -819,7 +934,28 @@ def ssm_phase(torch, dev, events_dir: pathlib.Path):
         return NEAR_TIE_ULPS * 2.0 ** (e - 7)
     requests = build_workload(spec, cfg.vocab_size)
     agreement_phase(torch, {"ssm": report}, ctx, requests, limit=limit)
-    return launches
+    return launches, shapes
+
+
+class record_scan_shapes:
+    """Count the B4 kernel's launches by (B, L, D, N) until ``stop``, by
+    wrapping the kernel launcher that ``ops.selective_scan`` calls on a
+    CUDA tensor (``ops.ssm_scan``), as ``count_prefills`` wraps the
+    prefill."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.launch, self.counts = ops, ops.ssm_scan, {}
+
+        def counted(x, dt, a, bmat, cmat):
+            shape = (*x.shape, a.shape[1])
+            self.counts[shape] = self.counts.get(shape, 0) + 1
+            return self.launch(x, dt, a, bmat, cmat)
+        ops.ssm_scan = counted
+
+    def stop(self):
+        self.ops.ssm_scan = self.launch
+        return self.counts
 
 
 def within_tol(torch, got, want, what: str, atol: float = BF16_ATOL,
@@ -1397,18 +1533,22 @@ def main() -> int:
                     or "spill" in line:
                 print(line.strip())
     print(f"built kernels in {time.perf_counter() - t0:.1f}s", flush=True)
-    hgmma = hgmma_counts()
+    sass = sass_counts()
+    hgmma = sass["HGMMA"]["kernels"]
+    asyncs = sass["async copy"]["kernels"]
 
-    b1_cases, b2, b3, b4 = kernel_phase(torch, dev)
+    b1_cases, b2, b3 = kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory() as events_dir:
         reports, launches, ctx, requests = serve_phase(
             torch, dev, pathlib.Path(events_dir))
     agreement_phase(torch, reports, ctx, requests)
     del ctx, reports
     with tempfile.TemporaryDirectory() as events_dir:
-        launches["ssm"] = ssm_phase(torch, dev, pathlib.Path(events_dir))
+        launches["ssm"], scan_shapes = ssm_phase(torch, dev,
+                                                 pathlib.Path(events_dir))
     gc.collect()
     torch.cuda.empty_cache()
+    b4 = scan_kernel_phase(torch, dev, scan_shapes)
     b5, b5_bwd, b1_bwd = train_kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory() as events_dir:
         train = train_phase(torch, dev, pathlib.Path(events_dir))
@@ -1436,7 +1576,7 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in b1_cases),
          **{k: b1[k] for k in timing + rates + ("device_ms",)},
          "cases": b1_cases,
-         "hgmma_count": hgmma["kernels"]["flash_fwd_tc_kernel"]},
+         "hgmma_count": hgmma["flash_fwd_tc_kernel"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/layers.py:248",
@@ -1447,28 +1587,33 @@ def main() -> int:
              "device_ms", "device_ms_by_pass", "library_device_ms",
              "device_bound_share")},
          "cases": b1_bwd,
-         "hgmma_count": {k: hgmma["kernels"][k] for k in (
+         "hgmma_count": {k: hgmma[k] for k in (
              "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:81",
          "launches": launches["paged"]["paged_attention"],
          "launches_by_path": by_path["paged_attention"],
-         **{k: b2[k] for k in ("max_abs_err",) + timing}},
+         **{k: b2[k] for k in ("max_abs_err", "device_ms", "host_us")
+            + timing},
+         "async_copy_count": asyncs["paged_fwd"]},
         {"name": "spec_verify", "route": "cuda",
          "source": "src/repro_torch/csrc/spec_verify.cu",
          "replaces": "src/repro/kernels/spec_verify.py:91",
          "launches": launches["speculative"]["spec_verify"],
          "launches_by_path": by_path["spec_verify"],
          **{k: b3[k] for k in ("max_abs_err", "ragged_max_abs_err",
-                               "w1_equals_paged_attention") + timing}},
+                               "w1_max_abs_err", "device_ms")
+            + timing}},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:58",
          "launches": launches["ssm"]["selective_scan"],
          "launches_by_path": by_path["selective_scan"],
-         **{k: b4[k] for k in ("max_abs_err", "fp32_case", "exp_count")
-            + timing}},
+         **{k: b4[k] for k in ("max_abs_err", "fp32_max_abs_err",
+                               "exp_count", "device_ms", "cases")
+            + timing},
+         "async_copy_count": asyncs["ssm_scan"]},
         {"name": "cross_entropy", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:68",
@@ -1476,7 +1621,7 @@ def main() -> int:
          "launches_by_path": by_path["cross_entropy"],
          **{k: b5[k] for k in ("max_abs_err", "argmax_near_ties", "fp32")
             + timing + rates},
-         "hgmma_count": hgmma["kernels"]["xent_fwd_tc_kernel"]},
+         "hgmma_count": hgmma["xent_fwd_tc_kernel"]},
         {"name": "cross_entropy_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:68",
@@ -1485,7 +1630,7 @@ def main() -> int:
          **{k: b5_bwd[k] for k in ("max_abs_err", "softmax_rel_l2",
                                      "planted_softmax_rel_l2", "fp32")
             + timing + rates},
-         "hgmma_count": hgmma["kernels"]["xent_tc_gemm"]},
+         "hgmma_count": hgmma["xent_tc_gemm"]},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:
         fail(f"kernel list {sorted(ops.WRAPPERS)} not all reported")

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// shared-memory barriers (mbarrier), TMA tile loads, wgmma matrix
-// descriptors and the wgmma instructions themselves, as inline PTX, and
-// the host-side tensor-map encoder. No PyTorch or CUTLASS headers: a
-// source that includes this file builds in seconds.
+// Hopper (sm_90a) building blocks shared by the port's kernels:
+// shared-memory barriers (mbarrier), TMA tile loads, cp.async copies,
+// wgmma matrix descriptors and the wgmma instructions themselves, as
+// inline PTX, and the host-side tensor-map encoder. No PyTorch or CUTLASS
+// headers: a source that includes this file builds in seconds.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a
 // tile is a sequence of "atoms" of 128-byte rows (64 16-bit values), each
@@ -86,6 +86,34 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- cp.async (LDGSTS) -----------------------------------------------------
+// A thread's copies from device to shared memory that bypass its
+// registers; they complete in the order of their commit groups.
+
+// 16 bytes (both addresses 16-byte aligned); `src_bytes` < 16 fills the
+// rest with zeros (0: write 16 zero bytes, read nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes (both addresses 4-byte aligned).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -40,10 +40,11 @@ from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 
 
 def _on_cpu(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
+    # is_cuda / is_cpu: no torch.device object built on the decode path
+    if t.is_cuda:
         return False
+    if t.is_cpu:
+        return True
     raise ValueError(f"{what}: no kernel for device {t.device}")
 
 

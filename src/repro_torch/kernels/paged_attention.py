@@ -28,35 +28,40 @@ _MAX_REP = 16
 
 
 def _check(q, k_pages, v_pages, page_table, pos):
-    dev = q.device
-    if not q.is_cuda or any(t.device != dev for t in
-                            (k_pages, v_pages, page_table, pos)):
+    """Raise on anything the kernel does not take. Called on every decode
+    step of every layer, so it reads each attribute once and compares
+    device indices (``get_device``) rather than ``torch.device`` objects."""
+    dev = q.get_device()
+    if not q.is_cuda or k_pages.get_device() != dev \
+            or v_pages.get_device() != dev \
+            or page_table.get_device() != dev or pos.get_device() != dev:
         raise ValueError("paged_attention: every input must be a CUDA "
                          "tensor on one device")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES or k_pages.dtype != dtype \
+            or v_pages.dtype != dtype:
         raise ValueError(f"paged_attention: unsupported dtypes "
-                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+                         f"{dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention: page_table and pos must be int32")
-    b, hq, d = q.shape
-    if k_pages.shape != v_pages.shape or k_pages.dim() != 4 \
-            or k_pages.shape[3] != d:
-        raise ValueError(f"paged_attention: pages {tuple(k_pages.shape)} "
-                         f"do not match q {tuple(q.shape)}")
-    hc = k_pages.shape[2]
+    qs, ks, ts = q.shape, k_pages.shape, page_table.shape
+    b, hq, d = qs
+    if v_pages.shape != ks or len(ks) != 4 or ks[3] != d:
+        raise ValueError(f"paged_attention: pages {tuple(ks)} do not match "
+                         f"q {tuple(qs)}")
+    hc = ks[2]
     if hq % hc or hq // hc > _MAX_REP:
         raise ValueError(f"paged_attention: Hq {hq} must be a multiple of "
                          f"Hc {hc}, at most {_MAX_REP}x")
     if d > _MAX_D or d % 8:
         raise ValueError(f"paged_attention: head_dim {d} must be a multiple "
                          f"of 8 and at most {_MAX_D}")
-    if page_table.dim() != 2 or page_table.shape[0] != b \
-            or pos.shape != (b,):
+    if len(ts) != 2 or ts[0] != b or pos.shape != (b,):
         raise ValueError("paged_attention: page_table (B, M) / pos (B,) "
                          "shapes disagree with q")
-    if not all(t.is_contiguous() for t in
-               (q, k_pages, v_pages, page_table, pos)):
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and page_table.is_contiguous()
+            and pos.is_contiguous()):
         raise ValueError("paged_attention: inputs must be contiguous")
 
 
@@ -76,34 +81,86 @@ def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take."""
     _check(q, k_pages, v_pages, page_table, pos)
     b, hq, d = q.shape
-    num_pages, psize, hc = k_pages.shape[:3]
-    m = page_table.shape[1]
+    num_pages, psize, hc, _ = k_pages.shape
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if (ptrs[1] | ptrs[2]) & 15:     # the kernel copies 16-byte vectors
+        raise ValueError("paged_attention: the pages must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     lib, fn = _kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-             v_pages.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), b, hq, hc, psize, d, m, num_pages,
-             1.0 / math.sqrt(d), stream)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    err = fn(_DTYPE_CODES[q.dtype], *ptrs, page_table.data_ptr(),
+             pos.data_ptr(), out.data_ptr(), b, hq, hc, psize, d,
+             page_table.shape[1], num_pages, 1.0 / math.sqrt(d), stream)
     _build.check(err, lib, "paged_attention")
     return out
+
+
+def split_partials_plain(q, k_pages, v_pages, page_table, pos, shares: int,
+                         tile: int):
+    """The kernel's per-warp partial states in plain PyTorch: key k of a
+    row goes to share (k // tile) % shares (tiles dealt to the warps in
+    turn); each share keeps its own online-softmax state over its visible
+    keys: m (B, Hq) its largest scaled score (-1e30 if it has none), l
+    (B, Hq) the sum of exp(s - m) and acc (B, Hq, D) the sum of
+    exp(s - m) v, all fp32. Returns (m, l, acc), each with a leading
+    ``shares`` axis."""
+    b, hq, d = q.shape
+    k, v, valid = _gather(k_pages, v_pages, page_table, pos)
+    hc = k.shape[2]
+    scores = torch.einsum("bhrd,bkhd->bhrk", q.float().reshape(
+        b, hc, hq // hc, d), k) / math.sqrt(d)
+    share = (torch.arange(k.shape[1], device=q.device) // tile) % shares
+    ms, ls, accs = [], [], []
+    for w in range(shares):
+        mask = valid & (share == w)[None, :]                     # (B, K)
+        s = scores.masked_fill(~mask[:, None, None, :], _NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m) * mask[:, None, None, :]
+        ms.append(m[..., 0].reshape(b, hq))
+        ls.append(p.sum(dim=-1).reshape(b, hq))
+        accs.append(torch.einsum("bhrk,bkhd->bhrd", p, v).reshape(b, hq, d))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_partials_plain(m, l, acc, dtype) -> torch.Tensor:
+    """The kernel's combine of its warps' partial states (leading axis):
+    rescale each to the largest m and divide the summed acc by the summed
+    l, clamped at 1e-20. A share with no visible key (m = -1e30, l = 0,
+    acc = 0) adds nothing; if no share has one, the output is 0."""
+    f = torch.exp(m - m.amax(dim=0))
+    den = (f * l).sum(dim=0)
+    num = (f[..., None] * acc).sum(dim=0)
+    return (num / den.clamp_min(1e-20)[..., None]).to(dtype)
+
+
+def _gather(k_pages, v_pages, page_table, pos):
+    """Each row's keys and values in logical order (B, M P, Hc, D) fp32,
+    and which are visible: position <= pos and on a page id in
+    [0, NP) (other ids read page 0 and are masked)."""
+    num_pages, psize = k_pages.shape[:2]
+    b, m = page_table.shape
+    idx = page_table.long()
+    in_pool = (idx >= 0) & (idx < num_pages)
+    idx = torch.where(in_pool, idx, torch.zeros_like(idx))
+    k = k_pages[idx].reshape(b, m * psize, *k_pages.shape[2:]).float()
+    v = v_pages[idx].reshape(b, m * psize, *v_pages.shape[2:]).float()
+    valid = ((torch.arange(m * psize, device=pos.device)[None, :]
+              <= pos.long()[:, None])
+             & in_pool.repeat_interleave(psize, dim=1))
+    return k, v, valid
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table,
                           pos) -> torch.Tensor:
     """The kernel's function in plain PyTorch: gather the row's pages in
-    logical order, mask keys past ``pos``, dense fp32 softmax."""
+    logical order, mask keys past ``pos`` or on a page id outside
+    [0, NP), dense fp32 softmax."""
     b, hq, d = q.shape
-    psize, hc = k_pages.shape[1], k_pages.shape[2]
-    m = page_table.shape[1]
-    rep = hq // hc
-    idx = page_table.long()
-    k = k_pages[idx].reshape(b, m * psize, hc, d).float()
-    v = v_pages[idx].reshape(b, m * psize, hc, d).float()
-    qr = q.float().reshape(b, hc, rep, d)
+    k, v, valid = _gather(k_pages, v_pages, page_table, pos)
+    hc = k.shape[2]
+    qr = q.float().reshape(b, hc, hq // hc, d)
     scores = torch.einsum("bhrd,bkhd->bhrk", qr, k) / math.sqrt(d)
-    valid = (torch.arange(m * psize, device=q.device)[None, :]
-             <= pos.long()[:, None])
     scores = scores.masked_fill(~valid[:, None, None, :], _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrk,bkhd->bhrd", probs, v)

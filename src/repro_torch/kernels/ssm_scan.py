@@ -24,11 +24,13 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_N = 64
+PER_LANE = 4      # states a lane of the kernel owns
 
 
 def _check(x, dt, a, bmat, cmat):
-    dev = x.device
-    if not x.is_cuda or any(t.device != dev for t in (dt, a, bmat, cmat)):
+    dev = x.get_device()           # an index: no torch.device object built
+    if not x.is_cuda or dt.get_device() != dev or a.get_device() != dev \
+            or bmat.get_device() != dev or cmat.get_device() != dev:
         raise ValueError("ssm_scan: every input must be a CUDA tensor on "
                          "one device")
     if x.dtype not in _DTYPE_CODES or bmat.dtype != x.dtype \
@@ -73,7 +75,7 @@ def ssm_scan(x, dt, a, bmat, cmat):
     y = torch.empty((b, l, d), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
     lib, fn = _kernel()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
              h_last.data_ptr(), b, l, d, n, stream)
@@ -81,11 +83,34 @@ def ssm_scan(x, dt, a, bmat, cmat):
     return y, h_last
 
 
+def _state_tiers(n: int) -> int:
+    """The kernel's state count: N rounded up to 8, 16, 32 or 64."""
+    return next(t for t in (8, 16, 32, 64) if n <= t)
+
+
+def sum_states(hc: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis (N states) in the kernel's order: zero-padded to
+    the kernel's state count, each lane's 4 states in index order, then
+    the lanes' partial sums pairwise (the xor-shuffle tree)."""
+    n = hc.shape[-1]
+    pad = _state_tiers(n) - n
+    if pad:
+        hc = torch.nn.functional.pad(hc, (0, pad))
+    g = hc.unflatten(-1, (-1, PER_LANE))
+    p = g[..., 0]
+    for j in range(1, PER_LANE):
+        p = p + g[..., j]
+    while p.shape[-1] > 1:
+        p = p[..., 0::2] + p[..., 1::2]
+    return p[..., 0]
+
+
 def ssm_scan_plain(x, dt, a, bmat, cmat):
     """The kernel's function in plain PyTorch: the sequential recurrence of
     ``repro``'s ``ssm_scan_ref``, one time step at a time, with y_t summed
-    over the states in index order as the kernel sums them. Differentiable
-    (the CPU training path of a Mamba-1 block runs through it)."""
+    over the states in the kernel's order (:func:`sum_states`).
+    Differentiable (the CPU training path of a Mamba-1 block runs through
+    it)."""
     b, l, d = x.shape
     n = a.shape[1]
     xf, dtf, af = x.float(), dt.float(), a.float()
@@ -96,9 +121,5 @@ def ssm_scan_plain(x, dt, a, bmat, cmat):
         dtt = dtf[:, t]                                        # (B, D)
         a_bar = torch.exp(dtt[..., None] * af[None])           # (B, D, N)
         h = a_bar * h + (dtt * xf[:, t])[..., None] * bf[:, t, None, :]
-        hc = h * cf[:, t, None, :]
-        y = hc[..., 0]
-        for k in range(1, n):
-            y = y + hc[..., k]
-        ys.append(y)
+        ys.append(sum_states(h * cf[:, t, None, :]))
     return torch.stack(ys, dim=1), h

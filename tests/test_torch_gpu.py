@@ -10,7 +10,8 @@ at atol 2e-5 (sums in another order; 2e-4 for the cross-entropy values,
 sums over the whole vocab), bfloat16 at atol/rtol 2e-2 (one rounding of
 the output; sums in another order; fp16 alike). The selective scan (fp32 outputs in
 every case) is held at SCAN_TOL: both compute the same unfused fp32
-products in the same order, y summed over the states in index order.
+products in the same order, y summed over the states in the kernel's
+order (``sum_states``).
 """
 import pytest
 import torch
@@ -87,6 +88,71 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, b, hq, hc, d,
     want = paged_attention_plain(q, kp, vp, table, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _paged_walk_case(gen, dev, dtype, hq, hc, d, psize, m, pos):
+    """Rows of the given positions over a pool of one page a table entry
+    (plus the scratch page), tables permuted."""
+    b = len(pos)
+    num_pages = b * m + 1
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    kp = _randn(gen, (num_pages, psize, hc, d), dtype, dev)
+    vp = _randn(gen, (num_pages, psize, hc, d), dtype, dev)
+    table = torch.randperm(num_pages, generator=gen, device=dev)[
+        :b * m].reshape(b, m).to(torch.int32)
+    return q, kp, vp, table, torch.tensor(pos, dtype=torch.int32,
+                                          device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8, 16])
+def test_paged_attention_kernel_walks_and_groups(dev, dtype, rep):
+    """Walks of 1, 31, 32 and 33 keys (one tile, its edge, two tiles), pos
+    on the last slot of the last page of a 64-page table (a walk of 1024
+    keys: every warp several tiles), and a row whose table holds page ids
+    outside the pool (masked keys), at every group size."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    psize, m = 16, 64
+    q, kp, vp, table, pos = _paged_walk_case(
+        gen, dev, dtype, 2 * rep, 2, 64, psize, m,
+        [0, 30, 31, 32, m * psize - 1, 500])
+    table[5, 3] = kp.shape[0]            # past the pool
+    table[5, 10] = -5
+    before = ops.paged_attention.launches
+    got = ops.paged_attention(q, kp, vp, table, pos)
+    want = paged_attention_plain(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [8, 40, 128])
+def test_paged_attention_kernel_head_dims(dev, dtype, d):
+    """The narrowest, an odd number of 16-byte vectors, and the widest
+    head_dim; a page size that does not divide the 32-key tile."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, kp, vp, table, pos = _paged_walk_case(
+        gen, dev, dtype, 6, 2, d, 7, 20, [0, 6, 7, 70, 139])
+    got = ops.paged_attention(q, kp, vp, table, pos)
+    want = paged_attention_plain(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_paged_attention_refuses_misaligned_pages(dev):
+    """The kernel copies 16-byte vectors: pages that do not start on a
+    16-byte boundary are refused, not read."""
+    pages = torch.zeros((3 * 4 * 2 * 8 + 1,), device=dev)[1:].reshape(
+        3, 4, 2, 8)
+    q = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.paged_attention(q, pages, pages,
+                            torch.zeros((1, 2), dtype=torch.int32, device=dev),
+                            torch.zeros((1,), dtype=torch.int32, device=dev))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -267,15 +333,21 @@ def test_spec_verify_kernel_matches_plain(dev, dtype, b, w, hq, hc, d, psize,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_one_token_verify_equals_the_paged_kernel(dev, dtype):
-    """W = 1 runs B2's arithmetic step for step: bitwise equal to B2."""
+    """W = 1 computes B2's function: B3 and B2 each agree with the plain
+    paged attention, and with each other, at the kernel tolerance. (B2's
+    warps split the key walk and combine partial sums, so it no longer
+    runs B3's arithmetic step for step: not bitwise.)"""
     gen = torch.Generator(device=dev).manual_seed(5)
     q, kp, vp, table, q_pos = _verify_case(gen, dev, dtype, 8, 1, 32, 16,
                                            64, 16, 9, [0] * 8)
-    got = ops.spec_verify(q, kp, vp, table, q_pos)
-    want = ops.paged_attention(q[:, 0].contiguous(), kp, vp, table,
-                               q_pos[:, 0].contiguous())
+    got = ops.spec_verify(q, kp, vp, table, q_pos)[:, 0]
+    args = (q[:, 0].contiguous(), kp, vp, table, q_pos[:, 0].contiguous())
+    b2 = ops.paged_attention(*args)
+    plain = paged_attention_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got[:, 0], want)
+    torch.testing.assert_close(got.float(), plain.float(), **TOL[dtype])
+    torch.testing.assert_close(b2.float(), plain.float(), **TOL[dtype])
+    torch.testing.assert_close(got.float(), b2.float(), **TOL[dtype])
 
 
 def test_spec_verify_refuses_what_it_does_not_take(dev):
@@ -309,6 +381,11 @@ def _scan_case(gen, dev, dtype, b, l, d, n):
     (torch.float32, 2, 33, 256, 8),         # reduced N, L past one chunk
     (torch.float32, 1, 5, 130, 5),          # N not a power of two
     (torch.bfloat16, 2, 40, 128, 64),       # widest state
+    (torch.bfloat16, 1, 100, 8192, 16),     # the ssm run's prefills: B = 1
+    (torch.bfloat16, 4, 32, 8192, 16),      # ... and B = 4
+    (torch.float16, 2, 45, 100, 16),        # D % 8 != 0: 4-byte copies
+    (torch.bfloat16, 1, 17, 72, 5),         # N < its tier, 16-bit B and C
+    (torch.float32, 2, 33, 36, 64),         # 8-channel tiles, ragged D
 ])
 def test_ssm_scan_kernel_matches_plain(dev, dtype, b, l, d, n):
     gen = torch.Generator(device=dev).manual_seed(6)

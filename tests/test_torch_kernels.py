@@ -21,8 +21,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_plain)
+from repro_torch.kernels.paged_attention import (combine_partials_plain,
+                                                 paged_attention,
+                                                 paged_attention_plain,
+                                                 split_partials_plain)
 
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]
@@ -122,6 +124,82 @@ def test_paged_attention_plain_sweep(dt, b, hq, hkv, d, psize, m):
     # the model-layout wrapper takes the plain version on the CPU
     np.testing.assert_array_equal(
         _np(ops.paged_attention(qt, kt, vt, tt, tp)), _np(got))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("shares", [1, 2, 3, 4, 7])
+def test_paged_attention_warp_split_combines_to_plain(dt, shares):
+    """The B2 kernel's arithmetic: keys dealt to `shares` warps in tiles,
+    each with its own (m, l, acc), combined at the end. Rows end early
+    (pos 0 and mid-page), so some shares lie wholly past pos: they must
+    add nothing and give no NaN."""
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(7)
+    b, hq, hkv, d, psize, m, tile = 4, 8, 2, 16, 4, 6, 4
+    num_pages = b * m + 1
+    qj, qt = _pair(rng.normal(size=(b, hq, d)), jdt, tdt)
+    kj, kt = _pair(rng.normal(size=(num_pages, psize, hkv, d)), jdt, tdt)
+    vj, vt = _pair(rng.normal(size=(num_pages, psize, hkv, d)), jdt, tdt)
+    table = rng.permutation(num_pages)[:b * m].reshape(b, m).astype(
+        np.int32)
+    pos = np.array([0, 5, 13, m * psize - 1], np.int32)
+    tt, tp = torch.from_numpy(table), torch.from_numpy(pos)
+    pm, pl, pacc = split_partials_plain(qt, kt, vt, tt, tp, shares, tile)
+    assert pm.shape == (shares, b, hq) and pacc.shape == (shares, b, hq, d)
+    empty = pl == 0
+    if shares > 1:
+        assert bool(empty.any())           # row 0 has one key: one share
+    assert bool((pm[empty] == -1e30).all())
+    assert bool((pacc[empty] == 0).all())
+    got = combine_partials_plain(pm, pl, pacc, tdt)
+    assert bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(
+        _np(got), _np(paged_attention_plain(qt, kt, vt, tt, tp)),
+        **_tol(name))
+    np.testing.assert_allclose(
+        _np(got), _np(jref.paged_attention_ref(
+            qj, kj, vj, jnp.asarray(table), jnp.asarray(pos))),
+        **_tol(name))
+
+
+def test_paged_attention_combine_of_nothing_is_zero():
+    """No share holds a visible key (every page id out of range): the
+    combine divides 0 by the clamped 1e-20 and returns 0, as the kernel."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    pages = torch.from_numpy(rng.normal(size=(3, 4, 2, 8)).astype(
+        np.float32))
+    table = torch.tensor([[3, -1], [7, 3]], dtype=torch.int32)
+    pos = torch.tensor([5, 0], dtype=torch.int32)
+    pm, pl, pacc = split_partials_plain(q, pages, pages, table, pos, 4, 2)
+    assert bool((pl == 0).all()) and bool((pm == -1e30).all())
+    got = combine_partials_plain(pm, pl, pacc, q.dtype)
+    assert torch.equal(got, torch.zeros_like(q))
+
+
+def test_paged_attention_plain_masks_pages_outside_the_pool():
+    """A page id outside [0, NP) masks its keys (it reads nothing): the
+    row attends over its other visible keys only."""
+    rng = np.random.default_rng(9)
+    b, hq, hc, d, psize, m = 2, 4, 2, 8, 4, 3
+    num_pages = 7
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(
+        size=(num_pages, psize, hc, d)).astype(np.float32)) for _ in "kv")
+    table = torch.tensor([[2, num_pages, 5], [4, -3, 1]], dtype=torch.int32)
+    pos = torch.tensor([10, 9], dtype=torch.int32)
+    got = paged_attention_plain(q, kp, vp, table, pos)
+    for r in range(b):
+        keys = [(int(table[r, k // psize]), k % psize)
+                for k in range(int(pos[r]) + 1)
+                if 0 <= int(table[r, k // psize]) < num_pages]
+        k = torch.stack([kp[pg, i] for pg, i in keys])        # (K, Hc, D)
+        v = torch.stack([vp[pg, i] for pg, i in keys])
+        qr = q[r].reshape(hc, hq // hc, d)
+        s = torch.einsum("hrd,khd->hrk", qr, k) / np.sqrt(d)
+        want = torch.einsum("hrk,khd->hrd", torch.softmax(s, -1), v)
+        torch.testing.assert_close(got[r], want.reshape(hq, d),
+                                   atol=2e-5, rtol=1e-4)
 
 
 def test_cpu_wrappers_do_not_count_launches():

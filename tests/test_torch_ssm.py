@@ -35,7 +35,8 @@ from repro_torch import api as tapi
 from repro_torch import checkpoint as tckpt
 from repro_torch.configs import get_config as tget
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_plain,
+                                          sum_states)
 from repro_torch.kernels.spec_verify import spec_verify
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
@@ -79,6 +80,7 @@ def _scan_inputs(rng, b, l, d, n):
     (2, 32, 128, 8, 16),      # reduced falcon-mamba's N, two L blocks
     (1, 64, 256, 16, 64),     # full width's N, two D blocks
     (3, 8, 128, 4, 8),        # short prompt
+    (1, 40, 128, 16, 20),     # one row, L past the kernel's 16-step chunks
 ])
 def test_ssm_scan_plain_matches_ref_and_pallas(xdt, b, l, d, n, block_l):
     rng = np.random.default_rng(11)
@@ -104,6 +106,27 @@ def test_ssm_scan_plain_matches_ref_and_pallas(xdt, b, l, d, n, block_l):
     gy, gh = ops.selective_scan(xt, dtt, at, bt, ct)
     assert torch.equal(gy, y) and torch.equal(gh, h)
     assert ops.launch_counts()["selective_scan"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 24, 64])
+def test_sum_states_follows_the_kernels_order(n):
+    """y_t sums the states as the kernel does: padded with zeros to 8, 16,
+    32 or 64, 4 states a lane in index order, then the lanes pairwise (the
+    xor-shuffle tree). Checked bitwise against that order written out, and
+    against an fp64 sum at fp32 rounding."""
+    rng = np.random.default_rng(n)
+    hc = torch.from_numpy(rng.normal(size=(3, 7, n)).astype(np.float32))
+    tier = next(t for t in (8, 16, 32, 64) if n <= t)
+    padded = torch.cat([hc, torch.zeros(3, 7, tier - n)], dim=-1)
+    lanes = [((padded[..., 4 * i] + padded[..., 4 * i + 1])
+              + padded[..., 4 * i + 2]) + padded[..., 4 * i + 3]
+             for i in range(tier // 4)]
+    while len(lanes) > 1:
+        lanes = [lanes[i] + lanes[i + 1] for i in range(0, len(lanes), 2)]
+    got = sum_states(hc)
+    assert torch.equal(got, lanes[0])
+    np.testing.assert_allclose(got.numpy(), hc.double().sum(-1).numpy(),
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_selective_scan_is_differentiable_on_the_cpu():

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time the serving kernels of several source trees in turns, on one card.
+
+    python3 tools/serve_kernel_ab.py OLD_TREE . . OLD_TREE
+
+Each argument is the root of a checkout of this repository (e.g. the
+parent commit unpacked with ``git archive`` into a git-ignored directory).
+For each, in the order given, a fresh process puts that tree's ``src`` on
+the path, builds its kernels there and times, on the same seeded inputs:
+B4 (``ops.selective_scan``) at the (B, L, D, N) the falcon-mamba serving
+run launches and at (8, 100, 8192, 16), B2 (``ops.paged_attention``) at
+the paged run's geometry and B3 (``ops.spec_verify``, a control) at the
+speculative run's, each by CUDA events (``ms``) and by device time from
+torch.profiler (``device_ms``), B2 also as host microseconds a wrapper
+call. The timing helpers and input builders are ``chip_smoke.py``'s, from
+the tree this script lives in. Prints one JSON line per tree and run.
+"""
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SCAN_SHAPES = ((1, 100, 8192, 16), (4, 32, 8192, 16), (1, 32, 8192, 16),
+               (8, 100, 8192, 16))
+
+CHILD = r"""
+import json, sys
+tree, root, shapes = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path[:0] = [tree + "/src", root]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import ops
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev)
+out = {"tree": tree, "scan": {}}
+for shape in shapes:
+    gen.manual_seed(0)
+    args = cs.scan_case(torch, dev, gen, torch.bfloat16, *shape)
+    fn = lambda: ops.selective_scan(*args)
+    out["scan"]["B={} L={}".format(*shape)] = {
+        "ms": cs.time_ms(torch, fn),
+        "device_ms": cs.device_ms(torch, fn, cs.DEVICE_MATCH["selective_scan"])}
+gen.manual_seed(0)
+case = cs.paged_case(torch, dev, gen)
+fn = lambda: ops.paged_attention(*case)
+out["paged"] = {"ms": cs.time_ms(torch, fn),
+                "device_ms": cs.device_ms(torch, fn,
+                                          cs.DEVICE_MATCH["paged_attention"]),
+                "host_us": cs.host_us(torch, fn)}
+gen.manual_seed(0)
+w = cs.SPEC_GAMMA + 1
+case = cs.verify_case(torch, dev, gen, torch.bfloat16, w, [w - 1] * 8,
+                      [14, 40, 50, 60, 70, 80, 90, 100])
+fn = lambda: ops.spec_verify(*case)
+out["verify"] = {"ms": cs.time_ms(torch, fn),
+                 "device_ms": cs.device_ms(torch, fn,
+                                           cs.DEVICE_MATCH["spec_verify"])}
+print(json.dumps(out))
+"""
+
+
+def main() -> int:
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    print(chip_smoke.nvidia_smi_line(), flush=True)   # name, power limit
+    for tree in sys.argv[1:]:
+        tree = str(pathlib.Path(tree).resolve())
+        run = subprocess.run(
+            [sys.executable, "-c", CHILD, tree, str(ROOT),
+             json.dumps(SCAN_SHAPES)], capture_output=True, text=True,
+            timeout=900)
+        if run.returncode:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return run.returncode
+        print(run.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
