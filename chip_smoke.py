@@ -7,12 +7,13 @@ Runs from the repository root, on one CUDA card, and imports nothing of
 JAX or of the JAX package. Phases (any failure exits non-zero):
 
 1. Build. Every CUDA source of the port (``src/repro_torch/csrc``) is
-   compiled for sm_90a, one ``nvcc`` per source, all at once; HGMMA
-   (wgmma) and async-copy (LDGSTS for cp.async, UTMALDG for TMA)
+   compiled for sm_90a, one ``nvcc`` per source, all at once (B2 and B3
+   with the shared key walk ``csrc/paged_walk.cuh``); HGMMA (wgmma), HMMA
+   (mma.sync) and async-copy (LDGSTS for cp.async, UTMALDG for TMA)
    instructions are counted with ``cuobjdump -sass`` per kernel function
-   (``SASS_CHECKS``): every instantiation of each tensor-core kernel (B1
-   forward, both B1-bwd passes, B5 forward, B5-bwd) must hold HGMMA, and
-   every instantiation of B2 and B4 an async copy.
+   (``SASS_CHECKS``): every instantiation of each wgmma kernel (B1
+   forward, both B1-bwd passes, B5 forward, B5-bwd) must hold HGMMA, of
+   B3's 16-bit window kernel HMMA, and of B2, B3 and B4 an async copy.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -22,11 +23,11 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    the B5 backward print their achieved TFLOP/s and share of the bound
    (``bound_ms / ms``); B1 also its device time from torch.profiler
    (``device_ms``), since small calls are bound by the host; B2 and B3
-   too, and B2's wrapper its host time a call (``host_us``).
+   too, and their wrappers their host time a call (``host_us``).
    The speculative-verify kernel (B3) is held against its plain version at
-   the speculative run's geometry (bf16 and a ragged fp32 batch), and with
-   a one-token window against the B2 kernel and the plain paged attention
-   (each pair at ``BF16_ATOL``/``BF16_RTOL``).
+   the speculative run's geometry (bf16) and on a ragged batch (bf16 and
+   fp32), and with a one-token window, in bf16 and fp32, bitwise against
+   the B2 kernel, each of the two held to the plain paged attention.
 3. Serve. ``repro_torch.api.run_serve`` at full width (40 layers, d_model
    2048, random weights from a seeded generator), with the ``paged``, the
    ``continuous`` and the ``speculative`` engine (draft: the target's
@@ -418,17 +419,20 @@ def add_rates(case, flops: float) -> None:
 
 
 # Kernels whose every instantiation must hold some instruction of a kind in
-# its SASS, by library: the tensor-core kernels HGMMA (wgmma), the
-# redesigned B2 and B4 an async copy into shared memory (LDGSTS for
-# cp.async, UTMALDG for a TMA load).
+# its SASS, by library: the wgmma kernels HGMMA, B3's 16-bit window
+# kernel HMMA (mma.sync), the redesigned B2, B3 and B4 an async copy into
+# shared memory (LDGSTS for cp.async, UTMALDG for a TMA load).
 SASS_CHECKS = {
     "HGMMA": (("HGMMA",), {
         "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                             "flash_bwd_dkdv_tc_kernel"),
         "cross_entropy": ("xent_fwd_tc_kernel", "xent_tc_gemm")}),
+    "HMMA": (("HMMA",), {
+        "spec_verify": ("spec_verify_mma_kernel",)}),
     "async copy": (("LDGSTS", "UTMALDG"), {
         "ssm_scan": ("ssm_scan",),
-        "paged_attention": ("paged_fwd",)}),
+        "paged_attention": ("paged_fwd",),
+        "spec_verify": ("spec_verify",)}),
 }
 # Substring of each serving kernel's name in a profiler trace.
 DEVICE_MATCH = {"paged_attention": "paged_fwd", "spec_verify": "spec_verify",
@@ -520,7 +524,8 @@ def verify_kernel_phase(torch, dev, gen):
     """B3 against its plain version: the serving window (W = 5, every row
     a full window, row 0 crossing a page) in bf16, timed; a ragged batch
     (mixed window lengths, scratch lanes) in bf16 and fp32; a one-token
-    window against the B2 kernel and the plain paged attention."""
+    window, in bf16 and fp32, bitwise against the B2 kernel (the same key
+    walk and arithmetic) and each against the plain paged attention."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import paged_attention_plain
     from repro_torch.kernels.spec_verify import spec_verify_plain
@@ -532,29 +537,35 @@ def verify_kernel_phase(torch, dev, gen):
     err = within(torch, ops.spec_verify(*full), spec_verify_plain(*full))
     ragged_wl = [4, 2, 0, 3, 4, 1, 0, 4]
     ragged_start = [13, 30, 47, 95, 111, 0, 64, 15]
-    errs = {}
-    for dtype, tol in ((torch.bfloat16, dict(atol=BF16_ATOL,
-                                             rtol=BF16_RTOL)),
-                       (torch.float32, dict(atol=2e-5, rtol=1e-4))):
+    tols = {torch.bfloat16: dict(atol=BF16_ATOL, rtol=BF16_RTOL),
+            torch.float32: dict(atol=2e-5, rtol=1e-4)}
+    errs, w1_err = {}, {}
+    for dtype, tol in tols.items():
         case = verify_case(torch, dev, gen, dtype, w, ragged_wl,
                            ragged_start)
         name = str(dtype).replace("torch.", "")
         errs[name] = within_tol(torch, ops.spec_verify(*case),
                                 spec_verify_plain(*case),
                                 f"spec_verify ragged {name}", **tol)
-    q, kp, vp, table, q_pos = verify_case(torch, dev, gen, torch.bfloat16,
-                                          1, [0] * 8, starts)
-    one = ops.spec_verify(q, kp, vp, table, q_pos)[:, 0]
-    args = (q[:, 0].contiguous(), kp, vp, table, q_pos[:, 0].contiguous())
-    b2 = ops.paged_attention(*args)
-    plain = paged_attention_plain(*args)
-    # B2's warps split the key walk (another summation order than B3's):
-    # each agrees with the plain version, and with the other, at BF16_*.
-    w1_err = {"spec_verify": within_tol(torch, one, plain, "W=1 spec_verify"),
-              "paged_attention": within_tol(torch, b2, plain,
-                                            "W=1 paged_attention"),
-              "each_other": within_tol(torch, one, b2,
-                                       "W=1 spec_verify vs paged_attention")}
+        q, kp, vp, table, q_pos = verify_case(torch, dev, gen, dtype, 1,
+                                              [0] * 8, starts)
+        one = ops.spec_verify(q, kp, vp, table, q_pos)[:, 0]
+        args = (q[:, 0].contiguous(), kp, vp, table,
+                q_pos[:, 0].contiguous())
+        b2 = ops.paged_attention(*args)
+        plain = paged_attention_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(one, b2):
+            fail(f"W=1 spec_verify is not bitwise the paged kernel in "
+                 f"{name}: max diff "
+                 f"{(one.float() - b2.float()).abs().max().item()}")
+        w1_err[name] = {
+            "spec_verify": within_tol(torch, one, plain,
+                                      f"W=1 spec_verify {name}", **tol),
+            "paged_attention": within_tol(torch, b2, plain,
+                                          f"W=1 paged_attention {name}",
+                                          **tol),
+            "bitwise_equal": True}
     bnd, by = verify_bound(full[0], full[1], full[3], full[4])
     case = {
         "shape": f"B=8 W={w} Hq=32 Hc=16 D=64 P=16 M=9 (8 pages + scratch "
@@ -566,11 +577,13 @@ def verify_kernel_phase(torch, dev, gen):
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "device_ms": device_ms(torch, lambda: ops.spec_verify(*full),
                                DEVICE_MATCH["spec_verify"]),
+        "host_us": host_us(torch, lambda: ops.spec_verify(*full)),
     }
     print(f"kernel spec_verify {case['shape']}: err {err:.3g} (atol "
-          f"{BF16_ATOL}, rtol {BF16_RTOL}); ragged err {errs}; W=1 err "
-          f"{w1_err}; {case['ms']:.4f} ms (device "
-          f"{case['device_ms']:.4f}), plain "
+          f"{BF16_ATOL}, rtol {BF16_RTOL}); ragged err {errs}; W=1 "
+          f"bitwise the paged kernel, err {w1_err}; {case['ms']:.4f} ms "
+          f"(device {case['device_ms']:.4f}; wrapper "
+          f"{case['host_us']:.1f} us of host a call), plain "
           f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
           flush=True)
     return case
@@ -1603,8 +1616,10 @@ def main() -> int:
          "launches": launches["speculative"]["spec_verify"],
          "launches_by_path": by_path["spec_verify"],
          **{k: b3[k] for k in ("max_abs_err", "ragged_max_abs_err",
-                               "w1_max_abs_err", "device_ms")
-            + timing}},
+                               "w1_max_abs_err", "device_ms", "host_us")
+            + timing},
+         "async_copy_count": asyncs["spec_verify"],
+         "hmma_count": sass["HMMA"]["kernels"]["spec_verify_mma_kernel"]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:58",

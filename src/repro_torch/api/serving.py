@@ -96,12 +96,13 @@ def build_workload(spec: ServeSpec, vocab_size: int):
     return reqs
 
 
-def restore_params(model, path: str, device="cpu"):
+def restore_params(model, path: str, device="cuda"):
     """Load a checkpoint artifact (``repro``'s npz format) onto ``device``
-    and check it fits ``model``: same tree, same leaf shapes."""
+    (the card unless the caller passes ``device="cpu"``) and check it fits
+    ``model``: same tree, same leaf shapes."""
     from repro_torch.checkpoint import restore
     from repro_torch.models.layers import tree_leaves, tree_map
-    params = restore(path, device=device)
+    params = restore(path, device=resolve_device(device))
     want = model.param_specs()
     try:
         pairs = tree_leaves(tree_map(lambda s, p: (s, p), want, params))

@@ -98,28 +98,30 @@ def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
 
 def split_partials_plain(q, k_pages, v_pages, page_table, pos, shares: int,
                          tile: int):
-    """The kernel's per-warp partial states in plain PyTorch: key k of a
+    """The kernels' per-warp partial states in plain PyTorch: key k of a
     row goes to share (k // tile) % shares (tiles dealt to the warps in
     turn); each share keeps its own online-softmax state over its visible
-    keys: m (B, Hq) its largest scaled score (-1e30 if it has none), l
-    (B, Hq) the sum of exp(s - m) and acc (B, Hq, D) the sum of
-    exp(s - m) v, all fp32. Returns (m, l, acc), each with a leading
-    ``shares`` axis."""
-    b, hq, d = q.shape
-    k, v, valid = _gather(k_pages, v_pages, page_table, pos)
+    keys: m its largest scaled score (-1e30 if it has none), l the sum of
+    exp(s - m) and acc the sum of exp(s - m) v, all fp32. B2's q is
+    (B, Hq, D) with pos (B,); B3's (B, W, Hq, D) with a position for each
+    lane, q_pos (B, W). Returns (m, l, acc), each with a leading
+    ``shares`` axis: m and l q's shape without D, acc q's shape."""
+    *lead, hq, d = q.shape
+    k, v, valid = gather_pages(k_pages, v_pages, page_table, pos)
     hc = k.shape[2]
-    scores = torch.einsum("bhrd,bkhd->bhrk", q.float().reshape(
-        b, hc, hq // hc, d), k) / math.sqrt(d)
+    scores = torch.einsum("b...hrd,bkhd->b...hrk", q.float().reshape(
+        *lead, hc, hq // hc, d), k) / math.sqrt(d)
     share = (torch.arange(k.shape[1], device=q.device) // tile) % shares
     ms, ls, accs = [], [], []
     for w in range(shares):
-        mask = valid & (share == w)[None, :]                     # (B, K)
-        s = scores.masked_fill(~mask[:, None, None, :], _NEG_INF)
+        mask = (valid & (share == w))[..., None, None, :]
+        s = scores.masked_fill(~mask, _NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m) * mask[:, None, None, :]
-        ms.append(m[..., 0].reshape(b, hq))
-        ls.append(p.sum(dim=-1).reshape(b, hq))
-        accs.append(torch.einsum("bhrk,bkhd->bhrd", p, v).reshape(b, hq, d))
+        p = torch.exp(s - m) * mask
+        ms.append(m[..., 0].reshape(*lead, hq))
+        ls.append(p.sum(dim=-1).reshape(*lead, hq))
+        accs.append(torch.einsum("b...hrk,bkhd->b...hrd", p, v).reshape(
+            *lead, hq, d))
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 
@@ -134,10 +136,11 @@ def combine_partials_plain(m, l, acc, dtype) -> torch.Tensor:
     return (num / den.clamp_min(1e-20)[..., None]).to(dtype)
 
 
-def _gather(k_pages, v_pages, page_table, pos):
+def gather_pages(k_pages, v_pages, page_table, pos):
     """Each row's keys and values in logical order (B, M P, Hc, D) fp32,
-    and which are visible: position <= pos and on a page id in
-    [0, NP) (other ids read page 0 and are masked)."""
+    and which are visible: position <= pos and on a page id in [0, NP)
+    (other ids read page 0 and are masked). ``pos`` is (B,) or (B, W), a
+    position for each lane; ``valid`` is (B, M P) or (B, W, M P)."""
     num_pages, psize = k_pages.shape[:2]
     b, m = page_table.shape
     idx = page_table.long()
@@ -145,9 +148,11 @@ def _gather(k_pages, v_pages, page_table, pos):
     idx = torch.where(in_pool, idx, torch.zeros_like(idx))
     k = k_pages[idx].reshape(b, m * psize, *k_pages.shape[2:]).float()
     v = v_pages[idx].reshape(b, m * psize, *v_pages.shape[2:]).float()
-    valid = ((torch.arange(m * psize, device=pos.device)[None, :]
-              <= pos.long()[:, None])
-             & in_pool.repeat_interleave(psize, dim=1))
+    lanes = (1,) * (pos.dim() - 1)
+    valid = ((torch.arange(m * psize, device=pos.device)
+              <= pos.long()[..., None])
+             & in_pool.repeat_interleave(psize, dim=1).reshape(
+                 b, *lanes, m * psize))
     return k, v, valid
 
 
@@ -157,7 +162,7 @@ def paged_attention_plain(q, k_pages, v_pages, page_table,
     logical order, mask keys past ``pos`` or on a page id outside
     [0, NP), dense fp32 softmax."""
     b, hq, d = q.shape
-    k, v, valid = _gather(k_pages, v_pages, page_table, pos)
+    k, v, valid = gather_pages(k_pages, v_pages, page_table, pos)
     hc = k.shape[2]
     qr = q.float().reshape(b, hc, hq // hc, d)
     scores = torch.einsum("bhrd,bkhd->bhrk", qr, k) / math.sqrt(d)

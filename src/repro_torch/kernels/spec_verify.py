@@ -11,8 +11,8 @@ Layout: q (B, W, Hq, D) contiguous (W = gamma + 1 window lanes per row);
 k_pages/v_pages (NP, P, Hc, D) contiguous (one layer's slice of the page
 pool, scratch page included); page_table (B, M) int32; q_pos (B, W)
 int32, the absolute position of every lane. Key k of row b is visible to
-lane i iff k <= q_pos[b, i]; q head h reads cache head h // (Hq / Hc).
-Returns (B, W, Hq, D). With W == 1 and q_pos = pos[:, None] this is the
+lane i iff k <= q_pos[b, i] and its page id is in [0, NP); q head h reads
+cache head h // (Hq / Hc). Returns (B, W, Hq, D). With W == 1 and q_pos = pos[:, None] this is the
 paged decode attention of ``paged_attention``.
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import gather_pages
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -32,40 +33,45 @@ MAX_W = 16
 
 
 def _check(q, k_pages, v_pages, page_table, q_pos):
-    dev = q.device
-    if not q.is_cuda or any(t.device != dev for t in
-                            (k_pages, v_pages, page_table, q_pos)):
+    """Raise on anything the kernel does not take. Called on every verify
+    step of every layer, so it reads each attribute once and compares
+    device indices (``get_device``) rather than ``torch.device`` objects."""
+    dev = q.get_device()
+    if not q.is_cuda or k_pages.get_device() != dev \
+            or v_pages.get_device() != dev \
+            or page_table.get_device() != dev or q_pos.get_device() != dev:
         raise ValueError("spec_verify: every input must be a CUDA tensor "
                          "on one device")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES or k_pages.dtype != dtype \
+            or v_pages.dtype != dtype:
         raise ValueError(f"spec_verify: unsupported dtypes "
-                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+                         f"{dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if page_table.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise ValueError("spec_verify: page_table and q_pos must be int32")
-    if q.dim() != 4:
+    qs, ks, ts = q.shape, k_pages.shape, page_table.shape
+    if len(qs) != 4:
         raise ValueError(f"spec_verify: q must be (B, W, Hq, D), got "
-                         f"{tuple(q.shape)}")
-    b, w, hq, d = q.shape
+                         f"{tuple(qs)}")
+    b, w, hq, d = qs
     if not 1 <= w <= MAX_W:
         raise ValueError(f"spec_verify: window {w} must be in 1..{MAX_W}")
-    if k_pages.shape != v_pages.shape or k_pages.dim() != 4 \
-            or k_pages.shape[3] != d:
-        raise ValueError(f"spec_verify: pages {tuple(k_pages.shape)} do "
-                         f"not match q {tuple(q.shape)}")
-    hc = k_pages.shape[2]
+    if v_pages.shape != ks or len(ks) != 4 or ks[3] != d:
+        raise ValueError(f"spec_verify: pages {tuple(ks)} do not match q "
+                         f"{tuple(qs)}")
+    hc = ks[2]
     if hq % hc or hq // hc > _MAX_REP:
         raise ValueError(f"spec_verify: Hq {hq} must be a multiple of Hc "
                          f"{hc}, at most {_MAX_REP}x")
     if d > _MAX_D or d % 8:
         raise ValueError(f"spec_verify: head_dim {d} must be a multiple of "
                          f"8 and at most {_MAX_D}")
-    if page_table.dim() != 2 or page_table.shape[0] != b \
-            or q_pos.shape != (b, w):
+    if len(ts) != 2 or ts[0] != b or q_pos.shape != (b, w):
         raise ValueError("spec_verify: page_table (B, M) / q_pos (B, W) "
                          "shapes disagree with q")
-    if not all(t.is_contiguous() for t in
-               (q, k_pages, v_pages, page_table, q_pos)):
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and page_table.is_contiguous()
+            and q_pos.is_contiguous()):
         raise ValueError("spec_verify: inputs must be contiguous")
 
 
@@ -85,15 +91,16 @@ def spec_verify(q, k_pages, v_pages, page_table, q_pos) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take."""
     _check(q, k_pages, v_pages, page_table, q_pos)
     b, w, hq, d = q.shape
-    num_pages, psize, hc = k_pages.shape[:3]
-    m = page_table.shape[1]
+    num_pages, psize, hc, _ = k_pages.shape
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if (ptrs[1] | ptrs[2]) & 15:     # the kernel copies 16-byte vectors
+        raise ValueError("spec_verify: the pages must be 16-byte aligned")
     out = torch.empty_like(q)
     lib, fn = _kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-             v_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
-             out.data_ptr(), b, w, hq, hc, psize, d, m, num_pages,
-             1.0 / math.sqrt(d), stream)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    err = fn(_DTYPE_CODES[q.dtype], *ptrs, page_table.data_ptr(),
+             q_pos.data_ptr(), out.data_ptr(), b, w, hq, hc, psize, d,
+             page_table.shape[1], num_pages, 1.0 / math.sqrt(d), stream)
     _build.check(err, lib, "spec_verify")
     return out
 
@@ -102,19 +109,13 @@ def spec_verify_plain(q, k_pages, v_pages, page_table,
                       q_pos) -> torch.Tensor:
     """The kernel's function in plain PyTorch (``repro``'s
     ``spec_verify_ref``): gather the row's pages in logical order, mask
-    key k for lane i unless k <= q_pos[b, i], dense fp32 softmax, P.V in
-    fp32 as the kernel keeps it."""
+    key k for lane i unless k <= q_pos[b, i] and its page id is in
+    [0, NP), dense fp32 softmax, P.V in fp32 as the kernel keeps it."""
     b, w, hq, d = q.shape
-    psize, hc = k_pages.shape[1], k_pages.shape[2]
-    m = page_table.shape[1]
-    rep = hq // hc
-    idx = page_table.long()
-    k = k_pages[idx].reshape(b, m * psize, hc, d).float()
-    v = v_pages[idx].reshape(b, m * psize, hc, d).float()
-    qr = q.float().reshape(b, w, hc, rep, d)
+    k, v, valid = gather_pages(k_pages, v_pages, page_table, q_pos)
+    hc = k.shape[2]
+    qr = q.float().reshape(b, w, hc, hq // hc, d)
     scores = torch.einsum("bwhrd,bkhd->bwhrk", qr, k) / math.sqrt(d)
-    valid = (torch.arange(m * psize, device=q.device)[None, None, :]
-             <= q_pos.long()[:, :, None])                    # (B, W, K)
     scores = scores.masked_fill(~valid[:, :, None, None, :], _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bwhrk,bkhd->bwhrd", probs, v)

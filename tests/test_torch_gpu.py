@@ -288,11 +288,13 @@ def test_reduced_train_step_on_the_card(dev):
 
 # --- serving kernels of slice 3 (B3 spec-verify, B4 selective scan) --------
 
-def _verify_case(gen, dev, dtype, b, w, hq, hc, d, psize, m, wlens):
+def _verify_case(gen, dev, dtype, b, w, hq, hc, d, psize, m, wlens,
+                 starts=None):
     """Pages, permuted tables with an always-scratch last column, and
-    per-lane positions: row r's window has wlens[r] + 1 live lanes from a
-    random start (row 0 starts two keys before a page boundary); the
-    other lanes point at the scratch column, as the engine builds them."""
+    per-lane positions: row r's window has wlens[r] + 1 live lanes from
+    starts[r] (by default random, row 0 two keys before a page boundary);
+    the other lanes point at the scratch column, as the engine builds
+    them."""
     num_pages = b * (m - 1) + 1
     q = _randn(gen, (b, w, hq, d), dtype, dev)
     kp = _randn(gen, (num_pages, psize, hc, d), dtype, dev)
@@ -302,41 +304,53 @@ def _verify_case(gen, dev, dtype, b, w, hq, hc, d, psize, m, wlens):
                                       device=dev).reshape(b, m - 1)
     scratch = (m - 1) * psize
     q_pos = torch.full((b, w), scratch, dtype=torch.int32, device=dev)
-    starts = torch.randint(0, scratch - w, (b,), generator=gen, device=dev)
-    starts[0] = psize - 2
+    if starts is None:
+        starts = torch.randint(0, scratch - w, (b,), generator=gen,
+                               device=dev)
+        starts[0] = psize - 2
     for r in range(b):
         n = wlens[r] + 1
-        q_pos[r, :n] = starts[r] + torch.arange(n, device=dev)
+        q_pos[r, :n] = int(starts[r]) + torch.arange(n, device=dev)
     return q, kp, vp, table, q_pos
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,w,hq,hc,d,psize,m,wlens", [
-    (8, 5, 32, 16, 64, 16, 9, [4] * 8),            # full-width verify
-    (4, 5, 32, 16, 64, 16, 9, [4, 2, 0, 3]),       # ragged windows
-    (3, 8, 8, 2, 32, 4, 12, [7, 1, 5]),            # 2 row groups, tiny pages
-    (2, 16, 16, 1, 128, 7, 8, [15, 9]),            # widest: 16 groups
-    (2, 3, 8, 8, 16, 16, 4, [2, 2]),               # rep 1, small head_dim
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,w,hq,hc,d,psize,m,wlens,starts,bad_ids", [
+    (8, 5, 32, 16, 64, 16, 9, [4] * 8, None, False),  # full-width verify
+    (4, 5, 32, 16, 64, 16, 9, [4, 2, 0, 3], None, False),  # ragged windows
+    (3, 8, 8, 2, 32, 4, 12, [7, 1, 5], None, False),  # 2 row groups, tiny pages
+    (2, 16, 16, 1, 128, 7, 8, [15, 9], None, False),  # widest: 16 groups
+    (2, 3, 8, 8, 16, 16, 4, [2, 2], None, False),     # rep 1, small head_dim
+    (2, 8, 4, 2, 64, 16, 9, [7, 3], None, False),     # exactly 16 rows a group
+    (2, 10, 4, 2, 64, 16, 9, [9, 4], None, False),    # 20 rows: two groups
+    (2, 5, 32, 16, 64, 16, 17, [4, 4], [200, 130], False),  # 7 tiles of 32
+    (3, 5, 32, 16, 64, 16, 9, [4, 4, 2], [30, 60, 90], True),  # ids off pool
+    (2, 4, 8, 2, 40, 16, 9, [3, 1], None, False),     # D an odd number of 8s
 ])
 def test_spec_verify_kernel_matches_plain(dev, dtype, b, w, hq, hc, d, psize,
-                                          m, wlens):
+                                          m, wlens, starts, bad_ids):
     gen = torch.Generator(device=dev).manual_seed(4)
     q, kp, vp, table, q_pos = _verify_case(gen, dev, dtype, b, w, hq, hc, d,
-                                           psize, m, wlens)
+                                           psize, m, wlens, starts)
+    if bad_ids:                          # past the pool, and negative
+        table[0, 1] = kp.shape[0]
+        table[1, 0] = -1
+        table[2, 3] = -7
     before = ops.spec_verify.launches
     got = ops.spec_verify(q, kp, vp, table, q_pos)
     want = spec_verify_plain(q, kp, vp, table, q_pos)
     torch.cuda.synchronize()
     assert ops.spec_verify.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_one_token_verify_equals_the_paged_kernel(dev, dtype):
-    """W = 1 computes B2's function: B3 and B2 each agree with the plain
-    paged attention, and with each other, at the kernel tolerance. (B2's
-    warps split the key walk and combine partial sums, so it no longer
-    runs B3's arithmetic step for step: not bitwise.)"""
+    """W = 1 computes B2's function by B2's arithmetic (the same key walk,
+    tiles, dot order, online softmax and combine): B3 equals B2 bitwise,
+    and each agrees with the plain paged attention."""
     gen = torch.Generator(device=dev).manual_seed(5)
     q, kp, vp, table, q_pos = _verify_case(gen, dev, dtype, 8, 1, 32, 16,
                                            64, 16, 9, [0] * 8)
@@ -345,9 +359,9 @@ def test_one_token_verify_equals_the_paged_kernel(dev, dtype):
     b2 = ops.paged_attention(*args)
     plain = paged_attention_plain(*args)
     torch.cuda.synchronize()
+    assert torch.equal(got, b2)
     torch.testing.assert_close(got.float(), plain.float(), **TOL[dtype])
     torch.testing.assert_close(b2.float(), plain.float(), **TOL[dtype])
-    torch.testing.assert_close(got.float(), b2.float(), **TOL[dtype])
 
 
 def test_spec_verify_refuses_what_it_does_not_take(dev):
@@ -360,6 +374,11 @@ def test_spec_verify_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="int32"):
         ops.spec_verify(q[:, :2].contiguous(), pages, pages, table,
                         torch.zeros((1, 2), dtype=torch.int64, device=dev))
+    odd = torch.zeros((3 * 4 * 2 * 16 + 1,), device=dev)[1:].reshape(
+        3, 4, 2, 16)                    # pages off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        ops.spec_verify(q[:, :2].contiguous(), odd, odd, table,
+                        torch.zeros((1, 2), dtype=torch.int32, device=dev))
 
 
 def _scan_case(gen, dev, dtype, b, l, d, n):

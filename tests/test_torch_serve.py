@@ -180,6 +180,22 @@ def test_unported_spec_values_fail_clearly(tmp_path):
         tapi.load_any_spec(str(train)).validate()   # the default arch: CNN
 
 
+def test_restore_params_runs_on_the_card_unless_asked(tmp_path, jax_params,
+                                                      monkeypatch):
+    """An entry point: the default device is the card, so without CUDA it
+    raises; an explicit ``device="cpu"`` loads there."""
+    from repro.checkpoint import save
+    from repro_torch.models.layers import tree_leaves
+    path = str(tmp_path / "params.npz")
+    save(path, jax_params)
+    model = tapi.build_model(_spec(tapi).model, seq_len=32)
+    params = tapi.restore_params(model, path, device="cpu")
+    assert {p.device.type for p in tree_leaves(params)} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        tapi.restore_params(model, path)
+
+
 def test_restore_params_from_a_repro_checkpoint(tmp_path, jax_params):
     from repro.checkpoint import save
     path = str(tmp_path / "params.npz")

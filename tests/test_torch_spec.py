@@ -31,7 +31,9 @@ from repro.runtime.paging import PagePool as JPagePool
 from repro_torch import api as tapi
 from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.paged_attention import (combine_partials_plain,
+                                                 paged_attention_plain,
+                                                 split_partials_plain)
 from repro_torch.kernels.spec_verify import spec_verify_plain
 from repro_torch.launch import serve as serve_cli
 from repro_torch.runtime.paging import PagePool as TPagePool
@@ -145,6 +147,100 @@ def test_one_token_window_is_paged_attention():
     want = paged_attention_plain(q[:, 0].contiguous(), kp, vp, table,
                                  q_pos[:, 0].contiguous())
     assert torch.equal(got[:, 0], want)
+
+
+def test_spec_verify_plain_masks_pages_outside_the_pool():
+    """A page id outside [0, NP) masks its keys, as in the kernel and in
+    ``paged_attention_plain``: every lane equals the one-token paged
+    attention at its position on a table holding -1 and NP."""
+    rng = np.random.default_rng(11)
+    b, w, hq, hc, d, psize, m = 2, 4, 4, 2, 8, 4, 5
+    num_pages = 9
+    q = torch.from_numpy(rng.normal(size=(b, w, hq, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(
+        size=(num_pages, psize, hc, d)).astype(np.float32)) for _ in "kv")
+    table = torch.tensor([[2, num_pages, 5, 1, 8], [4, -1, 0, 3, 8]],
+                         dtype=torch.int32)
+    q_pos = torch.tensor([[3, 5, 9, 16], [2, 6, 13, 16]], dtype=torch.int32)
+    got = spec_verify_plain(q, kp, vp, table, q_pos)
+    assert bool(torch.isfinite(got).all())
+    for i in range(w):
+        lane = paged_attention_plain(q[:, i].contiguous(), kp, vp, table,
+                                     q_pos[:, i].contiguous())
+        torch.testing.assert_close(got[:, i], lane, atol=2e-6, rtol=1e-5)
+
+
+def _reference_table(table, q_pos, num_pages, psize):
+    """The same visible keys in the form repro's oracles take (they read
+    every table entry): each row's in-pool pages moved to the front in
+    order, padded with its last in-pool page, and each lane's position
+    moved down past the pages dropped before it (a lane on a dropped page
+    keeps the keys before that page). Attention is a function of the set
+    of visible keys, so the output is the same."""
+    b, m = table.shape
+    ref_table = np.empty_like(table)
+    ref_pos = np.empty_like(q_pos)
+    for r in range(b):
+        kept = [j for j in range(m) if 0 <= table[r, j] < num_pages]
+        ids = [table[r, j] for j in kept]
+        ref_table[r] = ids + [ids[-1]] * (m - len(ids))
+        for i, p in enumerate(q_pos[r]):
+            page = p // psize
+            before = sum(j < page for j in kept)
+            ref_pos[r, i] = (before * psize + p % psize if page in kept
+                             else before * psize - 1)
+    return ref_table, ref_pos
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("shares", [1, 2, 3, 4, 5, 6, 7])
+def test_spec_verify_warp_split_combines_to_plain(dt, shares):
+    """The B3 kernel's arithmetic (B2's key walk with a position for each
+    row): keys dealt to `shares` warps in tiles, each warp with its own
+    (m, l, acc) per (lane, q head), combined at the end. Row 0's window
+    crosses a page; row 1 is ragged (scratch lanes past its window); row
+    2 a one-token window; rows 1 and 3 hold page ids outside the pool
+    (-1, NP, -7) before their windows. Some shares lie wholly past a
+    lane's position: they must add nothing and give no NaN."""
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(12)
+    b, w, hq, hc, d, psize, m, tile = 4, 5, 4, 2, 16, 4, 9, 4
+    num_pages = b * (m - 1) + 1
+    scratch = (m - 1) * psize
+    table = np.full((b, m), num_pages - 1, np.int32)
+    table[:, :m - 1] = rng.permutation(num_pages - 1).reshape(b, m - 1)
+    table[1, 1] = -1
+    table[3, 0] = num_pages
+    table[3, 4] = -7
+    q_pos = np.full((b, w), scratch, np.int32)
+    for r, (start, live) in enumerate([(psize - 2, w), (13, 3), (6, 1),
+                                       (21, w)]):
+        q_pos[r, :live] = start + np.arange(live)
+    qj, qt = _pair(rng.normal(size=(b, w, hq, d)), jdt, tdt)
+    kj, kt = _pair(rng.normal(size=(num_pages, psize, hc, d)), jdt, tdt)
+    vj, vt = _pair(rng.normal(size=(num_pages, psize, hc, d)), jdt, tdt)
+    tt, tq = torch.from_numpy(table), torch.from_numpy(q_pos)
+    pm, pl, pacc = split_partials_plain(qt, kt, vt, tt, tq, shares, tile)
+    assert pm.shape == (shares, b, w, hq)
+    assert pacc.shape == (shares, b, w, hq, d)
+    empty = pl == 0
+    if shares > 1:
+        assert bool(empty.any())
+    assert bool((pm[empty] == -1e30).all())
+    assert bool((pacc[empty] == 0).all())
+    got = combine_partials_plain(pm, pl, pacc, tdt)
+    assert got.shape == (b, w, hq, d) and got.dtype == tdt
+    assert bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(
+        _np(got), _np(spec_verify_plain(qt, kt, vt, tt, tq)), **_tol(name))
+    ref_table, ref_pos = (jnp.asarray(x) for x in _reference_table(
+        table, q_pos, num_pages, psize))
+    np.testing.assert_allclose(
+        _np(got), _np(jref.spec_verify_ref(qj, kj, vj, ref_table, ref_pos)),
+        **_tol(name))
+    np.testing.assert_allclose(
+        _np(got), _np(pallas_verify(qj, kj, vj, ref_table, ref_pos,
+                                    interpret=True)), **_tol(name))
 
 
 # ------------------------------------------------------------ fork API

@@ -7,13 +7,14 @@ Each argument is the root of a checkout of this repository (e.g. the
 parent commit unpacked with ``git archive`` into a git-ignored directory).
 For each, in the order given, a fresh process puts that tree's ``src`` on
 the path, builds its kernels there and times, on the same seeded inputs:
-B4 (``ops.selective_scan``) at the (B, L, D, N) the falcon-mamba serving
-run launches and at (8, 100, 8192, 16), B2 (``ops.paged_attention``) at
-the paged run's geometry and B3 (``ops.spec_verify``, a control) at the
-speculative run's, each by CUDA events (``ms``) and by device time from
-torch.profiler (``device_ms``), B2 also as host microseconds a wrapper
-call. The timing helpers and input builders are ``chip_smoke.py``'s, from
-the tree this script lives in. Prints one JSON line per tree and run.
+B3 (``ops.spec_verify``) at the speculative run's geometry, B2
+(``ops.paged_attention``, a control) at the paged run's, and B4
+(``ops.selective_scan``, a control) at the (B, L, D, N) the falcon-mamba
+serving run launches and at (8, 100, 8192, 16), each by CUDA events
+(``ms``) and by device time from torch.profiler (``device_ms``), B3 and
+B2 also as host microseconds a wrapper call (``host_us``). The timing
+helpers and input builders are ``chip_smoke.py``'s, from the tree this
+script lives in. Prints one JSON line per tree and run.
 """
 import json
 import pathlib
@@ -33,21 +34,7 @@ import chip_smoke as cs
 from repro_torch.kernels import ops
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev)
-out = {"tree": tree, "scan": {}}
-for shape in shapes:
-    gen.manual_seed(0)
-    args = cs.scan_case(torch, dev, gen, torch.bfloat16, *shape)
-    fn = lambda: ops.selective_scan(*args)
-    out["scan"]["B={} L={}".format(*shape)] = {
-        "ms": cs.time_ms(torch, fn),
-        "device_ms": cs.device_ms(torch, fn, cs.DEVICE_MATCH["selective_scan"])}
-gen.manual_seed(0)
-case = cs.paged_case(torch, dev, gen)
-fn = lambda: ops.paged_attention(*case)
-out["paged"] = {"ms": cs.time_ms(torch, fn),
-                "device_ms": cs.device_ms(torch, fn,
-                                          cs.DEVICE_MATCH["paged_attention"]),
-                "host_us": cs.host_us(torch, fn)}
+out = {"tree": tree}
 gen.manual_seed(0)
 w = cs.SPEC_GAMMA + 1
 case = cs.verify_case(torch, dev, gen, torch.bfloat16, w, [w - 1] * 8,
@@ -55,7 +42,23 @@ case = cs.verify_case(torch, dev, gen, torch.bfloat16, w, [w - 1] * 8,
 fn = lambda: ops.spec_verify(*case)
 out["verify"] = {"ms": cs.time_ms(torch, fn),
                  "device_ms": cs.device_ms(torch, fn,
-                                           cs.DEVICE_MATCH["spec_verify"])}
+                                           cs.DEVICE_MATCH["spec_verify"]),
+                 "host_us": cs.host_us(torch, fn)}
+gen.manual_seed(0)
+case = cs.paged_case(torch, dev, gen)
+fn = lambda: ops.paged_attention(*case)
+out["paged"] = {"ms": cs.time_ms(torch, fn),
+                "device_ms": cs.device_ms(torch, fn,
+                                          cs.DEVICE_MATCH["paged_attention"]),
+                "host_us": cs.host_us(torch, fn)}
+out["scan"] = {}
+for shape in shapes:
+    gen.manual_seed(0)
+    args = cs.scan_case(torch, dev, gen, torch.bfloat16, *shape)
+    fn = lambda: ops.selective_scan(*args)
+    out["scan"]["B={} L={}".format(*shape)] = {
+        "ms": cs.time_ms(torch, fn),
+        "device_ms": cs.device_ms(torch, fn, cs.DEVICE_MATCH["selective_scan"])}
 print(json.dumps(out))
 """
 
