@@ -79,12 +79,31 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    <= ``GRAD_REL_L2``); the attention backward fed lse +
    ``PLANTED_ATTN_LSE_SHIFT`` must fail that limit; then the loss on one
    fixed batch must fall at each of 5 AdamW steps.
+8. CNN agreement (``[cnn-agree]``). The paper's full-width GroupNorm
+   ResNet (paper-cnn CONFIG, fp32, 32x32; no kernel of this repo, cuDNN
+   convolutions) with TF32 off: step-0 per-leaf gradients and the losses
+   of 3 SGD steps on the card against the same code on the CPU, from one
+   seeded init; a planted symmetric stride-2 padding must fail the same
+   limits (``cnn_agree_phase`` says where each check runs and why).
+9. CNN training (``[cnn]``). ``repro_torch.api.run`` trains one epoch of
+   PSL-UGS and one of PSL-FLS at the paper's setting at CIFAR-10 size
+   (``cnn_spec``), from the seeded init rescaled to fan-in
+   (``cnn_rescale_to_fan_in`` says why): step times, images/s, a
+   profiled step by kernel group, peak memory, test accuracy, TPE and the
+   GPSL monitor's verdict. UGS must have a finite loss, test accuracy >=
+   ``CNN_MIN_TEST_ACC`` and no monitor violation; FLS is not gated.
+10. CNN protocols (``[cnn-protocols]``). CL, SL, FL, SFL and PSL on the
+   one-card sharded engine, ``CNN_PROTOCOL_STEPS`` steps each at full
+   width, each with a finite loss and an evaluation. Over phases 8–10
+   every kernel wrapper must read 0 launches (``train_cnn`` in the
+   kernels line's ``launches_by_path``).
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -1324,6 +1343,20 @@ _GROUPS = (("B5 cross_entropy fwd", ("xent_fwd", "xent_combine")),
            ("other (elementwise, norms, AdamW, copies)", ("",)))
 
 
+def _device_kernels(prof):
+    """Device ms by kernel name from a finished torch.profiler run."""
+    kernels = {}
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+    return kernels
+
+
 def profile_step(torch, ctx, pstate):
     """One more training step under torch.profiler: device time by kernel
     group, the busiest kernels, and the device's idle share of the step's
@@ -1347,15 +1380,7 @@ def profile_step(torch, ctx, pstate):
         t0 = time.perf_counter()
         engine.step(state, batch)            # ends by reading the metrics
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+    kernels = _device_kernels(prof)
     groups = {name: 0.0 for name, _ in _GROUPS}
     for key, ms in kernels.items():
         name = next(n for n, pats in _GROUPS
@@ -1513,11 +1538,464 @@ def grad_agreement_phase(torch, dev):
             "fixed_batch_losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# The paper's CNN: PSL training of the full-width GroupNorm ResNet
+# ---------------------------------------------------------------------------
+
+CNN_AGREE_STEPS = 3
+CNN_AGREE_LR = 1e-4             # [cnn-agree]'s steps (the docstring says why)
+CNN_LOSS_RTOL = 1e-4            # per-step loss, card against the CPU
+CNN_GRAD_REL_L2 = 1e-4          # per-leaf gradient at step 0
+CNN_MIN_TEST_ACC = 0.3          # three times chance, 10 classes
+CNN_PROTOCOL_STEPS = 50
+CNN_SGD = dict(lr=0.05, momentum=0.9, weight_decay=5e-4)
+
+
+def tf32_flags(torch):
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def cnn_rescale_to_fan_in(torch, params) -> None:
+    """Rescale every conv leaf (HWIO) of a CNN params tree to std
+    1/sqrt(kh * kw * cin), in place.
+
+    ``repro``'s init rule (mirrored by the port) takes a leaf's fan-in
+    from ``shape[0]``, the kernel height of an HWIO conv: std 1/sqrt(3)
+    for every 3x3 conv whatever its input width, and 1 for the 1x1
+    projections. At full width the features then grow about sqrt(cin)
+    at each projection, the loss starts near 600, and SGD at the paper's
+    lr 0.05 reaches NaN by step 4 (``tools/cnn_conditioning.py``;
+    ``[cnn-agree]`` prints the first 3 steps on the card).
+    This is the same rule with the conv's whole fan-in."""
+    import math
+    from repro_torch.models.layers import tree_leaves
+    with torch.no_grad():
+        for leaf in tree_leaves(params):
+            if leaf.dim() == 4:
+                kh, kw, cin, _ = leaf.shape
+                leaf.mul_(math.sqrt(kh / (kh * kw * cin)))
+
+
+@contextlib.contextmanager
+def cnn_fan_in_init(torch):
+    """Within the block, every protocol's initial state
+    (``repro_torch.api.protocols._fresh_state``) is rescaled by
+    ``cnn_rescale_to_fan_in``."""
+    from repro_torch.api import protocols
+    kept = protocols._fresh_state
+
+    def fresh(ctx):
+        state = kept(ctx)
+        cnn_rescale_to_fan_in(torch, state.params)
+        return state
+    protocols._fresh_state = fresh
+    try:
+        yield
+    finally:
+        protocols._fresh_state = kept
+
+
+def cnn_agree_phase(torch, dev):
+    """Full-width CNN (paper-cnn CONFIG, fp32, 32x32) on the card against
+    the same code on the CPU, from the port's seeded init (``repro``'s
+    rule) made on the CPU and copied to the card, with TF32 off: K = 8
+    extended-Dirichlet clients (C = 2), one UGS plan at global batch 64.
+
+    - Step 0's per-leaf gradients within ``CNN_GRAD_REL_L2`` (relative L2).
+    - The module's ``conv`` patched to symmetric padding (the stride-2
+      trap) must fail those limits.
+    - 3 SGD steps over the same batches at ``CNN_AGREE_LR``: the loss at
+      each step within ``CNN_LOSS_RTOL``. At the paper's lr 0.05 this
+      init diverges (``cnn_rescale_to_fan_in``), and fp32 rounding grows
+      with it: on the CPU, fp32 against fp64 reads 2.6e-4 at step 2 even
+      from the fan-in init, against 1.2e-8 here
+      (``tools/cnn_conditioning.py``).
+    - 3 SGD steps at the paper's lr on the card show the divergence
+      (printed, not gated).
+    """
+    import torch.nn.functional as F
+    from repro_torch.api.evaluation import batch_from
+    from repro_torch.configs import get_config
+    from repro_torch.core.partition import partition_dirichlet
+    from repro_torch.core.psl import (make_train_step, requires_grad_,
+                                      value_and_grad)
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.data.federated import ClientStore, GlobalBatchIterator
+    from repro_torch.data.synthetic import make_classification_dataset
+    from repro_torch.models import cnn as cnn_mod
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import TrainState, sgd
+
+    saved = tf32_flags(torch)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config("paper-cnn")
+        model = cnn_mod.CNNModel(cfg)
+        feats, labels = make_classification_dataset(
+            2048, num_classes=cfg.num_classes, image_size=cfg.image_size,
+            seed=0)
+        parts, pop = partition_dirichlet(labels, 8, cfg.num_classes,
+                                         classes_per_client=2, seed=1)
+        store = ClientStore.from_partition(feats, labels, parts, pop)
+        plan = make_plan("ugs", pop, 64, seed=0)
+        host = [gb for gb, _ in zip(GlobalBatchIterator(store, plan, seed=0),
+                                    range(CNN_AGREE_STEPS))]
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        cpu_params = requires_grad_(model.init(gen))
+
+        def to_card():
+            return requires_grad_(tree_map(
+                lambda p: p.detach().to(dev, copy=True), cpu_params))
+        card_params = to_card()
+        cpu_batches = [batch_from(b["features"], b["labels"], b["weights"])
+                       for b in host]
+        card_batches = [batch_from(b["features"], b["labels"],
+                                   b["weights"], device=dev) for b in host]
+        on_card = [t.is_cuda for t in tree_leaves(card_params)] + \
+            [t.is_cuda for b in card_batches for t in b.values()]
+        if not all(on_card):
+            fail(f"{on_card.count(False)} CNN tensors are not on the card")
+
+        def grads_of(params, batch):
+            (loss, _), g = value_and_grad(model.loss_fn, params, batch)
+            return float(loss), g
+
+        def leaf_errors(got, want):
+            return {name: ((a.detach().cpu() - b).norm()
+                           / b.norm().clamp_min(1e-30)).item()
+                    for name, a, b in zip(_leaf_names(want),
+                                          tree_leaves(got),
+                                          tree_leaves(want))}
+
+        def sgd_losses(params, batches, lr):
+            opt = sgd(lr, momentum=CNN_SGD["momentum"],
+                      weight_decay=CNN_SGD["weight_decay"])
+            step = make_train_step(model, opt)
+            st = TrainState(params, opt.init(params), 0)
+            out = []
+            for b in batches:
+                st, m = step(st, b)
+                out.append(float(m["loss"]))
+            return out
+
+        cpu_loss, cpu_grads = grads_of(cpu_params, cpu_batches[0])
+        card_loss, card_grads = grads_of(card_params, card_batches[0])
+        rels = leaf_errors(card_grads, cpu_grads)
+        worst_leaf = max(rels, key=rels.get)
+        print(f"[cnn-agree] {cfg.name} channels {cfg.channels}, "
+              f"{cfg.image_size}x{cfg.image_size}, batch 64, TF32 "
+              f"{tf32_flags(torch)}: step-0 loss card {card_loss:.6f} CPU "
+              f"{cpu_loss:.6f}; worst per-leaf relative L2 "
+              f"{rels[worst_leaf]:.3g} ({worst_leaf}) over {len(rels)} "
+              f"leaves (limit {CNN_GRAD_REL_L2})", flush=True)
+        if not rels[worst_leaf] <= CNN_GRAD_REL_L2:
+            fail(f"CNN gradients on the card disagree with the CPU: "
+                 f"{worst_leaf} relative L2 {rels[worst_leaf]}")
+
+        kept = cnn_mod.conv
+
+        def symmetric_conv(x, w, stride=1):
+            return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride,
+                            padding=w.shape[0] // 2)
+        cnn_mod.conv = symmetric_conv
+        try:
+            planted_loss, planted_grads = grads_of(card_params,
+                                                   card_batches[0])
+        finally:
+            cnn_mod.conv = kept
+        planted_loss_rel = abs(planted_loss - cpu_loss) / abs(cpu_loss)
+        planted_worst = max(leaf_errors(planted_grads, cpu_grads).values())
+        print(f"[cnn-agree] planted symmetric padding: loss relative "
+              f"error {planted_loss_rel:.3g}, worst per-leaf gradient "
+              f"relative L2 {planted_worst:.3g}", flush=True)
+        if planted_loss_rel <= CNN_LOSS_RTOL \
+                and planted_worst <= CNN_GRAD_REL_L2:
+            fail("a planted symmetric stride-2 padding passed the CNN "
+                 "agreement checks")
+        del cpu_grads, card_grads, planted_grads
+
+        diverging = sgd_losses(to_card(), card_batches, CNN_SGD["lr"])
+        print(f"[cnn-agree] at the paper's lr {CNN_SGD['lr']} from this "
+              f"init (3x3 conv std 1/sqrt(3), 1x1 std 1): losses on the "
+              f"card {diverging} (not gated)", flush=True)
+        losses = {"cpu": sgd_losses(cpu_params, cpu_batches, CNN_AGREE_LR),
+                  "card": sgd_losses(card_params, card_batches,
+                                     CNN_AGREE_LR)}
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"])]
+        print(f"[cnn-agree] {CNN_AGREE_STEPS} SGD steps at lr "
+              f"{CNN_AGREE_LR}: losses card {losses['card']} CPU "
+              f"{losses['cpu']}; relative errors "
+              f"{[float(f'{r:.3g}') for r in rel]} (limit {CNN_LOSS_RTOL})",
+              flush=True)
+        if not max(rel) <= CNN_LOSS_RTOL:
+            fail(f"CNN losses on the card disagree with the CPU: {rel}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved["cudnn.allow_tf32"]
+        torch.backends.cuda.matmul.allow_tf32 = \
+            saved["cuda.matmul.allow_tf32"]
+    return {"worst_grad_rel_l2": rels[worst_leaf], "worst_leaf": worst_leaf,
+            "loss_rel_errors": rel, "planted_loss_rel": planted_loss_rel,
+            "planted_worst_grad_rel_l2": planted_worst, "losses": losses,
+            "diverging_losses_at_paper_lr": diverging}
+
+
+def cnn_spec():
+    """The paper's setting at CIFAR-10 size: 50,000 train and 10,000 test
+    images of 32x32, 10 classes, K = 8 extended-Dirichlet clients (C = 2),
+    stragglers at StragglerSpec()'s defaults, PSL-UGS at global batch 64,
+    SGD lr 0.05, momentum 0.9, weight decay 5e-4, one epoch, the full-width
+    paper-cnn, the GPSL monitor on. The runs start from the port's seeded
+    init rescaled to fan-in (``cnn_fan_in_init``)."""
+    from repro_torch import api
+    return api.ExperimentSpec(
+        model=api.ModelSpec(arch="paper-cnn", reduced=False),
+        optimizer=api.OptimizerSpec(name="sgd", **CNN_SGD),
+        data=api.DataSpec(kind="synthetic_classification", num_train=50000,
+                          num_test=10000, image_size=32, num_classes=10,
+                          num_clients=8, classes_per_client=2,
+                          partition="dirichlet",
+                          straggler=api.StragglerSpec()),
+        sampler=api.SamplerSpec(method="ugs"),
+        protocol=api.ProtocolSpec(name="psl", epochs=1,
+                                  global_batch_size=64, batch_size=64,
+                                  track_tpe=True),
+        execution=api.ExecutionSpec(engine="fused"),
+        eval=api.EvalSpec(enabled=True, batch_size=500),
+        obs=api.ObsSpec(enabled=True, monitor=True))
+
+
+def step_clock(torch):
+    """A callback timing each step of the loop, batch assembly included:
+    the card is synchronized at each step's end (so the host cannot run
+    ahead of it by more than one step)."""
+    from repro_torch.api.events import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ms = []
+            self._t = 0.0
+
+        def on_event(self, event, ctx, record):
+            if event.name == "epoch_begin":
+                torch.cuda.synchronize()
+                self._t = time.perf_counter()
+            elif event.name == "step_end":
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                self.ms.append((t - self._t) * 1e3)
+                self._t = t
+    return StepClock()
+
+
+# kernel-name groups of the profiled CNN step's gradient pass, first match
+# wins; "conv" holds cuDNN's implicit-GEMM, FFT and layout kernels and
+# the head's cuBLAS GEMM
+_CNN_GROUPS = (("norm", ("Moments", "FusedParams", "GroupNorm", "group_norm",
+                         "GammaBeta", "InternalGradients", "Norm")),
+               ("conv", ("conv", "xmma", "implicit", "winograd", "gemm",
+                         "cudnn", "dgrad", "wgrad", "fft", "complex",
+                         "flip_filter", "im2col", "cutlass", "Nhwc", "Nchw",
+                         "nchw", "nhwc", "scalePacked")),
+               ("elementwise", ("",)))
+
+
+def cnn_profile_step(torch, ctx, pstate, plan):
+    """One more fused step under torch.profiler, in two profiled parts:
+    the gradient pass (kernels grouped as conv / norm / elementwise by
+    name) and the SGD update (all of it "optimizer"); device busy time
+    against the two parts' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api.evaluation import batch_from
+    from repro_torch.core.psl import grad_norm, value_and_grad
+    from repro_torch.data.federated import GlobalBatchIterator
+
+    state = pstate["state"]
+    gb = next(iter(GlobalBatchIterator(ctx.data.store, plan, seed=1)))
+    batch = batch_from(gb["features"], gb["labels"], gb["weights"],
+                       device=ctx.device)
+    groups = {"conv": 0.0, "norm": 0.0, "elementwise": 0.0,
+              "optimizer": 0.0}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(ctx.model.loss_fn, state.params, batch)
+        float(grad_norm(grads))
+        grad_wall = (time.perf_counter() - t0) * 1e3
+    grad_kernels = _device_kernels(prof)
+    group_of = {}
+    for key, ms in grad_kernels.items():
+        name = next(n for n, pats in _CNN_GROUPS
+                    if any(p in key for p in pats))
+        group_of[key] = name
+        groups[name] += ms
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.optimizer.apply_updates(state.params, grads, state.opt_state)
+        torch.cuda.synchronize()
+        update_wall = (time.perf_counter() - t0) * 1e3
+    opt_kernels = _device_kernels(prof)
+    groups["optimizer"] = sum(opt_kernels.values())
+    busy = sum(groups.values())
+    wall = grad_wall + update_wall
+    top = [(group_of.get(k, "optimizer"), k, ms) for k, ms in sorted(
+        list(grad_kernels.items()) + list(opt_kernels.items()),
+        key=lambda kv: -kv[1])[:12]]
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "busy_share": busy / wall if wall else None,
+           "groups_ms": groups, "top_kernels_ms": top}
+    print(f"[cnn] profiled step: wall {wall:.2f} ms (gradient pass "
+          f"{grad_wall:.2f}, update {update_wall:.2f}), device busy "
+          f"{busy:.2f} ms (busy share {out['busy_share']:.3f}); by group "
+          f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}",
+          flush=True)
+    for group, key, ms in top:
+        print(f"[cnn]   {ms:8.3f} ms  {group:11s} {key[:100]}", flush=True)
+    if busy <= 0:
+        print("[cnn] the profiler recorded no device time", flush=True)
+    return out
+
+
+def cnn_run(torch, ctx, spec, label: str):
+    """One epoch of ``spec`` through repro_torch.api.run on ``ctx``: step
+    times, images/s, peak memory, test accuracy, TPE, monitor verdict."""
+    import math
+    import statistics
+    from repro_torch import api
+    clock = step_clock(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cnn_fan_in_init(torch):
+        result = api.run(spec, ctx=ctx, callbacks=[clock])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [m["loss"] for m in result.step_metrics]
+    ms = clock.ms
+    median = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    gb = spec.protocol.global_batch_size
+    extras = result.history.extras
+    monitor = extras.get("gpsl_monitor", [{}])[0]
+    out = {"steps": len(losses), "first_step_ms": ms[0],
+           "median_step_ms_after_first": median,
+           "images_per_s": gb / median * 1e3,
+           "epoch_wall_s": wall, "peak_memory_bytes":
+               torch.cuda.max_memory_allocated(),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "finite": all(math.isfinite(x) for x in losses),
+           "test_acc": result.test_acc[-1] if result.test_acc else None,
+           "tpe_ms": extras.get("tpe_ms"), "monitor": monitor,
+           "tf32": tf32_flags(torch)}
+    print(f"[cnn] {label}: {out['steps']} steps, first step "
+          f"{ms[0]:.2f} ms, median after it {median:.3f} ms, "
+          f"{out['images_per_s']:.0f} images/s; epoch (eval included) "
+          f"{wall:.2f} s; peak memory "
+          f"{out['peak_memory_bytes'] / 2**30:.3f} GiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; test accuracy "
+          f"{out['test_acc']}; tpe_ms {out['tpe_ms']}; monitor ok "
+          f"{monitor.get('ok')} (deviation violations "
+          f"{monitor.get('deviation_violations')}, max class deviation "
+          f"{monitor.get('max_class_deviation')}, epsilon "
+          f"{monitor.get('epsilon')}); TF32 {out['tf32']}", flush=True)
+    return out, result
+
+
+def cnn_phase(torch, dev):
+    """One epoch of PSL-UGS and one of PSL-FLS at the paper's setting
+    (``cnn_spec``), gated on UGS: finite loss, test accuracy >=
+    ``CNN_MIN_TEST_ACC`` and no GPSL monitor violation."""
+    import math
+    from repro_torch import api
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.models.layers import tree_leaves
+    spec = cnn_spec()
+    t0 = time.perf_counter()
+    ctx = api.build_context(spec, device=dev)
+    n_params = sum(math.prod(s.shape)
+                   for s in tree_leaves(ctx.model.param_specs()))
+    print(f"[cnn] built in {time.perf_counter() - t0:.2f}s (data made on "
+          f"the host): {ctx.model.cfg.name} channels "
+          f"{ctx.model.cfg.channels}, {n_params / 1e6:.3f} M params, "
+          f"{ctx.data.pop.num_clients} clients, D0 "
+          f"{ctx.data.pop.total_size}, sizes "
+          f"{ctx.data.pop.dataset_sizes.tolist()}, delays (ms) "
+          f"{[round(float(d), 1) for d in ctx.data.pop.delays]}",
+          flush=True)
+    ugs, result = cnn_run(torch, ctx, spec, "PSL-UGS")
+    plan = make_plan(spec.sampler.method, ctx.data.pop,
+                     spec.protocol.global_batch_size, seed=spec.seed)
+    ugs["profile"] = cnn_profile_step(torch, ctx, result.state, plan)
+    del result
+    fls_spec = spec.replace(sampler=spec.sampler.replace(method="fls"))
+    fls, _ = cnn_run(torch, ctx, fls_spec, "PSL-FLS (not gated)")
+    if not ugs["finite"]:
+        fail("the PSL-UGS epoch's loss is not finite")
+    if not ugs["test_acc"] >= CNN_MIN_TEST_ACC:
+        fail(f"PSL-UGS test accuracy {ugs['test_acc']} < "
+             f"{CNN_MIN_TEST_ACC}")
+    if not ugs["monitor"].get("ok"):
+        fail(f"the GPSL monitor flagged the PSL-UGS epoch: "
+             f"{ugs['monitor']}")
+    return {"ugs": ugs, "fls": fls, "params": n_params}, ctx
+
+
+def cnn_protocols_phase(torch, ctx):
+    """CL, SL, FL, SFL and PSL on the one-card sharded engine, each at full
+    width for ``CNN_PROTOCOL_STEPS`` steps on the [cnn] data, each with a
+    finite loss, that step count and an evaluation."""
+    import math
+    from repro_torch import api
+    base = cnn_spec()
+    out = {}
+    for name in ("cl", "sl", "fl", "sfl", "psl"):
+        spec = base.replace(
+            protocol=base.protocol.replace(name=name),
+            execution=api.ExecutionSpec(
+                engine="sharded" if name == "psl" else "fused",
+                max_steps=CNN_PROTOCOL_STEPS),
+            obs=api.ObsSpec())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cnn_fan_in_init(torch):
+            result = api.run(spec, ctx=ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [m["loss"] for m in result.step_metrics]
+        row = {"steps": len(losses), "first_loss": losses[0],
+               "last_loss": losses[-1], "test_acc": result.test_acc,
+               "wall_s": wall, "extras": {
+                   k: v for k, v in result.history.extras.items()
+                   if k != "shard_skew_ms"}}
+        label = f"{name}{' (sharded engine)' if name == 'psl' else ''}"
+        print(f"[cnn-protocols] {label}: {row['steps']} steps in "
+              f"{wall:.2f} s (eval included), loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, test accuracy {result.test_acc}",
+              flush=True)
+        if len(losses) != CNN_PROTOCOL_STEPS:
+            fail(f"{name} ran {len(losses)} steps, wanted "
+                 f"{CNN_PROTOCOL_STEPS}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{name}'s loss is not finite: {losses}")
+        if len(result.test_acc) != 1:
+            fail(f"{name} was not evaluated: {result.test_acc}")
+        out[name] = row
+    return out
+
+
 def _leaf_names(tree, prefix=""):
-    """Dotted key paths in ``tree_leaves`` order (sorted keys)."""
+    """Dotted key paths in ``tree_leaves`` order (sorted keys, list items
+    in order)."""
     if isinstance(tree, dict):
         return [n for k in sorted(tree)
                 for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, item in enumerate(tree)
+                for n in _leaf_names(item, f"{prefix}{i}.")]
     return [prefix[:-1]]
 
 def main() -> int:
@@ -1566,6 +2044,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as events_dir:
         train = train_phase(torch, dev, pathlib.Path(events_dir))
     grad_agreement_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    cnn_agree = cnn_agree_phase(torch, dev)
+    cnn, cnn_ctx = cnn_phase(torch, dev)
+    cnn["protocols"] = cnn_protocols_phase(torch, cnn_ctx)
+    cnn_launches = ops.launch_counts()
+    print(f"[cnn] kernel launches over the CNN phases: {cnn_launches}",
+          flush=True)
+    if any(cnn_launches.values()):
+        fail(f"the CNN path launched a kernel wrapper: {cnn_launches}")
+    del cnn_ctx
+    print(f"[cnn] summary {json.dumps({'agree': cnn_agree, **cnn})}",
+          flush=True)
     print(f"command time {time.perf_counter() - t_start:.1f} s (kernel "
           f"build included)", flush=True)
 
@@ -1578,7 +2070,8 @@ def main() -> int:
                       "serve_continuous": launches["continuous"][name],
                       "serve_speculative": launches["speculative"][name],
                       "serve_ssm": launches["ssm"][name],
-                      "train": train["launches"][name]}
+                      "train": train["launches"][name],
+                      "train_cnn": cnn_launches[name]}
                for name in ops.WRAPPERS}
     kernels = [
         {"name": "flash_attention", "route": "cuda",

@@ -3,13 +3,15 @@
 registries map names to protocols, engines and policies, and :func:`run`
 drives either kind on the CUDA card (``device="cpu"`` for tests)."""
 from repro_torch.api.cli import apply_overrides, load_any_spec, parse_set
+from repro_torch.api.evaluation import batch_from, evaluate
 from repro_torch.api.events import (Callback, CheckpointCallback,
-                                    ConsoleLogger, Event, EventBus,
-                                    PlanStatsCallback, ShardArrivalCallback)
+                                    ConsoleLogger, EvalCallback, Event,
+                                    EventBus, PlanStatsCallback,
+                                    ShardArrivalCallback,
+                                    StragglerTPECallback)
 from repro_torch.api.loop import (DataBundle, History, RunContext,
                                   RunRecord, RunResult, fit)
-from repro_torch.api.registry import (NOT_PORTED_PROTOCOLS,
-                                      ProtocolStrategy, StepItem,
+from repro_torch.api.registry import (ProtocolStrategy, StepItem,
                                       UnknownPolicyError,
                                       UnknownProtocolError,
                                       available_admission_policies,
@@ -46,11 +48,11 @@ __all__ = [
     "run", "build_context", "build_data", "build_optimizer",
     "default_callbacks", "fit", "RunContext", "RunRecord", "RunResult",
     "History", "DataBundle",
-    "Event", "EventBus", "Callback", "PlanStatsCallback",
-    "ShardArrivalCallback", "CheckpointCallback", "ConsoleLogger",
+    "Event", "EventBus", "Callback", "EvalCallback", "PlanStatsCallback",
+    "StragglerTPECallback", "ShardArrivalCallback", "CheckpointCallback",
+    "ConsoleLogger", "batch_from", "evaluate",
     "register_protocol", "get_protocol", "available_protocols",
     "ProtocolStrategy", "StepItem", "UnknownProtocolError",
-    "NOT_PORTED_PROTOCOLS",
     "run_serve", "build_serve_context", "build_workload",
     "build_model", "ServeContext", "restore_params", "verify_report",
     "audit_stream",

@@ -6,11 +6,10 @@ their outputs into the run record. Events (in emission order):
   run_begin | epoch_begin | plan | step_end | epoch_end | run_end
 ``plan`` fires once per epoch for plan-driven protocols (payload: the
 epoch plan); ``step_end`` carries the step metrics plus any
-strategy-supplied ``info``.
-
-Held-out evaluation (``EvalCallback``) and the fused engine's analytic
-straggler timing (``StragglerTPECallback``) belong to the classification
-path and come with the CNN slice (ROADMAP A.3).
+strategy-supplied ``info`` (e.g. straggler arrival timing from the
+sharded engine). Evaluation, plan statistics, straggler timing (analytic
+off the plan for the fused engine, per step for the sharded one),
+checkpointing and console logging are all callbacks.
 """
 from __future__ import annotations
 
@@ -48,6 +47,24 @@ class EventBus:
             cb.on_event(ev, self.ctx, self.record)
 
 
+class EvalCallback(Callback):
+    """Held-out accuracy on epoch_end -> record.test_acc."""
+
+    def __init__(self, every: int = 1, batch_size: int = 512):
+        self.every = every
+        self.batch_size = batch_size
+
+    def on_event(self, event, ctx, record):
+        if event.name != "epoch_end" or ctx.data.test is None:
+            return
+        if (event.epoch + 1) % self.every:
+            return
+        from repro_torch.api.evaluation import evaluate
+        feats, labs = ctx.data.test
+        record.test_acc.append(evaluate(ctx.model, event.params, feats,
+                                        labs, batch_size=self.batch_size))
+
+
 class PlanStatsCallback(Callback):
     """Accumulates sampler statistics (EM iterations) off the plan event."""
 
@@ -56,6 +73,30 @@ class PlanStatsCallback(Callback):
             record.extras.setdefault("em_iterations", 0)
         elif event.name == "plan" and event.plan is not None:
             record.extras["em_iterations"] += event.plan.em_iterations
+
+
+class StragglerTPECallback(Callback):
+    """Analytic epoch TPE from the plan + client delays (fused engine).
+
+    Streams the plan's ``step_segments`` (never the dense (T, K) matrix),
+    so it costs O(active clients) per step and works on sparse plans.
+    With ``track=False`` only the empty ``tpe_ms`` extras slot is created
+    (the stable result shape) and nothing is simulated.
+    """
+
+    def __init__(self, base_step_ms: float = 60.0, track: bool = True):
+        self.base_step_ms = base_step_ms
+        self.track = track
+
+    def on_event(self, event, ctx, record):
+        if event.name == "run_begin":
+            record.extras.setdefault("tpe_ms", [])
+        elif self.track and event.name == "plan" \
+                and event.plan is not None:
+            from repro_torch.core.straggler import simulate_tpe_segments
+            record.extras["tpe_ms"].append(simulate_tpe_segments(
+                event.plan, ctx.data.pop.delays,
+                base_step_ms=self.base_step_ms).total_ms)
 
 
 class ShardArrivalCallback(Callback):
@@ -123,3 +164,6 @@ class ConsoleLogger(Callback):
                       f"acc={m.get('accuracy', float('nan')):.3f} "
                       f"gnorm={m.get('grad_norm', float('nan')):.2f}",
                       flush=True)
+        elif event.name == "epoch_end" and record.test_acc:
+            print(f"epoch {event.epoch}: test_acc="
+                  f"{record.test_acc[-1]:.4f}", flush=True)

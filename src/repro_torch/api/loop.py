@@ -5,44 +5,57 @@
 per epoch it asks the strategy for a plan, iterates the strategy's batch
 stream, applies the strategy's step, runs the end-of-epoch aggregation
 hook, and emits events (run_begin / epoch_begin / plan / step_end /
-epoch_end / run_end) that callbacks turn into plan statistics, straggler
-accounting and checkpoints. ``repro_torch.api.run`` builds the context
-from an ExperimentSpec.
+epoch_end / run_end) that callbacks turn into evaluation, plan
+statistics, straggler accounting and checkpoints.
+``repro_torch.api.run`` builds the context from an ExperimentSpec.
 
 Telemetry (``ctx.spec.obs``, repro_torch.obs): when enabled, the loop
 wraps each phase in tracer spans — ``plan`` (epoch planning), ``batch``
 (host batch assembly, one per step), ``device_step`` (the strategy's
 step; the PSL engine's step waits for the card, so the span covers its
 device work) and ``eval`` (end-of-epoch callbacks) under per-epoch
-``epoch`` spans inside one ``run`` span. Instrumentation touches no RNG
-and no batch content. The live GPSL invariant monitor
-(``obs.monitor``, on by default in an enabled ObsSpec) and the device
-profiler (``obs.jax_profiler_dir``) are not ported yet and raise when
-asked for (ROADMAP A.9).
+``epoch`` spans inside one ``run`` span, and feeds each step's plan
+segment to the live GPSL invariant monitor (repro_torch.obs.monitor),
+whose per-epoch summaries land in ``record.extras["gpsl_monitor"]``.
+Instrumentation touches no RNG and no batch content. The device profiler
+(``obs.jax_profiler_dir``) is not ported yet and raises when asked for
+(ROADMAP A.9).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.api.events import EventBus
 from repro_torch.api.registry import ProtocolStrategy
-from repro_torch.obs import check_profiler, tracer_from_spec, write_outputs
+from repro_torch.obs import (check_profiler, monitor_from_spec,
+                             tracer_from_spec, write_outputs)
 
 
 @dataclasses.dataclass
 class History:
-    """Per-epoch test accuracy (empty until evaluation is ported) +
-    protocol extras (the stable result API)."""
+    """Per-epoch test accuracy + protocol extras (the stable result API)."""
     test_acc: List[float]
     extras: Dict[str, Any]
+
+    @property
+    def best(self) -> float:
+        return max(self.test_acc) if self.test_acc else 0.0
 
 
 @dataclasses.dataclass
 class DataBundle:
-    """The materialized data a run consumes: ``lm_data`` per-client token
-    arrays and ``pop`` their ClientPopulation (synthetic_lm)."""
-    kind: str = "synthetic_lm"
+    """The materialized data a run consumes.
+
+    ``train`` is the pooled (features, labels) (CL); ``store`` the
+    federated ClientStore (SL/FL/SFL/PSL); ``lm_data`` per-client token
+    arrays (synthetic_lm); ``test`` the held-out (features, labels) or
+    None; ``pop`` the ClientPopulation.
+    """
+    kind: str = "synthetic_classification"
+    train: Optional[Tuple] = None
+    test: Optional[Tuple] = None
+    store: Any = None
     lm_data: Optional[List] = None
     pop: Any = None
     seq_len: Optional[int] = None       # synthetic_lm: training seq length
@@ -94,17 +107,12 @@ class RunResult:
     def test_acc(self) -> List[float]:
         return self.history.test_acc
 
+    @property
+    def best(self) -> float:
+        return self.history.best
+
 
 _END = object()                       # batch-stream exhaustion sentinel
-
-
-def check_monitor(obs) -> None:
-    """The GPSL invariant monitor is not ported: an enabled ObsSpec must
-    set ``monitor: false`` instead of silently running unmonitored."""
-    if obs is not None and obs.enabled and obs.monitor:
-        raise NotImplementedError(
-            "obs.monitor: the live GPSL invariant monitor is not ported to "
-            "repro_torch yet (ROADMAP A.9); set obs.monitor=false")
 
 
 def fit(ctx: RunContext, strategy: ProtocolStrategy,
@@ -116,7 +124,6 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
     """
     obs = getattr(ctx.spec, "obs", None)
     check_profiler(obs)
-    check_monitor(obs)
     if tracer is None:
         tracer = tracer_from_spec(
             obs, meta={"kind": "train",
@@ -127,6 +134,7 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
     max_steps = ctx.execution.max_steps
     bus.emit("run_begin")
     stop = False
+    pop = getattr(ctx.data, "pop", None)
     with tracer.span("run", cat="train"):
         for epoch in range(ctx.protocol.epochs):
             with tracer.span("epoch", cat="train", epoch=epoch):
@@ -135,6 +143,12 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
                     plan = strategy.plan_epoch(ctx, epoch)
                 if plan is not None:
                     bus.emit("plan", epoch=epoch, plan=plan)
+                monitor = None
+                if plan is not None and pop is not None:
+                    monitor = monitor_from_spec(
+                        obs, pop, plan.global_batch_size, epoch=epoch,
+                        num_steps=plan.num_steps, tracer=tracer)
+                epoch_step = 0
                 batches = iter(strategy.epoch_batches(ctx, pstate, plan,
                                                       epoch))
                 while True:
@@ -142,16 +156,24 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
                         item = next(batches, _END)
                     if item is _END:
                         break
+                    if monitor is not None \
+                            and epoch_step < plan.num_steps:
+                        monitor.observe_plan_step(plan, epoch_step)
                     with tracer.span("device_step", cat="step",
                                      epoch=epoch, step=record.steps):
                         pstate, metrics = strategy.step(ctx, pstate, item)
                     record.step_metrics.append(metrics)
                     record.steps += 1
+                    epoch_step += 1
                     bus.emit("step_end", epoch=epoch, step=record.steps,
                              metrics=metrics, info=item.info)
                     if max_steps is not None and record.steps >= max_steps:
                         stop = True
                         break
+                if monitor is not None:
+                    summary = monitor.finish()
+                    record.extras.setdefault("gpsl_monitor", []).append(
+                        summary.to_dict())
                 pstate = strategy.end_epoch(ctx, pstate, epoch)
                 with tracer.span("eval", cat="eval", epoch=epoch):
                     bus.emit("epoch_end", epoch=epoch,

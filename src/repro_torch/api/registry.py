@@ -4,8 +4,8 @@
 * **Protocol strategies** (``@register_protocol``) package a training
   protocol's epoch planning, batch assembly, step and aggregation hook
   behind one interface driven by :func:`repro_torch.api.loop.fit`. The
-  port registers ``psl``; ``cl``, ``sl``, ``fl`` and ``sfl`` keep their
-  names and raise ``NotImplementedError`` when looked up (ROADMAP A.4).
+  port registers ``repro``'s five: ``cl``, ``sl``, ``fl``, ``sfl`` and
+  ``psl``.
 * **Serving policies**: admission order (``@register_scheduler_policy``),
   the budget controller (``@register_admission_policy``) and the engine
   itself (``@register_engine``).
@@ -26,10 +26,6 @@ class UnknownProtocolError(KeyError):
 
 class UnknownPolicyError(KeyError):
     """Lookup of a serving policy/engine name that was never registered."""
-
-
-# repro's other built-in protocols: known names the port cannot run yet
-NOT_PORTED_PROTOCOLS = frozenset({"cl", "sl", "fl", "sfl"})
 
 
 class _Registry:
@@ -101,11 +97,6 @@ def register_protocol(name: str, *, replace: bool = False):
 
 
 def get_protocol(name: str) -> Type["ProtocolStrategy"]:
-    if name in NOT_PORTED_PROTOCOLS and name not in _PROTOCOLS._entries:
-        raise NotImplementedError(
-            f"protocol {name!r} is not ported to repro_torch yet; the port "
-            f"trains with 'psl' (ROADMAP A.4 brings the paper's baselines "
-            f"with the CNN slice)")
     return _PROTOCOLS.get(name)
 
 

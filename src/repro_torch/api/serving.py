@@ -37,16 +37,20 @@ class ServeContext:
 
 
 def build_model(spec: ModelSpec, *, seq_len: Optional[int] = None):
-    """LM for a ModelSpec, with overrides (``repro.api.runner.build_model``
-    for the LM families)."""
+    """Model instance for a ModelSpec (the paper's CNN or an LM), with
+    overrides (``repro.api.runner.build_model``)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model as build_lm
     cfg = get_config(spec.arch, reduced=spec.reduced)
     over = dict(spec.overrides)
-    if seq_len is not None and "max_seq_len" not in over:
+    if spec.arch != "paper-cnn" and seq_len is not None \
+            and "max_seq_len" not in over:
         over["max_seq_len"] = max(seq_len, 256)
     if over:
         cfg = dataclasses.replace(cfg, **over)
+    if spec.arch == "paper-cnn":
+        from repro_torch.models.cnn import CNNModel
+        return CNNModel(cfg)
+    from repro_torch.models import build_model as build_lm
     return build_lm(cfg)
 
 

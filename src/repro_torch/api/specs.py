@@ -185,10 +185,9 @@ class OptimizerSpec(SpecBase):
 class DataSpec(SpecBase):
     """Dataset synthesis + federation layout.
 
-    kind "synthetic_lm": style-skewed token sequences (one shard per
-    client), the kind the port trains. kind "synthetic_classification"
-    (CIFAR-like images for the paper's CNN) keeps its schema but is not
-    ported yet (ROADMAP A.3).
+    kind "synthetic_classification": CIFAR-like images partitioned across
+    ``num_clients`` ("iid" or extended-"dirichlet"); kind "synthetic_lm":
+    style-skewed token sequences (one shard per client).
     """
     kind: str = "synthetic_classification"
     num_train: int = 3000
@@ -245,9 +244,9 @@ class SamplerSpec(SpecBase):
 class ProtocolSpec(SpecBase):
     """Training protocol and its schedule.
 
-    ``name`` selects a registered strategy (repro_torch.api.registry; the
-    port runs "psl", and "cl"/"sl"/"fl"/"sfl" keep their names but raise
-    when run). PSL composes global batches of ``global_batch_size`` slots.
+    ``name`` selects a registered strategy (repro_torch.api.registry).
+    ``batch_size`` is the per-client/local batch size of CL/SL/FL/SFL; PSL
+    composes global batches of ``global_batch_size`` slots instead.
     """
     name: str = "psl"
     epochs: int = 6
@@ -259,11 +258,10 @@ class ProtocolSpec(SpecBase):
     base_step_ms: float = 60.0
 
     def validate(self) -> "ProtocolSpec":
-        from repro_torch.api.registry import (NOT_PORTED_PROTOCOLS,
-                                              available_protocols)
-        known = available_protocols() + sorted(NOT_PORTED_PROTOCOLS)
-        self._require(self.name in known,
-                      f"unknown protocol {self.name!r}; known: {known}")
+        from repro_torch.api.registry import available_protocols
+        self._require(self.name in available_protocols(),
+                      f"unknown protocol {self.name!r}; registered: "
+                      f"{available_protocols()}")
         self._require(self.epochs > 0, "epochs must be positive")
         self._require(self.global_batch_size > 0 and self.batch_size > 0,
                       "batch sizes must be positive")
@@ -302,8 +300,7 @@ class ExecutionSpec(SpecBase):
 
 @dataclasses.dataclass(frozen=True)
 class EvalSpec(SpecBase):
-    """Held-out evaluation cadence (classification workloads; the port's
-    LM runs take none)."""
+    """Held-out evaluation cadence (classification workloads)."""
     enabled: bool = True
     batch_size: int = 512
     every: int = 1

@@ -39,7 +39,7 @@ AUTO_BACKEND_MIN_CLIENTS = 4096
 _PLANNER_ITEM = ("the vectorized planner engine is not ported to "
                  "repro_torch yet (ROADMAP A.8, core/planner.py)")
 _LDS_ITEM = ("Latent Dirichlet Sampling is not ported to repro_torch yet "
-             "(ROADMAP A.8: core/em.py, core/straggler.py)")
+             "(ROADMAP A.8: core/em.py, straggler.adjust_concentration)")
 
 
 def resolve_backend(backend: str, num_clients: int) -> str:

@@ -117,9 +117,9 @@ class ShardedPSLEngine:
     # ------------------------------------------------------------- batch
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Host numpy batch → tensors on the card (tokens int64 for the
-        embedding gather, labels int32, weights fp32)."""
+        embedding gather, labels int32, weights and images fp32)."""
         dtypes = {"tokens": torch.int64, "labels": torch.int32,
-                  "weights": torch.float32}
+                  "weights": torch.float32, "images": torch.float32}
         return {k: torch.as_tensor(np.asarray(v)).to(
                     device=self.device, dtype=dtypes.get(k),
                     non_blocking=True)

@@ -4,8 +4,10 @@
 The experiment is one ExperimentSpec (the same JSON ``repro`` reads),
 loaded from ``--config spec.json`` with dotted ``--set key=value``
 overrides; the convenience flags map onto spec overrides as in
-``repro``. By default it trains full-width granite-3-2b on the CUDA card;
-``--device cpu`` runs on the CPU (meant for ``--reduced``).
+``repro``. Without ``--config`` it trains full-width granite-3-2b; a
+config may name any ported model, the paper's CNN (``paper-cnn``, the
+spec's default arch) included, with any protocol. It runs on the CUDA
+card; ``--device cpu`` runs on the CPU (meant for reduced models).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --steps 4
@@ -13,6 +15,9 @@ Usage:
       --steps 3 --global-batch 8 --seq-len 32 --clients 8 --sequences 256
   PYTHONPATH=src python -m repro_torch.launch.train --config spec.json \\
       --set sampler.method=fpls
+  echo '{"kind": "experiment"}' > cnn.json    # repro's default: PSL-UGS CNN
+  PYTHONPATH=src python -m repro_torch.launch.train --config cnn.json \\
+      --device cpu
 """
 from __future__ import annotations
 

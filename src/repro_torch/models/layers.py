@@ -27,14 +27,16 @@ from repro_torch.models.config import ModelConfig, ParamSpec
 _NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
-# Nested-dict tree utilities (dict keys visited in sorted order, as
-# jax.tree_util flattens dicts)
+# Nested dict/list tree utilities (dict keys visited in sorted order and
+# list items in order, as jax.tree_util flattens them)
 # ---------------------------------------------------------------------------
 
 
 def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
     return [tree]
 
 
@@ -48,6 +50,9 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, item, *(r[i] for r in rest))
+                for i, item in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -94,6 +99,8 @@ def _rebuild(tree, values):
     by successive items of ``values``."""
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], values) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_rebuild(item, values) for item in tree]
     return next(values)
 
 

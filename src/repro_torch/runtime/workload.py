@@ -1,6 +1,6 @@
 """Arrival-trace generators for serving workloads (numpy copy of
-:mod:`repro.runtime.workload`, plus the straggler delay model of
-``repro.core.straggler`` that serving uses).
+:mod:`repro.runtime.workload`; the straggler delay model is
+:func:`repro_torch.core.straggler.assign_delays`, shared with training).
 
 The straggler delay model answers "how late do clients run"; the arrival
 processes answer "when do *serving* requests show up". Four classic arrival processes, all seeded, O(n), and returned
@@ -26,19 +26,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.straggler import assign_delays
+
 __all__ = ["assign_delays", "straggler_arrivals", "generate_arrivals",
            "poisson_arrivals", "bursty_arrivals", "diurnal_arrivals",
            "heavy_tail_arrivals"]
-
-
-def assign_delays(num_clients: int, p_straggler: float, w_min: float,
-                  w_max: float, seed: int = 0) -> np.ndarray:
-    """Sample per-client delays (ms). Non-stragglers get 0 (paper Sec. V-B)."""
-    rng = np.random.default_rng(seed)
-    is_straggler = rng.random(num_clients) < p_straggler
-    delays = np.where(is_straggler,
-                      rng.uniform(w_min, w_max, size=num_clients), 0.0)
-    return delays.astype(np.float64)
 
 
 def straggler_arrivals(num_requests: int, p_straggler: float = 0.2,

@@ -789,3 +789,82 @@ def test_tensor_core_attention_backward_refuses_odd_strides(dev):
         ..., :24]                            # rows 50 bytes apart
     with pytest.raises(ValueError, match="strides"):
         flash_attention_bwd(q, q, q, q, q, lse, dq=dq)
+
+
+# --- the paper's CNN (slice 8: no kernel; cuDNN convolutions) --------------
+
+def _cnn_spec(**protocol):
+    return api.ExperimentSpec(
+        data=api.DataSpec(num_train=256, num_test=64),
+        protocol=api.ProtocolSpec(epochs=1, global_batch_size=32,
+                                  batch_size=16, **protocol),
+        execution=api.ExecutionSpec(max_steps=3))
+
+
+def _cpu_init(monkeypatch):
+    """Every protocol's initial state from the port's seeded init made on
+    the CPU and copied to the run's device (CUDA generators draw other
+    numbers)."""
+    from repro_torch.api import protocols
+    from repro_torch.core.psl import requires_grad_
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import TrainState
+
+    def fresh(ctx):
+        gen = torch.Generator().manual_seed(ctx.seed)
+        params = requires_grad_(tree_map(lambda p: p.to(ctx.device),
+                                         ctx.model.init(gen)))
+        return TrainState(params, ctx.optimizer.init(params), 0)
+    monkeypatch.setattr(protocols, "_fresh_state", fresh)
+
+
+@pytest.mark.parametrize("engine", ["fused", "sharded"])
+def test_cnn_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch, engine):
+    """Reduced CNN, PSL-UGS, 3 SGD steps from the same init: losses at
+    rtol 1e-4 (fp32 cuDNN convolutions, TF32 off, against the CPU's)."""
+    _cpu_init(monkeypatch)
+    spec = _cnn_spec()
+    spec = spec.replace(execution=spec.execution.replace(engine=engine))
+    card = api.run(spec, device="cuda")
+    cpu = api.run(spec, device="cpu")
+    assert not torch.backends.cudnn.allow_tf32
+    assert len(card.step_metrics) == len(cpu.step_metrics) == 3
+    for a, b in zip(card.step_metrics, cpu.step_metrics):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["tokens"] == b["tokens"]
+    from repro_torch.models.layers import tree_leaves
+    assert all(p.is_cuda for p in tree_leaves(card.params))
+    assert len(card.test_acc) == 1
+
+
+def test_fl_does_not_alias_the_global_params_on_the_card(dev, monkeypatch):
+    """FL trains clones: the round's global parameters stay as they were
+    until end_epoch averages the local models."""
+    from repro_torch.api.protocols import FLStrategy
+    from repro_torch.models.layers import tree_leaves
+    _cpu_init(monkeypatch)
+    ctx = api.build_context(_cnn_spec(name="fl"), device=dev)
+    strategy = FLStrategy()
+    pstate = strategy.setup(ctx)
+    before = [p.detach().clone() for p in tree_leaves(
+        pstate["global_params"])]
+    items = strategy.epoch_batches(ctx, pstate, None, 0)
+    for _, item in zip(range(4), items):
+        pstate, _ = strategy.step(ctx, pstate, item)
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, tree_leaves(pstate["global_params"])))
+    pstate = strategy.end_epoch(ctx, pstate, 0)
+    after = tree_leaves(pstate["global_params"])
+    assert all(p.is_cuda for p in after)
+    assert not all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+def test_cnn_spec_runs_on_the_card_by_default(dev, monkeypatch):
+    """No device argument: the CNN spec runs on the card, and without
+    CUDA it raises instead of falling back to the CPU."""
+    spec = _cnn_spec()
+    ctx = api.build_context(spec)
+    assert ctx.device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        api.run(spec)

@@ -112,7 +112,10 @@ want = {"repro_torch.core.psl", "repro_torch.core.sampling",
         "repro_torch.api.protocols", "repro_torch.launch.train",
         "repro_torch.launch.distributed", "repro_torch.runtime.spec_decode",
         "repro_torch.kernels.spec_verify", "repro_torch.kernels.ssm_scan",
-        "repro_torch.configs.falcon_mamba_7b"}
+        "repro_torch.configs.falcon_mamba_7b", "repro_torch.models.cnn",
+        "repro_torch.configs.paper_cnn", "repro_torch.core.partition",
+        "repro_torch.core.straggler", "repro_torch.core.deviation",
+        "repro_torch.obs.monitor", "repro_torch.api.evaluation"}
 assert want <= set(mods), sorted(want - set(mods))
 print(len(mods), bad)
 assert not bad, bad
@@ -176,8 +179,11 @@ def test_unported_spec_values_fail_clearly(tmp_path):
             enabled=True, jax_profiler_dir=str(tmp_path))), device="cpu")
     train = tmp_path / "train.json"
     train.write_text(json.dumps({"kind": "experiment"}))
-    with pytest.raises(tapi.SpecError, match="not ported"):
-        tapi.load_any_spec(str(train)).validate()   # the default arch: CNN
+    default = tapi.load_any_spec(str(train))
+    default.validate()          # the default arch, the paper's CNN, is ported
+    with pytest.raises(NotImplementedError, match="A.8"):
+        tapi.run(default.replace(sampler=tapi.SamplerSpec(method="lds")),
+                 device="cpu")
 
 
 def test_restore_params_runs_on_the_card_unless_asked(tmp_path, jax_params,

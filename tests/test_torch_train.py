@@ -42,6 +42,7 @@ from repro.launch.train import default_lm_spec as j_default_lm_spec
 from repro.models import build_model as jbuild
 import repro_torch.api as tapi
 from repro_torch import optim as toptim
+from repro_torch.api import protocols as tprotocols
 from repro_torch.api.protocols import lm_plan_batches as t_lm_plan_batches
 from repro_torch.checkpoint import from_numpy_tree, train_state_from_numpy
 from repro_torch.configs import get_config as tget
@@ -356,13 +357,14 @@ def test_api_run_matches_repro(repro_run, monkeypatch, tmp_path):
     # PRNGKey(seed)); the port's own init draws differ
     jm = jbuild(jget(ARCH, reduced=True))
     jp = jax.device_get(jm.init(jax.random.PRNGKey(jspec.seed)))
-    init = tdist.ShardedPSLEngine.init_state
+    # every protocol builds its initial state in protocols._fresh_state
+    init = tprotocols._fresh_state
 
-    def bridged_init(self, seed=0):
-        state = init(self, seed)
+    def bridged_init(ctx):
+        state = init(ctx)
         return toptim.TrainState(_tparams(jp), state.opt_state, 0)
 
-    monkeypatch.setattr(tdist.ShardedPSLEngine, "init_state", bridged_init)
+    monkeypatch.setattr(tprotocols, "_fresh_state", bridged_init)
     tres = tapi.run(tspec, device="cpu")
     assert len(tres.step_metrics) == len(jres.step_metrics) == 3
     assert tres.history.extras == jres.history.extras
@@ -373,18 +375,22 @@ def test_api_run_matches_repro(repro_run, monkeypatch, tmp_path):
         np.testing.assert_allclose(t["tokens"], j["tokens"], rtol=0)
 
 
-def test_run_rejects_what_the_port_does_not_run():
+def test_run_rejects_what_the_port_does_not_run(tmp_path):
     spec = tapi.apply_overrides(train_cli.default_lm_spec(), SETS)
     with pytest.raises(NotImplementedError, match="A.7"):
         tapi.run(spec.replace(execution=spec.execution.replace(
             mesh="2x1")), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapi.get_protocol("fl")
+    # the paper's baselines are ported: all five of repro's protocols
+    assert tapi.available_protocols() == ["cl", "fl", "psl", "sfl", "sl"]
+    for name in tapi.available_protocols():
+        assert tapi.get_protocol(name).name == name
     with pytest.raises(tapi.SpecError, match="requires the psl protocol"):
         tapi.run(spec.replace(protocol=spec.protocol.replace(name="fl")),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="monitor"):
-        tapi.run(spec.replace(obs=tapi.ObsSpec(enabled=True)), device="cpu")
+    # the GPSL monitor is ported; the device profiler hook is not
+    with pytest.raises(NotImplementedError, match="profiler"):
+        tapi.run(spec.replace(obs=tapi.ObsSpec(
+            enabled=True, jax_profiler_dir=str(tmp_path))), device="cpu")
 
 
 def test_train_cli_on_cpu_and_default_device(capsys, tmp_path):
