@@ -97,6 +97,34 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    width, each with a finite loss and an evaluation. Over phases 8–10
    every kernel wrapper must read 0 launches (``train_cnn`` in the
    kernels line's ``launches_by_path``).
+11. Planning (``[plan]``). The vectorized planner engine
+   (``repro_torch.core.planner``, torch on the card; no kernel of this
+   repo) at full size, each plan timed best of 2 after an untimed
+   warm-up, with its rounds, CDF refreshes, replans, EM trips, host
+   syncs, EM iterations, plan bytes and peak device memory (the engine's
+   timed runs of one seed must give one plan): the K-sweep
+   of benchmarks/fig3_sampling_time.py (UGS at B = 128 and LDS, delta
+   1.0, at B = 256 for K in ``PLAN_SWEEP_KS``; the numpy backend beside
+   it at ``PLAN_NUMPY_KS``), sparse UGS at BENCH_plan.json's two largest
+   cells (``PLAN_SPARSE``), and Table IV's TPE reduction from numpy and
+   engine LDS plans. Checks: every plan passes ``validate_against``;
+   dense and sparse plans of a seed are bit-identical on the card at
+   K = 4096 for UGS and LDS; ``em_map_torch`` on the card is within
+   ``EM_PI_ATOL`` of the numpy ``em_map``; the card's UGS first-step
+   mean counts over ``PLAN_DIST_SEEDS`` seeds are within
+   ``PLAN_DIST_SE`` standard errors of B·D_k/D, and a planner fed
+   proportions skewed by ``PLAN_DIST_SKEW`` must fail that; under
+   delta 2 stragglers deplete earlier than under delta 0.
+12. PSL-LDS (``[cnn-lds]``). One epoch of the [cnn] setting over
+   ``CNN_LDS_CLIENTS`` clients with ``sampler.method=lds`` (delta 1.5),
+   ``backend="auto"`` (which must resolve to the engine) and
+   ``plan_format="auto"``: plan seconds, step times, images/s, test
+   accuracy, tpe_ms, EM iterations and the monitor's verdict; gated on a
+   finite loss, EM iterations, test accuracy >= ``CNN_MIN_TEST_ACC`` and
+   the monitor's batch-size, over-draw and depletion invariants (its
+   class-deviation verdict is printed: LDS front-loads stragglers by
+   design). Over phases 11–12 every kernel wrapper must read 0
+   launches (``plan_and_cnn_lds``).
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
@@ -219,16 +247,24 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if match in evt.key:
-            us = getattr(evt, "self_device_time_total", None)
-            total_us += us if us is not None else evt.self_cuda_time_total
-    return total_us / iters / 1e3
+    # the profiler now and then records no device activity for a window;
+    # try again, and after three empty windows take CUDA events' time
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if match in evt.key:
+                us = getattr(evt, "self_device_time_total", None)
+                total_us += us if us is not None else evt.self_cuda_time_total
+        if total_us > 0:
+            return total_us / iters / 1e3
+    ms = time_ms(torch, fn, iters=iters)
+    print(f"device_ms: the profiler recorded no device time for {match!r} "
+          f"in 3 windows; CUDA events time used ({ms:.4f} ms)", flush=True)
+    return ms
 
 
 def host_us(torch, fn, calls: int = 1000) -> float:
@@ -1861,9 +1897,10 @@ def cnn_profile_step(torch, ctx, pstate, plan):
     return out
 
 
-def cnn_run(torch, ctx, spec, label: str):
-    """One epoch of ``spec`` through repro_torch.api.run on ``ctx``: step
-    times, images/s, peak memory, test accuracy, TPE, monitor verdict."""
+def cnn_run(torch, ctx, spec, label: str, callbacks=(), tag="[cnn]"):
+    """One epoch of ``spec`` through repro_torch.api.run on ``ctx`` (with
+    ``callbacks`` beside the step clock): step times, images/s, peak
+    memory, test accuracy, TPE, monitor verdict; printed under ``tag``."""
     import math
     import statistics
     from repro_torch import api
@@ -1872,7 +1909,7 @@ def cnn_run(torch, ctx, spec, label: str):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with cnn_fan_in_init(torch):
-        result = api.run(spec, ctx=ctx, callbacks=[clock])
+        result = api.run(spec, ctx=ctx, callbacks=[clock, *callbacks])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses = [m["loss"] for m in result.step_metrics]
@@ -1891,7 +1928,7 @@ def cnn_run(torch, ctx, spec, label: str):
            "test_acc": result.test_acc[-1] if result.test_acc else None,
            "tpe_ms": extras.get("tpe_ms"), "monitor": monitor,
            "tf32": tf32_flags(torch)}
-    print(f"[cnn] {label}: {out['steps']} steps, first step "
+    print(f"{tag} {label}: {out['steps']} steps, first step "
           f"{ms[0]:.2f} ms, median after it {median:.3f} ms, "
           f"{out['images_per_s']:.0f} images/s; epoch (eval included) "
           f"{wall:.2f} s; peak memory "
@@ -1987,6 +2024,432 @@ def cnn_protocols_phase(torch, ctx):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Global sampling: LDS, MAP-EM and the vectorized planner engine on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig3_sampling_time.py's planner K-sweep (its ``_sweep_pop``):
+# UGS at B = 128 over ~16-24 samples a client, LDS at B = 256 over ~20-30
+PLAN_SWEEP_KS = (4096, 16384, 65536)
+PLAN_SWEEP = {"ugs": dict(per=16, b=128, seed_of=lambda k: k),
+              "lds": dict(per=20, b=256, seed_of=lambda k: k + 1,
+                          delta=1.0)}
+# the numpy backend beside it on the same host (large-K numpy LDS takes
+# minutes)
+PLAN_NUMPY_KS = {"ugs": (4096, 16384), "lds": (4096,)}
+# fig3's ``_SPARSE_SWEEP``, BENCH_plan.json's two largest cells:
+# K -> (lo, hi, B) of ``_edge_pop``
+PLAN_SPARSE = {262_144: (1, 4, 2048), 1_000_000: (1, 4, 8192)}
+# benchmarks/table4_tpe.py's populations, quick grid
+TABLE4_KS = (16, 128)
+TABLE4_PS = (0.1, 0.3)
+TABLE4_DELTAS = (0.0, 1.5)
+TABLE4_B = 128
+TABLE4_BASE_MS = 60.0
+# first-step proportionality: mean counts over PLAN_DIST_SEEDS plans of a
+# small population within PLAN_DIST_SE standard errors of B·D_k/D; a
+# planner fed proportions skewed by PLAN_DIST_SKEW must fail it
+PLAN_DIST_SEEDS = 64
+PLAN_DIST_SE = 4.0
+PLAN_DIST_SKEW = 0.1
+EM_PI_ATOL = 1e-3               # float32 EM on the card against float64
+CNN_LDS_CLIENTS = 4096
+
+
+def sweep_pop(k: int, per: int, seed: int = 0, m: int = 10):
+    """fig3's ``_sweep_pop``: D_k ~ per + U(0, per/2), mildly non-IID."""
+    import numpy as np
+    from repro_torch.core.types import ClientPopulation
+    rng = np.random.default_rng(seed)
+    sizes = np.full(k, per, np.int64) + rng.integers(0, max(per // 2, 1), k)
+    major = rng.integers(0, m, k)
+    counts = np.zeros((k, m), np.int64)
+    probs = np.full((m, m), 0.05) + np.eye(m) * 0.50
+    probs /= probs.sum(axis=1, keepdims=True)
+    for i in range(k):
+        counts[i] = rng.multinomial(sizes[i], probs[major[i]])
+    return ClientPopulation(sizes, counts, np.zeros(k))
+
+
+def edge_pop(k: int, lo: int, hi: int, seed: int = 0, m: int = 4):
+    """fig3's ``_edge_pop``: lo..hi-1 samples a client, one class each."""
+    import numpy as np
+    from repro_torch.core.types import ClientPopulation
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi, size=k).astype(np.int64)
+    counts = np.zeros((k, m), np.int64)
+    counts[np.arange(k), rng.integers(0, m, k)] = sizes
+    return ClientPopulation(sizes, counts, np.zeros(k))
+
+
+def table4_pop(k: int, seed: int):
+    """table4_tpe.py's ``_pop``: 100-499 samples a client, 10 classes."""
+    import numpy as np
+    from repro_torch.core.types import ClientPopulation
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(100, 500, size=k)
+    counts = np.stack([rng.multinomial(s, np.ones(10) / 10) for s in sizes])
+    return ClientPopulation(counts.sum(1), counts, np.zeros(k))
+
+
+def plan_cell(torch, label: str, make, pop, engine: bool, warmup: bool,
+              repeat: int = 2):
+    """Time ``make(counts)`` (best of ``repeat``, after an untimed warm-up
+    call where ``warmup``: the first cell of each planner warms its code
+    path for the larger cells after it; host clock, the card synchronized:
+    the plan is on the host when it returns), hold every plan to
+    ``validate_against`` and the engine's runs of one seed to one plan,
+    and print seconds, round trips, EM iterations, plan bytes and the
+    card's peak memory."""
+    import numpy as np
+    from repro_torch.core.planner import PlanCounts
+
+    def once():
+        counts = PlanCounts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plan = make(counts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        plan.validate_against(pop)
+        return secs, plan, counts, torch.cuda.max_memory_allocated()
+
+    if warmup:
+        once()
+    runs = [once() for _ in range(repeat)]
+    secs, plan, counts, peak = min(runs, key=lambda r: r[0])
+    if engine:
+        for other in runs:
+            if not all(np.array_equal(a, b) for a, b in zip(
+                    plan_arrays(plan), plan_arrays(other[1]))):
+                fail(f"{label}: two runs of one seed gave different plans")
+    row = {"seconds": secs, "all_seconds": [r[0] for r in runs],
+           "steps": plan.num_steps, "format": plan.format,
+           "em_iterations": plan.em_iterations,
+           "all_em_iterations": [r[1].em_iterations for r in runs],
+           "plan_bytes": plan.plan_nbytes}
+    if engine:
+        row.update(rounds=counts.rounds, refreshes=counts.refreshes,
+                   replans=counts.replans, em_trips=counts.em_trips,
+                   syncs=counts.syncs, peak_device_bytes=peak)
+        how = (f"rounds {counts.rounds}, refreshes {counts.refreshes}, "
+               f"replans {counts.replans}, EM trips {counts.em_trips}, "
+               f"syncs {counts.syncs}; peak device memory "
+               f"{peak / 2**20:.1f} MiB")
+    else:
+        how = "numpy on the host"
+    after = "after a warm-up" if warmup else "warmed by the first cell"
+    print(f"[plan] {label}: {secs:.4f} s (best of {repeat} {after}; "
+          f"{', '.join(f'{r[0]:.4f}' for r in runs)}), T "
+          f"{plan.num_steps} {plan.format}, em_iterations "
+          f"{plan.em_iterations} (runs: {row['all_em_iterations']}), plan "
+          f"{plan.plan_nbytes} bytes; {how}",
+          flush=True)
+    return row, plan
+
+
+def proportionality_check(torch, dev):
+    """The card's UGS: first-step mean counts over PLAN_DIST_SEEDS seeds
+    within PLAN_DIST_SE standard errors of B·D_k/D for every client; the
+    same plans drawn from proportions skewed by PLAN_DIST_SKEW (even
+    clients up, odd down) must fail it."""
+    import numpy as np
+    from repro_torch.core.planner import ugs_plan_torch
+    from repro_torch.core.types import ClientPopulation
+    b, k = 512, 8
+    sizes = 100 * np.arange(1, k + 1)
+    pop = ClientPopulation(sizes, sizes[:, None], np.zeros(k))
+    skew = np.where(np.arange(k) % 2 == 0, 1 + PLAN_DIST_SKEW,
+                    1 - PLAN_DIST_SKEW)
+    planted = ClientPopulation(np.round(sizes * skew).astype(np.int64),
+                               np.round(sizes * skew)[:, None].astype(
+                                   np.int64), np.zeros(k))
+    p = sizes / sizes.sum()
+    se = np.sqrt(b * p * (1 - p) / PLAN_DIST_SEEDS)
+
+    def worst(pop_):
+        plans = [ugs_plan_torch(pop_, b, seed=s, device=dev)
+                 for s in range(PLAN_DIST_SEEDS)]
+        for plan in plans:
+            plan.validate_against(pop_)
+        got = np.mean([plan.local_batch_sizes[0] for plan in plans], axis=0)
+        return float(np.max(np.abs(got - b * p) / se))
+
+    ok, bad = worst(pop), worst(planted)
+    print(f"[plan] UGS first-step proportionality over {PLAN_DIST_SEEDS} "
+          f"seeds (K {k}, B {b}): worst |mean - B D_k/D| {ok:.2f} "
+          f"standard errors (limit {PLAN_DIST_SE}); planted "
+          f"{PLAN_DIST_SKEW:.0%} skew: {bad:.2f}", flush=True)
+    if not ok <= PLAN_DIST_SE:
+        fail(f"the card's UGS first-step counts are {ok:.2f} standard "
+             f"errors from B D_k/D")
+    if not bad > PLAN_DIST_SE:
+        fail(f"the proportionality check missed a {PLAN_DIST_SKEW:.0%} "
+             f"skew ({bad:.2f} standard errors)")
+    return {"worst_se": ok, "planted_worst_se": bad}
+
+
+def straggler_check(dev):
+    """Δ = 2 drains two stragglers earlier than Δ = 0 on the card's LDS
+    (``tests/test_sampling.py``'s check)."""
+    import numpy as np
+    from repro_torch.core.planner import lds_plan_torch
+    from repro_torch.core.types import ClientPopulation
+    pop = ClientPopulation.homogeneous(8, 200, 10, seed=17)
+    pop.delays[:] = 0.0
+    pop.delays[:2] = 500.0
+
+    def depletion(delta):
+        plan = lds_plan_torch(pop, 64, delta=delta, seed=5, device=dev)
+        plan.validate_against(pop)
+        cum = plan.local_batch_sizes[:, :2].cumsum(0)
+        return float(np.mean([np.argmax(cum[:, j] >= pop.dataset_sizes[j])
+                              for j in range(2)]))
+
+    d0, d2 = depletion(0.0), depletion(2.0)
+    print(f"[plan] LDS stragglers deplete at step {d2} under delta 2, "
+          f"{d0} under delta 0", flush=True)
+    if not d2 < d0:
+        fail(f"stragglers did not deplete earlier under delta 2 ({d2} "
+             f"against {d0})")
+    return {"delta0_step": d0, "delta2_step": d2}
+
+
+def em_check(torch, dev, pop):
+    """``em_map_torch`` on the card against the numpy ``em_map`` on π."""
+    import numpy as np
+    from repro_torch.core.em import em_map, em_map_torch
+    from repro_torch.core.sampling import initialize_concentration
+    nu = pop.class_counts.sum(0).astype(np.float64)
+    alpha = initialize_concentration(pop, 1.0)
+    pi0 = np.full(pop.num_clients, 1 / pop.num_clients)
+    want = em_map(nu, pi0, pop.class_distributions, alpha)
+    pi, iters, conv = em_map_torch(nu, pi0, pop.class_distributions, alpha,
+                                   device=dev)
+    err = float(np.abs(pi.cpu().numpy() - want.pi).max())
+    print(f"[plan] em_map_torch on the card (K {pop.num_clients}): "
+          f"{iters} iterations (numpy {want.iterations}), converged "
+          f"{conv}, max |pi - numpy pi| {err:.3e} (limit {EM_PI_ATOL})",
+          flush=True)
+    if not err <= EM_PI_ATOL:
+        fail(f"em_map_torch is {err} from the numpy em_map")
+    return {"max_abs_err": err, "iterations": iters,
+            "numpy_iterations": want.iterations}
+
+
+def plan_arrays(plan):
+    if plan.format == "sparse":
+        return (plan.step_offsets, plan.client_ids, plan.draw_counts)
+    return (plan.local_batch_sizes,)
+
+
+def inactive_check(dev, pop):
+    """Clients that hold no data are inactive for the planners: with every
+    8th client of ``pop`` emptied, the card's UGS and LDS plans stay
+    valid epochs (so they never draw an empty client) and LDS gives the
+    empty clients π = 0."""
+    import numpy as np
+    from repro_torch.core.planner import lds_plan_torch, ugs_plan_torch
+    from repro_torch.core.types import ClientPopulation
+    empty = np.arange(pop.num_clients) % 8 == 0
+    counts = np.where(empty[:, None], 0, pop.class_counts)
+    holed = ClientPopulation(counts.sum(1), counts, pop.delays)
+    ugs_plan_torch(holed, 256, seed=2, device=dev).validate_against(holed)
+    lds = lds_plan_torch(holed, 256, delta=1.0, seed=2, device=dev)
+    lds.validate_against(holed)
+    pi0 = lds.pi_history[0]
+    print(f"[plan] {int(empty.sum())} of {pop.num_clients} clients hold no "
+          f"data: UGS and LDS plans valid, LDS pi on them "
+          f"{float(pi0[empty].max())}, pi sums to {pi0.sum():.6f}",
+          flush=True)
+    if pi0[empty].any():
+        fail("LDS gave clients without data a share of pi")
+    return {"empty_clients": int(empty.sum())}
+
+
+def same_plans(dense, sparse, what: str) -> None:
+    import numpy as np
+    for t in range(dense.num_steps):
+        ids, cnts = sparse.step_segments(t)
+        row = dense.local_batch_sizes[t]
+        if not (np.array_equal(ids, np.flatnonzero(row))
+                and np.array_equal(cnts, row[row > 0])):
+            fail(f"{what}: dense and sparse plans differ at step {t}")
+    if dense.em_iterations != sparse.em_iterations:
+        fail(f"{what}: em_iterations {dense.em_iterations} (dense) and "
+             f"{sparse.em_iterations} (sparse)")
+
+
+def plan_phase(torch, dev):
+    """``[plan]``: the vectorized planner on the card at full size (module
+    docstring, phase 11)."""
+    from repro_torch.core.planner import lds_plan_torch, ugs_plan_torch
+    from repro_torch.core.sampling import lds_plan, ugs_plan
+    from repro_torch.core.straggler import assign_delays, simulate_tpe
+    t_phase = time.perf_counter()
+    x = torch.tensor([0, 3, 0, 5], device=dev)
+    try:
+        torch.nonzero_static(x, size=4, fill_value=-1)
+        nz = "runs"
+    except (AttributeError, NotImplementedError, RuntimeError) as e:
+        nz = f"fails ({type(e).__name__})"
+    print(f"[plan] torch.nonzero_static on CUDA {nz}; sparse steps compact "
+          f"by cumsum + scatter", flush=True)
+    out = {"sweep": {}, "sparse": {}, "table4": {}}
+    for method, cfg in PLAN_SWEEP.items():
+        for k in PLAN_SWEEP_KS:
+            pop = sweep_pop(k, cfg["per"], seed=cfg["seed_of"](k))
+            b = cfg["b"]
+            extra = {"delta": cfg["delta"]} if method == "lds" else {}
+            engine = ugs_plan_torch if method == "ugs" else lds_plan_torch
+            label = f"{method} K={k} B={b}"
+            row, plan = plan_cell(
+                torch, f"{label} engine",
+                lambda c: engine(pop, b, seed=1, device=dev, counts=c,
+                                 **extra), pop, engine=True,
+                warmup=k == PLAN_SWEEP_KS[0])
+            cell = {"engine": row}
+            if k == PLAN_SWEEP_KS[0]:
+                sparse = engine(pop, b, seed=1, device=dev,
+                                plan_format="sparse", **extra)
+                sparse.validate_against(pop)
+                same_plans(plan, sparse, f"{label} on the card")
+                print(f"[plan] {label}: dense and sparse plans of seed 1 "
+                      f"bit-identical on the card", flush=True)
+                if method == "lds":
+                    out["em"] = em_check(torch, dev, pop)
+                    out["inactive"] = inactive_check(dev, pop)
+            del plan
+            if k in PLAN_NUMPY_KS[method]:
+                host = ugs_plan if method == "ugs" else lds_plan
+                cell["numpy"], _ = plan_cell(
+                    torch, f"{label} numpy",
+                    lambda c: host(pop, b, seed=1, **extra), pop,
+                    engine=False, warmup=k == PLAN_NUMPY_KS[method][0])
+                print(f"[plan] {label}: engine seconds / numpy seconds "
+                      f"{row['seconds'] / cell['numpy']['seconds']:.3f}",
+                      flush=True)
+            out["sweep"][label] = cell
+            gc.collect()
+            torch.cuda.empty_cache()
+    for i, (k, (lo, hi, b)) in enumerate(PLAN_SPARSE.items()):
+        pop = edge_pop(k, lo, hi, seed=k % 7919)
+        row, _ = plan_cell(
+            torch, f"ugs K={k} B={b} engine",
+            lambda c: ugs_plan_torch(pop, b, seed=1, device=dev,
+                                     plan_format="sparse", counts=c),
+            pop, engine=True, warmup=i == 0)
+        row["dense_plan_bytes"] = row["steps"] * k * 8
+        out["sparse"][f"ugs K={k} B={b}"] = row
+    for k in TABLE4_KS:
+        pop = table4_pop(k, seed=k)
+        for ps in TABLE4_PS:
+            pop.delays[:] = assign_delays(k, ps, 100, 500,
+                                          seed=k * 7 + int(ps * 10))
+            for name, planner in (("numpy", lds_plan),
+                                  ("engine", lds_plan_torch)):
+                kw = {"device": dev} if name == "engine" else {}
+                tpe = {}
+                for delta in TABLE4_DELTAS:
+                    plan = planner(pop, TABLE4_B, delta=delta, seed=0, **kw)
+                    plan.validate_against(pop)
+                    tpe[delta] = simulate_tpe(plan.local_batch_sizes,
+                                              pop.delays,
+                                              TABLE4_BASE_MS).total_ms
+                red = 100 * (1 - tpe[TABLE4_DELTAS[-1]] / tpe[0.0])
+                print(f"[plan] table4 K={k} ps={ps} {name}: TPE "
+                      f"{', '.join(f'delta {d} {v / 1e3:.2f} s' for d, v in tpe.items())}; "
+                      f"reduction {red:.1f}%", flush=True)
+                out["table4"][f"K={k},ps={ps},{name}"] = {
+                    "tpe_ms": {str(d): v for d, v in tpe.items()},
+                    "reduction_pct": red}
+    out["proportionality"] = proportionality_check(torch, dev)
+    out["stragglers"] = straggler_check(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[plan] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def plan_clock():
+    """A callback reading each epoch's planning: host seconds from
+    ``epoch_begin`` to the ``plan`` event (the engine's plan is on the
+    host by then), the plan's steps, format and EM iterations; the plan
+    is held to ``validate_against``."""
+    from repro_torch.api.events import Callback
+
+    class PlanClock(Callback):
+        def __init__(self):
+            self.rows = []
+            self._t = 0.0
+
+        def on_event(self, event, ctx, record):
+            if event.name == "epoch_begin":
+                self._t = time.perf_counter()
+            elif event.name == "plan" and event.plan is not None:
+                p = event.plan
+                p.validate_against(ctx.data.pop)
+                self.rows.append({"seconds": time.perf_counter() - self._t,
+                                  "steps": p.num_steps, "format": p.format,
+                                  "method": p.method,
+                                  "em_iterations": p.em_iterations})
+    return PlanClock()
+
+
+def cnn_lds_phase(torch, dev):
+    """``[cnn-lds]``: one epoch of PSL-LDS (Δ 1.5) at CIFAR-10 size over
+    ``CNN_LDS_CLIENTS`` clients, planned by ``backend="auto"`` — the
+    vectorized engine on the card (module docstring, phase 12)."""
+    from repro_torch import api
+    from repro_torch.core.planner import resolve_backend
+    base = cnn_spec()
+    spec = base.replace(
+        data=base.data.replace(num_clients=CNN_LDS_CLIENTS),
+        sampler=api.SamplerSpec(method="lds", backend="auto",
+                                plan_format="auto", kwargs={"delta": 1.5}))
+    t0 = time.perf_counter()
+    ctx = api.build_context(spec, device=dev)
+    pop = ctx.data.pop
+    empty = int((pop.dataset_sizes == 0).sum())
+    backend = resolve_backend(spec.sampler.backend, pop.num_clients)
+    print(f"[cnn-lds] built in {time.perf_counter() - t0:.2f}s: "
+          f"{pop.num_clients} clients, D0 {pop.total_size}, sizes "
+          f"{int(pop.dataset_sizes.min())}..{int(pop.dataset_sizes.max())}, "
+          f"{empty} with no image, {int((pop.delays > 0).sum())} "
+          f"stragglers; backend {spec.sampler.backend!r} -> {backend!r}",
+          flush=True)
+    if backend != "jax":
+        fail(f"backend 'auto' at K = {pop.num_clients} resolved to "
+             f"{backend!r}, not the vectorized engine")
+    clock = plan_clock()
+    row, result = cnn_run(torch, ctx, spec, "PSL-LDS", callbacks=[clock],
+                          tag="[cnn-lds]")
+    row["plan"] = clock.rows[0]
+    row["em_iterations"] = result.history.extras.get("em_iterations")
+    row["clients"] = pop.num_clients
+    row["clients_without_data"] = empty
+    print(f"[cnn-lds] plan {row['plan']['seconds']:.3f} s ("
+          f"{row['plan']['method']}, {row['plan']['steps']} steps, "
+          f"{row['plan']['format']}), em_iterations "
+          f"{row['em_iterations']}", flush=True)
+    if not row["finite"]:
+        fail("the PSL-LDS epoch's loss is not finite")
+    if not row["em_iterations"]:
+        fail("the PSL-LDS epoch ran no EM iteration")
+    if not row["test_acc"] >= CNN_MIN_TEST_ACC:
+        fail(f"PSL-LDS test accuracy {row['test_acc']} < "
+             f"{CNN_MIN_TEST_ACC}")
+    # LDS with delta > 0 front-loads stragglers on purpose, so a batch's
+    # class mix may leave the Serfling radius of uniform sampling (the
+    # verdict is printed, not gated); the plan must still be a GPSL
+    # epoch: fixed batch size, no over-draw, every dataset consumed
+    mon = row["monitor"]
+    if (mon.get("batch_size_violations") or mon.get("overdraw_violations")
+            or mon.get("residual_mass") or not mon.get("complete")):
+        fail(f"the GPSL monitor flagged the PSL-LDS plan: {mon}")
+    return row
+
+
 def _leaf_names(tree, prefix=""):
     """Dotted key paths in ``tree_leaves`` order (sorted keys, list items
     in order)."""
@@ -2058,6 +2521,17 @@ def main() -> int:
     del cnn_ctx
     print(f"[cnn] summary {json.dumps({'agree': cnn_agree, **cnn})}",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    plans = plan_phase(torch, dev)
+    plans["cnn_lds"] = cnn_lds_phase(torch, dev)
+    plan_launches = ops.launch_counts()
+    print(f"[plan] kernel launches over [plan] and [cnn-lds]: "
+          f"{plan_launches}", flush=True)
+    if any(plan_launches.values()):
+        fail(f"the planner path launched a kernel wrapper: {plan_launches}")
+    print(f"[plan] summary {json.dumps(plans)}", flush=True)
     print(f"command time {time.perf_counter() - t_start:.1f} s (kernel "
           f"build included)", flush=True)
 
@@ -2071,7 +2545,8 @@ def main() -> int:
                       "serve_speculative": launches["speculative"][name],
                       "serve_ssm": launches["ssm"][name],
                       "train": train["launches"][name],
-                      "train_cnn": cnn_launches[name]}
+                      "train_cnn": cnn_launches[name],
+                      "plan_and_cnn_lds": plan_launches[name]}
                for name in ops.WRAPPERS}
     kernels = [
         {"name": "flash_attention", "route": "cuda",

@@ -11,5 +11,7 @@ Slice 1 ports split-inference serving of the dense LM family (the
 slice 3 the ``speculative`` engine and serving of the Mamba-1 (ssm)
 family. Attention, the speculative window's attention, the selective
 scan and the LM-head cross-entropy run on hand-written CUDA kernels
-(``repro_torch/csrc``).
+(``repro_torch/csrc``). Slice 8 ports the paper's CNN workload and its
+baselines, slice 9 Latent Dirichlet Sampling and the vectorized epoch
+planner (``core/planner.py``, torch tensor code on the card).
 """

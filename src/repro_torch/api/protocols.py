@@ -275,7 +275,8 @@ def lm_plan_batches(data: List[np.ndarray], pop, plan, seq_len: int,
 @register_protocol("psl")
 class PSLStrategy(ProtocolStrategy):
     """Parallel split learning with global batch composition from an
-    epoch plan (UGS / FPLS / FLS via repro_torch.core.sampling)."""
+    epoch plan (UGS / LDS / FPLS / FLS via repro_torch.core.sampling; the
+    vectorized planner engine plans on the run's device)."""
 
     def _sharded(self, ctx) -> bool:
         return (ctx.execution.engine == "sharded"
@@ -306,7 +307,8 @@ class PSLStrategy(ProtocolStrategy):
             ctx.sampler.method, ctx.data.pop,
             ctx.protocol.global_batch_size, seed=ctx.seed + epoch,
             backend=ctx.sampler.backend,
-            plan_format=ctx.sampler.plan_format, **ctx.sampler.kwargs)
+            plan_format=ctx.sampler.plan_format, device=ctx.device,
+            **ctx.sampler.kwargs)
 
     def epoch_batches(self, ctx, pstate, plan, epoch) -> Iterator[StepItem]:
         engine = pstate["engine"]

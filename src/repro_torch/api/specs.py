@@ -222,9 +222,12 @@ class DataSpec(SpecBase):
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec(SpecBase):
     """Global sampling policy (repro_torch.core.sampling.make_plan
-    arguments). ``plan_format``: "dense", "sparse" or "auto" (default);
-    draws are format-independent. The port plans with the numpy backend
-    only (``backend="jax"`` raises)."""
+    arguments). ``backend``: "numpy" (the host reference), "jax" (the
+    vectorized engine, which in the port runs in torch on the run's
+    device; the name is ``repro``'s) or "auto" (that engine from 4096
+    clients on). ``plan_format``: "dense", "sparse" or "auto" (default);
+    draws are format-independent. ``kwargs`` go to the sampler (LDS:
+    ``delta``, ``tau``, ``reinit``, ...)."""
     method: str = "ugs"
     backend: str = "numpy"
     plan_format: str = "auto"

@@ -1,13 +1,13 @@
-"""Straggler model: delay assignment and the TPE simulator (numpy copy of
-the parts of :mod:`repro.core.straggler` that PSL training runs).
+"""Straggler model: delay assignment, concentration adjustment and the TPE
+simulator (numpy copy of :mod:`repro.core.straggler`).
 
 The paper (Sec. V-B) injects stragglers by selecting each client as a straggler
 with probability p_s and assigning it a delay uniform in [w_min, w_max] ms; a
 client waits for its delay before sending to the server. An optimization step
 completes when the slowest *contributing* client has sent, so the per-batch
 processing time is  base + max_{k: B_k^t > 0} omega_k,  and TPE is the sum
-over the epoch's steps. LDS's concentration adjustment (``delay_zscores``,
-``adjust_concentration``) comes with LDS (ROADMAP A.8).
+over the epoch's steps. LDS shifts stragglers' concentration parameters up so
+their datasets deplete early and they drop out of later global batches.
 """
 from __future__ import annotations
 
@@ -25,6 +25,44 @@ def assign_delays(num_clients: int, p_straggler: float, w_min: float,
                       rng.uniform(w_min, w_max, size=num_clients), 0.0)
     return delays.astype(np.float64)
 
+
+def straggler_arrivals(num_requests: int, p_straggler: float = 0.2,
+                       w_min: float = 50.0, w_max: float = 500.0,
+                       seed: int = 0, time_scale: float = 1e-3) -> np.ndarray:
+    """Arrival times (s) for a serving request trace with straggling clients.
+
+    Each client straggles with probability ``p_straggler`` and its prompt
+    arrives ``U[w_min, w_max]`` ms late (the Sec. V-B delays of
+    :func:`assign_delays`); ``time_scale`` converts ms of model time into
+    scheduler seconds.
+    """
+    delays_ms = assign_delays(num_requests, p_straggler, w_min, w_max,
+                              seed=seed)
+    return delays_ms * time_scale
+
+
+def delay_zscores(delays: np.ndarray) -> np.ndarray:
+    """Standardized delays; zero vector when all delays are equal."""
+    delays = np.asarray(delays, dtype=np.float64)
+    k = delays.shape[0]
+    mean = delays.mean()
+    if k < 2:
+        return np.zeros_like(delays)
+    std = delays.std(ddof=1)
+    if std <= 0.0:
+        return np.zeros_like(delays)
+    return (delays - mean) / std
+
+
+def adjust_concentration(alpha: np.ndarray, delays: np.ndarray,
+                         delta: float) -> np.ndarray:
+    """Second-stage alpha initialization (Sec. IV-D).
+
+    alpha_k <- alpha_k * exp(Delta * zscore(omega_k)). Higher Delta pushes
+    stragglers' selection probability up so they deplete (and drop out) early.
+    """
+    z = delay_zscores(delays)
+    return np.asarray(alpha, dtype=np.float64) * np.exp(delta * z)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,9 @@ Usage:
   echo '{"kind": "experiment"}' > cnn.json    # repro's default: PSL-UGS CNN
   PYTHONPATH=src python -m repro_torch.launch.train --config cnn.json \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --config cnn.json \\
+      --device cpu --method lds --set sampler.kwargs.delta=1.5 \\
+      --planner-backend jax          # LDS on the vectorized engine
 """
 from __future__ import annotations
 
@@ -109,8 +112,9 @@ def main(argv=None):
                     choices=["ugs", "lds", "fpls", "fls"])
     ap.add_argument("--planner-backend", default=None,
                     choices=["numpy", "jax", "auto"],
-                    help="epoch-plan engine; the port plans with numpy "
-                         "('jax' raises)")
+                    help="epoch-plan engine: numpy (host reference), jax "
+                         "(the vectorized engine, torch on --device) or "
+                         "auto (that engine from 4096 clients on)")
     ap.add_argument("--plan-format", default=None, dest="plan_format",
                     choices=["dense", "sparse", "auto"])
     ap.add_argument("--aggregation", default=None)

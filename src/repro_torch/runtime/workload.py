@@ -1,6 +1,7 @@
 """Arrival-trace generators for serving workloads (numpy copy of
 :mod:`repro.runtime.workload`; the straggler delay model is
-:func:`repro_torch.core.straggler.assign_delays`, shared with training).
+:func:`repro_torch.core.straggler.assign_delays`, shared with training,
+and its arrival trace :func:`repro_torch.core.straggler.straggler_arrivals`).
 
 The straggler delay model answers "how late do clients run"; the arrival
 processes answer "when do *serving* requests show up". Four classic arrival processes, all seeded, O(n), and returned
@@ -26,26 +27,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.straggler import assign_delays
+from repro_torch.core.straggler import assign_delays, straggler_arrivals
 
 __all__ = ["assign_delays", "straggler_arrivals", "generate_arrivals",
            "poisson_arrivals", "bursty_arrivals", "diurnal_arrivals",
            "heavy_tail_arrivals"]
-
-
-def straggler_arrivals(num_requests: int, p_straggler: float = 0.2,
-                       w_min: float = 50.0, w_max: float = 500.0,
-                       seed: int = 0, time_scale: float = 1e-3) -> np.ndarray:
-    """Arrival times (s) for a serving request trace with straggling clients.
-
-    Each client straggles with probability ``p_straggler`` and its prompt
-    arrives ``U[w_min, w_max]`` ms late (the Sec. V-B delays of
-    :func:`assign_delays`); ``time_scale`` converts ms of model time into
-    scheduler seconds.
-    """
-    delays_ms = assign_delays(num_requests, p_straggler, w_min, w_max,
-                              seed=seed)
-    return delays_ms * time_scale
 
 
 def poisson_arrivals(n: int, rate_per_s: float,

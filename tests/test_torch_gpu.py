@@ -868,3 +868,81 @@ def test_cnn_spec_runs_on_the_card_by_default(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         api.run(spec)
+
+
+# ---------------------------------------------------------------------------
+# The vectorized planner engine on the card
+# ---------------------------------------------------------------------------
+
+def _planner_pop(k=6, seed=13):
+    from repro_torch.core.types import ClientPopulation
+    pop = ClientPopulation.homogeneous(k, 60, 10, seed=seed)
+    pop.delays[:2] = 400.0
+    return pop
+
+
+def _agree(a, b, n):
+    """Per-client means and standard deviations of two samples of ``n``
+    first-step count rows agree within 4 standard errors of their
+    difference (a sample std's error taken as σ/√(2n))."""
+    import numpy as np
+    var = a.var(0) + b.var(0)
+    assert np.all(np.abs(a.mean(0) - b.mean(0)) <= 4 * np.sqrt(var / n)), \
+        (a.mean(0), b.mean(0))
+    assert np.all(np.abs(a.std(0) - b.std(0))
+                  <= 4 * np.sqrt(var / (2 * n))), (a.std(0), b.std(0))
+
+
+@pytest.mark.parametrize("method,n", [("ugs", 2000), ("lds", 400)])
+def test_planner_on_the_card_matches_its_cpu_run_in_distribution(dev,
+                                                                 method, n):
+    """First-step counts over ``n`` seeds: the card's engine against the
+    same engine on the CPU (other generators, one distribution), held by
+    ``_agree``; UGS's means also within 4 standard errors of B·D_k/D."""
+    import numpy as np
+    from repro_torch.core import planner
+    pop = _planner_pop()
+    b = 96
+    fn = planner.ugs_plan_torch if method == "ugs" \
+        else planner.lds_plan_torch
+    kw = {} if method == "ugs" else {"delta": 1.0}
+    rows = {}
+    for where in ("cuda", "cpu"):
+        plans = [fn(pop, b, seed=s, device=where, **kw) for s in range(n)]
+        for p in plans[:3]:
+            p.validate_against(pop)
+        rows[where] = np.stack([p.local_batch_sizes[0]
+                                for p in plans]).astype(np.float64)
+    _agree(rows["cuda"], rows["cpu"], n)
+    if method == "ugs":
+        want = b * pop.dataset_sizes / pop.total_size
+        for got in rows.values():
+            assert np.all(np.abs(got.mean(0) - want)
+                          <= 4 * np.sqrt(got.var(0) / n)), got.mean(0)
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("ugs", {}), ("lds", {"delta": 1.5}),
+    ("lds", {"delta": 1.5, "reinit": True, "em_client_chunk": 32})])
+def test_planner_dense_and_sparse_are_bit_identical_on_the_card(dev, method,
+                                                                kw):
+    import numpy as np
+    from repro_torch.core import planner
+    from repro_torch.core.types import ClientPopulation
+    rng = np.random.default_rng(3)
+    k = 120
+    counts = np.zeros((k, 5), np.int64)
+    counts[np.arange(k), rng.integers(0, 5, k)] = rng.integers(0, 9, k)
+    pop = ClientPopulation(counts.sum(1), counts, rng.uniform(0, 300, k))
+    fn = planner.ugs_plan_torch if method == "ugs" \
+        else planner.lds_plan_torch
+    dense = fn(pop, 48, seed=4, device=dev, plan_format="dense", **kw)
+    sparse = fn(pop, 48, seed=4, device=dev, plan_format="sparse", **kw)
+    dense.validate_against(pop)
+    sparse.validate_against(pop)
+    for t in range(dense.num_steps):
+        ids, cnts = sparse.step_segments(t)
+        row = dense.local_batch_sizes[t]
+        np.testing.assert_array_equal(ids, np.flatnonzero(row))
+        np.testing.assert_array_equal(cnts, row[row > 0])
+    assert dense.em_iterations == sparse.em_iterations

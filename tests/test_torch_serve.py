@@ -181,9 +181,10 @@ def test_unported_spec_values_fail_clearly(tmp_path):
     train.write_text(json.dumps({"kind": "experiment"}))
     default = tapi.load_any_spec(str(train))
     default.validate()          # the default arch, the paper's CNN, is ported
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tapi.run(default.replace(sampler=tapi.SamplerSpec(method="lds")),
-                 device="cpu")
+    lds = tapi.run(default.replace(
+        sampler=tapi.SamplerSpec(method="lds", kwargs={"delta": 1.5}),
+        protocol=default.protocol.replace(epochs=1)), device="cpu")
+    assert lds.step_metrics and lds.history.extras["em_iterations"] > 0
 
 
 def test_restore_params_runs_on_the_card_unless_asked(tmp_path, jax_params,

@@ -46,6 +46,7 @@ from repro_torch.api import protocols as tprotocols
 from repro_torch.api.protocols import lm_plan_batches as t_lm_plan_batches
 from repro_torch.checkpoint import from_numpy_tree, train_state_from_numpy
 from repro_torch.configs import get_config as tget
+from repro_torch.core import planner as tplanner
 from repro_torch.core import psl as tpsl
 from repro_torch.core import sampling as tsampling
 from repro_torch.core.types import ClientPopulation as TPop
@@ -112,15 +113,24 @@ def test_sequential_ugs_and_unported_planners():
         .local_batch_sizes,
         tsampling.ugs_plan(tpop, 8, seed=2, sequential=True)
         .local_batch_sizes)
-    assert tsampling.resolve_backend("auto", 100) == "numpy"
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tsampling.make_plan("lds", tpop, 8)
-    with pytest.raises(NotImplementedError, match="planner"):
-        tsampling.make_plan("ugs", tpop, 8, backend="jax")
+    assert tplanner.resolve_backend("auto", 100) == "numpy"
+    # once unported (they raised), now planned: LDS bit-identical to
+    # repro's numpy backend, the vectorized engine valid on the CPU
+    jlds = jsampling.make_plan("lds", jpop, 8, seed=2)
+    tlds = tsampling.make_plan("lds", tpop, 8, seed=2)
+    np.testing.assert_array_equal(tlds.local_batch_sizes,
+                                  jlds.local_batch_sizes)
+    assert (tlds.method, tlds.em_iterations) == \
+        (jlds.method, jlds.em_iterations)
+    engine = tsampling.make_plan("ugs", tpop, 8, backend="jax",
+                                 device="cpu")
+    engine.validate_against(tpop)
+    assert engine.local_batch_sizes.dtype == np.int32
     big = TPop(np.ones(4096, np.int64), np.ones((4096, 1), np.int64),
                np.zeros(4096))
-    with pytest.raises(NotImplementedError, match="planner"):
-        tsampling.make_plan("ugs", big, 8, backend="auto")
+    auto = tsampling.make_plan("ugs", big, 8, backend="auto", device="cpu")
+    auto.validate_against(big)
+    assert auto.local_batch_sizes.dtype == np.int32     # the engine's plan
 
 
 def test_lm_client_store_is_bit_identical():
