@@ -79,6 +79,34 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    <= ``GRAD_REL_L2``); the attention backward fed lse +
    ``PLANTED_ATTN_LSE_SHIFT`` must fail that limit; then the loss on one
    fixed batch must fall at each of 5 AdamW steps.
+7b. MoE serve (``[moe]``). Full-width granite-moe-3b-a800m (32 layers,
+   d_model 1536, 24 q / 8 kv heads, 40 experts top-8, bf16, random
+   weights from seed 0) served with the same requests through ``paged``
+   and ``continuous`` at capacity factor ``MOE_SERVE_FACTOR`` (nothing
+   dropped): B1 32 times a prefill call, B2 32 times a paged decode step,
+   nothing else; TTFT, tok/s, phase means, peak memory; one paged decode
+   step profiled by group (``MOE_DECODE_GROUPS``); agreement with
+   ``reference_generate``, where a divergence must be a top-2 near-tie
+   (``NEAR_TIE_GAP``), each printed with its rule;
+   then one batched decode step at the config's factor 1.25, its dropped
+   assignments printed (not gated: ``repro``'s documented coupling).
+7c. MoE training (``[moe-train]``). Full-width granite-moe cut to
+   ``MOE_TRAIN_LAYERS`` layers (cut 2), PSL-UGS through ``api.run`` at
+   factor 1.25 for ``MOE_TRAIN_STEPS`` steps: finite losses, aux_loss >
+   0, 8 B1 + 8 B1-bwd + 1 B5 + 1 B5-bwd a step; peak memory; one step
+   profiled by group (``MOE_TRAIN_GROUPS``: expert matmuls, router and
+   dispatch, AdamW apart); the loss on one fixed batch must fall at each
+   of 3 AdamW steps (fan-in d_in init).
+7d. VLM (``[vlm]``). Full-width internvl2-2b (24 layers, d_model 2048,
+   16 q / 8 kv heads, head_dim 128, V 92,553) served through ``paged``
+   (B1 and B2 at head_dim 128) and held to ``reference_generate``; then
+   one loss and backward with 256 patches before 128 tokens at
+   ``VLM_GRAD_SHAPE`` through the kernels against the plain path
+   (``plain_kernels``): loss within ``VLM_LOSS_RTOL``, per-leaf relative
+   L2 within ``GRAD_REL_L2``. Each of 7b–7d frees its model before the
+   next. Then B1, B2, B1-bwd, B5 and B5-bwd are held to their plain
+   versions and timed at the shapes 7b–7d launch them
+   (``family_kernel_phase``; the kernels line's ``family_cases``).
 8. CNN agreement (``[cnn-agree]``). The paper's full-width GroupNorm
    ResNet (paper-cnn CONFIG, fp32, 32x32; no kernel of this repo, cuDNN
    convolutions) with TF32 off: step-0 per-leaf gradients and the losses
@@ -210,6 +238,22 @@ FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 SERVE = dict(num_requests=8, prompt_lens=[32, 100], max_new_tokens=[16],
              token_budget=8, page_size=16)
 
+# The MoE and VLM phases (full-width granite-moe-3b-a800m and internvl2-2b)
+MOE_ARCH = "granite-moe-3b-a800m"
+VLM_ARCH = "internvl2-2b"
+# [moe] serves at capacity factor 8.0: any factor of at least E/k = 5
+# leaves every expert room for every token of a step, so nothing is
+# dropped and batching does not couple slots (tests/test_decode.py uses
+# 8.0 too). One batched decode step then runs at the config's own 1.25.
+MOE_SERVE_FACTOR = 8.0
+MOE_TRAIN_LAYERS = 8             # [moe-train]: depth cut from 32, cut 2
+MOE_TRAIN_STEPS = 3
+# [vlm]'s patched loss and gradient: 4 layers (cut 2) at full width, 256
+# random patches (scale 0.02) before 128 tokens, batch 4; the loss must
+# agree with the plain path's to VLM_LOSS_RTOL, gradients at GRAD_REL_L2
+VLM_GRAD_SHAPE = dict(layers=4, batch=4, seq=128, patch_scale=0.02)
+VLM_LOSS_RTOL = 1e-2
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -308,11 +352,6 @@ def within(torch, got, want) -> float:
 
 def kernel_phase(torch, dev):
     """Hold each kernel against its plain version; time all three."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.paged_attention import paged_attention_plain
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -320,47 +359,64 @@ def kernel_phase(torch, dev):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    b1_cases = []
-    hq, hkv, d = 32, 8, 64
-    serve_attention = torch.no_grad()(ops.attention)   # as serving calls it
-    for b in (1, 16):
-        for s in (100, 512):
-            q, k, v = rn(b, s, hq, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
-                v.transpose(1, 2)
-            got = ops.attention(q, k, v, causal=True)
-            want = flash_attention_plain(qt, kt, vt,
-                                         causal=True).transpose(1, 2)
-            torch.cuda.synchronize()
-            err = within(torch, got, want)
-            elt = 2
-            nbytes = elt * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-            flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
-            bnd, by = bound_ms(nbytes, flops)
-            case = {
-                "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal",
-                "max_abs_err": err,
-                "ms": time_ms(torch, lambda: serve_attention(q, k, v)),
-                "plain_ms": time_ms(torch, lambda: flash_attention_plain(
-                    qt, kt, vt, causal=True)),
-                "bound_ms": bnd, "bound_by": by,
-                "library_ms": time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)),
-            }
-            case["device_ms"] = device_ms(
-                torch, lambda: serve_attention(q, k, v), "flash_fwd_tc")
-            add_rates(case, flops)
-            print(f"kernel flash_attention {case['shape']}: err "
-                  f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
-                  f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), "
-                  f"plain {case['plain_ms']:.4f} ms, bound {bnd:.5f} ms "
-                  f"({by}), sdpa {case['library_ms']:.4f} ms; "
-                  f"{case['tflops']:.1f} TFLOP/s, "
-                  f"{case['bound_share']:.3f} of the bound", flush=True)
-            b1_cases.append(case)
+    b1_cases = [serve_attention_case(torch, rn, b, s, 32, 8, 64)
+                for b in (1, 16) for s in (100, 512)]
+    b2 = paged_kernel_case(torch, paged_case(torch, dev, gen))
+    b3 = verify_kernel_phase(torch, dev, gen)
+    # last: B2 and B3 draw their inputs from gen without depending on it
+    b1_cases.append(attention_train_case(torch, dev, gen, rn))
+    return b1_cases, b2, b3
 
-    q, kp, vp, table, pos = paged_case(torch, dev, gen)
+
+def serve_attention_case(torch, rn, b, s, hq, hkv, d):
+    """B1 forward as serving calls it (no grad, no lse) at one prefill
+    shape, bf16: held to the plain version, timed (events and device)
+    beside it, its bound and the SDPA forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    serve_attention = torch.no_grad()(ops.attention)
+    q, k, v = rn(b, s, hq, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = serve_attention(q, k, v, causal=True)
+    want = flash_attention_plain(qt, kt, vt, causal=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    err = within(torch, got, want)
+    elt = 2
+    nbytes = elt * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
+    bnd, by = bound_ms(nbytes, flops)
+    case = {
+        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal",
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: serve_attention(q, k, v)),
+        "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+            qt, kt, vt, causal=True)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+    }
+    case["device_ms"] = device_ms(
+        torch, lambda: serve_attention(q, k, v), "flash_fwd_tc")
+    add_rates(case, flops)
+    print(f"kernel flash_attention {case['shape']}: err "
+          f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
+          f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), "
+          f"plain {case['plain_ms']:.4f} ms, bound {bnd:.5f} ms "
+          f"({by}), sdpa {case['library_ms']:.4f} ms; "
+          f"{case['tflops']:.1f} TFLOP/s, "
+          f"{case['bound_share']:.3f} of the bound", flush=True)
+    return case
+
+
+def paged_kernel_case(torch, inputs):
+    """B2 on ``inputs`` (q, pages, table, pos), bf16: held to the plain
+    version, timed (events, device, host a wrapper call) beside it and
+    its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    q, kp, vp, table, pos = inputs
     b, hq, d = q.shape
     psize, hc = kp.shape[1], kp.shape[2]
     m = table.shape[1]
@@ -393,17 +449,15 @@ def kernel_phase(torch, dev):
           f"{b2['device_ms']:.4f}; wrapper {b2['host_us']:.1f} us of host "
           f"a call), plain {b2['plain_ms']:.4f} ms, bound {bnd:.5f} ms "
           f"({by})", flush=True)
-    b3 = verify_kernel_phase(torch, dev, gen)
-    # last: B2 and B3 draw their inputs from gen without depending on it
-    b1_cases.append(attention_train_case(torch, dev, gen, rn))
-    return b1_cases, b2, b3
+    return b2
 
 
-def paged_case(torch, dev, gen):
+def paged_case(torch, dev, gen, hq=32, hc=16, d=64):
     """B2's inputs at the paged run's geometry, bf16: 8 rows, 8 logical
     pages of 16, a 64-page pool plus the scratch page; permuted tables,
-    one row mid-page and one at position 0."""
-    b, hq, hc, d, psize, m = 8, 32, 16, 64, 16, 8
+    one row mid-page and one at position 0. Heads and head_dim default
+    to full-width granite's (kv_repeat 2)."""
+    b, psize, m = 8, 16, 8
     num_pages = b * m + 1
 
     def rn(*shape):
@@ -420,15 +474,16 @@ def paged_case(torch, dev, gen):
     return q, kp, vp, table, pos
 
 
-def attention_train_case(torch, dev, gen, rn):
-    """B1 at the training shape (B = 16, S = 128, Hq = 32, Hkv = 8,
-    D = 64, causal) with the lse the backward reads, against the plain
-    version's output and lse, timed beside it and the SDPA forward."""
+def attention_train_case(torch, dev, gen, rn, b=ATTN_SHAPE["b"],
+                         s=ATTN_SHAPE["seqs"][0], hq=ATTN_SHAPE["hq"],
+                         hkv=ATTN_SHAPE["hkv"], d=ATTN_SHAPE["d"]):
+    """B1 at a training shape (by default granite's: B = 16, S = 128,
+    Hq = 32, Hkv = 8, D = 64, causal) with the lse the backward reads,
+    against the plain version's output and lse, timed beside it and the
+    SDPA forward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    b, hq, hkv, d = (ATTN_SHAPE[k] for k in ("b", "hq", "hkv", "d"))
-    s = ATTN_SHAPE["seqs"][0]
     qt, kt, vt = (rn(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv))
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
     got = flash_attention(qt, kt, vt, causal=True, lse=lse)   # uncounted
@@ -735,14 +790,15 @@ def scan_kernel_phase(torch, dev, shapes):
 
 
 def serve_spec(engine: str, events_dir: pathlib.Path,
-               arch: str = "granite-3-2b"):
+               arch: str = "granite-3-2b", overrides=None):
     from repro_torch.api import (AdmissionSpec, CacheSpec, DraftSpec,
                                  EngineSpec, ModelSpec, ObsSpec, ServeSpec,
                                  WorkloadSpec)
     draft = (DraftSpec(num_layers=SPEC_DRAFT_LAYERS, gamma=SPEC_GAMMA)
              if engine == "speculative" else DraftSpec())
     return ServeSpec(
-        model=ModelSpec(arch=arch, reduced=False),
+        model=ModelSpec(arch=arch, reduced=False,
+                        overrides=dict(overrides or {})),
         engine=EngineSpec(name=engine, seed=0),
         admission=AdmissionSpec(token_budget=SERVE["token_budget"]),
         workload=WorkloadSpec(num_requests=SERVE["num_requests"],
@@ -891,8 +947,8 @@ def forced_gaps(torch, ctx, prompt, tokens):
 def agreement_phase(torch, reports, ctx, requests, limit=None):
     """Every report's requests against ``reference_generate``: equal, or a
     first divergence where the reference's top-2 gap is below the limit
-    (``NEAR_TIE_GAP``, or ``limit(top_logit)``). Prints the largest
-    |top logit| seen."""
+    (``NEAR_TIE_GAP``, or ``limit(top_logit)``). Prints the largest |top
+    logit| seen and each divergence with the rule it passed under."""
     from repro_torch.runtime import reference_generate
     vocab = ctx.engine.cfg.vocab_size
     exact = near = 0
@@ -1089,16 +1145,16 @@ def xent_argmax_ties(torch, correct, pcorrect, h, w, labels) -> int:
     return int(idx.numel())
 
 
-def xent_case(torch, dev, gen, dtype, timed: bool):
-    """B5 forward and backward at XENT_SHAPE in ``dtype`` against the plain
-    versions and the plain forward's autograd; a backward fed a planted
-    error (lse + PLANTED_LSE_SHIFT) must fail the same checks."""
+def xent_case(torch, dev, gen, dtype, timed: bool, shape=XENT_SHAPE):
+    """B5 forward and backward at ``shape`` (T, d, V) in ``dtype`` against
+    the plain versions and the plain forward's autograd; a backward fed a
+    planted error (lse + PLANTED_LSE_SHIFT) must fail the same checks."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.cross_entropy import (cross_entropy_bwd,
                                                    cross_entropy_bwd_plain,
                                                    cross_entropy_fwd_plain)
-    t, d, v = XENT_SHAPE
+    t, d, v = shape
     name = str(dtype).replace("torch.", "")
     h = torch.randn((t, d), generator=gen, device=dev).to(dtype)
     w = (torch.randn((d, v), generator=gen, device=dev) / d ** 0.5).to(dtype)
@@ -1199,94 +1255,100 @@ def train_kernel_phase(torch, dev):
     versions; timed beside the plain versions, bounds and yardsticks.
     B5 runs in bf16 (timed) and again in fp32, where its gradients are
     held elementwise at fp32 sums' tolerance."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention as \
-        fa_kernel
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_plain)
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     b5, b5_bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True)
     b5["fp32"], b5_bwd["fp32"] = xent_case(torch, dev, gen, torch.float32,
                                            timed=False)
 
-    b1_bwd = []
-    b, hq, hkv, dd = (ATTN_SHAPE[k] for k in ("b", "hq", "hkv", "d"))
-    for s in ATTN_SHAPE["seqs"]:
-        q = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
-            torch.bfloat16).requires_grad_(True)
-        k = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
-            torch.bfloat16).requires_grad_(True)
-        vv = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
-            torch.bfloat16).requires_grad_(True)
-        do = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
-            torch.bfloat16)
-        out = ops.attention(q, k, vv, causal=True)
-        if out.grad_fn is None:
-            fail("ops.attention under grad returned no grad_fn")
-        got = torch.autograd.grad(out, (q, k, vv), grad_outputs=do)
-        ref_out = flash_attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2),
-            vv.transpose(1, 2)).transpose(1, 2)
-        want = torch.autograd.grad(ref_out, (q, k, vv), grad_outputs=do)
-        torch.cuda.synchronize()
-        err = max(within_tol(torch, a, bb, f"flash_attention_bwd S={s}")
-                  for a, bb in zip(got, want))
-        qd, kd, vd, od = (x.detach() for x in (q, k, vv, out))
-        lse_b1 = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-        fa_kernel(qd.transpose(1, 2), kd.transpose(1, 2),
-                  vd.transpose(1, 2), lse=lse_b1)      # uncounted
-        elt = 2
-        nbytes = (elt * (4 * b * s * hq * dd + 4 * b * s * hkv * dd)
-                  + 4 * b * hq * s)
-        flops = 10.0 * b * hq * dd * (s * (s + 1) / 2)
-        bnd, by = bound_ms(nbytes, flops)
-        qt, kt, vt, ot, dot = (x.transpose(1, 2) for x in (qd, kd, vd, od,
-                                                           do))
-        sd_q, sd_k, sd_v = (x.detach().transpose(1, 2).requires_grad_(True)
-                            for x in (q, k, vv))
-        sd_out = F.scaled_dot_product_attention(sd_q, sd_k, sd_v,
-                                                is_causal=True,
-                                                enable_gqa=True)
-        def kernel_bwd():
-            return ops.attention_bwd(qd, kd, vd, od, do, lse_b1)
-
-        def sdpa_bwd():
-            return torch.autograd.grad(sd_out, (sd_q, sd_k, sd_v),
-                                       grad_outputs=dot, retain_graph=True)
-        case = {
-            "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={dd} causal",
-            "max_abs_err": err,
-            "ms": time_ms(torch, kernel_bwd),
-            "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
-                qt, kt, vt, ot, dot, lse_b1)),
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": time_ms(torch, sdpa_bwd),
-            # device time: the port's two passes, and every kernel of
-            # the SDPA backward call
-            "device_ms": device_ms(torch, kernel_bwd, "flash_bwd"),
-            "device_ms_by_pass": {
-                name: device_ms(torch, kernel_bwd, f"flash_bwd_{name}")
-                for name in ("dq", "dkdv")},
-            "library_device_ms": device_ms(torch, sdpa_bwd, ""),
-        }
-        add_rates(case, flops)
-        case["device_bound_share"] = bnd / case["device_ms"]
-        print(f"kernel flash_attention_bwd {case['shape']}: err "
-              f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
-              f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}: "
-              f"{json.dumps(case['device_ms_by_pass'])}), plain "
-              f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}), sdpa "
-              f"bwd {case['library_ms']:.4f} ms (device "
-              f"{case['library_device_ms']:.4f}; kernel/sdpa device "
-              f"{case['device_ms'] / case['library_device_ms']:.3f}x); "
-              f"{case['tflops']:.1f} TFLOP/s, {case['bound_share']:.3f} of "
-              f"the bound ({case['device_bound_share']:.3f} by device "
-              f"time)", flush=True)
-        b1_bwd.append(case)
+    b1_bwd = [attention_bwd_case(torch, dev, gen, ATTN_SHAPE["b"], s,
+                                 ATTN_SHAPE["hq"], ATTN_SHAPE["hkv"],
+                                 ATTN_SHAPE["d"])
+              for s in ATTN_SHAPE["seqs"]]
     return b5, b5_bwd, b1_bwd
+
+
+def attention_bwd_case(torch, dev, gen, b, s, hq, hkv, dd):
+    """B1-bwd at one training shape, bf16, through ``ops.attention``'s
+    autograd against the plain forward's autograd; timed (events, device
+    by pass) beside the plain backward, its bound and the SDPA backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as \
+        fa_kernel
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    q = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    k = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    vv = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    do = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = ops.attention(q, k, vv, causal=True)
+    if out.grad_fn is None:
+        fail("ops.attention under grad returned no grad_fn")
+    got = torch.autograd.grad(out, (q, k, vv), grad_outputs=do)
+    ref_out = flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2),
+        vv.transpose(1, 2)).transpose(1, 2)
+    want = torch.autograd.grad(ref_out, (q, k, vv), grad_outputs=do)
+    torch.cuda.synchronize()
+    err = max(within_tol(torch, a, bb, f"flash_attention_bwd S={s}")
+              for a, bb in zip(got, want))
+    qd, kd, vd, od = (x.detach() for x in (q, k, vv, out))
+    lse_b1 = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    fa_kernel(qd.transpose(1, 2), kd.transpose(1, 2),
+              vd.transpose(1, 2), lse=lse_b1)      # uncounted
+    elt = 2
+    nbytes = (elt * (4 * b * s * hq * dd + 4 * b * s * hkv * dd)
+              + 4 * b * hq * s)
+    flops = 10.0 * b * hq * dd * (s * (s + 1) / 2)
+    bnd, by = bound_ms(nbytes, flops)
+    qt, kt, vt, ot, dot = (x.transpose(1, 2) for x in (qd, kd, vd, od,
+                                                       do))
+    sd_q, sd_k, sd_v = (x.detach().transpose(1, 2).requires_grad_(True)
+                        for x in (q, k, vv))
+    sd_out = F.scaled_dot_product_attention(sd_q, sd_k, sd_v,
+                                            is_causal=True,
+                                            enable_gqa=True)
+    def kernel_bwd():
+        return ops.attention_bwd(qd, kd, vd, od, do, lse_b1)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sd_out, (sd_q, sd_k, sd_v),
+                                   grad_outputs=dot, retain_graph=True)
+    case = {
+        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={dd} causal",
+        "max_abs_err": err,
+        "ms": time_ms(torch, kernel_bwd),
+        "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
+            qt, kt, vt, ot, dot, lse_b1)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(torch, sdpa_bwd),
+        # device time: the port's two passes, and every kernel of
+        # the SDPA backward call
+        "device_ms": device_ms(torch, kernel_bwd, "flash_bwd"),
+        "device_ms_by_pass": {
+            name: device_ms(torch, kernel_bwd, f"flash_bwd_{name}")
+            for name in ("dq", "dkdv")},
+        "library_device_ms": device_ms(torch, sdpa_bwd, ""),
+    }
+    add_rates(case, flops)
+    case["device_bound_share"] = bnd / case["device_ms"]
+    print(f"kernel flash_attention_bwd {case['shape']}: err "
+          f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
+          f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}: "
+          f"{json.dumps(case['device_ms_by_pass'])}), plain "
+          f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}), sdpa "
+          f"bwd {case['library_ms']:.4f} ms (device "
+          f"{case['library_device_ms']:.4f}; kernel/sdpa device "
+          f"{case['device_ms'] / case['library_device_ms']:.3f}x); "
+          f"{case['tflops']:.1f} TFLOP/s, {case['bound_share']:.3f} of "
+          f"the bound ({case['device_bound_share']:.3f} by device "
+          f"time)", flush=True)
+    return case
 
 
 def train_spec(events_path: str):
@@ -1439,8 +1501,9 @@ def profile_step(torch, ctx, pstate):
 
 
 def rescale_to_fan_in(torch, params) -> None:
-    """Multiply every stacked per-layer matrix (L, d_in, d_out) by
-    sqrt(L / d_in), in place: the std of fan-in d_in instead of the
+    """Multiply every stacked per-layer matrix (L, d_in, d_out), and every
+    stack of expert matrices (L, E, d_in, d_out), by sqrt(L / d_in), in
+    place: the std of fan-in d_in instead of the
     stack's layer count L, which is what the model's init takes as the
     fan-in of a stacked leaf (as repro's does). At 4 layers that init
     gives weights of std 0.5, attention scores near 5,000 and softmaxes
@@ -1454,8 +1517,8 @@ def rescale_to_fan_in(torch, params) -> None:
     from repro_torch.models.layers import tree_leaves
     with torch.no_grad():
         for leaf in tree_leaves(params):
-            if leaf.dim() == 3:
-                leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[1]))
+            if leaf.dim() >= 3:
+                leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[-2]))
 
 
 def grad_check_setup(torch, dev, rescale: bool = True):
@@ -1485,16 +1548,46 @@ def grad_check_setup(torch, dev, rescale: bool = True):
     return ctx, state, engine.put_batch(host)
 
 
+@contextlib.contextmanager
+def plain_kernels(torch):
+    """Inside: ``ops.attention`` and ``ops.cross_entropy`` are their plain
+    versions (autograd through plain PyTorch), for a reference run."""
+    from repro_torch.kernels import cross_entropy as xent
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def plain_attention(q, k, v, *, causal=True, window=None):
+        return flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+
+    kernel_attention, kernel_xent = ops.attention, ops.cross_entropy
+    ops.attention = plain_attention
+    ops.cross_entropy = lambda h, w, labels: xent.cross_entropy_fwd_plain(
+        h, w, labels.to(torch.int32))
+    try:
+        yield
+    finally:
+        ops.attention, ops.cross_entropy = kernel_attention, kernel_xent
+
+
+def leaf_rel_l2(got, want):
+    """Relative L2 error of each leaf of ``got`` against ``want``, by
+    dotted leaf name."""
+    from repro_torch.models.layers import tree_leaves
+    return {name: ((a.float() - b.float()).norm()
+                   / b.float().norm().clamp_min(1e-30)).item()
+            for name, a, b in zip(_leaf_names(got), tree_leaves(got),
+                                  tree_leaves(want))}
+
+
 def grad_agreement_phase(torch, dev):
     """Kernel-path gradients against the plain path's, full width at 4
     layers rescaled to fan-in d_in (``rescale_to_fan_in``), and a planted
     fault in the attention backward that must fail the same limit; then
     the loss on one fixed batch falls over 5 AdamW steps."""
     from repro_torch.core.psl import make_train_step, value_and_grad
-    from repro_torch.kernels import cross_entropy as xent
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import TrainState
 
     ctx, state, batch = grad_check_setup(torch, dev)
@@ -1507,26 +1600,12 @@ def grad_agreement_phase(torch, dev):
         fail(f"kernel-path gradients skipped a kernel: "
              f"{ops.launch_counts()}")
 
-    def plain_attention(q, k, v, *, causal=True, window=None):
-        return flash_attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window).transpose(1, 2)
-
-    kernel_attention, kernel_xent = ops.attention, ops.cross_entropy
-    ops.attention = plain_attention
-    ops.cross_entropy = lambda h, w, labels: xent.cross_entropy_fwd_plain(
-        h, w, labels.to(torch.int32))
-    try:
+    with plain_kernels(torch):
         (ref_loss, _), ref_grads = value_and_grad(ctx.model.loss_fn,
                                                   state.params, batch)
-    finally:
-        ops.attention, ops.cross_entropy = kernel_attention, kernel_xent
 
     def leaf_errors(got):
-        return {name: ((a.float() - b.float()).norm()
-                       / b.float().norm().clamp_min(1e-30)).item()
-                for name, a, b in zip(_leaf_names(got), tree_leaves(got),
-                                      tree_leaves(ref_grads))}
+        return leaf_rel_l2(got, ref_grads)
 
     rels = leaf_errors(grads)
     worst_leaf = max(rels, key=rels.get)
@@ -1572,6 +1651,516 @@ def grad_agreement_phase(torch, dev):
     return {"worst_rel_l2": worst, "worst_leaf": worst_leaf,
             "rel_l2_by_leaf": rels, "planted_worst_rel_l2": planted_worst,
             "fixed_batch_losses": losses}
+
+
+# ---------------------------------------------------------------------------
+# The MoE and VLM families: granite-moe-3b-a800m and internvl2-2b
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_hooks(torch):
+    """Inside: every ``moe_apply`` call runs in a profiler range named
+    ``moe_apply`` (its router, dispatch and experts), its experts
+    (``expert_ffn``: the fp32 copies of the gate and up weights and the
+    three products) in one named ``expert_ffn``, and each ``moe_route``
+    call's keep mask (one bool an assignment; no device work, no sync)
+    is appended to the yielded list."""
+    from torch.profiler import record_function
+    from repro_torch.models import layers as L
+    saved = L.moe_apply, L.expert_ffn, L.moe_route
+    apply, experts, route = saved
+    keeps = []
+
+    def ranged(p, x, cfg):
+        with record_function("moe_apply"):
+            return apply(p, x, cfg)
+
+    def ranged_experts(p, buf, dtype):
+        with record_function("expert_ffn"):
+            return experts(p, buf, dtype)
+
+    def counted(p, xt, cfg, groups=1):
+        out = route(p, xt, cfg, groups)
+        keeps.append(out[3])
+        return out
+    L.moe_apply, L.expert_ffn, L.moe_route = ranged, ranged_experts, counted
+    try:
+        yield keeps
+    finally:
+        L.moe_apply, L.expert_ffn, L.moe_route = saved
+
+
+def grouped_device_ms(prof, groups):
+    """Device ms by group from a finished torch.profiler run: each kernel
+    goes to the first group whose test accepts (kernel name, names of the
+    op it is attached to and of that op's ancestors). A kernel attached
+    to no op (this repo's, launched through ctypes outside an autograd
+    Function) is tested by its name alone; the ranges' own device-side
+    annotations (named like their CPU ranges) are not kernels and are
+    left out. Expert products are the model's only batched matmuls
+    (``aten::bmm``, in their backward too); the attention and
+    cross-entropy kernels are named."""
+    out = {label: 0.0 for label, _ in groups}
+    attributed, cpu_names = {}, set()
+
+    def add(name, names, ms):
+        label = next(lb for lb, test in groups if test(name, names))
+        out[label] += ms
+    for evt in prof.events():
+        if str(evt.device_type).endswith("CUDA"):
+            continue
+        cpu_names.add(evt.name)
+        if not evt.kernels:
+            continue
+        names, e = [], evt
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        for kern in evt.kernels:
+            add(kern.name, names, kern.duration / 1e3)
+            attributed[kern.name] = attributed.get(kern.name, 0.0) \
+                + kern.duration / 1e3
+    for name, ms in _device_kernels(prof).items():
+        rest = ms - attributed.get(name, 0.0)
+        if name not in cpu_names and rest > 1e-6:
+            add(name, [], rest)
+    return out
+
+
+def _launched_in(*ops):
+    return lambda kern, names: any(n in ops for n in names)
+
+
+def _kernel_named(*pats):
+    return lambda kern, names: any(p in kern for p in pats)
+
+
+MOE_DECODE_GROUPS = (
+    ("attention (B2 paged_attention)", _kernel_named("paged_fwd")),
+    ("experts (fp32 weight copies and matmuls)",
+     _launched_in("expert_ffn", "aten::bmm")),
+    ("router and dispatch", _launched_in("moe_apply")),
+    ("other (projections, norms, LM head, embedding)",
+     lambda kern, names: True))
+
+MOE_TRAIN_GROUPS = (
+    ("B5 cross_entropy fwd", _kernel_named("xent_fwd", "xent_combine")),
+    ("B5 cross_entropy_bwd", _kernel_named("xent_", "gemm_kernel")),
+    ("B1-bwd flash_attention_bwd", _kernel_named("flash_bwd")),
+    ("B1 flash_attention", _kernel_named("flash_fwd")),
+    ("experts (fwd: fp32 weight copies and matmuls; bwd: matmuls)",
+     _launched_in("expert_ffn", "aten::bmm")),
+    ("AdamW", _launched_in("adamw")),
+    ("router and dispatch fwd (softmax, sort, cumsum, index_add, gather)",
+     _launched_in("moe_apply")),
+    ("dispatch scatter/gather bwd (index_add, index; embedding's too)",
+     _launched_in("IndexAddBackward0", "IndexBackward0")),
+    ("cuBLAS matmul (projections)",
+     _kernel_named("gemm", "sm90", "cutlass", "xmma", "nvjet")),
+    ("other (elementwise, norms, copies)", lambda kern, names: True))
+
+
+def profile_groups(torch, fn, groups, tag: str):
+    """One call of ``fn`` under torch.profiler inside ``moe_hooks``:
+    device ms by group, wall ms and the device's idle share; printed."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with moe_hooks(torch), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups_ms = grouped_device_ms(prof, groups)
+    busy = sum(groups_ms.values())
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+           "groups_ms": groups_ms}
+    print(f"{tag} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} "
+          f"ms (idle share {out['idle_share']:.3f}); by group "
+          f"{json.dumps({k: round(v, 3) for k, v in groups_ms.items()})}",
+          flush=True)
+    if busy <= 0:
+        print(f"{tag} the profiler recorded no device time", flush=True)
+    return out
+
+
+def paged_rows(torch, pool, tokens, positions):
+    """A (B, M) page table over ``pool``'s pages (rows dealt distinct
+    pages while they last) and the decode inputs for B rows at the given
+    positions: (tokens (B, 1), pos (B,) int32, table (B, M) int32)."""
+    dev = pool.buffers["client"]["k"].device
+    b, m = len(tokens), pool.max_pages_per_slot
+    table = (torch.arange(b * m, device=dev) % pool.num_pages).reshape(
+        b, m).to(torch.int32)
+    return (torch.tensor(tokens, device=dev)[:, None],
+            torch.tensor(positions, dtype=torch.int32, device=dev), table)
+
+
+def moe_drops_at(torch, ctx, factor: float, tokens, positions):
+    """One batched paged decode step of ``ctx``'s model rebuilt at
+    capacity factor ``factor`` (same weights): (assignments, dropped)
+    over every layer, counted by ``moe_hooks``."""
+    import dataclasses
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(ctx.model.cfg,
+                                            moe_capacity_factor=factor))
+    tok, pos, table = paged_rows(torch, ctx.engine.pool, tokens, positions)
+    with moe_hooks(torch) as keeps:
+        model.decode_step_paged(ctx.params, ctx.engine.pool.buffers, tok,
+                                pos, table)
+    return (sum(k.numel() for k in keeps),
+            sum(int((~k).sum()) for k in keeps))
+
+
+def family_serve_run(torch, ctx, spec, tag: str, want_b2: bool):
+    """``serve_run`` of a full-width family phase, with its peak memory,
+    TTFT, tok/s, phase means and the launch counts it must show: B1
+    num_layers times a prefill call, B2 num_layers times a decode step on
+    the paged engine (none on the continuous one), nothing else."""
+    torch.cuda.reset_peak_memory_stats()
+    report, launches, prefills = serve_run(torch, ctx, spec, tag)
+    peak = torch.cuda.max_memory_allocated()
+    layers = ctx.model.cfg.num_layers
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = layers * prefills
+    if want_b2:
+        want["paged_attention"] = layers * report.steps
+    if launches != want or prefills < 1 or report.steps < 1:
+        fail(f"[{tag}] launches {launches}, wanted {want} ({layers} B1 a "
+             f"prefill call" + (f", {layers} B2 a decode step)" if want_b2
+                                else ")"))
+    times = phase_times(spec.obs.events_path)
+    ttft = report.to_json()["ttft_ms"]
+    out = {"ttft_ms_p50": ttft["p50"], "ttft_ms_p95": ttft["p95"],
+           "decode_tok_per_s": report.decode_tok_per_s,
+           "admit_ms_mean": times["admit"][0],
+           "decode_step_ms_mean": times["decode_step"][0],
+           "steps": report.steps, "prefill_calls": prefills,
+           "peak_memory_bytes": peak, "launches": launches}
+    print(f"[{tag}] TTFT p50/p95 {ttft['p50']:.1f}/{ttft['p95']:.1f} ms; "
+          f"decode {report.decode_tok_per_s:.1f} tok/s; mean admit "
+          f"{times['admit'][0]:.2f} ms, mean decode step "
+          f"{times['decode_step'][0]:.2f} ms; serving peak memory "
+          f"{peak / 2**30:.2f} GiB; launches as wanted ({layers} B1 a "
+          f"prefill call" + (f", {layers} B2 a decode step)" if want_b2
+                             else ")"), flush=True)
+    return report, out
+
+
+def build_family_ctx(torch, dev, spec, tag: str, params=None):
+    from repro_torch.api import build_serve_context
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = build_serve_context(spec, params=params, device=dev)
+    torch.cuda.synchronize()
+    cfg = ctx.model.cfg
+    n = sum(t.numel() for t in _leaves(ctx.params))
+    print(f"[{tag}] built {cfg.name} in {time.perf_counter() - t0:.2f}s: "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads}"
+          f" q / {cfg.num_kv_heads} kv heads, head_dim {cfg.head_dim}, V "
+          f"{cfg.vocab_size}, kv cache heads "
+          f"{ctx.model.blocks.kv_cache_heads()}"
+          + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+             f"d_ff_expert {cfg.d_ff_expert}, capacity factor "
+             f"{cfg.moe_capacity_factor}" if cfg.is_moe else "")
+          + f", {cfg.dtype}; {n / 1e9:.3f} B params; init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return ctx, n
+
+
+def moe_phase(torch, dev, events_dir: pathlib.Path):
+    """[moe]: full-width granite-moe-3b-a800m (random weights, seed 0)
+    served through ``paged`` (B1, B2) and ``continuous`` (B1) at capacity
+    factor ``MOE_SERVE_FACTOR``; one decode step profiled by group;
+    agreement with ``reference_generate`` under the granite near-tie
+    rule; one batched decode step at the config's own
+    factor 1.25, its dropped assignments printed (not gated)."""
+    import dataclasses
+    from repro_torch.api import build_workload
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe_capacity
+    t_phase = time.perf_counter()
+    over = {"moe_capacity_factor": MOE_SERVE_FACTOR}
+    reports, out, params, ctx = {}, {}, None, None
+    for engine in ("paged", "continuous"):
+        spec = serve_spec(engine, events_dir, arch=MOE_ARCH, overrides=over)
+        ctx, n_params = build_family_ctx(torch, dev, spec, "moe", params)
+        params = ctx.params
+        reports[engine], out[engine] = family_serve_run(
+            torch, ctx, spec, f"moe-{engine}", want_b2=engine == "paged")
+        if engine == "paged":
+            requests = build_workload(spec, ctx.model.cfg.vocab_size)
+            rows = ([int(r.prompt[-1]) for r in requests[:8]],
+                    [len(r.prompt) for r in requests[:8]])
+            tok, pos, table = paged_rows(torch, ctx.engine.pool, *rows)
+            step = lambda: ctx.model.decode_step_paged(    # noqa: E731
+                ctx.params, ctx.engine.pool.buffers, tok, pos, table)
+            out["decode_profile"] = profile_groups(
+                torch, step, MOE_DECODE_GROUPS, "[moe] one paged decode step "
+                f"(B={len(tok)})")
+            cfg = ctx.model.cfg
+            factor = get_config(MOE_ARCH).moe_capacity_factor
+            total, dropped = moe_drops_at(torch, ctx, factor, *rows)
+            cap = moe_capacity(len(tok), dataclasses.replace(
+                cfg, moe_capacity_factor=factor))
+            out["dropped_at_config_factor"] = {
+                "factor": factor, "assignments": total, "dropped": dropped,
+                "capacity": cap}
+            print(f"[moe] one batched decode step at the config's capacity "
+                  f"factor {factor} ({len(tok)} rows x "
+                  f"{cfg.experts_per_token} experts x {cfg.num_layers} "
+                  f"layers = {total} assignments, capacity {cap} an expert "
+                  f"a layer): {dropped} dropped (printed, not gated: "
+                  f"repro's documented batch coupling)", flush=True)
+    agreement_phase(torch, reports, ctx, requests)
+    out["params"] = n_params
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[moe] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def moe_train_phase(torch, dev, events_dir: pathlib.Path):
+    """[moe-train]: full-width granite-moe-3b-a800m, depth cut to
+    ``MOE_TRAIN_LAYERS`` (cut 2), PSL-UGS through ``api.run`` at the
+    config's capacity factor 1.25: per-step loss, aux_loss, accuracy and
+    step ms; launches; peak memory; a profiled step by group; then the
+    loss on one fixed batch must fall at each of 3 AdamW steps (weights
+    rescaled to fan-in d_in, as in [grads])."""
+    import math
+    from repro_torch import api
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.core.psl import make_train_step, value_and_grad
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.launch.train import default_lm_spec
+    from repro_torch.optim import Optimizer
+    import numpy as np
+    from torch.profiler import record_function
+
+    t_phase = time.perf_counter()
+    events = str(events_dir / "moe-train.jsonl")
+    spec = api.apply_overrides(default_lm_spec(), [
+        f"model.arch={MOE_ARCH}",
+        f"model.overrides.num_layers={MOE_TRAIN_LAYERS}",
+        "model.overrides.cut_layer=2",
+        f"execution.max_steps={MOE_TRAIN_STEPS}", "obs.enabled=true",
+        "obs.monitor=false", f"obs.events_path={events}"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = api.build_context(spec, device=dev)
+    cfg = ctx.model.cfg
+    print(f"[moe-train] {cfg.name} reduced to {cfg.num_layers} of 32 "
+          f"layers (cut {cfg.cut_layer}), full width d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, capacity factor "
+          f"{cfg.moe_capacity_factor}; {ctx.data.pop.num_clients} clients, "
+          f"{len(ctx.data.lm_data)} client shards, global batch "
+          f"{spec.protocol.global_batch_size} x {spec.data.seq_len}, "
+          f"{spec.sampler.method}, {spec.optimizer.name}", flush=True)
+    ops.reset_launches()
+    result = api.run(spec, ctx=ctx)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = span_means(events)["device_step"]
+    steps = len(result.step_metrics)
+    for i, m in enumerate(result.step_metrics):
+        print(f"[moe-train] step {i}: loss {m['loss']:.4f} aux_loss "
+              f"{m['aux_loss']:.6f} accuracy {m['accuracy']:.4f} tokens "
+              f"{m['tokens']:.0f} grad_norm {m['grad_norm']:.3f} step "
+              f"{step_ms[i]:.1f} ms", flush=True)
+        if not all(math.isfinite(m[k]) for k in ("loss", "aux_loss",
+                                                  "grad_norm")):
+            fail(f"[moe-train] step {i} is not finite: {m}")
+        if not m["aux_loss"] > 0:
+            fail(f"[moe-train] step {i}: aux_loss {m['aux_loss']} <= 0")
+    layers = cfg.num_layers
+    want = {name: 0 for name in launches}
+    want.update({"flash_attention": layers * steps,
+                 "flash_attention_bwd": layers * steps,
+                 "cross_entropy": steps, "cross_entropy_bwd": steps})
+    if steps != MOE_TRAIN_STEPS or launches != want:
+        fail(f"[moe-train] {steps} steps, launches {launches}, wanted "
+             f"{want} ({layers} B1 + {layers} B1-bwd + 1 B5 + 1 B5-bwd a "
+             f"step)")
+    n_params = sum(p.numel() for p in _leaves(result.params))
+    run_metrics = [{k: m[k] for k in ("loss", "aux_loss", "accuracy",
+                                      "grad_norm")}
+                   for m in result.step_metrics]
+    print(f"[moe-train] {n_params / 1e9:.3f} B params; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+
+    # one more step, profiled by group, with AdamW in its own range
+    pstate = result.state
+    engine = pstate["engine"]
+    opt = ctx.optimizer
+
+    def ranged_updates(params, grads, state):
+        with record_function("adamw"):
+            return opt.apply_updates(params, grads, state)
+    engine._step = make_train_step(ctx.model, Optimizer(
+        init=opt.init, apply_updates=ranged_updates))
+    plan = make_plan("ugs", ctx.data.pop, spec.protocol.global_batch_size,
+                     seed=spec.seed)
+    host = next(iter(lm_plan_batches(
+        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
+        spec.protocol.aggregation, np.zeros(len(ctx.data.lm_data),
+                                            np.int64))))
+    batch = engine.put_batch(host)
+    state = pstate["state"]
+    profile = profile_groups(torch, lambda: engine.step(state, batch),
+                             MOE_TRAIN_GROUPS, "[moe-train] one step")
+    del result, pstate, engine, state
+
+    # fixed-batch descent from a fan-in-rescaled init
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ShardedPSLEngine(ctx.model, ctx.optimizer, device=dev)
+    st = eng.init_state(spec.seed)
+    rescale_to_fan_in(torch, st.params)
+    losses = []
+    for _ in range(3):
+        st, m = eng.step(st, batch)
+        losses.append(m["loss"])
+    (final, _), _ = value_and_grad(ctx.model.loss_fn, st.params, batch)
+    losses.append(float(final))
+    print(f"[moe-train] fixed-batch losses over 3 AdamW steps (fan-in "
+          f"d_in init): {losses}", flush=True)
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"[moe-train] the fixed-batch loss did not fall at every "
+             f"step: {losses}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[moe-train] phase {seconds:.1f} s", flush=True)
+    return {"params": n_params, "steps": steps, "step_ms": step_ms,
+            "metrics": run_metrics, "peak_memory_bytes": peak,
+            "launches": launches, "profile": profile,
+            "fixed_batch_losses": losses, "seconds": seconds}
+
+
+def vlm_phase(torch, dev, events_dir: pathlib.Path):
+    """[vlm]: full-width internvl2-2b (random weights, seed 0) served
+    through ``paged`` (B1 and B2 at head_dim 128) and held to
+    ``reference_generate`` under the granite near-tie rule; then one loss
+    and backward with patches at ``VLM_GRAD_SHAPE`` through the kernels
+    (B1 at S = 384, B1-bwd, B5 and B5-bwd at d 2048, V 92,553) against
+    the plain path: per-leaf relative L2 <= ``GRAD_REL_L2`` (weights
+    rescaled to fan-in d_in), loss within ``VLM_LOSS_RTOL``."""
+    import dataclasses
+    from repro_torch.api import build_workload
+    from repro_torch.configs import get_config
+    from repro_torch.core.psl import requires_grad_, value_and_grad
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    spec = serve_spec("paged", events_dir, arch=VLM_ARCH)
+    ctx, n_params = build_family_ctx(torch, dev, spec, "vlm")
+    report, out = family_serve_run(torch, ctx, spec, "vlm-paged",
+                                   want_b2=True)
+    requests = build_workload(spec, ctx.model.cfg.vocab_size)
+    agreement_phase(torch, {"vlm-paged": report}, ctx, requests)
+    out["params"] = n_params
+    del ctx, report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g = VLM_GRAD_SHAPE
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=g["layers"],
+                              cut_layer=2)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = requires_grad_(model.init(gen))
+    rescale_to_fan_in(torch, params)
+    b, s, p = g["batch"], g["seq"], cfg.num_patches
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :s], "labels": toks[:, 1:].to(torch.int32),
+             "weights": torch.ones((b, s), device=dev),
+             "patches": (g["patch_scale"] * torch.randn(
+                 (b, p, cfg.d_model), generator=gen, device=dev)).to(
+                     cfg.torch_dtype)}
+    ops.reset_launches()
+    (loss, metrics), grads = value_and_grad(model.loss_fn, params, batch)
+    launches = ops.launch_counts()
+    want = {name: 0 for name in launches}
+    want.update({"flash_attention": cfg.num_layers,
+                 "flash_attention_bwd": cfg.num_layers,
+                 "cross_entropy": 1, "cross_entropy_bwd": 1})
+    if launches != want:
+        fail(f"[vlm] patched loss launches {launches}, wanted {want}")
+    with plain_kernels(torch):
+        (ref_loss, _), ref_grads = value_and_grad(model.loss_fn, params,
+                                                  batch)
+    rels = leaf_rel_l2(grads, ref_grads)
+    worst_leaf = max(rels, key=rels.get)
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    print(f"[vlm] patched loss ({b} x ({p} patches + {s} tokens), "
+          f"{cfg.num_layers} layers full width, fan-in d_in): kernel "
+          f"{float(loss):.5f} vs plain {float(ref_loss):.5f} (rel "
+          f"{loss_rel:.3g}, limit {VLM_LOSS_RTOL}); tokens "
+          f"{float(metrics['tokens']):.0f}; worst per-leaf relative L2 "
+          f"{rels[worst_leaf]:.3g} ({worst_leaf}) over {len(rels)} leaves "
+          f"(limit {GRAD_REL_L2}); launches {launches}", flush=True)
+    if not loss_rel <= VLM_LOSS_RTOL:
+        fail(f"[vlm] patched loss disagrees: {loss_rel}")
+    if not rels[worst_leaf] <= GRAD_REL_L2:
+        fail(f"[vlm] patched gradients disagree: {rels[worst_leaf]}")
+    if float(metrics["tokens"]) != b * s:
+        fail(f"[vlm] the patch columns carried weight: {metrics}")
+    out.update({"patched_loss": float(loss),
+                "patched_plain_loss": float(ref_loss),
+                "patched_worst_rel_l2": rels[worst_leaf],
+                "patched_worst_leaf": worst_leaf,
+                "patched_launches": launches})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[vlm] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def family_kernel_phase(torch, dev):
+    """B1, B2, B1-bwd, B5 and B5-bwd held to their plain versions and
+    timed at the shapes the [moe] and [vlm] phases launch them: serving
+    prefill (B = 1, S = 100) and paged decode (the paged run's geometry)
+    of granite-moe (Hq 24, Hkv = Hc 8, D 64) and internvl2-2b (Hq 16,
+    Hkv 8, Hc 16, D 128); training attention forward and backward of
+    [moe-train] (B 16, S 128) and of [vlm]'s patched loss (B 4, S 384);
+    the cross-entropy of [moe-train] (T 2048, d 1536, V 49,155) and of
+    [vlm] (T 1536, d 2048, V 92,553). Returns the cases by kernel."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    moe, vlm = dict(hq=24, hkv=8, d=64), dict(hq=16, hkv=8, d=128)
+    cases = {"flash_attention": [], "flash_attention_bwd": [],
+             "paged_attention": [], "cross_entropy": [],
+             "cross_entropy_bwd": []}
+    for tag, geo, hc, train in (("moe", moe, 8, (16, 128)),
+                                ("vlm", vlm, 16, (4, 384))):
+        b1 = serve_attention_case(torch, rn, 1, 100, **geo)
+        b2 = paged_kernel_case(torch, paged_case(
+            torch, dev, gen, hq=geo["hq"], hc=hc, d=geo["d"]))
+        b1t = attention_train_case(torch, dev, gen, rn, b=train[0],
+                                   s=train[1], **geo)
+        b1b = attention_bwd_case(torch, dev, gen, *train, geo["hq"],
+                                 geo["hkv"], geo["d"])
+        for name, case in (("flash_attention", b1), ("flash_attention",
+                                                     b1t),
+                           ("paged_attention", b2),
+                           ("flash_attention_bwd", b1b)):
+            cases[name].append({"phase": tag, **case})
+    for tag, shape in (("moe-train", (2048, 1536, 49155)),
+                       ("vlm", (1536, 2048, 92553))):
+        fwd, bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True,
+                             shape=shape)
+        cases["cross_entropy"].append({"phase": tag, **fwd})
+        cases["cross_entropy_bwd"].append({"phase": tag, **bwd})
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -2507,6 +3096,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as events_dir:
         train = train_phase(torch, dev, pathlib.Path(events_dir))
     grad_agreement_phase(torch, dev)
+    families = {}
+    for tag, phase in (("moe", moe_phase), ("moe_train", moe_train_phase),
+                       ("vlm", vlm_phase)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as events_dir:
+            families[tag] = phase(torch, dev, pathlib.Path(events_dir))
+    together = sum(f["seconds"] for f in families.values())
+    print(f"[moe]/[moe-train]/[vlm] {together:.1f} s together", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_cases = family_kernel_phase(torch, dev)
+    print(f"[families] summary {json.dumps(families)}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launches()
@@ -2545,6 +3147,14 @@ def main() -> int:
                       "serve_speculative": launches["speculative"][name],
                       "serve_ssm": launches["ssm"][name],
                       "train": train["launches"][name],
+                      "serve_moe_paged":
+                          families["moe"]["paged"]["launches"][name],
+                      "serve_moe_continuous":
+                          families["moe"]["continuous"]["launches"][name],
+                      "train_moe": families["moe_train"]["launches"][name],
+                      "serve_vlm_paged": families["vlm"]["launches"][name],
+                      "vlm_patched_loss":
+                          families["vlm"]["patched_launches"][name],
                       "train_cnn": cnn_launches[name],
                       "plan_and_cnn_lds": plan_launches[name]}
                for name in ops.WRAPPERS}
@@ -2557,6 +3167,7 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in b1_cases),
          **{k: b1[k] for k in timing + rates + ("device_ms",)},
          "cases": b1_cases,
+         "family_cases": family_cases["flash_attention"],
          "hgmma_count": hgmma["flash_fwd_tc_kernel"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2568,6 +3179,7 @@ def main() -> int:
              "device_ms", "device_ms_by_pass", "library_device_ms",
              "device_bound_share")},
          "cases": b1_bwd,
+         "family_cases": family_cases["flash_attention_bwd"],
          "hgmma_count": {k: hgmma[k] for k in (
              "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")}},
         {"name": "paged_attention", "route": "cuda",
@@ -2577,6 +3189,7 @@ def main() -> int:
          "launches_by_path": by_path["paged_attention"],
          **{k: b2[k] for k in ("max_abs_err", "device_ms", "host_us")
             + timing},
+         "family_cases": family_cases["paged_attention"],
          "async_copy_count": asyncs["paged_fwd"]},
         {"name": "spec_verify", "route": "cuda",
          "source": "src/repro_torch/csrc/spec_verify.cu",
@@ -2604,6 +3217,7 @@ def main() -> int:
          "launches_by_path": by_path["cross_entropy"],
          **{k: b5[k] for k in ("max_abs_err", "argmax_near_ties", "fp32")
             + timing + rates},
+         "family_cases": family_cases["cross_entropy"],
          "hgmma_count": hgmma["xent_fwd_tc_kernel"]},
         {"name": "cross_entropy_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
@@ -2613,6 +3227,7 @@ def main() -> int:
          **{k: b5_bwd[k] for k in ("max_abs_err", "softmax_rel_l2",
                                      "planted_softmax_rel_l2", "fp32")
             + timing + rates},
+         "family_cases": family_cases["cross_entropy_bwd"],
          "hgmma_count": hgmma["xent_tc_gemm"]},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:

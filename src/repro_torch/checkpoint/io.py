@@ -10,6 +10,9 @@ numpy arrays (e.g. ``jax.device_get`` of a ``repro`` params tree), and
 (params, optimizer state, step) across. :func:`save` writes the format
 back. All are bit-exact: bf16 leaves move as raw 16-bit patterns. The LM
 keeps JAX's ``(d_in, d_out)`` weight layout, so no leaf is transposed.
+The three loaders put the tree on the card unless the caller passes
+``device="cpu"``; without a card they raise
+(:func:`repro_torch.device.resolve_device`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import os
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 _SEP = "/"
 
@@ -65,18 +70,22 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def from_numpy_tree(tree: Any, device="cpu") -> Any:
+def from_numpy_tree(tree: Any, device="cuda") -> Any:
     """Nested dict/list of numpy arrays -> the same tree of tensors on
     ``device`` (bf16 arrays keep their exact bits)."""
+    return _numpy_tree(tree, resolve_device(device))
+
+
+def _numpy_tree(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
-        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+        return {k: _numpy_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [from_numpy_tree(v, device) for v in tree]
+        return [_numpy_tree(v, device) for v in tree]
     return _leaf_to_tensor(tree).to(device)
 
 
 def train_state_from_numpy(params: Any, opt_state: Any, step,
-                           device="cpu"):
+                           device="cuda"):
     """A ``repro`` TrainState's parts, as numpy trees (``jax.device_get``
     of ``state.params`` / ``state.opt_state``), -> the port's
     :class:`repro_torch.optim.TrainState` on ``device``: params marked as
@@ -118,8 +127,9 @@ def save(path: str, tree: Any) -> None:
     np.savez(path, **arrays)
 
 
-def restore(path: str, device="cpu") -> Any:
+def restore(path: str, device="cuda") -> Any:
     """Load a ``repro``-format npz checkpoint onto ``device``."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=True) as data:
         bf16 = set(data["__bf16_keys__"].tolist())
         flat = {}

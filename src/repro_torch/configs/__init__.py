@@ -1,7 +1,7 @@
 """Config registry of the port (mirrors :mod:`repro.configs`).
 
 Only the architectures the port runs are registered (the LMs it serves
-and trains, and the paper's CNN, which it trains);
+and trains, in ``repro``'s order, and the paper's CNN, which it trains);
 ``get_config(arch_id, reduced)`` returns the full configuration or its
 smoke-test variant, copied as data from ``repro``'s config modules.
 """
@@ -13,6 +13,12 @@ from typing import Dict, List
 _MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen2-72b": "qwen2_72b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "llama3-8b": "llama3_8b",
+    "internvl2-2b": "internvl2_2b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "paper-cnn": "paper_cnn",
 }
 

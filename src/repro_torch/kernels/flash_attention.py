@@ -31,6 +31,13 @@ with head_dim a multiple of 8 is, :func:`tma_ready`) and their data
 16-byte aligned; they write out (and read the backward's out) and the
 gradients in pairs: 4-byte aligned, even strides. The kernels refuse
 anything else before they launch and the wrappers raise.
+
+The kernels take head_dim in multiples of 8. A head_dim that is not one
+(20 in reduced granite-moe) runs as a zero-padded copy, widened to the
+next multiple of 8 (:func:`pad_head_dim`), scaled by 1/sqrt of the true
+head_dim: zero columns add nothing to q.k, and give zero output, dq, dk
+and dv columns, which the wrappers cut off. The copy is per call, a
+reduced-config path; the full configs' head_dims (64, 128) need none.
 """
 from __future__ import annotations
 
@@ -64,13 +71,19 @@ def _check(q, k, v, window):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if hq % k.shape[1]:
         raise ValueError("flash_attention: Hq must be a multiple of Hkv")
-    if d > _MAX_D or d % 8:
-        raise ValueError(f"flash_attention: head_dim {d} must be a "
-                         f"multiple of 8 and at most {_MAX_D}")
+    if not 0 < d <= _MAX_D:
+        raise ValueError(f"flash_attention: head_dim {d} must be in "
+                         f"1..{_MAX_D}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: head_dim must be contiguous")
     if window is not None and window < 1:
         raise ValueError("flash_attention: window must be >= 1 (or None)")
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` with its last axis zero-padded to the
+    next multiple of 8."""
+    return torch.nn.functional.pad(t, (0, -t.shape[-1] % 8)).contiguous()
 
 
 def uses_tensor_cores(dtype: torch.dtype) -> bool:
@@ -137,21 +150,31 @@ def flash_attention(q, k, v, *, causal: bool = True,
     tensor; ``lse``, when given, receives the (B, Hq, S) fp32 logsumexp of
     each query row. Raises on anything the kernel does not take."""
     _check(q, k, v, window)
-    b, hq, s, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
+    d = q.shape[3]
     if out is None:
         out = torch.empty_like(q)
     _check_like("out", out, q)
     if lse is not None:
         _check_lse(lse, q)
+    if d % 8:
+        qp = pad_head_dim(q)
+        out.copy_(_launch_fwd(qp, pad_head_dim(k), pad_head_dim(v),
+                              torch.empty_like(qp), lse, causal, window,
+                              1.0 / math.sqrt(d))[..., :d])
+        return out
+    return _launch_fwd(q, k, v, out, lse, causal, window, 1.0 / math.sqrt(d))
+
+
+def _launch_fwd(q, k, v, out, lse, causal, window, scale: float):
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), out.data_ptr(), b, hq, hkv, s, t, d,
              _strides(q), _strides(k), _strides(v), _strides(out),
              None if lse is None else lse.data_ptr(), int(bool(causal)),
-             -1 if window is None else int(window), 1.0 / math.sqrt(d),
-             stream)
+             -1 if window is None else int(window), scale, stream)
     if err == _BAD_PITCH:
         raise ValueError(f"flash_attention: strides or alignment of q "
                          f"{q.stride()}, k {k.stride()}, v {v.stride()}, "
@@ -172,8 +195,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     from :func:`flash_attention`. The gradients default to new tensors of
     their input's shape and dtype; given ones may be strided views."""
     _check(q, k, v, window)
-    b, hq, s, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
+    d = q.shape[3]
     _check_like("out", out, q)
     _check_like("dout", dout, q)
     _check_lse(lse, q)
@@ -183,6 +205,22 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     _check_like("dq", dq, q)
     _check_like("dk", dk, k)
     _check_like("dv", dv, v)
+    if d % 8:
+        padded = [pad_head_dim(x) for x in (q, k, v, out, dout)]
+        grads = _launch_bwd(*padded, lse,
+                            *(torch.empty_like(x) for x in padded[:3]),
+                            causal, window, 1.0 / math.sqrt(d))
+        for dst, src in zip((dq, dk, dv), grads):
+            dst.copy_(src[..., :d])
+        return dq, dk, dv
+    return _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
+                       1.0 / math.sqrt(d))
+
+
+def _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
+                scale: float):
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     lib, fn = _kernel("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -192,7 +230,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
              b, hq, hkv, s, t, d,
              *(_strides(x) for x in (q, k, v, out, dout, dq, dk, dv)),
              int(bool(causal)), -1 if window is None else int(window),
-             1.0 / math.sqrt(d), stream)
+             scale, stream)
     if err == _BAD_PITCH:
         raise ValueError(f"flash_attention_bwd: strides or alignment of q, "
                          f"k, v, dout {[x.stride() for x in (q, k, v, dout)]}"

@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import pad_head_dim
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -53,9 +54,9 @@ def _check(q, k_pages, v_pages, page_table, pos):
     if hq % hc or hq // hc > _MAX_REP:
         raise ValueError(f"paged_attention: Hq {hq} must be a multiple of "
                          f"Hc {hc}, at most {_MAX_REP}x")
-    if d > _MAX_D or d % 8:
-        raise ValueError(f"paged_attention: head_dim {d} must be a multiple "
-                         f"of 8 and at most {_MAX_D}")
+    if not 0 < d <= _MAX_D:
+        raise ValueError(f"paged_attention: head_dim {d} must be in "
+                         f"1..{_MAX_D}")
     if len(ts) != 2 or ts[0] != b or pos.shape != (b,):
         raise ValueError("paged_attention: page_table (B, M) / pos (B,) "
                          "shapes disagree with q")
@@ -78,8 +79,21 @@ def _kernel():
 
 
 def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on anything it does not take."""
+    """Launch the CUDA kernel; raises on anything it does not take. A
+    head_dim that is not a multiple of 8 runs on zero-padded copies of q
+    and of the whole page pool, made per call (a reduced-config path:
+    ``flash_attention``'s module docstring says why the padding is
+    exact)."""
     _check(q, k_pages, v_pages, page_table, pos)
+    d = q.shape[2]
+    if d % 8:
+        return _launch(pad_head_dim(q), pad_head_dim(k_pages),
+                       pad_head_dim(v_pages), page_table, pos,
+                       1.0 / math.sqrt(d))[..., :d].contiguous()
+    return _launch(q, k_pages, v_pages, page_table, pos, 1.0 / math.sqrt(d))
+
+
+def _launch(q, k_pages, v_pages, page_table, pos, scale: float):
     b, hq, d = q.shape
     num_pages, psize, hc, _ = k_pages.shape
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
@@ -91,7 +105,7 @@ def paged_attention(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     err = fn(_DTYPE_CODES[q.dtype], *ptrs, page_table.data_ptr(),
              pos.data_ptr(), out.data_ptr(), b, hq, hc, psize, d,
-             page_table.shape[1], num_pages, 1.0 / math.sqrt(d), stream)
+             page_table.shape[1], num_pages, scale, stream)
     _build.check(err, lib, "paged_attention")
     return out
 

@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import pad_head_dim
 from repro_torch.kernels.paged_attention import gather_pages
 
 _NEG_INF = -1e30
@@ -63,9 +64,9 @@ def _check(q, k_pages, v_pages, page_table, q_pos):
     if hq % hc or hq // hc > _MAX_REP:
         raise ValueError(f"spec_verify: Hq {hq} must be a multiple of Hc "
                          f"{hc}, at most {_MAX_REP}x")
-    if d > _MAX_D or d % 8:
-        raise ValueError(f"spec_verify: head_dim {d} must be a multiple of "
-                         f"8 and at most {_MAX_D}")
+    if not 0 < d <= _MAX_D:
+        raise ValueError(f"spec_verify: head_dim {d} must be in "
+                         f"1..{_MAX_D}")
     if len(ts) != 2 or ts[0] != b or q_pos.shape != (b, w):
         raise ValueError("spec_verify: page_table (B, M) / q_pos (B, W) "
                          "shapes disagree with q")
@@ -88,8 +89,20 @@ def _kernel():
 
 
 def spec_verify(q, k_pages, v_pages, page_table, q_pos) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on anything it does not take."""
+    """Launch the CUDA kernel; raises on anything it does not take. A
+    head_dim that is not a multiple of 8 runs on per-call zero-padded
+    copies, as in ``paged_attention``."""
     _check(q, k_pages, v_pages, page_table, q_pos)
+    d = q.shape[3]
+    if d % 8:
+        return _launch(pad_head_dim(q), pad_head_dim(k_pages),
+                       pad_head_dim(v_pages), page_table, q_pos,
+                       1.0 / math.sqrt(d))[..., :d].contiguous()
+    return _launch(q, k_pages, v_pages, page_table, q_pos,
+                   1.0 / math.sqrt(d))
+
+
+def _launch(q, k_pages, v_pages, page_table, q_pos, scale: float):
     b, w, hq, d = q.shape
     num_pages, psize, hc, _ = k_pages.shape
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
@@ -100,7 +113,7 @@ def spec_verify(q, k_pages, v_pages, page_table, q_pos) -> torch.Tensor:
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     err = fn(_DTYPE_CODES[q.dtype], *ptrs, page_table.data_ptr(),
              q_pos.data_ptr(), out.data_ptr(), b, w, hq, hc, psize, d,
-             page_table.shape[1], num_pages, 1.0 / math.sqrt(d), stream)
+             page_table.shape[1], num_pages, scale, stream)
     _build.check(err, lib, "spec_verify")
     return out
 

@@ -109,6 +109,10 @@ class ModelConfig:
     def dt_rank(self) -> int:
         return max(1, math.ceil(self.d_model / 16))
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:

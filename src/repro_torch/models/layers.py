@@ -1,5 +1,5 @@
-"""Neural-net building blocks of the dense LM and the Mamba-1 SSM, in
-plain PyTorch (port of the dense and Mamba-1 parts of
+"""Neural-net building blocks of the dense and MoE LMs and the Mamba-1
+SSM, in plain PyTorch (port of the dense, MoE and Mamba-1 parts of
 :mod:`repro.models.layers`).
 
 Parameters are nested dicts of tensors with ``repro``'s key names and its
@@ -241,8 +241,9 @@ def attention_qkv(p, x, cfg: ModelConfig, positions):
 # MLP (SwiGLU)
 # ---------------------------------------------------------------------------
 
-def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ModelConfig,
+              d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {"w_gate": ParamSpec((d, ff), ("embed", "ff")),
             "w_up": ParamSpec((d, ff), ("embed", "ff")),
             "w_down": ParamSpec((ff, d), ("ff", "embed"))}
@@ -251,6 +252,125 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def mlp_apply(p, x):
     g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (top-k, capacity-dropped, scatter-based dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, e = cfg.d_model, cfg.num_experts
+    ffe = cfg.d_ff_expert or cfg.d_ff
+    specs: Dict[str, Any] = {
+        "router": ParamSpec((d, e), ("embed", None)),
+        "w_gate": ParamSpec((e, d, ffe), ("experts", "embed", "expert_ff")),
+        "w_up": ParamSpec((e, d, ffe), ("experts", "embed", "expert_ff")),
+        "w_down": ParamSpec((e, ffe, d), ("experts", "expert_ff", "embed")),
+    }
+    if cfg.moe_shared_expert:
+        specs["shared"] = mlp_specs(cfg, d_ff=cfg.d_ff)
+    return specs
+
+
+def top_k_stable(x, k: int):
+    """The k largest entries of the last axis, largest first, with equal
+    values in ascending index order as ``jax.lax.top_k`` returns them
+    (``torch.topk`` leaves the order of ties unspecified). Returns
+    (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig, groups: int = 1) -> int:
+    """Slots per expert (and per group), in ``repro``'s float order."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    return max(int(math.ceil(tokens * k / e / groups
+                             * cfg.moe_capacity_factor)), 1)
+
+
+def moe_route(p, xt, cfg: ModelConfig, groups: int = 1):
+    """The router and dispatch plan of :func:`moe_apply` for tokens xt
+    (T, d), in ``groups`` groups (dividing T).
+
+    Router softmax in fp32; the top k by a stable sort (lower expert
+    first among equal probabilities); gates renormalized over the k
+    chosen (floor 1e-9); assignments flattened token-major, k-minor, each
+    placed at its running count within its expert (and group) and kept
+    below ``capacity``. Returns (probs (T, E) fp32, gates (T, k) fp32,
+    slot (G Tl,) int64 index of each assignment's row in the flattened
+    (G, E, C) buffer (row C·(g E + e) for a dropped one), keep (G Tl,)
+    bool, per-expert assignment counts (E,) int64, capacity C)."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tokens = xt.shape[0]
+    logits = (xt @ p["router"]).float()                       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k_stable(probs, k)            # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    capacity = moe_capacity(tokens, cfg, groups)
+    flat_expert = expert_idx.reshape(groups, tokens * k // groups)
+    # running count of each expert along the assignments, scanned along
+    # the last (contiguous) axis: (G, E, Tl). A scan along the middle
+    # axis of (G, Tl, E), as repro writes it, runs on the card as E
+    # serial chains of Tl steps (~4 ms a layer at Tl = 16384).
+    onehot = F.one_hot(flat_expert, e).transpose(1, 2).contiguous()
+    running = onehot.cumsum(-1)
+    pos = running.gather(1, flat_expert[:, None, :])[:, 0] - 1
+    keep = pos < capacity
+    safe_pos = torch.where(keep, pos, torch.zeros_like(pos))
+    group = torch.arange(groups, device=xt.device)[:, None]
+    slot = (group * e + flat_expert) * capacity + safe_pos
+    counts = running[..., -1].sum(dim=0)
+    return (probs, gate_vals, slot.reshape(-1), keep.reshape(-1), counts,
+            capacity)
+
+
+def expert_ffn(p, buf, dtype):
+    """SwiGLU experts over the dispatch buffer (G, E, C, d): the gate and
+    up products in fp32 (bf16 inputs multiply exactly in fp32 and sum
+    there, as ``preferred_element_type`` does in ``repro``), SiLU and
+    gating in fp32, ``h`` in ``dtype`` for the ``w_down`` product."""
+    g = F.silu(torch.einsum("gecd,edf->gecf", buf.float(),
+                            p["w_gate"].float()))
+    u = torch.einsum("gecd,edf->gecf", buf.float(), p["w_up"].float())
+    return torch.einsum("gecf,efd->gecd", (g * u).to(dtype), p["w_down"])
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Top-k routed experts with static capacity, as
+    ``repro.models.layers.moe_apply``. x: (B, S, d) -> (y, aux_loss).
+
+    :func:`moe_route` plans the dispatch; kept assignments are scattered
+    (``index_add``, no host sync) into a zeroed (G, E, C, d) buffer,
+    :func:`expert_ffn` runs the experts, and each assignment's output is
+    gathered back (dropped ones contribute zero), weighted by its gate in
+    x's dtype and summed over k in x's dtype. With ``cfg.moe_groups = G``
+    (dividing the token count) dispatch runs within G independent token
+    groups, each with its own capacity. The expert products are plain
+    batched matmuls, as ``repro`` leaves them to XLA outside any Pallas
+    kernel. Returns the output (plus the shared expert's, if any) and the
+    Switch load-balance loss E * sum_e f_e p_e * ``router_aux_loss``."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tokens = b * s
+    grp = cfg.moe_groups if cfg.moe_groups and tokens % cfg.moe_groups == 0 \
+        else 1
+    xt = x.reshape(tokens, d)
+    probs, gate_vals, slot, keep, counts, capacity = moe_route(p, xt, cfg,
+                                                               grp)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    keep_col = keep[:, None]
+    upd = torch.where(keep_col, xt.repeat_interleave(k, dim=0), zero)
+    buf = x.new_zeros((grp * e * capacity, d)).index_add(0, slot, upd)
+    out_buf = expert_ffn(p, buf.reshape(grp, e, capacity, d), x.dtype)
+    gathered = torch.where(keep_col, out_buf.reshape(-1, d)[slot], zero)
+    weighted = gathered * gate_vals.reshape(-1, 1).to(x.dtype)
+    y = weighted.reshape(tokens, k, d).sum(dim=1)
+    if cfg.moe_shared_expert:
+        y = y + mlp_apply(p["shared"], xt)
+    fe = counts.float() / tokens / k
+    aux = e * torch.sum(fe * probs.mean(dim=0)) * cfg.router_aux_loss
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

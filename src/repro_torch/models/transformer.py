@@ -1,6 +1,14 @@
-"""Decoder-only LM of the dense and ssm (Mamba-1) families: the training
-loss, its PSL split, prefill and decode (port of the dense and ssm parts
-of :mod:`repro.models.transformer`).
+"""Decoder-only LM of the dense, moe, vlm and ssm (Mamba-1) families: the
+training loss, its PSL split, prefill and decode (port of those parts of
+:mod:`repro.models.transformer`).
+
+An MoE block routes its MLP through :func:`repro_torch.models.layers.
+moe_apply` in training, prefill and every decode step; the training loss
+adds the blocks' load-balance losses (``aux_loss``), as ``repro``'s scan
+carry sums them. A VLM batch may carry ``patches`` (B, P, d), embeddings
+prepended to the text tokens' (the vision encoder is not part of the
+model, as in ``repro``); the loss pads labels and weights with P zero
+columns, and a prefill with patches fills the cache at positions 0..P+S-1.
 
 Parameters are split into ``client`` and ``server`` subtrees at the
 paper's cut layer, with every block's leaves stacked on a leading layer
@@ -86,7 +94,7 @@ def chunked_xent(hidden, w_vocab, labels, weights):
 
 
 class _Blocks:
-    """Dense attention and Mamba-1 block definitions used by
+    """Attention (dense-MLP or MoE) and Mamba-1 block definitions used by
     LanguageModel."""
 
     def __init__(self, cfg: ModelConfig):
@@ -104,16 +112,27 @@ class _Blocks:
 
     def attn_block_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {
+        specs: Dict[str, Any] = {
             "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
             "attn": L.attention_specs(cfg),
             "norm2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-            "mlp": L.mlp_specs(cfg),
         }
+        if cfg.is_moe:
+            specs["moe"] = L.moe_specs(cfg)
+        else:
+            specs["mlp"] = L.mlp_specs(cfg)
+        return specs
+
+    def ffn(self, p, hn):
+        """The block's MLP or routed experts: (y, aux_loss or None)."""
+        if self.cfg.is_moe:
+            return L.moe_apply(p["moe"], hn, self.cfg)
+        return L.mlp_apply(p["mlp"], hn), None
 
     # ----- train / prefill -----
     def block(self, p, x, positions, *, window):
-        """Full-sequence block (training and prefill); returns (x, k, v)."""
+        """Full-sequence block (training and prefill); returns (x, k, v,
+        aux_loss or None)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -122,12 +141,12 @@ class _Blocks:
                                          window=window)
         x = x + attn_out.reshape(b, s, -1) @ p["attn"]["wo"]
         hn = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], hn)
-        return x, k, v
+        y, aux = self.ffn(p, hn)
+        return x + y, k, v, aux
 
     def attn_block(self, p, x, positions, *, window):
         """Prefill block; returns (x, (k_rep, v_rep)) for the cache."""
-        x, k, v = self.block(p, x, positions, window=window)
+        x, k, v, _ = self.block(p, x, positions, window=window)
         return x, (self._repeat_kv(k), self._repeat_kv(v))
 
     def ssm_block(self, p, x):
@@ -145,7 +164,7 @@ class _Blocks:
         b, w = x.shape[0], x.shape[1]
         x = x + attn_out.reshape(b, w, -1) @ p["attn"]["wo"]
         hn2 = L.rms_norm(x, p["norm2"], self.cfg.norm_eps)
-        return x + L.mlp_apply(p["mlp"], hn2)
+        return x + self.ffn(p, hn2)[0]
 
     def attn_block_decode(self, p, x, kc, vc, pos, *, window):
         """One-token block over a contiguous cache (B, C, Hc, hd); writes
@@ -252,11 +271,11 @@ class _Blocks:
 
 
 class LanguageModel:
-    """Decoder-only LM with a PSL cut; the port runs the dense and ssm
-    (Mamba-1) families."""
+    """Decoder-only LM with a PSL cut; the port runs the dense, moe, vlm
+    and ssm (Mamba-1) families."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported to "
                 f"repro_torch yet; see ROADMAP.md, 'Other model families'")
@@ -301,42 +320,63 @@ class LanguageModel:
 
     # ----- training forward pieces -----
     def _embed(self, params, batch):
-        return params["client"]["embed"][batch["tokens"].long()]
+        x = params["client"]["embed"][batch["tokens"].long()]
+        if self.cfg.family == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x
+
+    def _pad_targets(self, batch):
+        """Labels and weights, with one zero column per VLM patch in
+        front."""
+        labels, weights = batch["labels"], batch["weights"]
+        if self.cfg.family == "vlm" and "patches" in batch:
+            b, n = labels.shape[0], batch["patches"].shape[1]
+            labels = torch.cat([labels.new_zeros((b, n)), labels], dim=1)
+            weights = torch.cat([weights.new_zeros((b, n)), weights], dim=1)
+        return labels, weights
 
     @staticmethod
     def _positions(x):
         b, s, _ = x.shape
         return torch.arange(s, device=x.device)[None, :].expand(b, s)
 
-    def _run_stack(self, stacked, x, positions, window):
+    def _run_stack(self, stacked, x, positions, window, aux=None):
+        """One stack's blocks; returns (x, ``aux`` (fp32, default 0) plus
+        their aux losses in block order, as ``repro``'s scan carry)."""
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in _unstack(stacked):
             if self.cfg.family == "ssm":
                 x = self.blocks.ssm_block(lp, x)
-            else:
-                x, _, _ = self.blocks.block(lp, x, positions, window=window)
-        return x
+                continue
+            x, _, _, a = self.blocks.block(lp, x, positions, window=window)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _backbone(self, params, x, positions, window):
         """Client + server stacks; returns (hidden, aux_loss)."""
-        x = self._run_stack(params["client"]["blocks"], x, positions,
-                            window)
+        x, aux = self._run_stack(params["client"]["blocks"], x, positions,
+                                 window)
         srv = params["server"]
-        x = self._run_stack(srv["blocks"], x, positions, window)
+        x, aux = self._run_stack(srv["blocks"], x, positions, window, aux)
         x = L.rms_norm(x, srv["final_norm"], self.cfg.norm_eps)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     def loss_fn(self, params, batch, window: Optional[int] = None):
         """Masked-mean LM loss over the PSL global batch.
 
         batch: tokens (B, S) int, labels (B, S) int32, weights (B, S) f32
-        (slot mask x token mask from the epoch plan). Returns (total,
-        metrics) with ``repro``'s metric keys."""
+        (slot mask x token mask from the epoch plan), optional patches
+        (B, P, d) for a VLM. Returns (total, metrics) with ``repro``'s
+        metric keys; total = loss + aux_loss."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
         x = self._embed(params, batch)
         h, aux = self._backbone(params, x, self._positions(x), window)
-        loss, (cnt, cor) = chunked_xent(h, self._lm_head(params),
-                                        batch["labels"], batch["weights"])
+        labels, weights = self._pad_targets(batch)
+        loss, (cnt, cor) = chunked_xent(h, self._lm_head(params), labels,
+                                        weights)
         total = loss + aux
         return total, {"loss": loss, "aux_loss": aux, "tokens": cnt,
                        "accuracy": cor / torch.clamp(cnt, min=1.0)}
@@ -344,25 +384,27 @@ class LanguageModel:
     # ----- PSL decomposition -----
     def client_forward(self, params, batch, window: Optional[int] = None):
         """Client-side FP: embedding + first ``cut_layer`` blocks -> cut
-        activations."""
+        activations (the client blocks' aux losses are dropped, as in
+        ``repro``)."""
         window = window if window is not None else self.cfg.sliding_window
         x = self._embed(params, batch)
         return self._run_stack(params["client"]["blocks"], x,
-                               self._positions(x), window)
+                               self._positions(x), window)[0]
 
     def server_loss(self, server_params, cut_acts, batch,
                     window: Optional[int] = None):
-        """Server-side FP from the cut activations to the loss."""
+        """Server-side FP from the cut activations to the loss plus the
+        server blocks' aux losses."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
-        x = self._run_stack(server_params["blocks"], cut_acts,
-                            self._positions(cut_acts), window)
+        x, aux = self._run_stack(server_params["blocks"], cut_acts,
+                                 self._positions(cut_acts), window)
         x = L.rms_norm(x, server_params["final_norm"], cfg.norm_eps)
         if cfg.tie_embeddings:
             raise ValueError("PSL decomposed loss needs untied lm_head")
-        loss, _ = chunked_xent(x, server_params["lm_head"], batch["labels"],
-                               batch["weights"])
-        return loss
+        labels, weights = self._pad_targets(batch)
+        loss, _ = chunked_xent(x, server_params["lm_head"], labels, weights)
+        return loss + aux
 
     # ----- caches -----
     def cache_specs(self, batch: int, cache_len: int,
@@ -410,8 +452,7 @@ class LanguageModel:
         Returns (last_logits (B, V) fp32, cache, next_pos)."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
-        tokens = batch["tokens"].long()
-        x = params["client"]["embed"][tokens]
+        x = self._embed(params, batch)
         b, s, _ = x.shape
         c = cache_len or s
         if window:

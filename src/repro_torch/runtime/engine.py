@@ -13,6 +13,13 @@ place.
 Greedy continuous decoding is token-identical to single-request decoding
 (:func:`reference_generate`) up to float near-ties: batching changes
 logits only at rounding level.
+
+Known scope limits, as in ``repro``: the encoder-decoder (audio) family
+is not served here; MoE families route per batch, so capacity dropping
+can couple slots (inactive slots take capacity too) — exact equivalence
+with single-request decoding needs a high ``moe_capacity_factor`` (at
+least num_experts / experts_per_token leaves every expert room for every
+token).
 """
 from __future__ import annotations
 
@@ -175,6 +182,9 @@ def _resolve_now(now) -> float:
 @register_engine("continuous")
 class ContinuousEngine:
     """Slot-pool decode engine. The scheduler drives admit()/step().
+
+    VLM configs are served text-only: the prompt-only prefill never feeds
+    the patches pathway, as in ``repro``.
 
     Runs on ``device`` ("cuda" by default; raises without a card unless
     the caller passes ``device="cpu"``). Without ``params`` it initializes

@@ -60,7 +60,7 @@ def _batch(size, n=8, seed=0):
 def bridged():
     jm, tm = _models()
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = tpsl.requires_grad_(from_numpy_tree(jax.device_get(jp)))
+    tp = tpsl.requires_grad_(from_numpy_tree(jax.device_get(jp), "cpu"))
     return jm, tm, jp, tp
 
 
@@ -129,7 +129,7 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path, dtype):
     jm, _ = _models(dtype=dtype)
     jp = jax.device_get(jm.init(jax.random.PRNGKey(3)))
     jsave(str(tmp_path / "a.npz"), jp)
-    tp = restore(str(tmp_path / "a.npz"))
+    tp = restore(str(tmp_path / "a.npz"), device="cpu")
     assert isinstance(tp["client"]["stages"], list)
     assert tp["client"]["stem"].dtype == getattr(torch, dtype)
     save(str(tmp_path / "b.npz"), tp)

@@ -158,9 +158,30 @@ def test_paged_attention_refuses_misaligned_pages(dev):
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((1, 8, 2, 24), device=dev)          # head_dim 24 ok
     ops.attention(q, q, q)
-    bad = torch.zeros((1, 8, 2, 20), device=dev)        # not a multiple of 8
+    bad = torch.zeros((1, 8, 2, 136), device=dev)       # wider than 128
     with pytest.raises(ValueError, match="head_dim"):
         ops.attention(bad, bad, bad)
+    # B2 and B3 take raw pointers without strides and trust B and M: a
+    # strided q, a pos or q_pos of the wrong shape and a short page table
+    # are refused, at a head_dim the kernel takes and at a padded one
+    for d in (24, 20):
+        gen = torch.Generator(device=dev).manual_seed(13)
+        q, kp, vp, table, pos = _paged_walk_case(
+            gen, dev, torch.float32, 4, 2, d, 8, 3, [5, 17])
+        qw = q[:, None].expand(2, 2, 4, d).contiguous()
+        q_pos = torch.stack([pos - 1, pos], dim=1)
+        ops.paged_attention(q, kp, vp, table, pos)
+        ops.spec_verify(qw, kp, vp, table, q_pos)
+        for op, qq, rows in ((ops.paged_attention, q, pos),
+                             (ops.spec_verify, qw, q_pos)):
+            strided = qq.transpose(0, 1).contiguous().transpose(0, 1)
+            for match, args in (("contiguous", (strided, table, rows)),
+                                ("shapes", (qq, table, rows[:, :1]
+                                            if rows.dim() == 2
+                                            else rows[:, None])),
+                                ("shapes", (qq, table[:1], rows))):
+                with pytest.raises(ValueError, match=match):
+                    op(args[0], kp, vp, args[1], args[2])
 
 
 @pytest.mark.parametrize("engine", ["continuous", "paged"])
@@ -946,3 +967,141 @@ def test_planner_dense_and_sparse_are_bit_identical_on_the_card(dev, method,
         np.testing.assert_array_equal(ids, np.flatnonzero(row))
         np.testing.assert_array_equal(cnts, row[row > 0])
     assert dense.em_iterations == sparse.em_iterations
+
+
+# --- slice 10: head_dim 20 (reduced granite-moe), the MoE layer ----------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_20_kernels_match_plain(dev, dtype):
+    """B1 forward and backward, B2 and B3 at head_dim 20 run on
+    zero-padded copies (head_dim 24) scaled by 1/sqrt(20): each against
+    its plain version at head_dim 20, one launch each."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s, hq, hkv, d = 2, 37, 6, 2, 20
+    q = _randn(gen, (b, s, hq, d), dtype, dev).requires_grad_(True)
+    k = _randn(gen, (b, s, hkv, d), dtype, dev).requires_grad_(True)
+    v = _randn(gen, (b, s, hkv, d), dtype, dev).requires_grad_(True)
+    do = _randn(gen, (b, s, hq, d), dtype, dev)
+    ops.reset_launches()
+    out = ops.attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), grad_outputs=do)
+    qt, kt, vt, ot, dot = (x.detach().transpose(1, 2)
+                           for x in (q, k, v, out, do))
+    want, lse = flash_attention_plain(qt, kt, vt, causal=True,
+                                      with_lse=True)
+    torch.testing.assert_close(out.detach().float(),
+                               want.transpose(1, 2).float(), **TOL[dtype])
+    for got, w in zip(grads, flash_attention_bwd_plain(qt, kt, vt, ot, dot,
+                                                       lse, causal=True)):
+        assert got.shape[-1] == d
+        torch.testing.assert_close(got.float(), w.transpose(1, 2).float(),
+                                   **TOL[dtype])
+    qp, kp, vp, table, pos = _paged_walk_case(gen, dev, dtype, 6, 2, d, 16,
+                                              4, [5, 40])
+    got = ops.paged_attention(qp, kp, vp, table, pos)
+    torch.testing.assert_close(
+        got.float(), paged_attention_plain(qp, kp, vp, table, pos).float(),
+        **TOL[dtype])
+    qv, kv, vv, tv, q_pos = _verify_case(gen, dev, dtype, 2, 4, 6, 2, d, 16,
+                                         5, [3, 1])
+    got = ops.spec_verify(qv, kv, vv, tv, q_pos)
+    torch.testing.assert_close(
+        got.float(), spec_verify_plain(qv, kv, vv, tv, q_pos).float(),
+        **TOL[dtype])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert [counts[n] for n in ("flash_attention", "flash_attention_bwd",
+                                "paged_attention", "spec_verify")] \
+        == [1, 1, 1, 1]
+
+
+def _moe_case(dtype, dev, tie):
+    """Reduced granite-moe's MoE weights at std 1/sqrt(d_in) and a skewed
+    input (tokens share a component), drawn on the CPU, in ``dtype`` on
+    ``dev``; ``tie`` makes router columns 0 and 1 equal."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe_specs, tree_map
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m",
+                                         reduced=True), dtype="float32")
+    gen = torch.Generator().manual_seed(2)
+    params = tree_map(lambda sp: torch.randn(sp.shape, generator=gen)
+                      / sp.shape[-2] ** 0.5, moe_specs(cfg))
+    if tie:
+        params["router"][:, 1] = params["router"][:, 0]
+    x = torch.randn((4, 16, cfg.d_model), generator=gen) \
+        + torch.randn((cfg.d_model,), generator=gen)
+    return cfg, tree_map(lambda t: t.to(dev, dtype), params), \
+        x.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype,tie", [(torch.float32, False),
+                                       (torch.float32, True),
+                                       (torch.bfloat16, True)])
+def test_moe_apply_on_the_card_matches_the_cpu(dev, dtype, tie):
+    """moe_apply on the card against the same call on the CPU: float32 at
+    atol 1e-5, bf16 at TOL; with tied router columns both pick the same
+    experts, lower index first (a stable sort, as jax.lax.top_k)."""
+    from repro_torch.models.layers import moe_apply, top_k_stable, tree_map
+    cfg, params, x = _moe_case(dtype, dev, tie)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    y, aux = moe_apply(params, x, cfg)
+    want_y, want_aux = moe_apply(cpu_params, x.cpu(), cfg)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.cpu().float(), want_y.float(), **tol)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-5, rtol=0)
+    xt = x.reshape(-1, cfg.d_model)
+    logits = (xt @ params["router"]).float()
+    cpu_logits = (xt.cpu() @ cpu_params["router"]).float()
+    if tie:
+        assert torch.equal(logits[:, 0], logits[:, 1])
+    idx = top_k_stable(torch.softmax(logits, -1), 2)[1]
+    cpu_idx = top_k_stable(torch.softmax(cpu_logits, -1), 2)[1]
+    assert torch.equal(idx.cpu(), cpu_idx)
+    if tie:
+        rows = idx.cpu().tolist()
+        assert any(r[:2] == [0, 1] for r in rows)
+        assert not any(r[:2] == [1, 0] for r in rows)
+
+
+def test_granite_moe_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch):
+    """Reduced granite-moe (float32), PSL-UGS through api.run, 2 AdamW
+    steps from one CPU-drawn init (stacked matrices at fan-in d_in):
+    loss and aux_loss on the card against the CPU at rtol 1e-4, and every
+    training kernel launched on the card."""
+    import math
+    from repro_torch.api import protocols
+    from repro_torch.core.psl import requires_grad_
+    from repro_torch.launch.train import default_lm_spec
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import TrainState
+
+    def fresh(ctx):
+        gen = torch.Generator().manual_seed(ctx.seed)
+        params = tree_map(
+            lambda p: (p * math.sqrt(p.shape[0] / p.shape[-2])
+                       if p.dim() >= 3 else p).to(ctx.device),
+            ctx.model.init(gen))
+        params = requires_grad_(params)
+        return TrainState(params, ctx.optimizer.init(params), 0)
+    monkeypatch.setattr(protocols, "_fresh_state", fresh)
+    spec = api.apply_overrides(default_lm_spec(), [
+        "model.arch=granite-moe-3b-a800m", "model.reduced=true",
+        "execution.max_steps=2", "protocol.global_batch_size=8",
+        "data.seq_len=32", "data.sequences=256"])
+    ops.reset_launches()
+    card = api.run(spec, device="cuda")
+    counts = ops.launch_counts()
+    cpu = api.run(spec, device="cpu")
+    assert len(card.step_metrics) == len(cpu.step_metrics) == 2
+    for a, b in zip(card.step_metrics, cpu.step_metrics):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["aux_loss"] == pytest.approx(b["aux_loss"], rel=1e-4)
+        assert a["aux_loss"] > 0
+    layers = 2
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == 2 * layers
+    assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 2

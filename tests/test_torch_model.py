@@ -41,7 +41,7 @@ def _models(over):
 def pair(request):
     jm, tm = _models(OVERRIDES[request.param])
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = tckpt.from_numpy_tree(jax.device_get(jp))
+    tp = tckpt.from_numpy_tree(jax.device_get(jp), "cpu")
     return jm, tm, jp, tp
 
 
@@ -190,7 +190,7 @@ def test_bridge_round_trip_is_bitwise(tmp_path):
     jp = jbuild(cfg).init(jax.random.PRNGKey(3))
     path = str(tmp_path / "params.npz")
     jckpt.save(path, jp)
-    tp = tckpt.restore(path)
+    tp = tckpt.restore(path, device="cpu")
     jl, tl = jax.tree_util.tree_leaves(jp), tree_leaves(tp)
     assert len(jl) == len(tl)
     assert any(t.dtype == torch.bfloat16 for t in tl)
@@ -205,8 +205,27 @@ def test_bridge_round_trip_is_bitwise(tmp_path):
             np.testing.assert_array_equal(a, b.numpy())
 
 
-@pytest.mark.parametrize("family_arch", ["zamba2-2.7b", "whisper-tiny",
-                                         "granite-moe-3b-a800m"])
+def test_weight_bridge_defaults_to_the_card(tmp_path):
+    """restore, from_numpy_tree and train_state_from_numpy put the tree
+    on the card unless given device="cpu"; without a card they raise."""
+    tree = {"w": np.ones((2, 3), np.float32)}
+    path = str(tmp_path / "params.npz")
+    jckpt.save(path, tree)
+    calls = [lambda: tckpt.restore(path),
+             lambda: tckpt.from_numpy_tree(tree),
+             lambda: tckpt.train_state_from_numpy(tree, {"count": 0}, 0)]
+    for call in calls:
+        if torch.cuda.is_available():
+            got = call()
+            leaf = got.params["w"] if hasattr(got, "params") else got["w"]
+            assert leaf.is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert tckpt.restore(path, device="cpu")["w"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("family_arch", ["zamba2-2.7b", "whisper-tiny"])
 def test_other_families_raise_not_implemented(family_arch):
     cfg = jget(family_arch, reduced=True)
     fields = {f.name: getattr(cfg, f.name)

@@ -50,7 +50,7 @@ def _serve_both(jax_params, **kw):
     jctx = japi.build_serve_context(jspec, params=jax_params)
     jrep = japi.run_serve(jspec, ctx=jctx)
     tctx = tapi.build_serve_context(
-        tspec, params=from_numpy_tree(jax.device_get(jax_params)),
+        tspec, params=from_numpy_tree(jax.device_get(jax_params), "cpu"),
         device="cpu")
     trep = tapi.run_serve(tspec, ctx=tctx)
     return jrep, trep, tctx
@@ -168,7 +168,7 @@ def test_serve_cli_on_cpu_and_unported_flags(tmp_path, capsys):
 def test_unported_spec_values_fail_clearly(tmp_path):
     spec = _spec(tapi)
     with pytest.raises(tapi.SpecError, match="not ported"):
-        spec.replace(model=tapi.ModelSpec(arch="llama3-8b")).validate()
+        spec.replace(model=tapi.ModelSpec(arch="zamba2-2.7b")).validate()
     with pytest.raises(tapi.SpecError, match="unknown engine"):
         spec.replace(engine=tapi.EngineSpec(name="static")).validate()
     with pytest.raises(NotImplementedError, match="not ported"):

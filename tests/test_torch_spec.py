@@ -373,7 +373,7 @@ def test_decode_window_paged_matches_repro():
     jm = japi.build_model(japi.ModelSpec(arch=ARCH, reduced=True))
     tm = tapi.build_model(tapi.ModelSpec(arch=ARCH, reduced=True))
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = from_numpy_tree(jax.device_get(jp))
+    tp = from_numpy_tree(jax.device_get(jp), "cpu")
     psize, m, num_pages = 8, 6, 14
     toks = np.random.default_rng(1).integers(0, 512, (2, 14)).astype(
         np.int32)
@@ -445,11 +445,11 @@ def _serve_both(jax_params, draft_params=False, **kw):
     assert jspec.to_dict() == tspec.to_dict()
     jctx = japi.build_serve_context(jspec, params=jax_params)
     tctx = tapi.build_serve_context(
-        tspec, params=from_numpy_tree(jax.device_get(jax_params)),
+        tspec, params=from_numpy_tree(jax.device_get(jax_params), "cpu"),
         device="cpu")
     if draft_params:
         tctx.engine._draft_params = from_numpy_tree(
-            jax.device_get(jctx.engine._draft_params))
+            jax.device_get(jctx.engine._draft_params), "cpu")
     jrep = japi.run_serve(jspec, ctx=jctx)
     trep = tapi.run_serve(tspec, ctx=tctx)
     return jrep, trep, tctx
@@ -526,7 +526,7 @@ def test_tenant_preemption_leaks_no_pages(jax_params):
 def test_self_draft_accepts_every_window(jax_params):
     """A draft with every target layer is the target: every proposal is
     accepted, and each window emits more than one token."""
-    tp = from_numpy_tree(jax.device_get(jax_params))
+    tp = from_numpy_tree(jax.device_get(jax_params), "cpu")
     depth = tapi.build_model(tapi.ModelSpec(arch=ARCH,
                                             reduced=True)).cfg.num_layers
     spec = _spec(tapi, draft=tapi.DraftSpec(num_layers=depth, gamma=3))
@@ -549,7 +549,7 @@ def test_stream_and_verify_through_speculative_bursts():
 
 
 def test_speculative_rejects_what_repro_rejects(jax_params):
-    tp = from_numpy_tree(jax.device_get(jax_params))
+    tp = from_numpy_tree(jax.device_get(jax_params), "cpu")
     with pytest.raises(tapi.SpecError, match="draft source"):
         _spec(tapi, draft=tapi.DraftSpec()).validate()
     bad = _spec(tapi, draft=tapi.DraftSpec(arch="falcon-mamba-7b", gamma=2))

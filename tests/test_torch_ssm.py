@@ -62,7 +62,7 @@ def _close(got, want, atol=2e-5):
 def pair():
     jm, tm = jbuild(jget(ARCH, reduced=True)), tbuild(tget(ARCH, reduced=True))
     jp = jm.init(jax.random.PRNGKey(0))
-    return jm, tm, jp, tckpt.from_numpy_tree(jax.device_get(jp))
+    return jm, tm, jp, tckpt.from_numpy_tree(jax.device_get(jp), "cpu")
 
 
 # ------------------------------------------------------- B4 plain version
@@ -373,7 +373,7 @@ def test_ssm_checkpoint_round_trip_keeps_fp32_leaves(tmp_path):
     jp = jm.init(jax.random.PRNGKey(5))
     path = str(tmp_path / "params.npz")
     jckpt.save(path, jp)
-    tp = tckpt.restore(path)
+    tp = tckpt.restore(path, device="cpu")
     jl, tl = jax.tree_util.tree_leaves(jp), tree_leaves(tp)
     assert len(jl) == len(tl)
     dtypes = {t.dtype for t in tl}
@@ -395,7 +395,7 @@ def test_ssm_checkpoint_round_trip_keeps_fp32_leaves(tmp_path):
         np.testing.assert_array_equal(np.asarray(a).view(np.uint8),
                                       np.asarray(b).view(np.uint8))
     _, jc, _ = jm.prefill(jp, {"tokens": jnp.ones((1, 5), jnp.int32)})
-    tc = tckpt.from_numpy_tree(jax.device_get(jc))
+    tc = tckpt.from_numpy_tree(jax.device_get(jc), "cpu")
     assert tc["client"]["ssm"].dtype == torch.float32
     assert tc["client"]["conv"].dtype == torch.bfloat16
     for a, b in zip(jax.tree_util.tree_leaves(jc), tree_leaves(tc)):

@@ -190,7 +190,7 @@ def pair():
 
 
 def _tparams(jp):
-    return tpsl.requires_grad_(from_numpy_tree(jp))
+    return tpsl.requires_grad_(from_numpy_tree(jp, "cpu"))
 
 
 def _batch(b=4, s=24, seed=0):
@@ -324,7 +324,7 @@ def test_adamw_on_equal_grads_matches_repro(pair):
         g = _numpy_grads(jp, seed=10 + step)
         jupd, jstate = jopt.update(g, jstate, jparams)
         jparams = jax.device_get(joptim.apply_updates(jparams, jupd))
-        tstate = topt.apply_updates(tparams, from_numpy_tree(g), tstate)
+        tstate = topt.apply_updates(tparams, from_numpy_tree(g, "cpu"), tstate)
         for got, want in zip(tree_leaves(tparams),
                              jax.tree_util.tree_leaves(jparams)):
             np.testing.assert_allclose(got.detach().numpy(), want, **OPT)
@@ -334,7 +334,8 @@ def test_adamw_on_equal_grads_matches_repro(pair):
                 np.testing.assert_allclose(got.numpy(), want, **OPT)
         assert int(tstate["count"]) == int(jstate["count"]) == step + 1
     # a repro TrainState carries across bit-exactly
-    carried = train_state_from_numpy(jparams, jax.device_get(jstate), 2)
+    carried = train_state_from_numpy(jparams, jax.device_get(jstate), 2,
+                                     device="cpu")
     assert carried.step == 2 and int(carried.opt_state["count"]) == 2
     for got, want in zip(tree_leaves(carried.opt_state["m"]),
                          jax.tree_util.tree_leaves(jstate["m"])):
