@@ -48,7 +48,7 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    with the same requests: B4 must run 64 times a prefill call, and every
    request must equal ``reference_generate`` or diverge at a near-tie of
    ``NEAR_TIE_ULPS`` bf16 ulps of the top logit's magnitude. The B4
-   launches are counted by (B, L, D, N) (``record_scan_shapes``); then
+   launches are counted by (B, L, D, N) (``record_launch_shapes``); then
    the selective scan is held against its plain version at fp32
    tolerance (``SCAN_TOL``) in a ragged fp32 shape and, in bf16, at every
    shape the run launched and at ``SCAN_CONTINUITY_SHAPE``, each timed by
@@ -103,10 +103,27 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    one loss and backward with 256 patches before 128 tokens at
    ``VLM_GRAD_SHAPE`` through the kernels against the plain path
    (``plain_kernels``): loss within ``VLM_LOSS_RTOL``, per-leaf relative
-   L2 within ``GRAD_REL_L2``. Each of 7b–7d frees its model before the
-   next. Then B1, B2, B1-bwd, B5 and B5-bwd are held to their plain
-   versions and timed at the shapes 7b–7d launch them
-   (``family_kernel_phase``; the kernels line's ``family_cases``).
+   L2 within ``GRAD_REL_L2``.
+7e. Hybrid (``[hybrid]``). Full-width zamba2-2.7b (54 Mamba-2 layers,
+   d_model 2560, d_inner 5120, N = 64, 80 heads of 64 channels; one
+   shared attention block, 32 q = kv heads, head_dim 80, before each of
+   8 superblocks of 6 layers, after 4 pre-blocks; bf16, random weights
+   from seed 0) served with the same requests through ``continuous``:
+   B1 8 times and B4 54 times a prefill call, nothing else, each
+   launch's shape recorded; state and KV bytes a slot against their
+   reckoning; TTFT, tok/s, phase means, init and serving peaks. Its
+   tokens' first differences from a serve of the same batches through
+   the plain versions are printed with that run's top-2 gaps, at the
+   own init and again with the weights rescaled to fan-in d_in, not
+   gated (``hybrid_phase`` says why); the same requests are then served
+   in float32 (the same draws before their rounding to bf16) with the
+   same launch gates, and held to ``reference_generate`` under the top-2
+   rule (``NEAR_TIE_GAP``).
+   Each of 7b–7e frees its model before the next. Then B1, B2, B1-bwd,
+   B5 and B5-bwd are held to their plain versions and timed at the
+   shapes 7b–7d launch them, and B1 and B4 (in Mamba-2's layout, its
+   bound ``mamba2_scan_bound``) at every shape and dtype 7e launched
+   them (``family_kernel_phase``; the kernels line's ``family_cases``).
 8. CNN agreement (``[cnn-agree]``). The paper's full-width GroupNorm
    ResNet (paper-cnn CONFIG, fp32, 32x32; no kernel of this repo, cuDNN
    convolutions) with TF32 off: step-0 per-leaf gradients and the losses
@@ -220,6 +237,9 @@ ATTN_SHAPE = dict(b=16, hq=32, hkv=8, d=64, seqs=(128, 100))
 # fp32 products in the same order (y summed over the states in index
 # order); they can differ only where the device's exp does: a few ulps.
 SCAN_TOL = dict(atol=1e-5, rtol=1e-5)
+# B1 in float32 (the CUDA-core kernel) against its plain version, as B3's
+# float32 case is held
+FP32_ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
 # falcon-mamba's fan-in init (a stacked leaf's fan-in is its layer count)
 # gives logits of another magnitude than granite's: its near-tie limit is
 # counted in bf16 ulps of the top logit (one ulp at |x| in [2^e, 2^(e+1))
@@ -228,6 +248,7 @@ NEAR_TIE_ULPS = 4
 SPEC_DRAFT_LAYERS = 4
 SPEC_GAMMA = 4
 SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "zamba2-2.7b"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 SMS = 132                        # H100 SXM streaming multiprocessors
@@ -368,10 +389,11 @@ def kernel_phase(torch, dev):
     return b1_cases, b2, b3
 
 
-def serve_attention_case(torch, rn, b, s, hq, hkv, d):
+def serve_attention_case(torch, rn, b, s, hq, hkv, d, tol=None):
     """B1 forward as serving calls it (no grad, no lse) at one prefill
-    shape, bf16: held to the plain version, timed (events and device)
-    beside it, its bound and the SDPA forward."""
+    shape, in ``rn``'s dtype: held to the plain version (``tol``, bf16's
+    by default), timed (events and device) beside it, its bound and the
+    SDPA forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -381,13 +403,16 @@ def serve_attention_case(torch, rn, b, s, hq, hkv, d):
     got = serve_attention(q, k, v, causal=True)
     want = flash_attention_plain(qt, kt, vt, causal=True).transpose(1, 2)
     torch.cuda.synchronize()
-    err = within(torch, got, want)
-    elt = 2
-    nbytes = elt * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    tol = tol or dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+    name = str(q.dtype).replace("torch.", "")
+    err = within_tol(torch, got, want, f"flash_attention {name} "
+                     f"{(b, s, hq, hkv, d)}", **tol)
+    fp32 = q.dtype == torch.float32       # the CUDA-core kernel, no wgmma
+    nbytes = q.element_size() * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS)
     case = {
-        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal",
+        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal {name}",
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: serve_attention(q, k, v)),
         "plain_ms": time_ms(torch, lambda: flash_attention_plain(
@@ -398,10 +423,11 @@ def serve_attention_case(torch, rn, b, s, hq, hkv, d):
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
     }
     case["device_ms"] = device_ms(
-        torch, lambda: serve_attention(q, k, v), "flash_fwd_tc")
+        torch, lambda: serve_attention(q, k, v),
+        "flash_fwd_kernel" if fp32 else "flash_fwd_tc")
     add_rates(case, flops)
     print(f"kernel flash_attention {case['shape']}: err "
-          f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
+          f"{err:.3g} (atol {tol['atol']}, rtol {tol['rtol']}); "
           f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), "
           f"plain {case['plain_ms']:.4f} ms, bound {bnd:.5f} ms "
           f"({by}), sdpa {case['library_ms']:.4f} ms; "
@@ -648,7 +674,7 @@ def verify_kernel_phase(torch, dev, gen):
     ragged_wl = [4, 2, 0, 3, 4, 1, 0, 4]
     ragged_start = [13, 30, 47, 95, 111, 0, 64, 15]
     tols = {torch.bfloat16: dict(atol=BF16_ATOL, rtol=BF16_RTOL),
-            torch.float32: dict(atol=2e-5, rtol=1e-4)}
+            torch.float32: FP32_ATTN_TOL}
     errs, w1_err = {}, {}
     for dtype, tol in tols.items():
         case = verify_case(torch, dev, gen, dtype, w, ragged_wl,
@@ -735,6 +761,83 @@ def scan_bound(b, l, d, n, elt):
             else (t_ops, "operations")) + (nbytes, exps)
 
 
+def mamba2_scan_bound(b, l, d, n, hd, elt):
+    """Least time for the Mamba-2 function that B4 computes in its layout
+    (``mamba2_scan_inputs``, ``hd`` channels a head): x (elt bytes) and y
+    (fp32) once per (b, t, d), dt (fp32) once per (b, t, head), B and C
+    once per (b, t, n), a_log and h_last once; against its operations,
+    the larger of one exponential per (b, t, head), exp(dt a), at the
+    SFUs' rate and 5 fp32 flops per (b, t, d, n) at the fp32 peak (the
+    state's multiply by exp(dt a), the (dt x) B product, their sum, C's
+    product and its sum). Returns (ms, "bytes" or "operations", bytes,
+    exps)."""
+    nh = d // hd
+    nbytes = (b * l * d * (elt + 4) + b * l * nh * 4 + 2 * b * l * n * elt
+              + nh * 4 + b * d * n * 4)
+    exps = b * l * nh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(exps / (SMS * SFU_EXP_PER_CLOCK * sm_clock_hz()),
+                5.0 * b * l * d * n / FP32_FLOPS) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (nbytes, exps)
+
+
+def timed_scan_case(torch, args, shape, err, launches, run: str, hd=None):
+    """B4 on ``args`` (x, B, C in one dtype at ``shape`` (B, L, D, N)),
+    already held to its plain version (``err``), timed by CUDA events and
+    by its device time (``device_ms``) beside its plain version and its
+    bound: ``scan_bound``'s, or with ``hd`` (Mamba-2's layout, ``hd``
+    channels a head) ``mamba2_scan_bound``'s, with ``scan_bound``'s
+    beside it as ``generic_bound_ms``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    elt = args[0].element_size()
+    bnd, by, nbytes, exps = scan_bound(*shape, elt=elt)
+    extra, note = {}, ""
+    if hd is not None:
+        extra = {"generic_bound_ms": bnd, "generic_bound_by": by,
+                 "generic_exp_count": exps}
+        note = (f"; B4's generic bound {bnd:.5f} ms ({by}, "
+                f"{exps / 1e6:.1f} M exp)")
+        bnd, by, nbytes, exps = mamba2_scan_bound(*shape, hd=hd, elt=elt)
+    name = str(args[0].dtype).replace("torch.", "")
+    case = {"shape": "B={} L={} D={} N={} x/B/C {}".format(*shape, name),
+            "launches": launches, "max_abs_err": err, "exp_count": exps,
+            "ms": time_ms(torch, lambda: ops.selective_scan(*args)),
+            "device_ms": device_ms(
+                torch, lambda: ops.selective_scan(*args),
+                DEVICE_MATCH["selective_scan"]),
+            "plain_ms": time_ms(torch, lambda: ssm_scan_plain(*args),
+                                iters=3, warmup=1),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None, **extra}
+    print(f"kernel ssm_scan {case['shape']} ({launches} launches in {run}): "
+          f"err {err:.3g} (atol {SCAN_TOL['atol']}, rtol "
+          f"{SCAN_TOL['rtol']}); {case['ms']:.4f} ms (device "
+          f"{case['device_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}: {nbytes / 1e6:.2f} MB; "
+          f"{exps / 1e6:.3g} M exp at {SFU_EXP_PER_CLOCK} a clock an SM)"
+          f"{note}", flush=True)
+    return case
+
+
+def mamba2_scan_case(torch, dev, gen, b, l, d, n, hd, dtype):
+    """B4's inputs in Mamba-2's layout (``mamba2_scan_inputs``): dt drawn
+    per head and given to its ``hd`` channels, A's rows -exp(a_log) of
+    the channel's head in every state (a_log = log(1..nh), the init),
+    x, B and C in ``dtype``."""
+    from repro_torch.models.layers import mamba2_scan_inputs
+    nh = d // hd
+    x = torch.randn((b, l, d), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, nh), generator=gen, device=dev) - 1.0)
+    a_log = torch.log(torch.arange(1, nh + 1, device=dev,
+                                   dtype=torch.float32))
+    dt_c, a = mamba2_scan_inputs(dt, a_log, hd, n)
+    bm = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
+    return x, dt_c, a, bm, cm
+
+
 def scan_kernel_phase(torch, dev, shapes):
     """B4 against its plain version at SCAN_TOL: a ragged fp32 shape
     (3, 37, 200, 16), then in bf16 every (B, L, D, N) the ssm run
@@ -761,25 +864,8 @@ def scan_kernel_phase(torch, dev, shapes):
     cases = []
     for shape in sorted(set(shapes) | {SCAN_CONTINUITY_SHAPE}):
         args, err = check(torch.bfloat16, shape)
-        bnd, by, nbytes, exps = scan_bound(*shape, elt=2)
-        case = {"shape": "B={} L={} D={} N={} x/B/C bfloat16".format(*shape),
-                "launches": shapes.get(shape, 0), "max_abs_err": err,
-                "exp_count": exps,
-                "ms": time_ms(torch, lambda: ops.selective_scan(*args)),
-                "device_ms": device_ms(
-                    torch, lambda: ops.selective_scan(*args),
-                    DEVICE_MATCH["selective_scan"]),
-                "plain_ms": time_ms(torch, lambda: ssm_scan_plain(*args),
-                                    iters=3, warmup=1),
-                "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        print(f"kernel ssm_scan {case['shape']} ({case['launches']} "
-              f"launches in the ssm run): err {err:.3g} (atol "
-              f"{SCAN_TOL['atol']}, rtol {SCAN_TOL['rtol']}); "
-              f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}), plain "
-              f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}: "
-              f"{nbytes / 1e6:.2f} MB; {exps / 1e6:.1f} M exp at "
-              f"{SFU_EXP_PER_CLOCK} a clock an SM)", flush=True)
-        cases.append(case)
+        cases.append(timed_scan_case(torch, args, shape, err,
+                                     shapes.get(shape, 0), "the ssm run"))
     print(f"kernel ssm_scan fp32 B=3 L=37 D=200 N=16: err {fp32_err:.3g}; "
           f"bounds at a max SM clock of {sm_clock_hz() / 1e6:.0f} MHz",
           flush=True)
@@ -944,21 +1030,31 @@ def forced_gaps(torch, ctx, prompt, tokens):
     return gaps
 
 
-def agreement_phase(torch, reports, ctx, requests, limit=None):
-    """Every report's requests against ``reference_generate``: equal, or a
-    first divergence where the reference's top-2 gap is below the limit
-    (``NEAR_TIE_GAP``, or ``limit(top_logit)``). Prints the largest |top
-    logit| seen and each divergence with the rule it passed under."""
+def agreement_phase(torch, reports, ctx, requests, limit=None,
+                    reference=None, gate: bool = True):
+    """Every report's requests against a reference: equal, or a first
+    divergence where the reference's top-2 gap is below the limit
+    (``NEAR_TIE_GAP``, or ``limit(top_logit)``). The reference is
+    ``reference_generate`` (batch-1 greedy decoding), or ``reference``:
+    request -> (tokens, top-2 gaps, top logits) of each step. Prints the
+    largest |top logit| seen and each divergence with the rule it passed
+    under (with ``gate`` False: with its gap, and nothing fails);
+    returns the exact count and each divergence's (token, gap)."""
     from repro_torch.runtime import reference_generate
-    vocab = ctx.engine.cfg.vocab_size
-    exact = near = 0
-    biggest = 0.0
-    for req in requests:
+
+    def batch1(req):
         gaps, tops = [], []
-        want = reference_generate(ctx.model, ctx.params, req.prompt,
+        toks = reference_generate(ctx.model, ctx.params, req.prompt,
                                   req.max_new_tokens,
                                   ctx.engine.pool.slot_len, gaps=gaps,
                                   tops=tops)
+        return toks, gaps, tops
+    reference = reference or batch1
+    vocab = ctx.engine.cfg.vocab_size
+    exact, near = 0, {}
+    biggest = 0.0
+    for req in requests:
+        want, gaps, tops = reference(req)
         biggest = max(biggest, max(abs(t) for t in tops))
         for engine, report in reports.items():
             got = _tokens_of(report, req.rid)
@@ -970,18 +1066,24 @@ def agreement_phase(torch, reports, ctx, requests, limit=None):
                 exact += 1
                 continue
             i = next(j for j in range(len(want)) if got[j] != want[j])
+            near[f"{engine}/{req.rid}"] = (i, gaps[i])
+            if not gate:
+                print(f"[{engine}] request {req.rid}: first differs at "
+                      f"token {i} (reference top-2 gap {gaps[i]:.4f}, "
+                      f"top logit {tops[i]:.4f}; not gated)", flush=True)
+                continue
             lim = NEAR_TIE_GAP if limit is None else limit(tops[i])
             if gaps[i] >= lim:
                 fail(f"[{engine}] request {req.rid} diverges at token {i} "
                      f"where the reference's top-2 gap is {gaps[i]:.4f} "
                      f">= {lim}")
-            near += 1
             print(f"[{engine}] request {req.rid}: near-tie at token {i} "
                   f"(reference top-2 gap {gaps[i]:.4f} < {lim:.4g})",
                   flush=True)
-    print(f"agreement with reference_generate: {exact} exact, {near} "
-          f"near-tie, of {len(requests) * len(reports)} served requests; "
-          f"largest |top logit| {biggest:.4f}", flush=True)
+    print(f"agreement with the reference: {exact} exact, {len(near)} "
+          f"{'near-tie' if gate else 'differing (not gated)'}, of "
+          f"{len(requests) * len(reports)} served requests; largest |top "
+          f"logit| {biggest:.4f}", flush=True)
     if "speculative" in reports and "paged" in reports:
         same = 0
         for req in requests:
@@ -999,6 +1101,7 @@ def agreement_phase(torch, reports, ctx, requests, limit=None):
                   f"token {i}, a near-tie (gap {gap:.4f})", flush=True)
         print(f"speculative vs paged: {same} of {len(requests)} requests "
               f"token-identical, the rest near-ties", flush=True)
+    return {"exact": exact, "near_ties": near}
 
 
 def ssm_phase(torch, dev, events_dir: pathlib.Path):
@@ -1033,11 +1136,11 @@ def ssm_phase(torch, dev, events_dir: pathlib.Path):
     if per_slot != reckoned:
         fail(f"[ssm] state bytes a slot {per_slot}, reckoned {reckoned}")
     torch.cuda.reset_peak_memory_stats()
-    shapes = record_scan_shapes()
+    shapes = record_launch_shapes()
     try:
         report, launches, prefills = serve_run(torch, ctx, spec, "ssm")
     finally:
-        shapes = shapes.stop()
+        shapes = shapes.stop()["selective_scan"]
     peak = torch.cuda.max_memory_allocated()
     print(f"[ssm] B4 launches by (B, L, D, N): {shapes}", flush=True)
     if sum(shapes.values()) != launches["selective_scan"]:
@@ -1061,24 +1164,310 @@ def ssm_phase(torch, dev, events_dir: pathlib.Path):
     return launches, shapes
 
 
-class record_scan_shapes:
-    """Count the B4 kernel's launches by (B, L, D, N) until ``stop``, by
-    wrapping the kernel launcher that ``ops.selective_scan`` calls on a
-    CUDA tensor (``ops.ssm_scan``), as ``count_prefills`` wraps the
-    prefill."""
+def hybrid_build(torch, dev, spec, tag: str):
+    """Build full-width zamba2 from ``spec`` (random weights, seed 0) and
+    check its state and shared-attention KV bytes a slot against their
+    reckoning. Returns (ctx, numbers)."""
+    from repro_torch.runtime.kvcache import tree_nbytes
+    ctx, n_params = build_family_ctx(torch, dev, spec, tag)
+    init_peak = torch.cuda.max_memory_allocated()
+    model, cfg, pool = ctx.model, ctx.model.cfg, ctx.engine.pool
+    per_slot = tree_nbytes(pool.buffers) / pool.num_slots
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    nh = cfg.ssm_num_heads
+    reckoned = (cfg.num_layers * ((cfg.ssm_conv - 1)
+                                  * (cfg.d_inner + 2 * cfg.ssm_state) * elt
+                                  + cfg.d_inner * cfg.ssm_state * 4)
+                + model.n_super * 2 * pool.slot_len
+                * model.blocks.kv_cache_heads() * cfg.head_dim * elt)
+    print(f"[{tag}] {cfg.num_layers} Mamba-2 layers (cut {cfg.cut_layer}, "
+          f"{model.n_pre} pre-blocks, {model.n_super} superblocks of "
+          f"{cfg.attn_period}), d_inner {cfg.d_inner}, N {cfg.ssm_state}, "
+          f"{nh} heads of {cfg.d_inner // nh}; param_count "
+          f"{cfg.param_count()}; state and shared-attention KV "
+          f"{per_slot / 1e6:.2f} MB a slot (reckoned {reckoned / 1e6:.2f}) "
+          f"x {pool.num_slots} slots of {pool.slot_len}", flush=True)
+    if per_slot != reckoned:
+        fail(f"[{tag}] state bytes a slot {per_slot}, reckoned {reckoned}")
+    return ctx, {"dtype": cfg.dtype, "params": n_params,
+                 "init_peak_bytes": init_peak,
+                 "state_bytes_per_slot": per_slot}
+
+
+def hybrid_serve(torch, ctx, spec, tag: str):
+    """Serve ``ctx``'s zamba2 through ``continuous`` (events to
+    ``<tag>.jsonl`` beside ``spec``'s) with the launch counts set to 0
+    just before and read just after: B1 once a shared attention
+    application (``n_super`` a prefill call), B4 once a Mamba-2 layer
+    (``num_layers`` a prefill call), nothing else. Returns (report,
+    numbers, each kernel's launches by shape, ``record_launch_shapes``)."""
+    spec = spec.replace(obs=spec.obs.replace(events_path=str(
+        pathlib.Path(spec.obs.events_path).with_name(f"{tag}.jsonl"))))
+    model, cfg = ctx.model, ctx.model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    shapes = record_launch_shapes()
+    try:
+        report, launches, prefills = serve_run(torch, ctx, spec, tag)
+    finally:
+        shapes = shapes.stop()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = model.n_super * prefills
+    want["selective_scan"] = cfg.num_layers * prefills
+    if launches != want or prefills < 1 or report.steps < 1:
+        fail(f"[{tag}] launches {launches}, wanted {want} "
+             f"({model.n_super} B1 and {cfg.num_layers} B4 a prefill call)")
+    for name, counts in shapes.items():
+        if sum(counts.values()) != launches[name]:
+            fail(f"[{tag}] recorded {name} shapes {counts} do not add up "
+                 f"to {launches[name]} launches")
+    times = phase_times(spec.obs.events_path)
+    ttft = report.to_json()["ttft_ms"]
+    out = {"ttft_ms_p50": ttft["p50"], "ttft_ms_p95": ttft["p95"],
+           "decode_tok_per_s": report.decode_tok_per_s,
+           "admit_ms_mean": times["admit"][0],
+           "decode_step_ms_mean": times["decode_step"][0],
+           "steps": report.steps, "prefill_calls": prefills,
+           "peak_memory_bytes": peak, "launches": launches,
+           "launch_shapes": {name: {"x".join(map(str, k)): v
+                                    for k, v in sorted(counts.items())}
+                             for name, counts in shapes.items()}}
+    print(f"[{tag}] B4 launches by (B, L, D, N): "
+          f"{shapes['selective_scan']}; B1 by (B, S, Hq, Hkv, D): "
+          f"{shapes['flash_attention']}; TTFT p50/p95 "
+          f"{ttft['p50']:.1f}/{ttft['p95']:.1f} ms; decode "
+          f"{report.decode_tok_per_s:.1f} tok/s; mean admit "
+          f"{times['admit'][0]:.2f} ms, mean decode step "
+          f"{times['decode_step'][0]:.2f} ms; serving peak "
+          f"{peak / 2**30:.2f} GiB; launches as wanted ({model.n_super} B1 "
+          f"and {cfg.num_layers} B4 a prefill call)", flush=True)
+    return report, out, shapes
+
+
+def plain_agreement(torch, ctx, spec, report, requests, tag: str):
+    """Serve ``requests`` again through ``ctx`` with every kernel replaced
+    by its plain version (``plain_kernels``; the same batches, so every
+    product but the kernels' sums in the same order), recording that
+    run's top-2 gaps (``record_gaps``), and print ``report``'s first
+    differences from it with those gaps (``agreement_phase``, not
+    gated)."""
+    spec = spec.replace(obs=spec.obs.replace(events_path=str(
+        pathlib.Path(spec.obs.events_path).with_name(f"{tag}-plain.jsonl"))))
+    gaps = record_gaps(ctx.engine)
+    try:
+        with plain_kernels(torch):
+            plain, launches, _ = serve_run(torch, ctx, spec, f"{tag}-plain")
+    finally:
+        steps = gaps.stop()
+    if any(launches.values()):
+        fail(f"[{tag}-plain] launched a kernel: {launches}")
+
+    def plain_run(req):
+        toks = _tokens_of(plain, req.rid)
+        rows = [steps[(req.rid, i)] for i in range(len(toks))]
+        return toks, [g for g, _ in rows], [t for _, t in rows]
+    return agreement_phase(torch, {tag: report}, ctx, requests,
+                           reference=plain_run, gate=False)
+
+
+def hybrid_decode_profile(torch, ctx, requests):
+    """One batched decode step of the pool's 8 slots (each request's last
+    prompt token at its prompt length) under torch.profiler, with every
+    Mamba-2 mixer call and every shared-attention decode in a named
+    range: device ms by ``HYBRID_DECODE_GROUPS``, wall, idle share."""
+    from torch.profiler import record_function
+    blocks = ctx.model.blocks
+    mixer, attn = blocks._mixer, blocks.attn_decode
+
+    def ranged_mixer(*args, **kw):
+        with record_function("mamba2_apply"):
+            return mixer(*args, **kw)
+
+    def ranged_attn(*args, **kw):
+        with record_function("shared_attention"):
+            return attn(*args, **kw)
+    dev = ctx.params["client"]["embed"].device
+    rows = requests[:ctx.engine.pool.num_slots]
+    tok = torch.tensor([[int(r.prompt[-1])] for r in rows], device=dev)
+    pos = torch.tensor([len(r.prompt) for r in rows], device=dev)
+    blocks._mixer, blocks.attn_decode = ranged_mixer, ranged_attn
+    try:
+        return profile_groups(
+            torch, lambda: ctx.model.decode_step(
+                ctx.params, ctx.engine.pool.buffers, tok, pos),
+            HYBRID_DECODE_GROUPS,
+            f"[hybrid] one decode step (B={len(rows)})")
+    finally:
+        blocks._mixer = mixer
+        del blocks.attn_decode
+
+
+def batch_variance(torch, ctx, requests, tag: str):
+    """Batch 4 against batch 1: four of the requests' 32-token prompts
+    prefilled together and the first alone. Returns and prints the
+    relative difference of its residual row after the first and the last
+    Mamba-2 block, its last logits' largest difference, and how many of
+    32 rows of one out_proj product (a superblock layer's weight, random
+    rows) differ between a 128-row and a 32-row product."""
+    import numpy as np
+    model, params = ctx.model, ctx.params
+    dev = params["client"]["embed"].device
+    prompts = [r.prompt for r in requests if len(r.prompt) == 32][:4]
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    rows = []
+    prefill_block = model.blocks.ssm_block_prefill
+
+    def recording(p, x):
+        x, st = prefill_block(p, x)
+        rows.append(x[0].float())
+        return x, st
+    model.blocks.ssm_block_prefill = recording
+    try:
+        with torch.no_grad():
+            batched = model.prefill(params, {"tokens": toks})[0][0]
+            n = len(rows)
+            alone = model.prefill(params, {"tokens": toks[:1]})[0][0]
+    finally:
+        del model.blocks.ssm_block_prefill
+    rel = [float((rows[i] - rows[n + i]).abs().max()
+                 / rows[n + i].abs().max()) for i in (0, n - 1)]
+    w = params["server"]["superblocks"]["mixer"]["out_proj"][0, 0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    a = torch.randn((128, w.shape[0]), generator=gen, device=dev).to(w.dtype)
+    with torch.no_grad():
+        gemm_rows = int((a @ w)[:32].ne(a[:32] @ w).any(dim=-1).sum())
+    out = {"first_block_rel": rel[0], "last_block_rel": rel[1],
+           "logits_max_abs": float((batched - alone).abs().max()),
+           "out_proj_rows_differ": gemm_rows}
+    print(f"[{tag}] batch 4 against batch 1 (four 32-token prompts): "
+          f"residual row differs by {rel[0]:.3g} (relative) after block 1,"
+          f" {rel[1]:.3g} after block {n}; last logits by "
+          f"{out['logits_max_abs']:.4g}; out_proj product "
+          f"{tuple(w.shape)}: {gemm_rows} of 32 rows differ at 128 rows "
+          f"against 32", flush=True)
+    return out
+
+
+class record_gaps:
+    """The top-2 logit gap and the top logit of each token ``engine``
+    samples until ``stop``, by request and token index, by wrapping its
+    sampler (greedy: the argmax of the logits it is given)."""
+
+    def __init__(self, engine):
+        self.sampler, self.sample = engine.sampler, engine.sampler.sample
+        self.steps = {}
+
+        def recording(logits, rids, idxs):
+            top2 = logits.float().topk(2, dim=-1).values
+            for rid, idx, gap, top in zip(
+                    rids.tolist(), idxs.tolist(),
+                    (top2[:, 0] - top2[:, 1]).tolist(), top2[:, 0].tolist()):
+                self.steps[(rid, idx)] = (gap, top)
+            return self.sample(logits, rids, idxs)
+        self.sampler.sample = recording
+
+    def stop(self):
+        del self.sampler.sample
+        return self.steps
+
+
+def hybrid_phase(torch, dev, events_dir: pathlib.Path):
+    """[hybrid]: full-width zamba2-2.7b served through ``continuous`` with
+    the 8 requests, each serve gated on its launches and shapes
+    (``hybrid_serve``). In bf16 at the model's own init (the serving
+    numbers), then with its weights rescaled to fan-in d_in
+    (``rescale_to_fan_in`` with the specs): each serve's tokens against
+    a serve of the same batches with every kernel replaced by its plain
+    version (``plain_agreement``), each first difference printed with
+    the plain run's top-2 gap, not gated. Then in float32, the same
+    draws of seed 0 before their rounding to bf16: every request must
+    equal ``reference_generate`` (batch-1 greedy decoding) or diverge at
+    a near-tie (``NEAR_TIE_GAP``), gated. ``batch_variance`` is printed
+    for each.
+
+    Why the bf16 tokens are not gated: cuBLAS sums the Mamba-2 out_proj
+    product (K 5120, N 2560) in another order at 32 rows (one 32-token
+    prompt) than at 128 (four), so prefill rows of one prompt differ by
+    a bf16 ulp between batch 1 and batch 4 from the first block on, and
+    54 blocks amplify that; the kernels' own ulps against the plain
+    versions (B1's bf16 P, held to them at every launched shape by
+    ``family_kernel_phase``) are amplified alike, at the own init
+    (a stacked leaf's fan-in is its layer count: std 0.35 where
+    1/sqrt(d_in) is 0.02) and at fan-in d_in, to first differences
+    at bf16 logit gaps of 0.0625 and more (``PERF.md``, Findings). In
+    float32 the same differences start ~1e3 times smaller."""
+    from repro_torch.api import build_workload
+    t_phase = time.perf_counter()
+    spec = serve_spec("continuous", events_dir, arch=HYBRID_ARCH)
+    ctx, out = hybrid_build(torch, dev, spec, "hybrid")
+    requests = build_workload(spec, ctx.model.cfg.vocab_size)
+    report, served, shapes = hybrid_serve(torch, ctx, spec, "hybrid")
+    out.update(served)
+    out["agreement_with_plain"] = plain_agreement(
+        torch, ctx, spec, report, requests, "hybrid")
+    out["decode_profile"] = hybrid_decode_profile(torch, ctx, requests)
+    out["batch_variance"] = batch_variance(torch, ctx, requests, "hybrid")
+    rescale_to_fan_in(torch, ctx.params, ctx.model.param_specs())
+    report, _, _ = hybrid_serve(torch, ctx, spec, "hybrid-fan-in")
+    out["fan_in"] = {
+        "agreement_with_plain": plain_agreement(
+            torch, ctx, spec, report, requests, "hybrid-fan-in"),
+        "batch_variance": batch_variance(torch, ctx, requests,
+                                         "hybrid-fan-in")}
+    del ctx, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec32 = serve_spec("continuous", events_dir, arch=HYBRID_ARCH,
+                        overrides={"dtype": "float32"})
+    ctx, out["fp32"] = hybrid_build(torch, dev, spec32, "hybrid-fp32")
+    report, served, shapes32 = hybrid_serve(torch, ctx, spec32,
+                                            "hybrid-fp32")
+    out["fp32"].update(served)
+    out["fp32"]["agreement"] = agreement_phase(
+        torch, {"hybrid-fp32": report}, ctx, requests)
+    out["fp32"]["batch_variance"] = batch_variance(torch, ctx, requests,
+                                                   "hybrid-fp32")
+    del ctx, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[hybrid] phase {out['seconds']:.1f} s", flush=True)
+    return out, {"bfloat16": shapes, "float32": shapes32}
+
+
+class record_launch_shapes:
+    """Count the B4 and B1 kernels' launches by shape until ``stop``, by
+    wrapping the kernel launchers that ``ops.selective_scan`` and
+    ``ops.attention`` call on a CUDA tensor (``ops.ssm_scan`` by (B, L,
+    D, N), ``ops.flash_attention`` by (B, S, Hq, Hkv, D)), as
+    ``count_prefills`` wraps the prefill. B1 launches are serving
+    prefills: causal, unwindowed, T = S (``serve_attention_case``'s
+    case); any other fails."""
 
     def __init__(self):
         from repro_torch.kernels import ops
-        self.ops, self.launch, self.counts = ops, ops.ssm_scan, {}
+        self.ops, self.scan, self.attn = ops, ops.ssm_scan, ops.flash_attention
+        self.counts = {"selective_scan": {}, "flash_attention": {}}
 
-        def counted(x, dt, a, bmat, cmat):
-            shape = (*x.shape, a.shape[1])
-            self.counts[shape] = self.counts.get(shape, 0) + 1
-            return self.launch(x, dt, a, bmat, cmat)
-        ops.ssm_scan = counted
+        def count(name, shape):
+            self.counts[name][shape] = self.counts[name].get(shape, 0) + 1
+
+        def scan(x, dt, a, bmat, cmat):
+            count("selective_scan", (*x.shape, a.shape[1]))
+            return self.scan(x, dt, a, bmat, cmat)
+
+        def attn(q, k, v, *, causal=True, window=None, **kw):
+            b, hq, s, d = q.shape
+            if not causal or window is not None or k.shape[2] != s:
+                fail(f"B1 launched at T {k.shape[2]}, S {s}, causal "
+                     f"{causal}, window {window}: not a serving prefill")
+            count("flash_attention", (b, s, hq, k.shape[1], d))
+            return self.attn(q, k, v, causal=causal, window=window, **kw)
+        ops.ssm_scan, ops.flash_attention = scan, attn
 
     def stop(self):
-        self.ops.ssm_scan = self.launch
+        self.ops.ssm_scan, self.ops.flash_attention = self.scan, self.attn
         return self.counts
 
 
@@ -1500,7 +1889,7 @@ def profile_step(torch, ctx, pstate):
     return out
 
 
-def rescale_to_fan_in(torch, params) -> None:
+def rescale_to_fan_in(torch, params, specs=None) -> None:
     """Multiply every stacked per-layer matrix (L, d_in, d_out), and every
     stack of expert matrices (L, E, d_in, d_out), by sqrt(L / d_in), in
     place: the std of fan-in d_in instead of the
@@ -1512,12 +1901,18 @@ def rescale_to_fan_in(torch, params) -> None:
     relative L2 of 0.70 when its fp32 scores are computed exactly (fp64,
     then rounded) and of 0.80 in TF32 (tools/grad_conditioning.py), so
     there only score sums bitwise equal to the plain version's fp32
-    product could agree. Rescaled, the scores are O(1)."""
+    product could agree. Rescaled, the scores are O(1). With ``specs``
+    (the model's ``param_specs()``) only the normal-init leaves are
+    rescaled: the hybrid's double-stacked (n_super, attn_period, ...)
+    a_log, D and norm weights have 3 axes and are not matrices."""
     import math
     from repro_torch.models.layers import tree_leaves
+    leaves = tree_leaves(params)
+    inits = (["normal"] * len(leaves) if specs is None
+             else [sp.init for sp in tree_leaves(specs)])
     with torch.no_grad():
-        for leaf in tree_leaves(params):
-            if leaf.dim() >= 3:
+        for leaf, init in zip(leaves, inits, strict=True):
+            if init == "normal" and leaf.dim() >= 3:
                 leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[-2]))
 
 
@@ -1550,25 +1945,28 @@ def grad_check_setup(torch, dev, rescale: bool = True):
 
 @contextlib.contextmanager
 def plain_kernels(torch):
-    """Inside: ``ops.attention`` and ``ops.cross_entropy`` are their plain
-    versions (autograd through plain PyTorch), for a reference run."""
+    """Inside: ``ops.attention``, ``ops.cross_entropy`` and
+    ``ops.selective_scan`` are their plain versions (autograd through
+    plain PyTorch), for a reference run."""
     from repro_torch.kernels import cross_entropy as xent
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
 
     def plain_attention(q, k, v, *, causal=True, window=None):
         return flash_attention_plain(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
 
-    kernel_attention, kernel_xent = ops.attention, ops.cross_entropy
+    kernels = ops.attention, ops.cross_entropy, ops.selective_scan
     ops.attention = plain_attention
     ops.cross_entropy = lambda h, w, labels: xent.cross_entropy_fwd_plain(
         h, w, labels.to(torch.int32))
+    ops.selective_scan = ssm_scan_plain
     try:
         yield
     finally:
-        ops.attention, ops.cross_entropy = kernel_attention, kernel_xent
+        ops.attention, ops.cross_entropy, ops.selective_scan = kernels
 
 
 def leaf_rel_l2(got, want):
@@ -1733,6 +2131,18 @@ def _launched_in(*ops):
 
 def _kernel_named(*pats):
     return lambda kern, names: any(p in kern for p in pats)
+
+
+HYBRID_DECODE_GROUPS = (
+    ("Mamba-2 projections (in_proj, out_proj)",
+     lambda kern, names: "mamba2_apply" in names
+     and any(n in ("aten::mm", "aten::addmm", "aten::bmm") for n in names)),
+    ("Mamba-2 conv, state update, gate and norm",
+     _launched_in("mamba2_apply")),
+    ("shared attention (q/k/v, cache write, decode attention)",
+     _launched_in("shared_attention")),
+    ("other (block norms, residuals, wo, LM head, embedding)",
+     lambda kern, names: True))
 
 
 MOE_DECODE_GROUPS = (
@@ -2121,7 +2531,7 @@ def vlm_phase(torch, dev, events_dir: pathlib.Path):
     return out
 
 
-def family_kernel_phase(torch, dev):
+def family_kernel_phase(torch, dev, hybrid_shapes):
     """B1, B2, B1-bwd, B5 and B5-bwd held to their plain versions and
     timed at the shapes the [moe] and [vlm] phases launch them: serving
     prefill (B = 1, S = 100) and paged decode (the paged run's geometry)
@@ -2129,7 +2539,16 @@ def family_kernel_phase(torch, dev):
     Hkv 8, Hc 16, D 128); training attention forward and backward of
     [moe-train] (B 16, S 128) and of [vlm]'s patched loss (B 4, S 384);
     the cross-entropy of [moe-train] (T 2048, d 1536, V 49,155) and of
-    [vlm] (T 1536, d 2048, V 92,553). Returns the cases by kernel."""
+    [vlm] (T 1536, d 2048, V 92,553). Then [hybrid]'s: B1 and B4 (in
+    Mamba-2's layout, 64 channels a head) at every shape each [hybrid]
+    run launched them, in its dtype (``hybrid_shapes``: by dtype name,
+    each kernel's launches by shape), and in bf16 also at B = 1 and each
+    prompt length. B1 is held at bf16's tolerance or
+    ``FP32_ATTN_TOL``, B4 at ``SCAN_TOL``. Returns the cases by
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
 
@@ -2160,6 +2579,40 @@ def family_kernel_phase(torch, dev):
                              shape=shape)
         cases["cross_entropy"].append({"phase": tag, **fwd})
         cases["cross_entropy_bwd"].append({"phase": tag, **bwd})
+    hcfg = get_config(HYBRID_ARCH)
+    cases["selective_scan"] = []
+    for name, shapes in hybrid_shapes.items():
+        dtype = getattr(torch, name)
+        tol = (dict(atol=BF16_ATOL, rtol=BF16_RTOL) if name == "bfloat16"
+               else FP32_ATTN_TOL)
+        b1 = dict(shapes["flash_attention"])
+        b4 = dict(shapes["selective_scan"])
+        if name == "bfloat16":    # the prefill shapes of one prompt alone
+            for plen in SERVE["prompt_lens"]:
+                b1.setdefault((1, plen, hcfg.num_heads, hcfg.num_kv_heads,
+                               hcfg.head_dim), 0)
+                b4.setdefault((1, plen, hcfg.d_inner, hcfg.ssm_state), 0)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for shape, n in sorted(b1.items()):
+            cases["flash_attention"].append({
+                "phase": "hybrid", "launches": n,
+                **serve_attention_case(torch, rnd, *shape, tol=tol)})
+        for shape, n in sorted(b4.items()):
+            args = mamba2_scan_case(torch, dev, gen, *shape,
+                                    hd=hcfg.ssm_head_dim, dtype=dtype)
+            y, h = ops.selective_scan(*args)
+            py, ph = ssm_scan_plain(*args)
+            err = max(within_tol(torch, y, py, f"ssm_scan y mamba2 {name} "
+                                 f"{shape}", **SCAN_TOL),
+                      within_tol(torch, h, ph, f"ssm_scan h_last mamba2 "
+                                 f"{name} {shape}", **SCAN_TOL))
+            cases["selective_scan"].append({
+                "phase": "hybrid", **timed_scan_case(
+                    torch, args, shape, err, n,
+                    f"the [hybrid] {name} run, Mamba-2 layout",
+                    hd=hcfg.ssm_head_dim)})
     return cases
 
 
@@ -3103,11 +3556,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as events_dir:
             families[tag] = phase(torch, dev, pathlib.Path(events_dir))
-    together = sum(f["seconds"] for f in families.values())
-    print(f"[moe]/[moe-train]/[vlm] {together:.1f} s together", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    family_cases = family_kernel_phase(torch, dev)
+    with tempfile.TemporaryDirectory() as events_dir:
+        families["hybrid"], hybrid_shapes = hybrid_phase(
+            torch, dev, pathlib.Path(events_dir))
+    together = sum(f["seconds"] for f in families.values())
+    print(f"[moe]/[moe-train]/[vlm]/[hybrid] {together:.1f} s together",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_cases = family_kernel_phase(torch, dev, hybrid_shapes)
     print(f"[families] summary {json.dumps(families)}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3155,6 +3614,9 @@ def main() -> int:
                       "serve_vlm_paged": families["vlm"]["launches"][name],
                       "vlm_patched_loss":
                           families["vlm"]["patched_launches"][name],
+                      "serve_hybrid": families["hybrid"]["launches"][name],
+                      "serve_hybrid_fp32":
+                          families["hybrid"]["fp32"]["launches"][name],
                       "train_cnn": cnn_launches[name],
                       "plan_and_cnn_lds": plan_launches[name]}
                for name in ops.WRAPPERS}
@@ -3209,6 +3671,7 @@ def main() -> int:
          **{k: b4[k] for k in ("max_abs_err", "fp32_max_abs_err",
                                "exp_count", "device_ms", "cases")
             + timing},
+         "family_cases": family_cases["selective_scan"],
          "async_copy_count": asyncs["ssm_scan"]},
         {"name": "cross_entropy", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",

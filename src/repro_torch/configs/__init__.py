@@ -16,6 +16,7 @@ _MODULES: Dict[str, str] = {
     "qwen2-72b": "qwen2_72b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "llama3-8b": "llama3_8b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "internvl2-2b": "internvl2_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",

@@ -110,8 +110,55 @@ class ModelConfig:
         return max(1, math.ceil(self.d_model / 16))
 
     @property
+    def ssm_num_heads(self) -> int:
+        return max(1, self.d_inner // self.ssm_head_dim)
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the registered LM configs, as
+        ``repro``'s (every expert; no encoder: audio is not ported)."""
+        d, v, hd = self.d_model, self.vocab_size, self.head_dim
+        n_attn = (self.num_heads * hd + 2 * self.num_kv_heads * hd) * d \
+            + self.num_heads * hd * d
+        n_mlp_dense = 3 * d * self.d_ff if self.d_ff else 0
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        per_layer = 0
+        if self.family == "ssm":
+            di, n = self.d_inner, self.ssm_state
+            if self.ssm_variant == "mamba1":
+                per_layer = (2 * d * di + di * self.ssm_conv
+                             + di * (self.dt_rank + 2 * n)
+                             + self.dt_rank * di + di * n + di + di * d)
+            else:
+                nh = self.ssm_num_heads
+                per_layer = (d * (2 * di + 2 * n + nh)
+                             + (di + 2 * n) * self.ssm_conv
+                             + 3 * nh + di + di * d)
+            total += self.num_layers * (per_layer + d)
+        elif self.family == "hybrid":
+            di, n, nh = self.d_inner, self.ssm_state, self.ssm_num_heads
+            per_layer = (d * (2 * di + 2 * n + nh)
+                         + (di + 2 * n) * self.ssm_conv
+                         + 3 * nh + di + di * d + d)
+            total += self.num_layers * per_layer
+            total += n_attn + 2 * d  # one shared attention block
+        else:
+            if self.is_moe:
+                ffe = self.d_ff_expert or self.d_ff
+                n_router = d * self.num_experts
+                n_experts = self.num_experts * 3 * d * ffe
+                n_shared = 3 * d * self.d_ff if self.moe_shared_expert else 0
+                moe = n_router + n_experts + n_shared
+                per_layer = n_attn + moe + 2 * d
+            else:
+                per_layer = n_attn + n_mlp_dense + 2 * d
+            total += self.num_layers * per_layer
+        return int(total)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Neural-net building blocks of the dense and MoE LMs and the Mamba-1
-SSM, in plain PyTorch (port of the dense, MoE and Mamba-1 parts of
-:mod:`repro.models.layers`).
+and Mamba-2 SSMs, in plain PyTorch (port of the dense, MoE and SSM parts
+of :mod:`repro.models.layers`).
 
 Parameters are nested dicts of tensors with ``repro``'s key names and its
 ``(d_in, d_out)`` weight layout (``y = x @ W``), so the weights bridge is
@@ -9,9 +9,9 @@ goes through :mod:`repro_torch.kernels.ops` (the CUDA kernels on the card,
 their plain versions on the CPU), differentiably in training; contiguous
 decode attention stays plain torch, as it is plain JAX in ``repro``. The
 speculative window's attention goes through the spec-verify kernel and a
-Mamba-1 prefill's scan through the selective-scan kernel; the one-token
-SSM decode update stays plain torch, as ``repro`` computes it outside any
-kernel.
+Mamba-1 or Mamba-2 prefill's scan through the selective-scan kernel; the
+one-token SSM decode update stays plain torch, as ``repro`` computes it
+outside any kernel.
 """
 from __future__ import annotations
 
@@ -374,7 +374,7 @@ def moe_apply(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# State-space block (Mamba-1)
+# State-space blocks (Mamba-1, Mamba-2)
 # ---------------------------------------------------------------------------
 
 def _causal_conv(x, w, b, state=None):
@@ -460,8 +460,93 @@ def mamba1_apply(p, x, cfg: ModelConfig, state=None,
     return out
 
 
+def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = cfg.ssm_num_heads
+    conv_dim = di + 2 * n
+    return {
+        "in_proj": ParamSpec((d, 2 * di + 2 * n + nh), ("embed", "inner")),
+        "conv_w": ParamSpec((conv_dim, cfg.ssm_conv), ("inner", None)),
+        "conv_b": ParamSpec((conv_dim,), ("inner",), init="zeros"),
+        "a_log": ParamSpec((nh,), (None,), init="ssm_a",
+                           dtype=torch.float32),
+        "dt_bias": ParamSpec((nh,), (None,), init="zeros",
+                             dtype=torch.float32),
+        "d_skip": ParamSpec((nh,), (None,), init="ones",
+                            dtype=torch.float32),
+        "norm_w": ParamSpec((di,), ("inner",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("inner", "embed")),
+    }
+
+
+def mamba2_scan_inputs(dt, a_log, hd: int, n: int):
+    """Mamba-2's per-head decay in the selective scan's per-channel layout:
+    dt (B, L, nh) -> (B, L, nh*hd), each head's value on its hd channels,
+    and a (nh*hd, N) whose row c is -exp(a_log[c // hd]) in every state.
+    Both contiguous fp32, as the kernel takes them."""
+    dt_c = dt.repeat_interleave(hd, dim=-1).contiguous()
+    a = (-torch.exp(a_log)).repeat_interleave(hd)
+    return dt_c, a[:, None].expand(a.shape[0], n).contiguous()
+
+
+def mamba2_apply(p, x, cfg: ModelConfig, state=None,
+                 return_state: bool = False):
+    """Mamba-2 (SSD, scalar decay per head, ngroups=1). x: (B, S, d).
+
+    state: None (training/prefill from zero) or dict(conv (B, K-1, di+2N),
+    ssm (B, nh, hd, N)) for streaming decode; returns as
+    :func:`mamba1_apply` does. With one group the recurrence is the
+    selective scan's (``ops.selective_scan``): x the (B, S, di) channels,
+    dt and A given per channel (:func:`mamba2_scan_inputs`), B and C the
+    shared (B, S, N) rows; its y is ``repro``'s hs . C and its h_last
+    (B, di, N) the (B, nh, hd, N) state, so ``repro``'s (B, S, nh, hd, N)
+    ``bx`` is never built. The one-token decode update stays plain torch,
+    as in ``repro``."""
+    b, s, _ = x.shape
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    hd = di // nh
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt_in = zxbcdt.split([di, di + 2 * n, nh], dim=-1)
+    if state is not None:
+        xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                       state["conv"])
+    else:
+        kq = cfg.ssm_conv - 1
+        conv_in_tail = F.pad(xbc, (0, 0, max(kq - s, 0), 0))[:, -kq:, :]
+        xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+        conv_state = conv_in_tail if return_state else None
+    xs, bmat, cmat = xbc.split([di, n, n], dim=-1)
+    dt = F.softplus(dt_in.float() + p["dt_bias"][None, None])  # (B,S,nh)
+    xh = xs.reshape(b, s, nh, hd).float()
+
+    if state is not None:
+        # one-token update, plain torch as in repro; h (B, nh, hd, N)
+        a_bar = torch.exp(dt[:, 0] * -torch.exp(p["a_log"]))  # (B,nh)
+        bx = (dt[:, 0, :, None, None] * xh[:, 0, :, :, None]) \
+            * bmat[:, 0].float()[:, None, None, :]
+        h = a_bar[..., None, None] * state["ssm"] + bx
+        y = (h * cmat[:, 0].float()[:, None, None, :]).sum(-1)[:, None]
+        new_ssm = h
+    else:
+        dt_c, a = mamba2_scan_inputs(dt, p["a_log"], hd, n)
+        y, h_last = ops.selective_scan(xs, dt_c, a, bmat, cmat)
+        y = y.reshape(b, s, nh, hd)
+        new_ssm = h_last.reshape(b, nh, hd, n)
+    y = y + p["d_skip"][None, None, :, None] * xh
+    y = y.reshape(b, s, di) * F.silu(z.float())
+    y = rms_norm(y.to(x.dtype), p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if state is not None or return_state:
+        return out, {"conv": conv_state, "ssm": new_ssm}
+    return out
+
+
 def ssm_state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
-    """Decode-state shapes for one Mamba-1 block."""
+    """Decode-state shapes for one SSM block."""
     k = cfg.ssm_conv - 1
-    return {"conv": (batch, k, cfg.d_inner),
-            "ssm": (batch, cfg.d_inner, cfg.ssm_state)}
+    if cfg.ssm_variant == "mamba1":
+        return {"conv": (batch, k, cfg.d_inner),
+                "ssm": (batch, cfg.d_inner, cfg.ssm_state)}
+    return {"conv": (batch, k, cfg.d_inner + 2 * cfg.ssm_state),
+            "ssm": (batch, cfg.ssm_num_heads,
+                    cfg.d_inner // cfg.ssm_num_heads, cfg.ssm_state)}

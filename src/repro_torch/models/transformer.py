@@ -1,5 +1,6 @@
-"""Decoder-only LM of the dense, moe, vlm and ssm (Mamba-1) families: the
-training loss, its PSL split, prefill and decode (port of those parts of
+"""Decoder-only LM of the dense, moe, vlm, ssm (Mamba-1) and hybrid
+(Mamba-2 with a shared attention block, zamba2) families: the training
+loss, its PSL split, prefill and decode (port of those parts of
 :mod:`repro.models.transformer`).
 
 An MoE block routes its MLP through :func:`repro_torch.models.layers.
@@ -58,6 +59,15 @@ def _num_layers(stacked) -> int:
     return L.tree_leaves(stacked)[0].shape[0]
 
 
+def _stack_trees(trees):
+    """Per-layer trees (dicts of tensors) -> one tree stacked on a new
+    leading axis."""
+    return {k: (_stack_trees([t[k] for t in trees])
+                if isinstance(trees[0][k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in trees[0]}
+
+
 def _unstack(stacked):
     """Per-layer parameter trees of a stacked tree, through one ``unbind``
     per leaf: autograd then stacks the layers' gradients once, where
@@ -94,21 +104,25 @@ def chunked_xent(hidden, w_vocab, labels, weights):
 
 
 class _Blocks:
-    """Attention (dense-MLP or MoE) and Mamba-1 block definitions used by
-    LanguageModel."""
+    """Attention (dense-MLP or MoE) and SSM (Mamba-1 or Mamba-2) block
+    definitions used by LanguageModel."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self.is_ssm = cfg.family in ("ssm", "hybrid")
+        mamba2 = cfg.ssm_variant == "mamba2"
+        self._mixer_specs = L.mamba2_specs if mamba2 else L.mamba1_specs
+        self._mixer = L.mamba2_apply if mamba2 else L.mamba1_apply
 
     def block_specs(self) -> Dict[str, Any]:
-        if self.cfg.family == "ssm":
+        if self.is_ssm:
             return self.ssm_block_specs()
         return self.attn_block_specs()
 
     def ssm_block_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         return {"norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-                "mixer": L.mamba1_specs(cfg)}
+                "mixer": self._mixer_specs(cfg)}
 
     def attn_block_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -151,12 +165,12 @@ class _Blocks:
 
     def ssm_block(self, p, x):
         hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
-        return x + L.mamba1_apply(p["mixer"], hn, self.cfg)
+        return x + self._mixer(p["mixer"], hn, self.cfg)
 
     def ssm_block_prefill(self, p, x):
         """Prefill block; returns (x, {"conv", "ssm"}) decode state."""
         hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
-        y, st = L.mamba1_apply(p["mixer"], hn, self.cfg, return_state=True)
+        y, st = self._mixer(p["mixer"], hn, self.cfg, return_state=True)
         return x + y, st
 
     # ----- decode -----
@@ -166,9 +180,10 @@ class _Blocks:
         hn2 = L.rms_norm(x, p["norm2"], self.cfg.norm_eps)
         return x + self.ffn(p, hn2)[0]
 
-    def attn_block_decode(self, p, x, kc, vc, pos, *, window):
-        """One-token block over a contiguous cache (B, C, Hc, hd); writes
-        the token's K/V at slot ``pos % C`` in place."""
+    def attn_decode(self, p, x, kc, vc, pos, *, window):
+        """One token's attention (``p``: norm1 and attn) over a contiguous
+        cache (B, C, Hc, hd): writes the token's K/V at slot ``pos % C``
+        in place and returns the attention output (B, 1, Hq, hd)."""
         cfg = self.cfg
         b = x.shape[0]
         hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -181,8 +196,13 @@ class _Blocks:
         # Full cache with a window: pass the window so old keys are masked.
         eff_window = (None if (window is not None and kc.shape[1] <= window)
                       else window)
-        attn_out = L.decode_attention(q, kc, vc, pos, window=eff_window)
-        return self._mlp_tail(p, x, attn_out)
+        return L.decode_attention(q, kc, vc, pos, window=eff_window)
+
+    def attn_block_decode(self, p, x, kc, vc, pos, *, window):
+        """One-token block over a contiguous cache (B, C, Hc, hd); writes
+        the token's K/V at slot ``pos % C`` in place."""
+        return self._mlp_tail(p, x, self.attn_decode(p, x, kc, vc, pos,
+                                                     window=window))
 
     def attn_block_decode_paged(self, p, x, kc, vc, pos, page, off,
                                 page_table):
@@ -218,21 +238,23 @@ class _Blocks:
         return self._mlp_tail(p, x, attn_out)
 
     def ssm_block_decode(self, p, x, conv, ssm):
-        """One-token Mamba-1 block; writes the new conv and ssm state into
-        ``conv`` (B, K-1, di) and ``ssm`` (B, di, N) in place."""
+        """One-token SSM block; writes the new conv and ssm state into
+        ``conv`` (B, K-1, C) and ``ssm`` (Mamba-1 (B, di, N), Mamba-2 (B,
+        nh, hd, N)) in place."""
         hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
-        y, st = L.mamba1_apply(p["mixer"], hn, self.cfg,
-                               state={"conv": conv, "ssm": ssm})
+        y, st = self._mixer(p["mixer"], hn, self.cfg,
+                            state={"conv": conv, "ssm": ssm})
         conv.copy_(st["conv"])
         ssm.copy_(st["ssm"])
         return x + y
 
     def ssm_cache_specs(self, batch: int):
         shapes = L.ssm_state_shapes(self.cfg, batch)
+        ssm_axes = ("batch", "inner") + (None,) * (len(shapes["ssm"]) - 2)
         return {"conv": ParamSpec(shapes["conv"], ("batch", None, "inner"),
                                   init="zeros"),
-                "ssm": ParamSpec(shapes["ssm"], ("batch", "inner", None),
-                                 init="zeros", dtype=torch.float32)}
+                "ssm": ParamSpec(shapes["ssm"], ssm_axes, init="zeros",
+                                 dtype=torch.float32)}
 
     # ----- cache helpers -----
     def kv_cache_heads(self) -> int:
@@ -271,20 +293,27 @@ class _Blocks:
 
 
 class LanguageModel:
-    """Decoder-only LM with a PSL cut; the port runs the dense, moe, vlm
-    and ssm (Mamba-1) families."""
+    """Decoder-only LM with a PSL cut. Families: dense, moe, ssm, hybrid,
+    vlm.
+
+    The hybrid (zamba2) runs Mamba-2 blocks with one shared attention
+    block (``server.shared_attn``: norm1 and attn, no MLP) applied before
+    each of ``n_super`` superblocks of ``attn_period`` blocks; the
+    ``n_pre`` blocks left over after the cut run first (``server.
+    pre_blocks``). Superblocks are stacked twice, (n_super, attn_period,
+    ...), in the parameters (``server.superblocks``) and in the decode
+    state (``server_super``); the shared attention's KV cache holds one
+    ring a superblock (``server_attn``)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported to "
-                f"repro_torch yet; see ROADMAP.md, 'Other model families'")
-        if cfg.family == "ssm" and cfg.ssm_variant != "mamba1":
-            raise NotImplementedError(
-                f"ssm_variant {cfg.ssm_variant!r} ({cfg.name}) is not "
-                f"ported to repro_torch yet (Mamba-2: ROADMAP.md)")
         self.cfg = cfg
         self.blocks = _Blocks(cfg)
+        if cfg.family == "hybrid":
+            rem = cfg.num_layers - cfg.cut_layer
+            self.n_super = rem // cfg.attn_period
+            self.n_pre = rem - self.n_super * cfg.attn_period
+        else:
+            self.n_super = self.n_pre = 0
 
     # ----- parameters -----
     def param_specs(self) -> Dict[str, Any]:
@@ -297,8 +326,18 @@ class LanguageModel:
         }
         server: Dict[str, Any] = {
             "final_norm": ParamSpec((d,), ("embed",), init="ones"),
-            "blocks": stack_specs(bs, cfg.num_layers - cfg.cut_layer),
         }
+        if cfg.family == "hybrid":
+            if self.n_pre:
+                server["pre_blocks"] = stack_specs(bs, self.n_pre)
+            server["shared_attn"] = {
+                "norm1": ParamSpec((d,), ("embed",), init="ones"),
+                "attn": L.attention_specs(cfg)}
+            server["superblocks"] = stack_specs(
+                stack_specs(bs, cfg.attn_period), self.n_super)
+        else:
+            server["blocks"] = stack_specs(bs,
+                                           cfg.num_layers - cfg.cut_layer)
         if not cfg.tie_embeddings:
             server["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
         return {"client": client, "server": server}
@@ -317,6 +356,16 @@ class LanguageModel:
     def _stacks(self, params):
         return (("client", params["client"]["blocks"]),
                 ("server", params["server"]["blocks"]))
+
+    def _shared_attn(self, p, x, positions, window):
+        """The hybrid's shared attention block on a full sequence (B1):
+        (x + attention, k, v)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], hn, cfg, positions)
+        a = L.blockwise_attention(q, k, v, causal=True, window=window)
+        return x + a.reshape(b, s, -1) @ p["attn"]["wo"], k, v
 
     # ----- training forward pieces -----
     def _embed(self, params, batch):
@@ -346,7 +395,7 @@ class LanguageModel:
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in _unstack(stacked):
-            if self.cfg.family == "ssm":
+            if self.blocks.is_ssm:
                 x = self.blocks.ssm_block(lp, x)
                 continue
             x, _, _, a = self.blocks.block(lp, x, positions, window=window)
@@ -354,12 +403,27 @@ class LanguageModel:
                 aux = aux + a
         return x, aux
 
+    def _run_server(self, srv, x, positions, window, aux=None):
+        """The server's blocks up to (not including) the final norm:
+        (x, aux). The hybrid runs its pre-blocks, then each superblock
+        after the shared attention."""
+        if self.cfg.family != "hybrid":
+            return self._run_stack(srv["blocks"], x, positions, window, aux)
+        if self.n_pre:
+            x, aux = self._run_stack(srv["pre_blocks"], x, positions,
+                                     window, aux)
+        for lp in _unstack(srv["superblocks"]):
+            x = self._shared_attn(srv["shared_attn"], x, positions,
+                                  window)[0]
+            x, aux = self._run_stack(lp, x, positions, window, aux)
+        return x, aux
+
     def _backbone(self, params, x, positions, window):
         """Client + server stacks; returns (hidden, aux_loss)."""
         x, aux = self._run_stack(params["client"]["blocks"], x, positions,
                                  window)
         srv = params["server"]
-        x, aux = self._run_stack(srv["blocks"], x, positions, window, aux)
+        x, aux = self._run_server(srv, x, positions, window, aux)
         x = L.rms_norm(x, srv["final_norm"], self.cfg.norm_eps)
         return x, aux
 
@@ -397,8 +461,8 @@ class LanguageModel:
         server blocks' aux losses."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
-        x, aux = self._run_stack(server_params["blocks"], cut_acts,
-                                 self._positions(cut_acts), window)
+        x, aux = self._run_server(server_params, cut_acts,
+                                  self._positions(cut_acts), window)
         x = L.rms_norm(x, server_params["final_norm"], cfg.norm_eps)
         if cfg.tie_embeddings:
             raise ValueError("PSL decomposed loss needs untied lm_head")
@@ -412,13 +476,20 @@ class LanguageModel:
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
         eff_len = min(cache_len, window) if window else cache_len
-        if cfg.family == "ssm":
-            layer_c = self.blocks.ssm_cache_specs(batch)
+        layer_c = (self.blocks.ssm_cache_specs(batch) if self.blocks.is_ssm
+                   else self.blocks.attn_cache_specs(batch, eff_len))
+        tree = {"client": stack_specs(layer_c, cfg.cut_layer)}
+        if cfg.family == "hybrid":
+            if self.n_pre:
+                tree["server_pre"] = stack_specs(layer_c, self.n_pre)
+            tree["server_attn"] = stack_specs(
+                self.blocks.attn_cache_specs(batch, eff_len), self.n_super)
+            tree["server_super"] = stack_specs(
+                stack_specs(layer_c, cfg.attn_period), self.n_super)
         else:
-            layer_c = self.blocks.attn_cache_specs(batch, eff_len)
-        return {"client": stack_specs(layer_c, cfg.cut_layer),
-                "server": stack_specs(layer_c,
-                                      cfg.num_layers - cfg.cut_layer)}
+            tree["server"] = stack_specs(layer_c,
+                                         cfg.num_layers - cfg.cut_layer)
+        return tree
 
     def init_cache(self, batch: int, cache_len: int,
                    window: Optional[int] = None, *, device):
@@ -459,31 +530,49 @@ class LanguageModel:
             c = min(c, window)
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         cache: Dict[str, Any] = {}
-        for side, stacked in self._stacks(params):
-            if cfg.family == "ssm":
-                x, cache[side] = self._prefill_stack(stacked, x)
-                continue
-            ks, vs = [], []
-            for i in range(_num_layers(stacked)):
-                x, (k, v) = self.blocks.attn_block(
-                    _layer(stacked, i), x, positions, window=window)
-                ks.append(self._to_ring(k, c))
-                vs.append(self._to_ring(v, c))
-            cache[side] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         srv = params["server"]
+        x, cache["client"] = self._prefill_stack(
+            params["client"]["blocks"], x, positions, window, c)
+        if cfg.family == "hybrid":
+            if self.n_pre:
+                x, cache["server_pre"] = self._prefill_stack(
+                    srv["pre_blocks"], x, positions, window, c)
+            attn, states = [], []
+            for i in range(self.n_super):
+                x, k, v = self._shared_attn(srv["shared_attn"], x,
+                                            positions, window)
+                attn.append({"k": self._to_ring(self.blocks._repeat_kv(k),
+                                                c),
+                             "v": self._to_ring(self.blocks._repeat_kv(v),
+                                                c)})
+                x, st = self._prefill_stack(_layer(srv["superblocks"], i),
+                                            x, positions, window, c)
+                states.append(st)
+            cache["server_attn"] = _stack_trees(attn)
+            cache["server_super"] = _stack_trees(states)
+        else:
+            x, cache["server"] = self._prefill_stack(srv["blocks"], x,
+                                                     positions, window, c)
         x = L.rms_norm(x[:, -1:], srv["final_norm"], cfg.norm_eps)
         logits = (x[:, 0] @ self._lm_head(params)).float()
         return logits, cache, s
 
-    def _prefill_stack(self, stacked, x):
-        """SSM prefill of one stack: (x, {"conv", "ssm"} stacked over its
-        layers)."""
+    def _prefill_stack(self, stacked, x, positions, window, cache_len):
+        """Prefill of one stack: (x, its decode state stacked over its
+        layers: {"conv", "ssm"} for SSM blocks, {"k", "v"} rings of
+        ``cache_len`` for attention blocks)."""
         states = []
         for i in range(_num_layers(stacked)):
-            x, st = self.blocks.ssm_block_prefill(_layer(stacked, i), x)
+            lp = _layer(stacked, i)
+            if self.blocks.is_ssm:
+                x, st = self.blocks.ssm_block_prefill(lp, x)
+            else:
+                x, (k, v) = self.blocks.attn_block(lp, x, positions,
+                                                   window=window)
+                st = {"k": self._to_ring(k, cache_len),
+                      "v": self._to_ring(v, cache_len)}
             states.append(st)
-        return x, {k: torch.stack([st[k] for st in states])
-                   for k in ("conv", "ssm")}
+        return x, _stack_trees(states)
 
     # ----- decode -----
     def _pos_vector(self, pos, b: int, device) -> torch.Tensor:
@@ -493,7 +582,7 @@ class LanguageModel:
     def _decode_stack(self, stacked, side_cache, x, pos, window):
         for i in range(_num_layers(stacked)):
             lp = _layer(stacked, i)
-            if self.cfg.family == "ssm":
+            if self.blocks.is_ssm:
                 x = self.blocks.ssm_block_decode(
                     lp, x, side_cache["conv"][i], side_cache["ssm"][i])
             else:
@@ -503,7 +592,7 @@ class LanguageModel:
         return x
 
     def _check_paged(self):
-        if self.cfg.family == "ssm":
+        if self.blocks.is_ssm:
             raise NotImplementedError(
                 "paged decode supports attention-cache families only")
 
@@ -517,9 +606,27 @@ class LanguageModel:
         window = window if window is not None else cfg.sliding_window
         x = params["client"]["embed"][tokens.long()]
         pos = self._pos_vector(pos, x.shape[0], x.device)
-        for side, stacked in self._stacks(params):
-            x = self._decode_stack(stacked, cache[side], x, pos, window)
-        x = L.rms_norm(x, params["server"]["final_norm"], cfg.norm_eps)
+        srv = params["server"]
+        x = self._decode_stack(params["client"]["blocks"], cache["client"],
+                               x, pos, window)
+        if cfg.family == "hybrid":
+            if self.n_pre:
+                x = self._decode_stack(srv["pre_blocks"], cache["server_pre"],
+                                       x, pos, window)
+            attn, sup = cache["server_attn"], cache["server_super"]
+            b = x.shape[0]
+            for i in range(self.n_super):
+                # repro's shared-attention decode passes window=None
+                a = self.blocks.attn_decode(srv["shared_attn"], x,
+                                            attn["k"][i], attn["v"][i], pos,
+                                            window=None)
+                x = x + a.reshape(b, 1, -1) @ srv["shared_attn"]["attn"]["wo"]
+                x = self._decode_stack(_layer(srv["superblocks"], i),
+                                       _layer(sup, i), x, pos, window)
+        else:
+            x = self._decode_stack(srv["blocks"], cache["server"], x, pos,
+                                   window)
+        x = L.rms_norm(x, srv["final_norm"], cfg.norm_eps)
         return (x @ self._lm_head(params)).float(), cache
 
     @torch.no_grad()

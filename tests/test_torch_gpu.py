@@ -49,6 +49,7 @@ def _randn(gen, shape, dtype, dev):
     (2, 37, 8, 2, 16, True, None),      # reduced head_dim
     (2, 130, 4, 4, 128, True, 48),      # sliding window, widest head
     (1, 70, 8, 1, 32, False, None),     # MQA, non-causal
+    (1, 100, 32, 32, 80, True, None),   # zamba2's shared attention, MHA
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window):
@@ -458,6 +459,86 @@ def test_selective_scan_raises_under_grad_on_the_card(dev):
                            torch.zeros((1, 8, 65), device=dev))
 
 
+@pytest.mark.parametrize("b,l,nh,hd,n", [
+    (1, 100, 80, 64, 64),       # full-width zamba2's Mamba-2 prefill
+    (1, 32, 80, 64, 64),        # ... at the short prompt
+])
+def test_ssm_scan_kernel_in_the_mamba2_layout(dev, b, l, nh, hd, n):
+    """B4 fed Mamba-2's layout (``mamba2_scan_inputs``: dt constant over
+    each head's hd channels, A's rows constant over the N states), bf16
+    x, B and C, against its plain version."""
+    from repro_torch.models.layers import mamba2_scan_inputs
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(gen, (b, l, nh * hd), torch.bfloat16, dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, nh), generator=gen, device=dev) - 1.0)
+    a_log = torch.log(torch.arange(1, nh + 1, device=dev,
+                                   dtype=torch.float32))
+    dt_c, a = mamba2_scan_inputs(dt, a_log, hd, n)
+    bm = _randn(gen, (b, l, n), torch.bfloat16, dev)
+    cm = _randn(gen, (b, l, n), torch.bfloat16, dev)
+    before = ops.selective_scan.launches
+    y, h = ops.selective_scan(x, dt_c, a, bm, cm)
+    py, ph = ssm_scan_plain(x, dt_c, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ops.selective_scan.launches == before + 1
+    torch.testing.assert_close(y, py, **SCAN_TOL)
+    torch.testing.assert_close(h, ph, **SCAN_TOL)
+
+
+def _hybrid_spec(layers, **kw):
+    return api.ServeSpec(
+        model=api.ModelSpec(arch="zamba2-2.7b", reduced=True,
+                            overrides={"num_layers": layers}),
+        engine=api.EngineSpec(name="continuous"),
+        workload=api.WorkloadSpec(num_requests=6, prompt_lens=[5, 17, 33],
+                                  max_new_tokens=[4, 9]),
+        clock=api.ClockSpec(kind="virtual"), **kw)
+
+
+@pytest.mark.parametrize("layers", [5, 6])       # 6: one pre-block
+def test_reduced_zamba2_on_the_card(dev, layers):
+    """Float32 reduced zamba2 on the card: one prefill launches B1 once
+    per shared-attention application and B4 once per Mamba-2 layer, and
+    the continuous engine's every request equals single-request decoding
+    (which also runs prefill and decode on the card)."""
+    spec = _hybrid_spec(layers, report=api.ReportSpec(verify=-1))
+    ctx = api.build_serve_context(spec)
+    model = ctx.model
+    toks = torch.arange(13, device=dev)[None] % model.cfg.vocab_size
+    ops.reset_launches()
+    logits, cache, _ = model.prefill(ctx.params, {"tokens": toks},
+                                     cache_len=32)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert model.n_super == 2 and model.n_pre == layers - 5
+    assert counts["flash_attention"] == model.n_super
+    assert counts["selective_scan"] == layers
+    assert sum(counts.values()) == model.n_super + layers
+    assert bool(torch.isfinite(logits).all())
+    assert cache["server_super"]["ssm"].is_cuda
+    report = api.run_serve(spec, ctx=ctx)
+    assert report.verified["checked"] == 6
+
+
+def test_hybrid_loss_under_grad_raises_on_the_card(dev):
+    """Training the hybrid on the card waits for B4's backward: its loss
+    under grad raises from ``ops.selective_scan``, as the SSM family's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import psl
+    from repro_torch.models import build_model
+    model = build_model(get_config("zamba2-2.7b", reduced=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = psl.requires_grad_(model.init(gen))
+    toks = torch.arange(8, device=dev)[None]
+    batch = {"tokens": toks, "labels": toks,
+             "weights": torch.ones((1, 8), device=dev)}
+    before = ops.selective_scan.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+        model.loss_fn(params, batch)
+    assert ops.selective_scan.launches == before
+
+
 def test_reduced_speculative_serve_on_the_card(dev):
     """Float32 reduced granite through the speculative engine on the card:
     every request equals single-request decoding, no page leaks, and the
@@ -533,7 +614,7 @@ def _check_attention_with_lse(dev, dtype, q, k, v, causal, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [8, 24, 40, 128])
+@pytest.mark.parametrize("d", [8, 24, 40, 80, 128])
 @pytest.mark.parametrize("s", [1, 17, 512])
 def test_tensor_core_attention_head_dims_and_lengths(dev, dtype, d, s):
     """Every padded head_dim (8..56 run as 64, 72..128 as 128), one row,
@@ -552,6 +633,8 @@ def test_tensor_core_attention_head_dims_and_lengths(dev, dtype, d, s):
     (2, 50, 130, 8, 2, 64, False, None),     # S != T, non-causal
     (2, 130, 50, 8, 2, 40, True, None),      # S > T, causal
     (1, 70, 70, 8, 1, 32, False, None),      # MQA
+    (1, 100, 100, 32, 32, 80, True, None),   # zamba2's shared attention
+    (1, 32, 32, 32, 32, 80, True, None),     # ... at the short prompt
 ])
 def test_tensor_core_attention_shapes(dev, dtype, b, s, t, hq, hkv, d,
                                       causal, window):
@@ -752,7 +835,7 @@ def _check_attention_backward(dtype, q, k, v, do, causal, window,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [8, 24, 40, 64, 128])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 80, 128])
 @pytest.mark.parametrize("s", [1, 17, 100, 128, 512])
 def test_tensor_core_attention_backward_head_dims_and_lengths(dev, dtype, d,
                                                               s):

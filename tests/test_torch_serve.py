@@ -168,7 +168,7 @@ def test_serve_cli_on_cpu_and_unported_flags(tmp_path, capsys):
 def test_unported_spec_values_fail_clearly(tmp_path):
     spec = _spec(tapi)
     with pytest.raises(tapi.SpecError, match="not ported"):
-        spec.replace(model=tapi.ModelSpec(arch="zamba2-2.7b")).validate()
+        spec.replace(model=tapi.ModelSpec(arch="whisper-tiny")).validate()
     with pytest.raises(tapi.SpecError, match="unknown engine"):
         spec.replace(engine=tapi.EngineSpec(name="static")).validate()
     with pytest.raises(NotImplementedError, match="not ported"):

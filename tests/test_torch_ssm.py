@@ -291,12 +291,6 @@ def test_training_loss_matches_repro(pair):
     assert metrics["tokens"].item() == weights.sum()
 
 
-def test_mamba2_mixer_is_not_ported():
-    cfg = dataclasses.replace(tget(ARCH, reduced=True), ssm_variant="mamba2")
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        tbuild(cfg)
-
-
 def test_paged_decode_rejects_ssm(pair):
     _, tm, _, tp = pair
     with pytest.raises(NotImplementedError, match="attention-cache"):
