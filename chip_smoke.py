@@ -13,7 +13,8 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    instructions are counted with ``cuobjdump -sass`` per kernel function
    (``SASS_CHECKS``): every instantiation of each wgmma kernel (B1
    forward, both B1-bwd passes, B5 forward, B5-bwd) must hold HGMMA, of
-   B3's 16-bit window kernel HMMA, and of B2, B3 and B4 an async copy.
+   B3's 16-bit window kernel HMMA, and of B2, B3, B4 and B4-bwd's main
+   kernel an async copy.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -124,6 +125,31 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    shapes 7b–7d launch them, and B1 and B4 (in Mamba-2's layout, its
    bound ``mamba2_scan_bound``) at every shape and dtype 7e launched
    them (``family_kernel_phase``; the kernels line's ``family_cases``).
+7f. Scan backward (``[scan-bwd]``). B4-bwd at ``SCAN_BWD_SHAPES``
+   (falcon-mamba's and zamba2's training shapes, a ragged one) in bf16
+   and fp32 against ``ssm_scan_bwd_plain`` and autograd through
+   ``ssm_scan_plain`` (``scan_bwd_errors``), ddt scaled by
+   ``PLANTED_DDT_SCALE`` and dB by ``PLANTED_DB_SCALE`` caught, two
+   launches bitwise equal; timed by
+   events and device time beside its plain version and
+   ``scan_bwd_bound``, its exponentials counted.
+7g. SSM training (``[ssm-train]``, ``[hybrid-train]``). Full-width
+   falcon-mamba-7b cut to 8 of 64 layers and zamba2-2.7b at its 54
+   layers, PSL-UGS through ``api.run`` in the granite setting for
+   ``SSM_TRAIN_STEPS`` steps: finite losses and grad norms; exactly one
+   B4 and one B4-bwd a Mamba layer, one B1 and one B1-bwd a shared
+   attention, one B5 and one B5-bwd a step; step ms, tokens/s, peak
+   memory, a profiled step by group (``SSM_TRAIN_GROUPS``); the loss on
+   one fixed batch falling at each of 3 AdamW steps (fan-in d_in,
+   ``SSM_FIXED_BATCH_LR``); kernel-vs-plain gradients at 4 (falcon-
+   mamba) or 8 (zamba2) layers on the 16-row training batch, every case
+   gated, with a planted B4-bwd fault caught (``ssm_grad_check``; zamba2
+   also prints ``attention_readings``). Every kernel launch of the two
+   training runs is counted by shape (``record_train_shapes``); then
+   ``[train-kernels]`` holds B1, B1-bwd, B5, B5-bwd and B4 to their plain
+   versions at each of those shapes, and fails if B4-bwd ran at a shape
+   outside ``SCAN_BWD_SHAPES`` (``ssm_train_kernel_phase``; the kernels
+   line's ``family_cases`` and ``train_cases``).
 8. CNN agreement (``[cnn-agree]``). The paper's full-width GroupNorm
    ResNet (paper-cnn CONFIG, fp32, 32x32; no kernel of this repo, cuDNN
    convolutions) with TF32 off: step-0 per-leaf gradients and the losses
@@ -275,6 +301,60 @@ MOE_TRAIN_STEPS = 3
 VLM_GRAD_SHAPE = dict(layers=4, batch=4, seq=128, patch_scale=0.02)
 VLM_LOSS_RTOL = 1e-2
 
+# B4-bwd against its plain version (``scan_bwd_errors``). An fp32 output
+# (every output in fp32; ddt and da in bf16 too) whose kernel and plain
+# version compute the same products and sums over the states in the same
+# order (dx, ddt) is held elementwise at SCAN_TOL of its largest
+# magnitude; one summed over D or over (b, t) in another order (dB, dC,
+# da) by relative L2 <= SCAN_BWD_FP32_REL_L2. A bf16 output (dx, dB, dC
+# in bf16) is the fp32 sum rounded once: upcast, by relative L2 <=
+# SCAN_BWD_BF16_REL_L2 (the worst reading was 5.4e-5, dC, on one H100
+# 80GB HBM3 at 700 W; PERF.md, Findings). ddt scaled by
+# PLANTED_DDT_SCALE, and dB by PLANTED_DB_SCALE, must each fail these
+# limits in both dtypes.
+SCAN_BWD_FP32_REL_L2 = 1e-5
+SCAN_BWD_BF16_REL_L2 = 1e-3
+PLANTED_DDT_SCALE = 1.01
+PLANTED_DB_SCALE = 1.01
+# (B, L, D, N, channels a head or None): falcon-mamba's and zamba2's
+# training shapes (global batch 16 x 128; zamba2 in Mamba-2's layout) and
+# a ragged one (L not a multiple of 16, N not of 8, a ragged D tile)
+SCAN_BWD_SHAPES = ((16, 128, 8192, 16, None), (16, 128, 5120, 64, 64),
+                   (3, 37, 200, 5, None))
+# [ssm-train] and [hybrid-train]: the granite training setting
+# (default_lm_spec) for SSM_TRAIN_STEPS steps. falcon-mamba-7b cut to 8 of
+# its 64 layers (cut 2): at full depth AdamW alone needs 14.5 GB of bf16
+# weights, 14.5 of gradients and 58 of fp32 moments. zamba2-2.7b at its
+# full 54 layers. The kernel-vs-plain gradient check runs falcon-mamba at
+# 4 layers and zamba2 at 8 (one superblock: B1 and B1-bwd run), on the 16
+# sequences of a plan batch, the training batch, so every kernel runs at
+# its training shape. ``grad_cases`` (``ssm_grad_check``): (dtype, kernel
+# families kept as kernels), each gated at GRAD_REL_L2 in bf16 or
+# SCAN_GRAD_FP32_REL_L2 in float32 (fp32 sums in another order through 8
+# layers) with a planted B4-bwd fault caught. zamba2's check also reads
+# B1 alone against the plain path and against the plain path whose
+# attention backward is B1-bwd's own formulas in plain PyTorch
+# (``attention_readings``: printed, they say where the bf16 all-kernel
+# reading comes from).
+ALL_KERNELS = ("attention", "cross_entropy", "selective_scan")
+SCAN_GRAD_FP32_REL_L2 = 1e-4
+SSM_TRAIN_STEPS = 3
+SSM_TRAIN = dict(arch=SSM_ARCH, layers=8, grad_layers=4, grad_rows=16,
+                 grad_cases=((None, ALL_KERNELS),))
+HYBRID_TRAIN = dict(arch=HYBRID_ARCH, layers=54, grad_layers=8,
+                    grad_rows=16,
+                    grad_cases=((None, ALL_KERNELS),
+                                ("float32", ALL_KERNELS)))
+# the gradient check's planted B4-bwd fault: ddt 5% large (the dt biases'
+# and dt projections' gradients come through ddt alone)
+PLANTED_SCAN_GRAD_DDT_SCALE = 1.05
+# The SSM phases' fixed-batch descent runs AdamW at this learning rate:
+# at the setting's 1e-3 the first step (+-lr on each of falcon-mamba's
+# 1.37 B weights at fan-in d_in) took the fixed batch's loss from 11.58
+# to 2.6e-5, and the next two read 4.6e-7 and 1.3e-6, the bf16 floor
+# (on one H100 80GB HBM3 at 700 W; PERF.md, Findings).
+SSM_FIXED_BATCH_LR = 1e-5
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -308,24 +388,38 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
     """Mean device time a call of the kernels whose names contain
     ``match``, from torch.profiler: what ``time_ms`` reads when the host
     issues the calls faster than the card runs them, and less when the
-    host is the slower (small calls)."""
+    host is the slower (small calls). Each such kernel counts its mean
+    time a recorded launch times its launches a call, ceil(recorded /
+    ``iters``): a profiler window now and then records fewer launches
+    than were made, and then a sum over the window divided by ``iters``
+    would read low. A window whose counts are not whole multiples of
+    ``iters`` is tried again, twice; after three empty windows CUDA
+    events' time is taken."""
+    import math
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # the profiler now and then records no device activity for a window;
-    # try again, and after three empty windows take CUDA events' time
-    for _ in range(3):
+    ms = 0.0
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        ms, short = 0.0, []
         for evt in prof.key_averages():
-            if match in evt.key:
+            if match in evt.key and evt.count:
                 us = getattr(evt, "self_device_time_total", None)
-                total_us += us if us is not None else evt.self_cuda_time_total
-        if total_us > 0:
-            return total_us / iters / 1e3
+                us = us if us is not None else evt.self_cuda_time_total
+                ms += us / evt.count * math.ceil(evt.count / iters) / 1e3
+                if evt.count % iters:
+                    short.append(f"{evt.key[:40]} {evt.count}")
+        if ms > 0 and not short:
+            return ms
+        if ms > 0 and attempt == 2:
+            print(f"device_ms: {match!r}: launches recorded of {iters} "
+                  f"calls: {short}; each kernel's mean a launch used",
+                  flush=True)
+            return ms
     ms = time_ms(torch, fn, iters=iters)
     print(f"device_ms: the profiler recorded no device time for {match!r} "
           f"in 3 windows; CUDA events time used ({ms:.4f} ms)", flush=True)
@@ -556,8 +650,9 @@ def add_rates(case, flops: float) -> None:
 
 # Kernels whose every instantiation must hold some instruction of a kind in
 # its SASS, by library: the wgmma kernels HGMMA, B3's 16-bit window
-# kernel HMMA (mma.sync), the redesigned B2, B3 and B4 an async copy into
-# shared memory (LDGSTS for cp.async, UTMALDG for a TMA load).
+# kernel HMMA (mma.sync), the redesigned B2, B3 and B4 and B4-bwd's main
+# kernel an async copy into shared memory (LDGSTS for cp.async, UTMALDG
+# for a TMA load).
 SASS_CHECKS = {
     "HGMMA": (("HGMMA",), {
         "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
@@ -566,13 +661,14 @@ SASS_CHECKS = {
     "HMMA": (("HMMA",), {
         "spec_verify": ("spec_verify_mma_kernel",)}),
     "async copy": (("LDGSTS", "UTMALDG"), {
-        "ssm_scan": ("ssm_scan",),
+        "ssm_scan": ("ssm_scan_kernel", "ssm_bwd_kernel"),
         "paged_attention": ("paged_fwd",),
         "spec_verify": ("spec_verify",)}),
 }
 # Substring of each serving kernel's name in a profiler trace.
 DEVICE_MATCH = {"paged_attention": "paged_fwd", "spec_verify": "spec_verify",
-                "selective_scan": "ssm_scan"}
+                "selective_scan": "ssm_scan",
+                "selective_scan_bwd": "ssm_bwd"}
 
 
 def sass_counts():
@@ -875,6 +971,178 @@ def scan_kernel_phase(torch, dev, shapes):
             "fp32_max_abs_err": fp32_err, "cases": cases}
 
 
+def scan_bwd_bound(b, l, d, n, elt, hd=None):
+    """Least time for B4-bwd's work. Bytes: x (elt), dt and dy (fp32) read
+    and dx (elt) and ddt (fp32) written once per (b, t, d); B and C read
+    and dB and dC written once per (b, t, n) (elt each); a read and da
+    written once. Operations: the larger of B L D N exponentials exp(dt
+    a) at the SFUs' rate (``scan_bound``'s) and 22 fp32 flops per (b, t,
+    d, n) at the fp32 peak (the state again, 3; g_t, 2; dx's product and
+    sum, 2; ddt's x B, a exp(dt a), times h_{t-1}, sum, times g, sum, 6;
+    dB's and dC's products and sums, 4; da's three products and sum, 4;
+    the carry, 1). With ``hd`` (Mamba-2's layout, ``hd`` channels a head)
+    the function's dt, ddt, a and da are per head and its exponentials
+    one per (b, t, head). Returns (ms, "bytes" or "operations", bytes,
+    exps)."""
+    per_d = 4 if hd is None else 0
+    heads = 0 if hd is None else d // hd
+    nbytes = (b * l * d * (2 * elt + 4 + 2 * per_d) + b * l * heads * 8
+              + 4 * b * l * n * elt
+              + (2 * d * n * 4 if hd is None else 2 * heads * 4))
+    exps = b * l * (d * n if hd is None else heads)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(exps / (SMS * SFU_EXP_PER_CLOCK * sm_clock_hz()),
+                22.0 * b * l * d * n / FP32_FLOPS) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (nbytes, exps)
+
+
+def scan_bwd_errors(torch, got, want):
+    """B4-bwd's outputs (dx, ddt, da, dB, dC) against ``want``: each
+    output's error under its limit (see SCAN_BWD_FP32_REL_L2) and whether
+    every one holds. Returns ({name: (kind, error, limit)}, ok)."""
+    out, ok = {}, True
+    for name, g, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype \
+                or not bool(torch.isfinite(g).all()):
+            out[name] = ("shape/dtype/finite", float("inf"), 0.0)
+            ok = False
+            continue
+        if g.dtype != torch.float32:
+            kind, lim = "rel_l2", SCAN_BWD_BF16_REL_L2
+            err = rel_l2(torch, g, w)
+        elif name in ("dx", "ddt"):
+            scale = max(1.0, w.abs().max().item())
+            diff = (g - w).abs()
+            kind, lim = "abs_of_scale", SCAN_TOL["atol"]
+            err = diff.max().item() / scale
+            ok = ok and bool((diff <= SCAN_TOL["atol"] * scale
+                              + SCAN_TOL["rtol"] * w.abs()).all())
+            out[name] = (kind, err, lim)
+            continue
+        else:
+            kind, lim = "rel_l2", SCAN_BWD_FP32_REL_L2
+            err = rel_l2(torch, g, w)
+        out[name] = (kind, err, lim)
+        ok = ok and err <= lim
+    return out, ok
+
+
+def scan_bwd_phase(torch, dev):
+    """[scan-bwd]: B4-bwd at ``SCAN_BWD_SHAPES`` in bf16 and fp32 against
+    ``ssm_scan_bwd_plain`` and against autograd through ``ssm_scan_plain``
+    (``scan_bwd_errors``' limits; the ragged shape also with a dh_last);
+    the kernel's ddt scaled by ``PLANTED_DDT_SCALE``, and its dB by
+    ``PLANTED_DB_SCALE``, must each fail the same limits; two launches on
+    the same inputs give the same bits (every sum has a fixed order).
+    Timed by CUDA events and by its device time (both of its kernels,
+    ``device_ms``) beside its plain version and ``scan_bwd_bound``; the
+    exponentials the kernel evaluates are counted (three a state-step
+    but for the last chunk's first pass)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import (CHUNK, ssm_scan_bwd_plain,
+                                              ssm_scan_plain)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cases = []
+    for b, l, d, n, hd in SCAN_BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            tag = f"B={b} L={l} D={d} N={n} {name}" + (
+                f" Mamba-2 layout ({hd} channels a head)" if hd else "")
+            args = (mamba2_scan_case(torch, dev, gen, b, l, d, n, hd, dtype)
+                    if hd else scan_case(torch, dev, gen, dtype, b, l, d, n))
+            dy = torch.randn((b, l, d), generator=gen, device=dev)
+            dhs = [None]
+            if hd is None and l % CHUNK:
+                dhs.append(torch.randn((b, d, n), generator=gen,
+                                       device=dev))
+            errs, max_abs = {}, None
+            for dh in dhs:
+                got = ops.selective_scan_bwd(*args, dy, dh)
+                again = ops.selective_scan_bwd(*args, dy, dh)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"[scan-bwd] {tag}: two launches differ")
+                want = ssm_scan_bwd_plain(*args, dy, dh)
+                key = "plain" if dh is None else "plain, dh_last"
+                errs[key], ok = scan_bwd_errors(torch, got, want)
+                if not ok:
+                    fail(f"[scan-bwd] {tag} against {key}: {errs[key]}")
+                for i, what, scale in ((1, "ddt", PLANTED_DDT_SCALE),
+                                       (3, "dB", PLANTED_DB_SCALE)):
+                    planted = list(got)
+                    planted[i] = (got[i].float() * scale).to(got[i].dtype)
+                    _, passed = scan_bwd_errors(torch, planted, want)
+                    if passed:
+                        fail(f"[scan-bwd] {tag}: {what} x {scale} passed "
+                             f"the limits")
+                if max_abs is None:
+                    max_abs = max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want))
+                del want
+            ts = [t.detach().clone().requires_grad_(True) for t in args]
+            y, _ = ssm_scan_plain(*ts)
+            auto = torch.autograd.grad((y * dy).sum(), ts)
+            del y
+            got = ops.selective_scan_bwd(*args, dy)
+            errs["autograd"], ok = scan_bwd_errors(torch, got, auto)
+            if not ok:
+                fail(f"[scan-bwd] {tag} against autograd: "
+                     f"{errs['autograd']}")
+            del auto, ts
+            bnd, by, nbytes, exps = scan_bwd_bound(
+                b, l, d, n, args[0].element_size(), hd=hd)
+            chunks = -(-l // CHUNK)
+            case = {"shape": tag, "dtype": name, "errors": errs,
+                    "max_abs_err": max_abs,
+                    "kernel_exp_count": b * d * n * (CHUNK * (chunks - 1)
+                                                     + 2 * l),
+                    "exp_count": exps, "bound_ms": bnd, "bound_by": by,
+                    "bound_bytes": nbytes, "library_ms": None}
+            if hd:
+                gb, gby, _, gexps = scan_bwd_bound(
+                    b, l, d, n, args[0].element_size())
+                case.update(generic_bound_ms=gb, generic_bound_by=gby,
+                            generic_exp_count=gexps)
+            if b * l * d >= 1 << 20:      # the training shapes: timed
+                fn = lambda: ops.selective_scan_bwd(*args, dy)  # noqa: E731
+                case["ms"] = time_ms(torch, fn, iters=10)
+                case["device_ms"] = device_ms(
+                    torch, fn, DEVICE_MATCH["selective_scan_bwd"], iters=10)
+                case["plain_ms"] = time_ms(
+                    torch, lambda: ssm_scan_bwd_plain(*args, dy), iters=2,
+                    warmup=1)
+            cases.append(case)
+            timing = (f"; {case['ms']:.4f} ms (device "
+                      f"{case['device_ms']:.4f}), plain "
+                      f"{case['plain_ms']:.2f} ms"
+                      if "ms" in case else "")
+            print(f"kernel ssm_scan_bwd {tag}: "
+                  + "; ".join(f"{k}: " + ", ".join(
+                      f"{o} {e[1]:.3g}" for o, e in v.items())
+                      for k, v in errs.items())
+                  + f"{timing}; bound {bnd:.5f} ms ({by}: "
+                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.4g} M exp); the "
+                  f"kernel evaluates {case['kernel_exp_count'] / 1e6:.4g} "
+                  f"M exp" + ("; generic bound {:.5f} ms ({})".format(
+                      case["generic_bound_ms"], case["generic_bound_by"])
+                      if hd else ""), flush=True)
+            del args, dy, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[scan-bwd] planted ddt x {PLANTED_DDT_SCALE} and dB x "
+          f"{PLANTED_DB_SCALE} caught at every shape and dtype; phase "
+          f"{seconds:.1f} s", flush=True)
+    # the kernels line reports zamba2's training shape in bf16 (the
+    # [hybrid-train] run's)
+    top = next(c for c in cases if "Mamba-2" in c["shape"]
+               and c["dtype"] == "bfloat16")
+    return {**top, "cases": cases, "seconds": seconds}
+
+
 def serve_spec(engine: str, events_dir: pathlib.Path,
                arch: str = "granite-3-2b", overrides=None):
     from repro_torch.api import (AdmissionSpec, CacheSpec, DraftSpec,
@@ -1147,7 +1415,8 @@ def ssm_phase(torch, dev, events_dir: pathlib.Path):
         fail(f"[ssm] recorded B4 shapes {shapes} do not add up to "
              f"{launches['selective_scan']} launches")
     want = {"selective_scan": cfg.num_layers * prefills,
-            "flash_attention": 0, "paged_attention": 0, "spec_verify": 0}
+            "selective_scan_bwd": 0, "flash_attention": 0,
+            "paged_attention": 0, "spec_verify": 0}
     got = {k: launches[k] for k in want}
     if got != want or prefills < 1:
         fail(f"[ssm] launches {got}, wanted {want} (64 B4 a prefill)")
@@ -1798,7 +2067,8 @@ def train_phase(torch, dev, events_dir: pathlib.Path):
     want = {"flash_attention": layers * steps,
             "flash_attention_bwd": layers * steps,
             "cross_entropy": steps, "cross_entropy_bwd": steps,
-            "paged_attention": 0, "spec_verify": 0, "selective_scan": 0}
+            "paged_attention": 0, "spec_verify": 0, "selective_scan": 0,
+            "selective_scan_bwd": 0}
     if launches != want:
         fail(f"train launches {launches}, wanted {want}")
     median = statistics.median(step_ms[1:])
@@ -1916,10 +2186,13 @@ def rescale_to_fan_in(torch, params, specs=None) -> None:
                 leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[-2]))
 
 
-def grad_check_setup(torch, dev, rescale: bool = True):
-    """The gradient check's model, state and batch: full width at 4 layers
-    (cut 2), one UGS plan batch, the weights rescaled to fan-in d_in
-    unless ``rescale`` is false. Returns (ctx, state, batch)."""
+def grad_check_setup(torch, dev, rescale: bool = True, arch=None,
+                     layers: int = 4, dtype=None):
+    """The gradient check's model, state and batch: full width at
+    ``layers`` layers (cut 2) of granite-3-2b or ``arch`` (in ``dtype``
+    if given), one UGS plan batch, the normal-init weights rescaled to
+    fan-in d_in unless ``rescale`` is false. Returns (ctx, state,
+    batch)."""
     import numpy as np
     from repro_torch import api
     from repro_torch.api.protocols import lm_plan_batches
@@ -1928,7 +2201,10 @@ def grad_check_setup(torch, dev, rescale: bool = True):
     from repro_torch.launch.train import default_lm_spec
 
     spec = api.apply_overrides(default_lm_spec(), [
-        "model.overrides.num_layers=4", "model.overrides.cut_layer=2"])
+        f"model.overrides.num_layers={layers}",
+        "model.overrides.cut_layer=2"]
+        + ([f"model.arch={arch}"] if arch else [])
+        + ([f"model.overrides.dtype={dtype}"] if dtype else []))
     ctx = api.build_context(spec, device=dev)
     plan = make_plan("ugs", ctx.data.pop, spec.protocol.global_batch_size,
                      seed=spec.seed)
@@ -1939,18 +2215,29 @@ def grad_check_setup(torch, dev, rescale: bool = True):
     engine = ShardedPSLEngine(ctx.model, ctx.optimizer, device=dev)
     state = engine.init_state(spec.seed)
     if rescale:
-        rescale_to_fan_in(torch, state.params)
+        rescale_to_fan_in(torch, state.params, ctx.model.param_specs())
     return ctx, state, engine.put_batch(host)
 
 
 @contextlib.contextmanager
-def plain_kernels(torch):
+def plain_kernels(torch, which=("attention", "cross_entropy",
+                                "selective_scan"),
+                  attention_formulas: bool = False):
     """Inside: ``ops.attention``, ``ops.cross_entropy`` and
-    ``ops.selective_scan`` are their plain versions (autograd through
-    plain PyTorch), for a reference run."""
+    ``ops.selective_scan`` (or those of them named in ``which``) are
+    their plain versions (autograd through plain PyTorch), for a
+    reference run. Under grad the plain scan is checkpointed: its states
+    are recomputed in the backward, one call at a time, so autograd
+    holds one layer's (B, L, D, N) states at a time. With
+    ``attention_formulas`` the plain attention's backward is B1-bwd's
+    formulas in plain PyTorch (``flash_attention_bwd_plain``: P from the
+    forward's lse, delta = rowsum(dO * out) of the rounded out) instead
+    of autograd's."""
+    from torch.utils.checkpoint import checkpoint
     from repro_torch.kernels import cross_entropy as xent
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
 
     def plain_attention(q, k, v, *, causal=True, window=None):
@@ -1958,15 +2245,45 @@ def plain_kernels(torch):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
 
-    kernels = ops.attention, ops.cross_entropy, ops.selective_scan
-    ops.attention = plain_attention
-    ops.cross_entropy = lambda h, w, labels: xent.cross_entropy_fwd_plain(
-        h, w, labels.to(torch.int32))
-    ops.selective_scan = ssm_scan_plain
+    class FormulaAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out, lse = flash_attention_plain(qt, kt, vt, causal=causal,
+                                             window=window, with_lse=True)
+            ctx.save_for_backward(qt, kt, vt, out, lse)
+            ctx.causal, ctx.window = causal, window
+            return out.transpose(1, 2)
+
+        @staticmethod
+        def backward(ctx, dout):
+            qt, kt, vt, out, lse = ctx.saved_tensors
+            grads = flash_attention_bwd_plain(
+                qt, kt, vt, out, dout.transpose(1, 2), lse,
+                causal=ctx.causal, window=ctx.window)
+            return (*(g.transpose(1, 2) for g in grads), None, None)
+
+    def plain_scan(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(ssm_scan_plain, *args, use_reentrant=False)
+        return ssm_scan_plain(*args)
+
+    plain = {"attention": plain_attention,
+             "cross_entropy": lambda h, w, labels:
+                 xent.cross_entropy_fwd_plain(h, w, labels.to(torch.int32)),
+             "selective_scan": plain_scan}
+    if attention_formulas:
+        plain["attention"] = (lambda q, k, v, *, causal=True, window=None:
+                              FormulaAttention.apply(q, k, v, causal,
+                                                     window))
+    kernels = {name: getattr(ops, name) for name in which}
+    for name in which:
+        setattr(ops, name, plain[name])
     try:
         yield
     finally:
-        ops.attention, ops.cross_entropy, ops.selective_scan = kernels
+        for name, fn in kernels.items():
+            setattr(ops, name, fn)
 
 
 def leaf_rel_l2(got, want):
@@ -2614,6 +2931,464 @@ def family_kernel_phase(torch, dev, hybrid_shapes):
                     f"the [hybrid] {name} run, Mamba-2 layout",
                     hd=hcfg.ssm_head_dim)})
     return cases
+
+
+# ---------------------------------------------------------------------------
+# SSM training: falcon-mamba-7b (Mamba-1) and zamba2-2.7b (Mamba-2 hybrid)
+# ---------------------------------------------------------------------------
+
+SSM_TRAIN_GROUPS = (
+    ("B4-bwd selective_scan_bwd", _kernel_named("ssm_bwd")),
+    ("B4 selective_scan", _kernel_named("ssm_scan_kernel")),
+    ("B5 cross_entropy fwd", _kernel_named("xent_fwd", "xent_combine")),
+    ("B5 cross_entropy_bwd", _kernel_named("xent_", "gemm_kernel")),
+    ("B1-bwd flash_attention_bwd", _kernel_named("flash_bwd")),
+    ("B1 flash_attention", _kernel_named("flash_fwd")),
+    ("AdamW", _launched_in("adamw")),
+    ("cuBLAS matmul (projections)",
+     _kernel_named("gemm", "sm90", "cutlass", "xmma", "nvjet")),
+    ("conv, gates, norms, dt and other elementwise",
+     lambda kern, names: True))
+
+
+class record_train_shapes:
+    """Count every training kernel's launches by shape until ``stop``, by
+    wrapping the launchers that ``ops``' wrappers call on a CUDA tensor:
+    B1 and B1-bwd by (B, S, Hq, Hkv, D), B5 and B5-bwd by (T, d, V), B4
+    and B4-bwd by (B, L, D, N, ``hd``), ``hd`` the channels a head of
+    Mamba-2's layout (None: Mamba-1's). A B1 or B1-bwd launch that is not
+    causal and unwindowed over T = S, or a B1 launch without the lse,
+    fails: training runs none."""
+
+    NAMES = {"flash_attention": "flash_attention",
+             "flash_attention_bwd": "flash_attention_bwd",
+             "selective_scan": "ssm_scan",
+             "selective_scan_bwd": "ssm_scan_bwd"}
+
+    def __init__(self, hd=None):
+        from repro_torch.kernels import ops
+        self.ops, self.xent = ops, ops.xent
+        self.saved = {n: getattr(ops, a) for n, a in self.NAMES.items()}
+        self.saved_xent = (ops.xent.cross_entropy_fwd,
+                           ops.xent.cross_entropy_bwd)
+        self.counts = {n: {} for n in ops.WRAPPERS
+                       if n not in ("paged_attention", "spec_verify")}
+
+        def counted(name, shape_of, fn):
+            def launch(*args, **kw):
+                shape = shape_of(*args, **kw)
+                self.counts[name][shape] = self.counts[name].get(shape,
+                                                                 0) + 1
+                return fn(*args, **kw)
+            return launch
+
+        def attn_shape(fwd):
+            def shape_of(q, k, v, *args, causal=True, window=None,
+                         lse=None, **kw):
+                b, hq, s, d = q.shape
+                if not causal or window is not None or k.shape[2] != s \
+                        or (fwd and lse is None):
+                    fail(f"a training B1 launch at T {k.shape[2]}, S {s}, "
+                         f"causal {causal}, window {window}, lse "
+                         f"{lse is not None}")
+                return (b, s, hq, k.shape[1], d)
+            return shape_of
+
+        def scan_shape(x, dt, a, *args, **kw):
+            return (*x.shape, a.shape[1], hd)
+
+        def xent_shape(hidden, w, *args, **kw):
+            return (*hidden.shape, w.shape[1])
+
+        shapes = {"flash_attention": attn_shape(True),
+                  "flash_attention_bwd": attn_shape(False),
+                  "selective_scan": scan_shape,
+                  "selective_scan_bwd": scan_shape}
+        for name, attr in self.NAMES.items():
+            setattr(ops, attr, counted(name, shapes[name], self.saved[name]))
+        ops.xent.cross_entropy_fwd = counted(
+            "cross_entropy", xent_shape, self.saved_xent[0])
+        ops.xent.cross_entropy_bwd = counted(
+            "cross_entropy_bwd", xent_shape, self.saved_xent[1])
+
+    def stop(self):
+        for name, attr in self.NAMES.items():
+            setattr(self.ops, attr, self.saved[name])
+        (self.xent.cross_entropy_fwd,
+         self.xent.cross_entropy_bwd) = self.saved_xent
+        return self.counts
+
+
+def ssm_train_kernel_phase(torch, dev, shapes):
+    """Every kernel of [ssm-train] and [hybrid-train] held to its plain
+    version and timed at each shape those runs launched it
+    (``record_train_shapes``' counts, summed over both): B1 with its lse
+    (``attention_train_case``) and B1-bwd (``attention_bwd_case``) at
+    bf16's tolerance, B5 and B5-bwd (``xent_case``) at theirs, B4 in
+    either layout at ``SCAN_TOL`` (``timed_scan_case``). B4-bwd is held
+    by [scan-bwd] at ``SCAN_BWD_SHAPES``: a shape launched outside them
+    fails. Returns the cases by kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    cases = {name: [] for name in shapes}
+    for shape, n in sorted(shapes["flash_attention"].items()):
+        b, s, hq, hkv, d = shape
+        cases["flash_attention"].append({
+            "phase": "train", "launches": n, **attention_train_case(
+                torch, dev, gen, rn, b=b, s=s, hq=hq, hkv=hkv, d=d)})
+    for shape, n in sorted(shapes["flash_attention_bwd"].items()):
+        cases["flash_attention_bwd"].append({
+            "phase": "train", "launches": n,
+            **attention_bwd_case(torch, dev, gen, *shape)})
+    for shape in sorted(set(shapes["cross_entropy"])
+                        | set(shapes["cross_entropy_bwd"])):
+        fwd, bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True,
+                             shape=shape)
+        for name, case in (("cross_entropy", fwd),
+                           ("cross_entropy_bwd", bwd)):
+            cases[name].append({"phase": "train", "launches":
+                                shapes[name].get(shape, 0), **case})
+    for (b, l, d, n, hd), count in sorted(
+            shapes["selective_scan"].items(), key=str):
+        args = (mamba2_scan_case(torch, dev, gen, b, l, d, n, hd,
+                                 torch.bfloat16) if hd else
+                scan_case(torch, dev, gen, torch.bfloat16, b, l, d, n))
+        y, h = ops.selective_scan(*args)
+        py, ph = ssm_scan_plain(*args)
+        what = f"ssm_scan training {(b, l, d, n)}" + (
+            f" Mamba-2 layout ({hd} channels a head)" if hd else "")
+        err = max(within_tol(torch, y, py, f"{what} y", **SCAN_TOL),
+                  within_tol(torch, h, ph, f"{what} h_last", **SCAN_TOL))
+        cases["selective_scan"].append({
+            "phase": "train", **timed_scan_case(
+                torch, args, (b, l, d, n), err, count,
+                "the training runs" + (", Mamba-2 layout" if hd else ""),
+                hd=hd)})
+        del args, y, h, py, ph
+    held = {tuple(x) for x in SCAN_BWD_SHAPES}
+    for shape in shapes["selective_scan_bwd"]:
+        if shape not in held:
+            fail(f"B4-bwd launched at {shape} in training, a shape "
+                 f"[scan-bwd] does not hold")
+    cases["selective_scan_bwd"] = [
+        {"shape": "B={} L={} D={} N={} hd={}".format(*k), "launches": v,
+         "held_by": "[scan-bwd]"}
+        for k, v in shapes["selective_scan_bwd"].items()]
+    seconds = time.perf_counter() - t_phase
+    print(f"[train-kernels] B1, B1-bwd, B5, B5-bwd and B4 at every "
+          f"training shape held to their plain versions; phase "
+          f"{seconds:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**cases, "seconds": seconds}
+
+
+def grad_spread(rels):
+    """(worst leaf, its relative L2, the median) of ``leaf_rel_l2``'s."""
+    worst = max(rels, key=rels.get)
+    return worst, rels[worst], sorted(rels.values())[len(rels) // 2]
+
+
+def ssm_grad_case(torch, ctx, state, batch, ref, kernels, limit):
+    """One kernel-vs-plain gradient comparison of ``ssm_grad_check``: the
+    loss's gradients with the kernel families in ``kernels`` as kernels
+    (the others plain) against ``ref`` (every family plain), per-leaf
+    relative L2 (``leaf_rel_l2``); then the same with the B4-bwd
+    launcher's ddt scaled by ``PLANTED_SCAN_GRAD_DDT_SCALE``. Returns
+    (result, launches of the unplanted run)."""
+    from repro_torch.core.psl import value_and_grad
+    from repro_torch.kernels import ops
+    others = tuple(n for n in ALL_KERNELS if n not in kernels)
+    ops.reset_launches()
+    with plain_kernels(torch, others):
+        (loss, _), grads = value_and_grad(ctx.model.loss_fn, state.params,
+                                          batch)
+    launches = ops.launch_counts()
+    rels = leaf_rel_l2(grads, ref)
+    del grads
+    worst, err, median = grad_spread(rels)
+    out = {"kernels": list(kernels), "loss": float(loss),
+           "worst_rel_l2": err, "worst_leaf": worst, "median_rel_l2": median,
+           "rel_l2_by_leaf": rels, "limit": limit}
+    kernel_bwd = ops.ssm_scan_bwd
+
+    def planted_bwd(*args, **kw):
+        dx, ddt, da, dbm, dcm = kernel_bwd(*args, **kw)
+        return dx, ddt * PLANTED_SCAN_GRAD_DDT_SCALE, da, dbm, dcm
+    ops.ssm_scan_bwd = planted_bwd
+    try:
+        with plain_kernels(torch, others):
+            _, planted = value_and_grad(ctx.model.loss_fn, state.params,
+                                        batch)
+    finally:
+        ops.ssm_scan_bwd = kernel_bwd
+    pworst, perr, _ = grad_spread(leaf_rel_l2(planted, ref))
+    out.update(planted_worst_rel_l2=perr, planted_leaf=pworst)
+    return out, launches
+
+
+def attention_readings(torch, tag, ctx, state, batch, ref):
+    """Where a bf16 kernel-vs-plain gradient reading through the shared
+    attention comes from: B1 alone as a kernel (the rest plain) against
+    ``ref`` (autograd through the plain path), and against the plain path
+    whose attention backward is B1-bwd's formulas in plain PyTorch
+    (``plain_kernels``' ``attention_formulas``); and that path against
+    ``ref``. Printed, not gated: the gate is ``ssm_grad_check``'s."""
+    from repro_torch.core.psl import value_and_grad
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    with plain_kernels(torch, ("cross_entropy", "selective_scan")):
+        _, b1 = value_and_grad(ctx.model.loss_fn, state.params, batch)
+    launches = ops.launch_counts()
+    with plain_kernels(torch, attention_formulas=True):
+        _, formulas = value_and_grad(ctx.model.loss_fn, state.params, batch)
+    out = {}
+    for name, got, want in (("b1_vs_plain", b1, ref),
+                            ("b1_vs_plain_formulas", b1, formulas),
+                            ("plain_formulas_vs_plain", formulas, ref)):
+        leaf, err, median = grad_spread(leaf_rel_l2(got, want))
+        out[name] = {"worst_rel_l2": err, "worst_leaf": leaf,
+                     "median_rel_l2": median}
+    out["b1_launches"] = launches
+    print(f"[{tag}] B1 alone a kernel: against the plain path worst "
+          f"{out['b1_vs_plain']['worst_rel_l2']:.3g} "
+          f"({out['b1_vs_plain']['worst_leaf']}), median "
+          f"{out['b1_vs_plain']['median_rel_l2']:.3g}; against the plain "
+          f"path with B1-bwd's formulas worst "
+          f"{out['b1_vs_plain_formulas']['worst_rel_l2']:.3g} "
+          f"({out['b1_vs_plain_formulas']['worst_leaf']}), median "
+          f"{out['b1_vs_plain_formulas']['median_rel_l2']:.3g}; that path "
+          f"against the plain path worst "
+          f"{out['plain_formulas_vs_plain']['worst_rel_l2']:.3g}, median "
+          f"{out['plain_formulas_vs_plain']['median_rel_l2']:.3g}; "
+          f"launches {launches} (printed, not gated)", flush=True)
+    return out
+
+
+def ssm_grad_check(torch, dev, tag: str, arch: str, layers: int,
+                   rows: int, cases):
+    """Kernel-path gradients against the plain path's (``plain_kernels``:
+    autograd through ``ssm_scan_plain``, ``flash_attention_plain`` and the
+    plain cross-entropy) at ``layers`` layers, full width, fan-in d_in, on
+    the first ``rows`` sequences of a plan batch, once for each (dtype,
+    kernel families kept as kernels) of ``cases`` (dtype None: the
+    model's). Every case must hold every leaf within ``GRAD_REL_L2`` in
+    bf16 or ``SCAN_GRAD_FP32_REL_L2`` in float32, and the B4-bwd
+    launcher's ddt scaled by ``PLANTED_SCAN_GRAD_DDT_SCALE`` must fail
+    that limit. Every run launches each kept kernel once a layer (B4 and
+    B4-bwd), a shared-attention application (B1 and B1-bwd) or a loss (B5
+    and B5-bwd), and nothing else. A hybrid's reference in its own dtype
+    also gets ``attention_readings``."""
+    from repro_torch.core.psl import value_and_grad
+    out, refs, extra = [], {}, {}
+    for dtype, kernels in cases:
+        if dtype not in refs:
+            refs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            ctx, state, batch = grad_check_setup(torch, dev, arch=arch,
+                                                 layers=layers, dtype=dtype)
+            batch = {k: v[:rows] for k, v in batch.items()}
+            with plain_kernels(torch):
+                (ref_loss, _), ref = value_and_grad(ctx.model.loss_fn,
+                                                    state.params, batch)
+            refs[dtype] = ref
+            if dtype is None and ctx.model.cfg.family == "hybrid":
+                extra["attention_readings"] = attention_readings(
+                    torch, tag, ctx, state, batch, ref)
+        name = dtype or ctx.model.cfg.dtype
+        limit = SCAN_GRAD_FP32_REL_L2 if name == "float32" else GRAD_REL_L2
+        res, launches = ssm_grad_case(torch, ctx, state, batch, refs[dtype],
+                                      kernels, limit)
+        n_attn = ctx.model.n_super
+        want = {k: 0 for k in launches}
+        if "selective_scan" in kernels:
+            want.update(selective_scan=layers, selective_scan_bwd=layers)
+        if "attention" in kernels:
+            want.update(flash_attention=n_attn, flash_attention_bwd=n_attn)
+        if "cross_entropy" in kernels:
+            want.update(cross_entropy=1, cross_entropy_bwd=1)
+        if launches != want:
+            fail(f"[{tag}] gradient check ({name}, kernels {kernels}) "
+                 f"launches {launches}, wanted {want}")
+        res.update(dtype=name, plain_loss=float(ref_loss), launches=launches)
+        print(f"[{tag}] gradients at {layers} layers full width, {name} "
+              f"(fan-in d_in, {rows} x {batch['tokens'].shape[1]} tokens), "
+              f"kernels {'/'.join(kernels)} (the rest plain) against the "
+              f"plain path: loss {res['loss']:.6f} vs {float(ref_loss):.6f};"
+              f" worst per-leaf relative L2 {res['worst_rel_l2']:.3g} "
+              f"({res['worst_leaf']}) over {len(res['rel_l2_by_leaf'])} "
+              f"leaves, median {res['median_rel_l2']:.3g}; limit {limit}; "
+              f"planted B4-bwd ddt x {PLANTED_SCAN_GRAD_DDT_SCALE}: worst "
+              f"{res['planted_worst_rel_l2']:.3g} ({res['planted_leaf']})",
+              flush=True)
+        if not res["worst_rel_l2"] <= limit:
+            fail(f"[{tag}] kernel-path gradients disagree: "
+                 f"{res['worst_leaf']} {res['worst_rel_l2']}")
+        if res["planted_worst_rel_l2"] <= limit:
+            fail(f"[{tag}] a planted B4-bwd ddt x "
+                 f"{PLANTED_SCAN_GRAD_DDT_SCALE} passed the gradient check:"
+                 f" {res['planted_worst_rel_l2']}")
+        out.append(res)
+    del ctx, state, batch
+    refs.clear()
+    return {"cases": out, **extra}
+
+
+def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
+                    layers: int, grad_layers: int, grad_rows: int,
+                    grad_cases):
+    """[ssm-train] / [hybrid-train]: full-width ``arch`` at ``layers``
+    layers (cut 2), PSL-UGS through ``api.run`` in the granite training
+    setting for ``SSM_TRAIN_STEPS`` steps: per-step loss, accuracy, grad
+    norm and step ms; launches exactly one B4 and one B4-bwd a Mamba
+    layer, one B1 and one B1-bwd a shared-attention application, one B5
+    and one B5-bwd a step, nothing else; finite losses and grad norms;
+    init and training peak memory; one more step profiled by group
+    (``SSM_TRAIN_GROUPS``, AdamW in its own range); then, from a fresh
+    init rescaled to fan-in d_in, the loss on one fixed batch must fall
+    at each of 3 AdamW steps at ``SSM_FIXED_BATCH_LR``; then
+    ``ssm_grad_check``. Returns (result, the training run's launches by
+    shape, ``record_train_shapes``')."""
+    import math
+    import statistics
+    import numpy as np
+    from torch.profiler import record_function
+    from repro_torch import api
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.configs import get_config
+    from repro_torch.core.psl import make_train_step
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.launch.train import default_lm_spec
+    from repro_torch.optim import Optimizer, adamw
+
+    t_phase = time.perf_counter()
+    events = str(events_dir / f"{tag}.jsonl")
+    spec = api.apply_overrides(default_lm_spec(), [
+        f"model.arch={arch}", f"model.overrides.num_layers={layers}",
+        "model.overrides.cut_layer=2",
+        f"execution.max_steps={SSM_TRAIN_STEPS}", "obs.enabled=true",
+        "obs.monitor=false", f"obs.events_path={events}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = api.build_context(spec, device=dev)
+    model, cfg = ctx.model, ctx.model.cfg
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} of "
+          f"{get_config(arch).num_layers} layers (cut {cfg.cut_layer}), "
+          f"full width d_model {cfg.d_model}, d_inner {cfg.d_inner}, N "
+          f"{cfg.ssm_state}, {cfg.ssm_variant}"
+          + (f", {model.n_super} superblocks of {cfg.attn_period} after "
+             f"{model.n_pre} pre-blocks" if cfg.family == "hybrid" else "")
+          + f", {cfg.dtype}; {ctx.data.pop.num_clients} clients, global "
+          f"batch {spec.protocol.global_batch_size} x {spec.data.seq_len}, "
+          f"{spec.sampler.method}, {spec.optimizer.name}; built in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    ops.reset_launches()
+    recorder = record_train_shapes(
+        cfg.ssm_head_dim if cfg.ssm_variant == "mamba2" else None)
+    try:
+        result = api.run(spec, ctx=ctx)
+        torch.cuda.synchronize()
+    finally:
+        shapes = recorder.stop()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = span_means(events)["device_step"]
+    steps = len(result.step_metrics)
+    for i, m in enumerate(result.step_metrics):
+        print(f"[{tag}] step {i}: loss {m['loss']:.4f} accuracy "
+              f"{m['accuracy']:.4f} tokens {m['tokens']:.0f} grad_norm "
+              f"{m['grad_norm']:.4f} step {step_ms[i]:.1f} ms", flush=True)
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"[{tag}] step {i} is not finite: {m}")
+    attn = model.n_super
+    want = {name: 0 for name in launches}
+    want.update({"selective_scan": layers * steps,
+                 "selective_scan_bwd": layers * steps,
+                 "flash_attention": attn * steps,
+                 "flash_attention_bwd": attn * steps,
+                 "cross_entropy": steps, "cross_entropy_bwd": steps})
+    if steps != SSM_TRAIN_STEPS or launches != want:
+        fail(f"[{tag}] {steps} steps, launches {launches}, wanted {want} "
+             f"({layers} B4 + {layers} B4-bwd + {attn} B1 + {attn} B1-bwd "
+             f"+ 1 B5 + 1 B5-bwd a step)")
+    n_params = sum(p.numel() for p in _leaves(result.params))
+    median = statistics.median(step_ms[1:])
+    tokens = result.step_metrics[-1]["tokens"]
+    print(f"[{tag}] {n_params / 1e9:.3f} B params; first step "
+          f"{step_ms[0]:.1f} ms, median after it {median:.1f} ms, "
+          f"{tokens / median * 1e3:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+
+    # one more step, profiled by group, with AdamW in its own range
+    pstate = result.state
+    engine, state = pstate["engine"], pstate["state"]
+    opt = ctx.optimizer
+
+    def ranged_updates(params, grads, st):
+        with record_function("adamw"):
+            return opt.apply_updates(params, grads, st)
+    engine._step = make_train_step(model, Optimizer(
+        init=opt.init, apply_updates=ranged_updates))
+    plan = make_plan("ugs", ctx.data.pop, spec.protocol.global_batch_size,
+                     seed=spec.seed)
+    host = next(iter(lm_plan_batches(
+        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
+        spec.protocol.aggregation, np.zeros(len(ctx.data.lm_data),
+                                            np.int64))))
+    batch = engine.put_batch(host)
+    profile = profile_groups(torch, lambda: engine.step(state, batch),
+                             SSM_TRAIN_GROUPS, f"[{tag}] one step")
+    metrics = [{k: m[k] for k in ("loss", "accuracy", "grad_norm")}
+               for m in result.step_metrics]
+    del result, pstate, engine, state
+
+    # fixed-batch descent from a fan-in-rescaled init
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ShardedPSLEngine(model, adamw(
+        SSM_FIXED_BATCH_LR, weight_decay=spec.optimizer.weight_decay),
+        device=dev)
+    st = eng.init_state(spec.seed)
+    rescale_to_fan_in(torch, st.params, model.param_specs())
+    losses = []
+    for _ in range(3):
+        st, m = eng.step(st, batch)
+        losses.append(m["loss"])
+    with torch.no_grad():
+        losses.append(float(model.loss_fn(st.params, batch)[1]["loss"]))
+    print(f"[{tag}] fixed-batch losses over 3 AdamW steps at lr "
+          f"{SSM_FIXED_BATCH_LR} (fan-in d_in init): {losses}", flush=True)
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"[{tag}] the fixed-batch loss did not fall at every step: "
+             f"{losses}")
+    del eng, st, ctx, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = ssm_grad_check(torch, dev, tag, arch, grad_layers, grad_rows,
+                           grad_cases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[{tag}] phase {seconds:.1f} s", flush=True)
+    return {"layers": layers, "params": n_params, "steps": steps,
+            "step_ms": step_ms, "median_step_ms_after_first": median,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / median * 1e3,
+            "metrics": metrics, "peak_memory_bytes": peak,
+            "launches": launches, "profile": profile,
+            "fixed_batch_losses": losses, "grads": grads,
+            "seconds": seconds}, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -3570,6 +4345,31 @@ def main() -> int:
     print(f"[families] summary {json.dumps(families)}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    b4_bwd = scan_bwd_phase(torch, dev)
+    ssm_train, train_shapes = {}, {}
+    for tag, cell in (("ssm-train", SSM_TRAIN),
+                      ("hybrid-train", HYBRID_TRAIN)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as events_dir:
+            ssm_train[tag], shapes = ssm_train_phase(
+                torch, dev, pathlib.Path(events_dir), tag, **cell)
+        for name, counts in shapes.items():
+            for shape, n in counts.items():
+                train_shapes.setdefault(name, {})
+                train_shapes[name][shape] = (
+                    train_shapes[name].get(shape, 0) + n)
+    train_cases = ssm_train_kernel_phase(torch, dev, train_shapes)
+    for name in ("flash_attention", "flash_attention_bwd", "cross_entropy",
+                 "cross_entropy_bwd", "selective_scan"):
+        family_cases[name] += train_cases[name]
+    together = (b4_bwd["seconds"] + train_cases["seconds"]
+                + sum(t["seconds"] for t in ssm_train.values()))
+    print(f"[scan-bwd]/[ssm-train]/[hybrid-train]/[train-kernels] "
+          f"{together:.1f} s together", flush=True)
+    print(f"[ssm-train] summary {json.dumps(ssm_train)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     ops.reset_launches()
     cnn_agree = cnn_agree_phase(torch, dev)
     cnn, cnn_ctx = cnn_phase(torch, dev)
@@ -3617,6 +4417,9 @@ def main() -> int:
                       "serve_hybrid": families["hybrid"]["launches"][name],
                       "serve_hybrid_fp32":
                           families["hybrid"]["fp32"]["launches"][name],
+                      "train_ssm": ssm_train["ssm-train"]["launches"][name],
+                      "train_hybrid":
+                          ssm_train["hybrid-train"]["launches"][name],
                       "train_cnn": cnn_launches[name],
                       "plan_and_cnn_lds": plan_launches[name]}
                for name in ops.WRAPPERS}
@@ -3672,7 +4475,18 @@ def main() -> int:
                                "exp_count", "device_ms", "cases")
             + timing},
          "family_cases": family_cases["selective_scan"],
-         "async_copy_count": asyncs["ssm_scan"]},
+         "async_copy_count": asyncs["ssm_scan_kernel"]},
+        {"name": "selective_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/models/layers.py:655",
+         "launches": ssm_train["hybrid-train"]["launches"][
+             "selective_scan_bwd"],
+         "launches_by_path": by_path["selective_scan_bwd"],
+         **{k: b4_bwd[k] for k in ("max_abs_err", "device_ms", "exp_count",
+                                   "kernel_exp_count", "generic_bound_ms",
+                                   "cases") + timing},
+         "train_cases": train_cases["selective_scan_bwd"],
+         "async_copy_count": asyncs["ssm_bwd_kernel"]},
         {"name": "cross_entropy", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:68",

@@ -7,15 +7,14 @@ carries a plain integer ``launches`` that it raises by one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launch_counts``).
 
-``spec_verify`` (B3) and ``selective_scan`` (B4) are forward only;
-``selective_scan`` raises on the card under grad instead of returning a
-result that would silently drop the gradient.
+``spec_verify`` (B3) is forward only.
 
 Gradients go through ``torch.autograd.Function``s whose backward is a
 kernel too: :class:`FlashAttention` (forward B1 with its logsumexp,
-backward B1-bwd) and :class:`CrossEntropy` (forward B5, backward
-B5-bwd). On the CPU both run the plain versions of both passes, so the
-CPU tests check the backward formulas the kernels implement.
+backward B1-bwd), :class:`SelectiveScan` (forward B4, backward B4-bwd)
+and :class:`CrossEntropy` (forward B5, backward B5-bwd). On the CPU each
+runs the plain versions of both passes, so the CPU tests check the
+backward formulas the kernels implement.
 """
 from __future__ import annotations
 
@@ -36,7 +35,8 @@ from repro_torch.kernels.paged_attention import (paged_attention as
 from repro_torch.kernels.spec_verify import (spec_verify as
                                              _spec_verify_kernel,
                                              spec_verify_plain)
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_bwd,
+                                          ssm_scan_bwd_plain, ssm_scan_plain)
 
 
 def _on_cpu(t: torch.Tensor, what: str) -> bool:
@@ -147,26 +147,57 @@ def spec_verify(q, k_pages, v_pages, page_table, q_pos) -> torch.Tensor:
     return out
 
 
+def _scan_fwd(x, dt, a, bmat, cmat):
+    if _on_cpu(x, "selective_scan"):
+        return ssm_scan_plain(x, dt, a, bmat, cmat)
+    out = ssm_scan(x, dt, a, bmat, cmat)
+    selective_scan.launches += 1
+    return out
+
+
+class SelectiveScan(torch.autograd.Function):
+    """Differentiable selective scan: the B4 forward saves its (contiguous)
+    inputs and no state; the backward runs :func:`selective_scan_bwd`,
+    which recomputes the states. A gradient of h_last that autograd does
+    not have (training uses y alone) reaches the kernel as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        return _scan_fwd(x, dt, a, bmat, cmat)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, a, bmat, cmat = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return selective_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last)
+
+
 def selective_scan(x, dt, a, bmat, cmat):
     """Mamba-1 selective scan from a zero state. x (B, L, D) and B, C
     (B, L, N) in the model dtype, dt (B, L, D) and a (D, N) fp32 -> (y
-    (B, L, D) fp32, h_last (B, D, N) fp32).
+    (B, L, D) fp32, h_last (B, D, N) fp32). With grad enabled and an
+    input that requires it, the call goes through :class:`SelectiveScan`
+    (B4, then B4-bwd in the backward); otherwise (serving) it is the plain
+    forward launch, which saves nothing."""
+    args = tuple(t.contiguous() for t in (x, dt, a, bmat, cmat))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SelectiveScan.apply(*args)
+    return _scan_fwd(*args)
 
-    The kernel is forward only: on a CUDA tensor under grad it raises
-    rather than return a result without a ``grad_fn`` (training the SSM
-    family needs a backward kernel, ROADMAP A.2). On the CPU the plain
-    version is differentiable."""
-    if _on_cpu(x, "selective_scan"):
-        return ssm_scan_plain(x, dt, a, bmat, cmat)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, a, bmat, cmat)):
-        raise NotImplementedError(
-            "selective_scan: the CUDA kernel has no backward yet; training "
-            "the SSM family on the card is ROADMAP A.2 (SSM training, "
-            "B4 backward)")
-    out = ssm_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
-                   bmat.contiguous(), cmat.contiguous())
-    selective_scan.launches += 1
+
+def selective_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
+    """Gradients of the selective scan -> (dx, ddt, da, dB, dC), shapes
+    and dtypes of the inputs; dy (B, L, D), dh_last (B, D, N) or None."""
+    dy = dy.float().contiguous()
+    if dh_last is not None:
+        dh_last = dh_last.float().contiguous()
+    if _on_cpu(x, "selective_scan_bwd"):
+        return ssm_scan_bwd_plain(x, dt, a, bmat, cmat, dy, dh_last)
+    out = ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last)
+    selective_scan_bwd.launches += 1
     return out
 
 
@@ -221,6 +252,7 @@ attention_bwd.launches = 0
 paged_attention.launches = 0
 spec_verify.launches = 0
 selective_scan.launches = 0
+selective_scan_bwd.launches = 0
 cross_entropy.launches = 0
 cross_entropy_bwd.launches = 0
 
@@ -229,6 +261,7 @@ WRAPPERS = {"flash_attention": attention,
             "paged_attention": paged_attention,
             "spec_verify": spec_verify,
             "selective_scan": selective_scan,
+            "selective_scan_bwd": selective_scan_bwd,
             "cross_entropy": cross_entropy,
             "cross_entropy_bwd": cross_entropy_bwd}
 

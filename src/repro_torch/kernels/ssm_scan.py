@@ -1,18 +1,22 @@
-"""Mamba-1 selective scan: the hand-written CUDA kernel and its plain
-version.
+"""Mamba-1 selective scan: the hand-written CUDA kernels (forward B4 and
+backward B4-bwd) and their plain versions.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/ssm_scan.py``
-(``ssm_scan``). The kernel lives in ``csrc/ssm_scan.cu`` (design and
-bound notes there); :func:`ssm_scan` launches it on CUDA tensors and
-:func:`ssm_scan_plain` computes the same function in plain PyTorch — the
-CPU path and the on-card oracle.
+The forward replaces the Pallas TPU kernel ``src/repro/kernels/
+ssm_scan.py`` (``ssm_scan``). The TPU kernel has no backward: ``repro``
+differentiates its plain-JAX chunked scan (``_chunked_ssm_scan``), and
+B4-bwd takes that place. Both kernels live in ``csrc/ssm_scan.cu``
+(design and bound notes there). :func:`ssm_scan` and :func:`ssm_scan_bwd`
+launch them on CUDA tensors; :func:`ssm_scan_plain` and
+:func:`ssm_scan_bwd_plain` compute the same functions in plain PyTorch —
+the CPU path and the on-card oracles.
 
     h_t = exp(dt_t * a) * h_{t-1} + (dt_t * x_t) (outer) B_t ;  y_t = h_t . C_t
 
 from h_0 = 0. Layout: x (B, L, D) and B, C (B, L, N) in the model dtype;
 dt (B, L, D) and a (D, N) fp32. Returns (y (B, L, D) fp32, h_last
-(B, D, N) fp32). Forward only: the TPU kernel has no backward, and the
-port's kernel has none yet.
+(B, D, N) fp32). The backward takes the same inputs with dy (B, L, D)
+fp32 and an optional dh_last (B, D, N) fp32 and returns (dx, ddt, da,
+dB, dC): dx, dB and dC in the model dtype, ddt and da in fp32.
 """
 from __future__ import annotations
 
@@ -56,13 +60,32 @@ def _check(x, dt, a, bmat, cmat):
         raise ValueError("ssm_scan: inputs must be contiguous")
 
 
-def _kernel():
-    """The loaded library and its launcher, argtypes declared once."""
+def _check_bwd(x, dt, a, bmat, cmat, dy, dh_last):
+    _check(x, dt, a, bmat, cmat)
+    b, l, d = x.shape
+    n = a.shape[1]
+    if dy.get_device() != x.get_device() or dy.dtype != torch.float32 \
+            or dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"ssm_scan_bwd: dy must be a contiguous float32 "
+                         f"{(b, l, d)} CUDA tensor, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    if dh_last is not None and (
+            dh_last.get_device() != x.get_device()
+            or dh_last.dtype != torch.float32 or dh_last.shape != (b, d, n)
+            or not dh_last.is_contiguous()):
+        raise ValueError(f"ssm_scan_bwd: dh_last must be a contiguous "
+                         f"float32 {(b, d, n)} CUDA tensor or None")
+
+
+def _kernel(name: str):
+    """The loaded library and a launcher (``ssm_scan_fwd`` or
+    ``ssm_scan_bwd``), argtypes declared once."""
     lib = _build.load("ssm_scan")
-    fn = lib.ssm_scan_fwd
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 7 + [ctypes.c_int] * 4 + [p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([i] + [p] * 7 + [i] * 4 + [p] if name == "ssm_scan_fwd"
+                       else [i] + [p] * 16 + [i] * 5 + [p])
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -74,13 +97,64 @@ def ssm_scan(x, dt, a, bmat, cmat):
     n = a.shape[1]
     y = torch.empty((b, l, d), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
-    lib, fn = _kernel()
+    lib, fn = _kernel("ssm_scan_fwd")
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
              h_last.data_ptr(), b, l, d, n, stream)
     _build.check(err, lib, "ssm_scan")
     return y, h_last
+
+
+# B4-bwd's blocks each walk tiles_per_block channel tiles and keep their
+# dB / dC partial sums, (groups, B, L, N) fp32 twice, in device memory:
+# enough groups for ~BWD_BLOCKS blocks, capped so that those partials stay
+# within BWD_PARTIAL_BYTES.
+BWD_BLOCKS = 1024
+BWD_PARTIAL_BYTES = 64 << 20
+CHUNK = 16        # the kernels' time steps a chunk (kChunk)
+
+
+def bwd_grid(b: int, l: int, d: int, n: int):
+    """(tiles_per_block, groups): the channel tiles (512 / NT channels
+    each) that each B4-bwd block walks, and the launch's groups of them
+    (its grid is (groups, B))."""
+    tiles = -(-d // (128 * PER_LANE // _state_tiers(n)))
+    groups = max(1, min(tiles, -(-BWD_BLOCKS // b),
+                        BWD_PARTIAL_BYTES // (8 * b * l * n)))
+    per = -(-tiles // groups)
+    return per, -(-tiles // per)
+
+
+def ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
+    """Launch B4-bwd; raises on anything it does not take. Returns (dx,
+    ddt, da, dB, dC)."""
+    _check_bwd(x, dt, a, bmat, cmat, dy, dh_last)
+    b, l, d = x.shape
+    n = a.shape[1]
+    dev = x.device
+    per, groups = bwd_grid(b, l, d, n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, l, d), **f32)
+    da = torch.empty((d, n), **f32)
+    dbm = torch.empty_like(bmat)
+    dcm = torch.empty_like(cmat)
+    db_part = torch.empty((groups, b, l, n), **f32)
+    dc_part = torch.empty((groups, b, l, n), **f32)
+    da_part = torch.empty((b, d, n), **f32)
+    ckpt = torch.empty((max(1, groups * b * (-(-l // CHUNK) - 1) * 512),),
+                       **f32)
+    lib, fn = _kernel("ssm_scan_bwd")
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
+             a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
+             None if dh_last is None else dh_last.data_ptr(),
+             dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+             da.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+             da_part.data_ptr(), ckpt.data_ptr(), b, l, d, n, per, stream)
+    _build.check(err, lib, "ssm_scan_bwd")
+    return dx, ddt, da, dbm, dcm
 
 
 def _state_tiers(n: int) -> int:
@@ -123,3 +197,46 @@ def ssm_scan_plain(x, dt, a, bmat, cmat):
         h = a_bar * h + (dtt * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(sum_states(h * cf[:, t, None, :]))
     return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_bwd_plain(x, dt, a, bmat, cmat, dy, dh_last=None):
+    """B4-bwd's function in plain PyTorch (no autograd): the states
+    recomputed forward, then the reverse recurrence of their adjoint g_t,
+
+        g_t = dy_t C_t + exp(dt_{t+1} a) g_{t+1},   g_{L-1} = dh_last + dy C,
+
+    with every product in the kernel's order and the sums over the N
+    states in its order (:func:`sum_states`); the sums over D, t and b
+    are torch's. Returns (dx, ddt, da, dB, dC): dx, dB and dC in x's
+    dtype, ddt and da fp32."""
+    b, l, d = x.shape
+    n = a.shape[1]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf, dyf = bmat.float(), cmat.float(), dy.float()
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(l):
+        dtt = dtf[:, t]
+        a_bar = torch.exp(dtt[..., None] * af[None])
+        h = a_bar * h + (dtt * xf[:, t])[..., None] * bf[:, t, None, :]
+        hs.append(h)
+    g = (torch.zeros_like(h) if dh_last is None
+         else dh_last.float().clone())
+    dx, ddt, dbm, dcm = [], [], [], []
+    da = torch.zeros((d, n), dtype=torch.float32, device=x.device)
+    for t in reversed(range(l)):
+        dtt, xt = dtf[:, t], xf[:, t]
+        a_bar = torch.exp(dtt[..., None] * af[None])
+        hp = hs[t - 1] if t else torch.zeros_like(h)
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        bt = bf[:, t, None, :]
+        dx.append(dtt * sum_states(g * bt))
+        ddt.append(sum_states(g * (xt[..., None] * bt
+                                   + (af[None] * a_bar) * hp)))
+        dbm.append((g * (dtt * xt)[..., None]).sum(1))
+        dcm.append((dyf[:, t, :, None] * hs[t]).sum(1))
+        da = da + ((g * dtt[..., None]) * (a_bar * hp)).sum(0)
+        g = a_bar * g
+    flip = lambda seq: torch.stack(seq[::-1], dim=1)    # noqa: E731
+    return (flip(dx).to(x.dtype), flip(ddt), da, flip(dbm).to(bmat.dtype),
+            flip(dcm).to(cmat.dtype))

@@ -442,21 +442,132 @@ def test_ssm_scan_kernel_matches_plain(dev, dtype, b, l, d, n):
 
 
 def test_selective_scan_raises_under_grad_on_the_card(dev):
-    """No backward kernel yet: a CUDA input that requires grad raises
-    instead of returning a result without a grad_fn."""
+    """Under grad on the card the scan goes through SelectiveScan: B4
+    forward, then B4-bwd in the backward, whose gradients equal autograd
+    through the plain version (fp32, SCAN_BWD limits); under no_grad it
+    launches B4 alone and carries no grad_fn; what the kernels do not
+    take still raises."""
     gen = torch.Generator(device=dev).manual_seed(7)
     x, dt, a, bm, cm = _scan_case(gen, dev, torch.float32, 1, 8, 128, 8)
-    before = ops.selective_scan.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.selective_scan(x.requires_grad_(True), dt, a, bm, cm)
-    assert ops.selective_scan.launches == before
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    ins = [t.requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    ops.reset_launches()
+    y, _ = ops.selective_scan(*ins)
+    got = torch.autograd.grad((y * dy).sum(), ins)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["selective_scan"] == counts["selective_scan_bwd"] == 1
+    ref = [t.detach().clone().requires_grad_(True) for t in ins]
+    py, _ = ssm_scan_plain(*ref)
+    want = torch.autograd.grad((py * dy).sum(), ref)
+    _check_scan_bwd(got, want)
     with torch.no_grad():
-        y, _ = ops.selective_scan(x, dt, a, bm, cm)
+        y, _ = ops.selective_scan(*ins)
     assert y.grad_fn is None
+    assert ops.launch_counts()["selective_scan_bwd"] == 1
     with pytest.raises(ValueError, match="state size"):
         ops.selective_scan(x.detach(), dt, torch.zeros((128, 65), device=dev),
                            torch.zeros((1, 8, 65), device=dev),
                            torch.zeros((1, 8, 65), device=dev))
+
+
+# B4-bwd against its plain version, by output dtype: fp32 dx and ddt
+# (ddt in every case) elementwise at SCAN_TOL of the tensor's scale (the
+# kernel's products and sums over the states are the plain version's, in
+# its order), fp32 dB, dC and da (sums over D, or over b and t, in
+# another order) by relative L2 <= 1e-5; bf16 dx, dB and dC (the fp32
+# sums rounded once; upcast) by relative L2 <= 1e-3, some 20 times the
+# largest error the card has shown (5.4e-5, dC).
+SCAN_BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def _check_scan_bwd(got, want):
+    for name, g, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        if g.dtype == torch.float32 and name in ("dx", "ddt"):
+            scale = w.abs().max().clamp_min(1.0)
+            torch.testing.assert_close(g / scale, w / scale, **SCAN_TOL)
+        else:
+            assert _rel_l2(g, w) <= SCAN_BWD_REL_L2[g.dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n,hd", [
+    (16, 128, 8192, 16, None),      # falcon-mamba's training shape
+    (16, 128, 5120, 64, 64),        # zamba2's, in the Mamba-2 layout
+    (3, 37, 200, 5, None),          # ragged L, D tile and N
+])
+def test_ssm_scan_backward_kernel_matches_plain(dev, dtype, b, l, d, n, hd):
+    """B4-bwd against ssm_scan_bwd_plain, with and without dh_last, and
+    its launch count; a gradient off by 1% in ddt, or in dB, fails the
+    limits."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_plain
+    from repro_torch.models.layers import mamba2_scan_inputs
+    gen = torch.Generator(device=dev).manual_seed(17)
+    if hd is None:
+        args = _scan_case(gen, dev, dtype, b, l, d, n)
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, l, d // hd), generator=gen, device=dev) - 1.0)
+        a_log = torch.log(torch.arange(1, d // hd + 1, device=dev,
+                                       dtype=torch.float32))
+        dt_c, a = mamba2_scan_inputs(dt, a_log, hd, n)
+        args = (_randn(gen, (b, l, d), dtype, dev), dt_c, a,
+                _randn(gen, (b, l, n), dtype, dev),
+                _randn(gen, (b, l, n), dtype, dev))
+    dy = torch.randn((b, l, d), generator=gen, device=dev)
+    dh = torch.randn((b, d, n), generator=gen, device=dev)
+    for dh_last in (None, dh):
+        before = ops.selective_scan_bwd.launches
+        got = ops.selective_scan_bwd(*args, dy, dh_last)
+        torch.cuda.synchronize()
+        assert ops.selective_scan_bwd.launches == before + 1
+        want = ssm_scan_bwd_plain(*args, dy, dh_last)
+        _check_scan_bwd(got, want)
+        assert all(torch.equal(g, h) for g, h in zip(
+            got, ops.selective_scan_bwd(*args, dy, dh_last)))  # fixed order
+    for i in (1, 3):                # ddt, dB
+        planted = list(got)
+        planted[i] = (got[i].float() * 1.01).to(got[i].dtype)
+        with pytest.raises(AssertionError):
+            _check_scan_bwd(planted, want)
+
+
+def test_ssm_scan_backward_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, dt, a, bm, cm = _scan_case(gen, dev, torch.float32, 1, 8, 64, 8)
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    ssm_scan_bwd(x, dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan_bwd(x.cpu(), dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_bwd(x, dt, a, bm, cm, dy.cpu())
+    with pytest.raises(ValueError, match="share"):
+        ssm_scan_bwd(x.double(), dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_bwd(x, dt, a, bm, cm, dy.half())
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan_bwd(x, dt.half(), a, bm, cm, dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_bwd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a,
+                     bm, cm, dy)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_bwd(x, dt, a, bm, cm, dy.transpose(1, 2).contiguous()
+                     .transpose(1, 2))
+    with pytest.raises(ValueError, match="dh_last"):
+        ssm_scan_bwd(x, dt, a, bm, cm, dy, torch.zeros((1, 64, 7),
+                                                        device=dev))
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan_bwd(x, dt, torch.zeros((64, 65), device=dev),
+                     torch.zeros((1, 8, 65), device=dev),
+                     torch.zeros((1, 8, 65), device=dev), dy)
 
 
 @pytest.mark.parametrize("b,l,nh,hd,n", [
@@ -522,21 +633,83 @@ def test_reduced_zamba2_on_the_card(dev, layers):
 
 
 def test_hybrid_loss_under_grad_raises_on_the_card(dev):
-    """Training the hybrid on the card waits for B4's backward: its loss
-    under grad raises from ``ops.selective_scan``, as the SSM family's."""
+    """The hybrid's loss under grad on the card (float32 reduced zamba2):
+    B4 and B4-bwd once per Mamba-2 layer, B1 and B1-bwd once per
+    shared-attention application, B5 and B5-bwd once; the loss and every
+    leaf's gradient against the same parameters on the CPU, where the
+    plain versions run (relative 1e-4: fp32 sums in another order)."""
     from repro_torch.configs import get_config
     from repro_torch.core import psl
     from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves, tree_map
     model = build_model(get_config("zamba2-2.7b", reduced=True))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = psl.requires_grad_(model.init(gen))
-    toks = torch.arange(8, device=dev)[None]
-    batch = {"tokens": toks, "labels": toks,
-             "weights": torch.ones((1, 8), device=dev)}
-    before = ops.selective_scan.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        model.loss_fn(params, batch)
-    assert ops.selective_scan.launches == before
+    gen = torch.Generator().manual_seed(0)
+    cpu_params = psl.requires_grad_(model.init(gen))
+    params = psl.requires_grad_(tree_map(lambda p: p.detach().to(dev),
+                                         cpu_params))
+    toks = torch.arange(17)[None].repeat(2, 1) % model.cfg.vocab_size
+    batch = {"tokens": toks[:, :16], "labels": toks[:, 1:].int(),
+             "weights": torch.ones((2, 16))}
+    ops.reset_launches()
+    (loss, _), grads = psl.value_and_grad(
+        model.loss_fn, params, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    layers, n_super = model.cfg.num_layers, model.n_super
+    assert counts["selective_scan"] == counts["selective_scan_bwd"] \
+        == layers
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == n_super
+    assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 1
+    (ref_loss, _), ref = psl.value_and_grad(model.loss_fn, cpu_params,
+                                            batch)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
+    for g, w in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert _rel_l2(g.cpu(), w) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_reduced_ssm_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch,
+                                                         arch):
+    """Reduced falcon-mamba and zamba2 (float32), PSL-UGS through api.run,
+    2 AdamW steps from one CPU-drawn init (stacked matrices at fan-in
+    d_in): losses on the card against the CPU at rtol 1e-4, and B4 and
+    B4-bwd (and, for the hybrid, B1 and B1-bwd) launched every step."""
+    import math
+    from repro_torch.api import protocols
+    from repro_torch.core.psl import requires_grad_
+    from repro_torch.launch.train import default_lm_spec
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import TrainState
+
+    def fresh(ctx):
+        gen = torch.Generator().manual_seed(ctx.seed)
+        params = ctx.model.init(gen)
+        for p, sp in zip(tree_leaves(params),
+                         tree_leaves(ctx.model.param_specs())):
+            if sp.init == "normal" and p.dim() >= 3:    # not a_log, D, norms
+                p.mul_(math.sqrt(p.shape[0] / p.shape[-2]))
+        params = requires_grad_(tree_map(lambda p: p.to(ctx.device), params))
+        return TrainState(params, ctx.optimizer.init(params), 0)
+    monkeypatch.setattr(protocols, "_fresh_state", fresh)
+    spec = api.apply_overrides(default_lm_spec(), [
+        f"model.arch={arch}", "model.reduced=true",
+        "execution.max_steps=2", "protocol.global_batch_size=8",
+        "data.seq_len=32", "data.sequences=256"])
+    ops.reset_launches()
+    card = api.run(spec, device="cuda")
+    counts = ops.launch_counts()
+    cpu = api.run(spec, device="cpu")
+    assert len(card.step_metrics) == len(cpu.step_metrics) == 2
+    for a, b in zip(card.step_metrics, cpu.step_metrics):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+    layers = {"falcon-mamba-7b": 2, "zamba2-2.7b": 5}[arch]
+    attn = {"falcon-mamba-7b": 0, "zamba2-2.7b": 2}[arch]
+    assert counts["selective_scan"] == counts["selective_scan_bwd"] \
+        == 2 * layers
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == 2 * attn
+    assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 2
 
 
 def test_reduced_speculative_serve_on_the_card(dev):

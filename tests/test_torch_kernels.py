@@ -225,11 +225,17 @@ def test_cpu_wrappers_do_not_count_launches():
     x = q.reshape(1, 9, 64)
     ops.selective_scan(x, x.abs(), -torch.ones((64, 4)), x[:, :, :4],
                        x[:, :, 4:8])
+    # and B4's backward, through the selective scan's Function
+    xg = qg.reshape(1, 9, 64)
+    y, _ = ops.selective_scan(xg, xg.abs(), -torch.ones((64, 4)),
+                              xg[:, :, :4], xg[:, :, 4:8])
+    torch.autograd.grad(y.sum(), qg)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "paged_attention": 0,
                                    "spec_verify": 0,
                                    "selective_scan": 0,
+                                   "selective_scan_bwd": 0,
                                    "cross_entropy": 0,
                                    "cross_entropy_bwd": 0}
 

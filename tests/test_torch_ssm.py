@@ -35,8 +35,8 @@ from repro_torch import api as tapi
 from repro_torch import checkpoint as tckpt
 from repro_torch.configs import get_config as tget
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_plain,
-                                          sum_states)
+from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_bwd,
+                                          ssm_scan_plain, sum_states)
 from repro_torch.kernels.spec_verify import spec_verify
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
@@ -130,14 +130,16 @@ def test_sum_states_follows_the_kernels_order(n):
 
 
 def test_selective_scan_is_differentiable_on_the_cpu():
-    """On the CPU the plain version carries gradients (the CPU training
-    path of a Mamba-1 block), agreeing with autograd of repro's oracle."""
+    """On the CPU the selective scan carries gradients through its
+    autograd Function (forward ssm_scan_plain, backward
+    ssm_scan_bwd_plain: the CPU training path of a Mamba-1 block),
+    agreeing with autograd of repro's oracle."""
     rng = np.random.default_rng(2)
     x, dt, a, bm, cm = _scan_inputs(rng, 2, 6, 16, 4)
     ts = [torch.tensor(v, dtype=torch.float32, requires_grad=True)
           for v in (x, dt, a, bm, cm)]
     y, h = ops.selective_scan(*ts)
-    assert y.grad_fn is not None
+    assert type(y.grad_fn).__name__ == "SelectiveScanBackward"
     got = torch.autograd.grad(y.sum() + h.sum(), ts)
 
     def loss(*args):
@@ -149,7 +151,8 @@ def test_selective_scan_is_differentiable_on_the_cpu():
         _close(g, w, atol=1e-5)
 
 
-@pytest.mark.parametrize("which", ["ssm_scan", "spec_verify"])
+@pytest.mark.parametrize("which", ["ssm_scan", "ssm_scan_bwd",
+                                   "spec_verify"])
 def test_kernel_launchers_reject_cpu_tensors(which):
     """The launchers take CUDA tensors only and check before building."""
     with pytest.raises(ValueError, match="CUDA"):
@@ -157,6 +160,10 @@ def test_kernel_launchers_reject_cpu_tensors(which):
             x = torch.zeros((1, 4, 8))
             ssm_scan(x, x, torch.zeros((8, 2)), torch.zeros((1, 4, 2)),
                      torch.zeros((1, 4, 2)))
+        elif which == "ssm_scan_bwd":
+            x = torch.zeros((1, 4, 8))
+            ssm_scan_bwd(x, x, torch.zeros((8, 2)), torch.zeros((1, 4, 2)),
+                         torch.zeros((1, 4, 2)), x)
         else:
             q = torch.zeros((1, 2, 4, 16))
             spec_verify(q, q, q, torch.zeros((1, 1), dtype=torch.int32),
