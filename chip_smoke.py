@@ -13,8 +13,8 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    instructions are counted with ``cuobjdump -sass`` per kernel function
    (``SASS_CHECKS``): every instantiation of each wgmma kernel (B1
    forward, both B1-bwd passes, B5 forward, B5-bwd) must hold HGMMA, of
-   B3's 16-bit window kernel HMMA, and of B2, B3, B4 and B4-bwd's main
-   kernel an async copy.
+   B3's 16-bit window kernel HMMA, and of B2, B3, B4 and both B4-bwd
+   main kernels (per channel, per head) an async copy.
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -126,18 +126,31 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    bound ``mamba2_scan_bound``) at every shape and dtype 7e launched
    them (``family_kernel_phase``; the kernels line's ``family_cases``).
 7f. Scan backward (``[scan-bwd]``). B4-bwd at ``SCAN_BWD_SHAPES``
-   (falcon-mamba's and zamba2's training shapes, a ragged one) in bf16
-   and fp32 against ``ssm_scan_bwd_plain`` and autograd through
+   (falcon-mamba's training shape, a ragged one) in bf16 and fp32
+   against ``ssm_scan_bwd_plain`` and autograd through
    ``ssm_scan_plain`` (``scan_bwd_errors``), ddt scaled by
    ``PLANTED_DDT_SCALE`` and dB by ``PLANTED_DB_SCALE`` caught, two
-   launches bitwise equal; timed by
-   events and device time beside its plain version and
-   ``scan_bwd_bound``, its exponentials counted.
+   launches bitwise equal; timed by events and device time beside its
+   plain version and ``scan_bwd_bound``. Then the per-head
+   (Mamba-2) B4-bwd (``csrc/mamba2_bwd.cu``) at ``SCAN_HEADS_BWD_SHAPES``
+   (zamba2's training shape, the reduced zamba2's, a ragged one) in bf16
+   and fp32, with and without a dh_last, against
+   ``ssm_scan_heads_bwd_plain``, against the per-channel B4-bwd on the
+   inputs expanded per channel (ddt and da summed per head) and against
+   autograd through ``ssm_scan_plain``, at the same limits, the same
+   planted faults caught and two launches bitwise equal; timed at
+   zamba2's shape by events and device time beside its plain version,
+   the per-channel B4-bwd on the same inputs and ``scan_bwd_bound``; the
+   exponentials it evaluates counted by the kernel itself (its
+   ``exp_count`` argument; one per (b, t, head) or the phase fails) and
+   its registers and spills (``ptxas_usage``) printed.
 7g. SSM training (``[ssm-train]``, ``[hybrid-train]``). Full-width
    falcon-mamba-7b cut to 8 of 64 layers and zamba2-2.7b at its 54
-   layers, PSL-UGS through ``api.run`` in the granite setting for
-   ``SSM_TRAIN_STEPS`` steps: finite losses and grad norms; exactly one
-   B4 and one B4-bwd a Mamba layer, one B1 and one B1-bwd a shared
+   layers, PSL-UGS through ``api.run`` in the granite setting for 3
+   and 8 steps (each cell's ``steps``): finite losses and grad norms; exactly one
+   B4 and one B4-bwd a Mamba layer (falcon-mamba the per-channel
+   B4-bwd, zamba2 the per-head one and never the per-channel one,
+   ``scan_bwd_name``), one B1 and one B1-bwd a shared
    attention, one B5 and one B5-bwd a step; step ms, tokens/s, peak
    memory, a profiled step by group (``SSM_TRAIN_GROUPS``); the loss on
    one fixed batch falling at each of 3 AdamW steps (fan-in d_in,
@@ -148,7 +161,8 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    training runs is counted by shape (``record_train_shapes``); then
    ``[train-kernels]`` holds B1, B1-bwd, B5, B5-bwd and B4 to their plain
    versions at each of those shapes, and fails if B4-bwd ran at a shape
-   outside ``SCAN_BWD_SHAPES`` (``ssm_train_kernel_phase``; the kernels
+   outside ``SCAN_BWD_SHAPES`` or the per-head B4-bwd outside
+   ``SCAN_HEADS_BWD_SHAPES`` (``ssm_train_kernel_phase``; the kernels
    line's ``family_cases`` and ``train_cases``).
 8. CNN agreement (``[cnn-agree]``). The paper's full-width GroupNorm
    ResNet (paper-cnn CONFIG, fp32, 32x32; no kernel of this repo, cuDNN
@@ -316,13 +330,21 @@ SCAN_BWD_FP32_REL_L2 = 1e-5
 SCAN_BWD_BF16_REL_L2 = 1e-3
 PLANTED_DDT_SCALE = 1.01
 PLANTED_DB_SCALE = 1.01
-# (B, L, D, N, channels a head or None): falcon-mamba's and zamba2's
-# training shapes (global batch 16 x 128; zamba2 in Mamba-2's layout) and
-# a ragged one (L not a multiple of 16, N not of 8, a ragged D tile)
-SCAN_BWD_SHAPES = ((16, 128, 8192, 16, None), (16, 128, 5120, 64, 64),
-                   (3, 37, 200, 5, None))
+# (B, L, D, N): falcon-mamba's training shape (global batch 16 x 128)
+# and a ragged one (L not a multiple of 16, N not of 8, a ragged D tile).
+# zamba2 trains through the per-head B4-bwd, whose phase runs this
+# kernel at zamba2's shape as its comparison.
+SCAN_BWD_SHAPES = ((16, 128, 8192, 16), (3, 37, 200, 5))
+# The per-head (Mamba-2) B4-bwd at (B, L, D, N, channels a head):
+# zamba2's training shape, the reduced zamba2's (hd 32, N 8) and a ragged
+# one (L not a multiple of 8, N not of 8, hd 12: 20 idle lanes), held to
+# the same limits against its plain version, against the per-channel
+# B4-bwd on the inputs expanded per channel (ddt and da then summed per
+# head) and against autograd through ``ssm_scan_plain`` on those inputs.
+SCAN_HEADS_BWD_SHAPES = ((16, 128, 5120, 64, 64), (8, 32, 256, 8, 32),
+                         (3, 37, 60, 5, 12))
 # [ssm-train] and [hybrid-train]: the granite training setting
-# (default_lm_spec) for SSM_TRAIN_STEPS steps. falcon-mamba-7b cut to 8 of
+# (default_lm_spec) for ``steps`` steps. falcon-mamba-7b cut to 8 of
 # its 64 layers (cut 2): at full depth AdamW alone needs 14.5 GB of bf16
 # weights, 14.5 of gradients and 58 of fp32 moments. zamba2-2.7b at its
 # full 54 layers. The kernel-vs-plain gradient check runs falcon-mamba at
@@ -338,10 +360,12 @@ SCAN_BWD_SHAPES = ((16, 128, 8192, 16, None), (16, 128, 5120, 64, 64),
 # reading comes from).
 ALL_KERNELS = ("attention", "cross_entropy", "selective_scan")
 SCAN_GRAD_FP32_REL_L2 = 1e-4
-SSM_TRAIN_STEPS = 3
-SSM_TRAIN = dict(arch=SSM_ARCH, layers=8, grad_layers=4, grad_rows=16,
-                 grad_cases=((None, ALL_KERNELS),))
-HYBRID_TRAIN = dict(arch=HYBRID_ARCH, layers=54, grad_layers=8,
+# zamba2's steps are timed on the host around each step (``device_step``
+# spans): 2 steps after the first read 720.3 and 505.1 ms on one H100
+# 80GB HBM3 at 700 W, so it runs 8 and takes the median of 7.
+SSM_TRAIN = dict(arch=SSM_ARCH, layers=8, steps=3, grad_layers=4,
+                 grad_rows=16, grad_cases=((None, ALL_KERNELS),))
+HYBRID_TRAIN = dict(arch=HYBRID_ARCH, layers=54, steps=8, grad_layers=8,
                     grad_rows=16,
                     grad_cases=((None, ALL_KERNELS),
                                 ("float32", ALL_KERNELS)))
@@ -650,9 +674,9 @@ def add_rates(case, flops: float) -> None:
 
 # Kernels whose every instantiation must hold some instruction of a kind in
 # its SASS, by library: the wgmma kernels HGMMA, B3's 16-bit window
-# kernel HMMA (mma.sync), the redesigned B2, B3 and B4 and B4-bwd's main
-# kernel an async copy into shared memory (LDGSTS for cp.async, UTMALDG
-# for a TMA load).
+# kernel HMMA (mma.sync), the redesigned B2, B3 and B4 and both B4-bwd
+# main kernels (per channel and per head) an async copy into shared
+# memory (LDGSTS for cp.async, UTMALDG for a TMA load).
 SASS_CHECKS = {
     "HGMMA": (("HGMMA",), {
         "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
@@ -662,13 +686,15 @@ SASS_CHECKS = {
         "spec_verify": ("spec_verify_mma_kernel",)}),
     "async copy": (("LDGSTS", "UTMALDG"), {
         "ssm_scan": ("ssm_scan_kernel", "ssm_bwd_kernel"),
+        "mamba2_bwd": ("mamba2_bwd_kernel",),
         "paged_attention": ("paged_fwd",),
         "spec_verify": ("spec_verify",)}),
 }
 # Substring of each serving kernel's name in a profiler trace.
 DEVICE_MATCH = {"paged_attention": "paged_fwd", "spec_verify": "spec_verify",
                 "selective_scan": "ssm_scan",
-                "selective_scan_bwd": "ssm_bwd"}
+                "selective_scan_bwd": "ssm_bwd",
+                "selective_scan_heads_bwd": "mamba2_bwd"}
 
 
 def sass_counts():
@@ -709,6 +735,33 @@ def sass_counts():
         print(f"{kind} instructions ({'/'.join(opcodes)}) in the SASS: "
               f"{libs}; per kernel {json.dumps(kernels)}", flush=True)
         out[kind] = {"libraries": libs, "kernels": kernels}
+    return out
+
+
+def ptxas_usage(logs, kernel: str):
+    """Registers and spill bytes of each instantiation of ``kernel`` from
+    ``nvcc -Xptxas -v`` output (``_build.build(..., verbose=True)``'s
+    logs), by its template arguments as mangled (e.g. ``13__nv_bfloat16
+    Li64ELi2E``)."""
+    import re
+    out, fn = {}, None
+    for log in logs:
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if fn is None or kernel not in fn:
+                continue
+            key = fn.split(kernel, 1)[1].split("EEv", 1)[0].lstrip("I")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out.setdefault(key, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(key, {})["registers"] = int(m.group(1))
     return out
 
 
@@ -859,7 +912,7 @@ def scan_bound(b, l, d, n, elt):
 
 def mamba2_scan_bound(b, l, d, n, hd, elt):
     """Least time for the Mamba-2 function that B4 computes in its layout
-    (``mamba2_scan_inputs``, ``hd`` channels a head): x (elt bytes) and y
+    (``expand_heads``, ``hd`` channels a head): x (elt bytes) and y
     (fp32) once per (b, t, d), dt (fp32) once per (b, t, head), B and C
     once per (b, t, n), a_log and h_last once; against its operations,
     the larger of one exponential per (b, t, head), exp(dt a), at the
@@ -916,22 +969,28 @@ def timed_scan_case(torch, args, shape, err, launches, run: str, hd=None):
     return case
 
 
-def mamba2_scan_case(torch, dev, gen, b, l, d, n, hd, dtype):
-    """B4's inputs in Mamba-2's layout (``mamba2_scan_inputs``): dt drawn
-    per head and given to its ``hd`` channels, A's rows -exp(a_log) of
-    the channel's head in every state (a_log = log(1..nh), the init),
-    x, B and C in ``dtype``."""
-    from repro_torch.models.layers import mamba2_scan_inputs
+def heads_case(torch, dev, gen, b, l, d, n, hd, dtype):
+    """The per-head backward's inputs in Mamba-2's layout: x, B and C in
+    ``dtype``, dt (B, L, nh) drawn per head, a = -exp(a_log) at a_log =
+    log(1..nh) (the init: a down to -nh)."""
     nh = d // hd
     x = torch.randn((b, l, d), generator=gen, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((b, l, nh), generator=gen, device=dev) - 1.0)
-    a_log = torch.log(torch.arange(1, nh + 1, device=dev,
-                                   dtype=torch.float32))
-    dt_c, a = mamba2_scan_inputs(dt, a_log, hd, n)
+    a = -torch.exp(torch.log(torch.arange(1, nh + 1, device=dev,
+                                          dtype=torch.float32)))
     bm = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
     cm = torch.randn((b, l, n), generator=gen, device=dev).to(dtype)
-    return x, dt_c, a, bm, cm
+    return x, dt, a, bm, cm
+
+
+def mamba2_scan_case(torch, dev, gen, b, l, d, n, hd, dtype):
+    """B4's inputs in Mamba-2's layout: ``heads_case``'s, dt and a
+    expanded per channel (``expand_heads``, as
+    ``ops.selective_scan_heads`` hands them to B4)."""
+    from repro_torch.kernels.ssm_scan import expand_heads
+    x, dt, a, bm, cm = heads_case(torch, dev, gen, b, l, d, n, hd, dtype)
+    return (x, *expand_heads(dt, a, hd, n), bm, cm)
 
 
 def scan_kernel_phase(torch, dev, shapes):
@@ -982,17 +1041,21 @@ def scan_bwd_bound(b, l, d, n, elt, hd=None):
     dB's and dC's products and sums, 4; da's three products and sum, 4;
     the carry, 1). With ``hd`` (Mamba-2's layout, ``hd`` channels a head)
     the function's dt, ddt, a and da are per head and its exponentials
-    one per (b, t, head). Returns (ms, "bytes" or "operations", bytes,
-    exps)."""
+    one per (b, t, head), and it needs 14 flops per (b, t, d, n): the
+    state again, 3; g_t, 2; the carry, 1; gb = g . B's product and sum,
+    2; S = g . h_{t-1}'s, 2; dB's and dC's, 4. ddt's x . gb and a e_t S
+    and da's dt e_t S are per (b, t, d) or per (b, t, head): not
+    counted. Returns (ms, "bytes" or "operations", bytes, exps)."""
     per_d = 4 if hd is None else 0
     heads = 0 if hd is None else d // hd
     nbytes = (b * l * d * (2 * elt + 4 + 2 * per_d) + b * l * heads * 8
               + 4 * b * l * n * elt
               + (2 * d * n * 4 if hd is None else 2 * heads * 4))
     exps = b * l * (d * n if hd is None else heads)
+    flops = 22.0 if hd is None else 14.0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(exps / (SMS * SFU_EXP_PER_CLOCK * sm_clock_hz()),
-                22.0 * b * l * d * n / FP32_FLOPS) * 1e3
+                flops * b * l * d * n / FP32_FLOPS) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")) + (nbytes, exps)
 
@@ -1036,9 +1099,7 @@ def scan_bwd_phase(torch, dev):
     ``PLANTED_DB_SCALE``, must each fail the same limits; two launches on
     the same inputs give the same bits (every sum has a fixed order).
     Timed by CUDA events and by its device time (both of its kernels,
-    ``device_ms``) beside its plain version and ``scan_bwd_bound``; the
-    exponentials the kernel evaluates are counted (three a state-step
-    but for the last chunk's first pass)."""
+    ``device_ms``) beside its plain version and ``scan_bwd_bound``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssm_scan import (CHUNK, ssm_scan_bwd_plain,
                                               ssm_scan_plain)
@@ -1046,16 +1107,14 @@ def scan_bwd_phase(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     cases = []
-    for b, l, d, n, hd in SCAN_BWD_SHAPES:
+    for b, l, d, n in SCAN_BWD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).replace("torch.", "")
-            tag = f"B={b} L={l} D={d} N={n} {name}" + (
-                f" Mamba-2 layout ({hd} channels a head)" if hd else "")
-            args = (mamba2_scan_case(torch, dev, gen, b, l, d, n, hd, dtype)
-                    if hd else scan_case(torch, dev, gen, dtype, b, l, d, n))
+            tag = f"B={b} L={l} D={d} N={n} {name}"
+            args = scan_case(torch, dev, gen, dtype, b, l, d, n)
             dy = torch.randn((b, l, d), generator=gen, device=dev)
             dhs = [None]
-            if hd is None and l % CHUNK:
+            if l % CHUNK:
                 dhs.append(torch.randn((b, d, n), generator=gen,
                                        device=dev))
             errs, max_abs = {}, None
@@ -1093,20 +1152,12 @@ def scan_bwd_phase(torch, dev):
                      f"{errs['autograd']}")
             del auto, ts
             bnd, by, nbytes, exps = scan_bwd_bound(
-                b, l, d, n, args[0].element_size(), hd=hd)
-            chunks = -(-l // CHUNK)
+                b, l, d, n, args[0].element_size())
             case = {"shape": tag, "dtype": name, "errors": errs,
-                    "max_abs_err": max_abs,
-                    "kernel_exp_count": b * d * n * (CHUNK * (chunks - 1)
-                                                     + 2 * l),
-                    "exp_count": exps, "bound_ms": bnd, "bound_by": by,
-                    "bound_bytes": nbytes, "library_ms": None}
-            if hd:
-                gb, gby, _, gexps = scan_bwd_bound(
-                    b, l, d, n, args[0].element_size())
-                case.update(generic_bound_ms=gb, generic_bound_by=gby,
-                            generic_exp_count=gexps)
-            if b * l * d >= 1 << 20:      # the training shapes: timed
+                    "max_abs_err": max_abs, "exp_count": exps,
+                    "bound_ms": bnd, "bound_by": by, "bound_bytes": nbytes,
+                    "library_ms": None}
+            if b * l * d >= 1 << 20:      # the training shape: timed
                 fn = lambda: ops.selective_scan_bwd(*args, dy)  # noqa: E731
                 case["ms"] = time_ms(torch, fn, iters=10)
                 case["device_ms"] = device_ms(
@@ -1124,11 +1175,8 @@ def scan_bwd_phase(torch, dev):
                       f"{o} {e[1]:.3g}" for o, e in v.items())
                       for k, v in errs.items())
                   + f"{timing}; bound {bnd:.5f} ms ({by}: "
-                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.4g} M exp); the "
-                  f"kernel evaluates {case['kernel_exp_count'] / 1e6:.4g} "
-                  f"M exp" + ("; generic bound {:.5f} ms ({})".format(
-                      case["generic_bound_ms"], case["generic_bound_by"])
-                      if hd else ""), flush=True)
+                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.4g} M exp)",
+                  flush=True)
             del args, dy, got
             gc.collect()
             torch.cuda.empty_cache()
@@ -1136,11 +1184,162 @@ def scan_bwd_phase(torch, dev):
     print(f"[scan-bwd] planted ddt x {PLANTED_DDT_SCALE} and dB x "
           f"{PLANTED_DB_SCALE} caught at every shape and dtype; phase "
           f"{seconds:.1f} s", flush=True)
-    # the kernels line reports zamba2's training shape in bf16 (the
-    # [hybrid-train] run's)
-    top = next(c for c in cases if "Mamba-2" in c["shape"]
-               and c["dtype"] == "bfloat16")
+    # the kernels line reports falcon-mamba's training shape in bf16 (the
+    # [ssm-train] run's)
+    top = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16")
     return {**top, "cases": cases, "seconds": seconds}
+
+
+def per_head(got, b, l, nh):
+    """B4-bwd's (per-channel) gradients with ddt summed over each head's
+    channels and da over its channels and states."""
+    dx, ddt, da, dbm, dcm = got
+    return (dx, ddt.reshape(b, l, nh, -1).sum(-1),
+            da.reshape(nh, -1).sum(-1), dbm, dcm)
+
+
+def scan_heads_bwd_phase(torch, dev, ptxas):
+    """[scan-bwd], per head: the per-head (Mamba-2) B4-bwd at
+    ``SCAN_HEADS_BWD_SHAPES`` in bf16 and fp32 against
+    ``ssm_scan_heads_bwd_plain`` (with and without a dh_last), against
+    the per-channel B4-bwd on the inputs expanded per channel
+    (``expand_heads``; ddt and da summed per head) and against autograd
+    through ``ssm_scan_plain`` on those inputs, each at
+    ``scan_bwd_errors``' limits; ddt x ``PLANTED_DDT_SCALE`` and dB x
+    ``PLANTED_DB_SCALE`` must each fail them; two launches give the same
+    bits. At zamba2's training shape it is timed by CUDA events and by
+    device time (``device_ms``: both of its kernels) beside its plain
+    version, the per-channel B4-bwd on the same inputs and
+    ``scan_bwd_bound`` (hd = 64). At every shape the kernel counts the
+    exponentials it evaluates (``exp_count``): the function needs one
+    per (b, t, head), and another count, or outputs that differ from the
+    uncounted launch's, fail. Its registers and spills are printed
+    (``ptxas``: ``ptxas_usage``'s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import (expand_heads,
+                                              ssm_scan_heads_bwd,
+                                              ssm_scan_heads_bwd_plain,
+                                              ssm_scan_plain)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    cases = []
+    for b, l, d, n, hd in SCAN_HEADS_BWD_SHAPES:
+        nh = d // hd
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            tag = f"B={b} L={l} D={d} N={n} hd={hd} {name}"
+            args = heads_case(torch, dev, gen, b, l, d, n, hd, dtype)
+            dy = torch.randn((b, l, d), generator=gen, device=dev)
+            dh = torch.randn((b, d, n), generator=gen, device=dev)
+            expanded = (args[0], *expand_heads(args[1], args[2], hd, n),
+                        args[3], args[4])
+            errs, max_abs = {}, None
+            for dhl in (None, dh):
+                key = "" if dhl is None else ", dh_last"
+                got = ops.selective_scan_heads_bwd(*args, dy, dhl)
+                again = ops.selective_scan_heads_bwd(*args, dy, dhl)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"[scan-bwd] per head {tag}: two launches differ")
+                want = ssm_scan_heads_bwd_plain(*args, dy, dhl)
+                errs["plain" + key], ok = scan_bwd_errors(torch, got, want)
+                if not ok:
+                    fail(f"[scan-bwd] per head {tag} against plain{key}: "
+                         f"{errs['plain' + key]}")
+                for i, what, scale in ((1, "ddt", PLANTED_DDT_SCALE),
+                                       (3, "dB", PLANTED_DB_SCALE)):
+                    planted = list(got)
+                    planted[i] = (got[i].float() * scale).to(got[i].dtype)
+                    _, passed = scan_bwd_errors(torch, planted, want)
+                    if passed:
+                        fail(f"[scan-bwd] per head {tag}: {what} x {scale} "
+                             f"passed the limits")
+                if max_abs is None:
+                    max_abs = max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want))
+                del want
+                old = per_head(ops.selective_scan_bwd(*expanded, dy, dhl),
+                               b, l, nh)
+                errs["per_channel" + key], ok = scan_bwd_errors(torch, got,
+                                                                 old)
+                if not ok:
+                    fail(f"[scan-bwd] per head {tag} against the "
+                         f"per-channel B4-bwd{key}: "
+                         f"{errs['per_channel' + key]}")
+                del old
+            ts = [t.detach().clone().requires_grad_(True) for t in args]
+            y, _ = ssm_scan_plain(ts[0], *expand_heads(ts[1], ts[2], hd, n),
+                                  ts[3], ts[4])
+            auto = torch.autograd.grad((y * dy).sum(), ts)
+            del y
+            got = ops.selective_scan_heads_bwd(*args, dy)
+            errs["autograd"], ok = scan_bwd_errors(torch, got, auto)
+            if not ok:
+                fail(f"[scan-bwd] per head {tag} against autograd: "
+                     f"{errs['autograd']}")
+            del auto, ts
+            bnd, by, nbytes, exps = scan_bwd_bound(
+                b, l, d, n, args[0].element_size(), hd=hd)
+            counter = torch.zeros(1, dtype=torch.int64, device=dev)
+            counted = ssm_scan_heads_bwd(*args, dy, exp_count=counter)
+            evaluated = int(counter.item())
+            if evaluated != exps or not all(
+                    torch.equal(x, y) for x, y in zip(got, counted)):
+                fail(f"[scan-bwd] per head {tag}: the kernel evaluated "
+                     f"{evaluated} exponentials, the function needs {exps}"
+                     f" (or the counted launch's outputs differ)")
+            del counted
+            case = {"shape": tag, "dtype": name, "errors": errs,
+                    "max_abs_err": max_abs,
+                    "kernel_exp_count": evaluated, "exp_count": exps,
+                    "bound_ms": bnd, "bound_by": by, "bound_bytes": nbytes,
+                    "library_ms": None}
+            if b * l * d >= 1 << 20:      # the training shape: timed
+                fn = lambda: ops.selective_scan_heads_bwd(  # noqa: E731
+                    *args, dy)
+                case["ms"] = time_ms(torch, fn, iters=20)
+                case["device_ms"] = device_ms(
+                    torch, fn, DEVICE_MATCH["selective_scan_heads_bwd"],
+                    iters=20)
+                fn_old = lambda: ops.selective_scan_bwd(  # noqa: E731
+                    *expanded, dy)
+                case["per_channel_ms"] = time_ms(torch, fn_old, iters=5)
+                case["per_channel_device_ms"] = device_ms(
+                    torch, fn_old, DEVICE_MATCH["selective_scan_bwd"],
+                    iters=5)
+                case["plain_ms"] = time_ms(
+                    torch, lambda: ssm_scan_heads_bwd_plain(*args, dy),
+                    iters=2, warmup=1)
+                case["bound_share"] = bnd / case["device_ms"]
+            cases.append(case)
+            timing = (f"; {case['ms']:.4f} ms (device "
+                      f"{case['device_ms']:.4f}, {case['bound_share']:.3f} "
+                      f"of the bound), per-channel B4-bwd "
+                      f"{case['per_channel_ms']:.4f}"
+                      f" ms (device {case['per_channel_device_ms']:.4f}), "
+                      f"plain "
+                      f"{case['plain_ms']:.2f} ms" if "ms" in case else "")
+            print(f"kernel ssm_scan_heads_bwd {tag}: "
+                  + "; ".join(f"{k}: " + ", ".join(
+                      f"{o} {e[1]:.3g}" for o, e in v.items())
+                      for k, v in errs.items())
+                  + f"{timing}; bound {bnd:.5f} ms ({by}: "
+                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.4g} M exp); the "
+                  f"kernel counted {evaluated} exp it evaluated",
+                  flush=True)
+            del args, dy, dh, expanded, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[scan-bwd] per head: planted ddt x {PLANTED_DDT_SCALE} and dB x "
+          f"{PLANTED_DB_SCALE} caught at every shape and dtype; "
+          f"mamba2_bwd_kernel registers and spill bytes by instantiation "
+          f"{json.dumps(ptxas)}; phase {seconds:.1f} s", flush=True)
+    top = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16")
+    return {**top, "fp32": next(c for c in cases if "ms" in c
+                                and c["dtype"] == "float32"),
+            "cases": cases, "ptxas": ptxas, "seconds": seconds}
 
 
 def serve_spec(engine: str, events_dir: pathlib.Path,
@@ -2068,7 +2267,7 @@ def train_phase(torch, dev, events_dir: pathlib.Path):
             "flash_attention_bwd": layers * steps,
             "cross_entropy": steps, "cross_entropy_bwd": steps,
             "paged_attention": 0, "spec_verify": 0, "selective_scan": 0,
-            "selective_scan_bwd": 0}
+            "selective_scan_bwd": 0, "selective_scan_heads_bwd": 0}
     if launches != want:
         fail(f"train launches {launches}, wanted {want}")
     median = statistics.median(step_ms[1:])
@@ -2224,9 +2423,12 @@ def plain_kernels(torch, which=("attention", "cross_entropy",
                                 "selective_scan"),
                   attention_formulas: bool = False):
     """Inside: ``ops.attention``, ``ops.cross_entropy`` and
-    ``ops.selective_scan`` (or those of them named in ``which``) are
-    their plain versions (autograd through plain PyTorch), for a
-    reference run. Under grad the plain scan is checkpointed: its states
+    ``ops.selective_scan`` with ``ops.selective_scan_heads`` (or those of
+    them named in ``which``; "selective_scan" names both scans) are
+    their plain versions (autograd through plain PyTorch; the per-head
+    scan through ``expand_heads``, so autograd sums its per-channel
+    gradients per head), for a reference run. Under grad the plain scan
+    is checkpointed: its states
     are recomputed in the backward, one call at a time, so autograd
     holds one layer's (B, L, D, N) states at a time. With
     ``attention_formulas`` the plain attention's backward is B1-bwd's
@@ -2238,7 +2440,7 @@ def plain_kernels(torch, which=("attention", "cross_entropy",
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain)
-    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    from repro_torch.kernels.ssm_scan import expand_heads, ssm_scan_plain
 
     def plain_attention(q, k, v, *, causal=True, window=None):
         return flash_attention_plain(
@@ -2268,14 +2470,21 @@ def plain_kernels(torch, which=("attention", "cross_entropy",
             return checkpoint(ssm_scan_plain, *args, use_reentrant=False)
         return ssm_scan_plain(*args)
 
+    def plain_scan_heads(x, dt, a, bmat, cmat):
+        return plain_scan(x, *expand_heads(dt, a, x.shape[-1] // a.shape[0],
+                                           bmat.shape[-1]), bmat, cmat)
+
     plain = {"attention": plain_attention,
              "cross_entropy": lambda h, w, labels:
                  xent.cross_entropy_fwd_plain(h, w, labels.to(torch.int32)),
-             "selective_scan": plain_scan}
+             "selective_scan": plain_scan,
+             "selective_scan_heads": plain_scan_heads}
     if attention_formulas:
         plain["attention"] = (lambda q, k, v, *, causal=True, window=None:
                               FormulaAttention.apply(q, k, v, causal,
                                                      window))
+    which = tuple(which) + (("selective_scan_heads",)
+                            if "selective_scan" in which else ())
     kernels = {name: getattr(ops, name) for name in which}
     for name in which:
         setattr(ops, name, plain[name])
@@ -2939,6 +3148,8 @@ def family_kernel_phase(torch, dev, hybrid_shapes):
 
 SSM_TRAIN_GROUPS = (
     ("B4-bwd selective_scan_bwd", _kernel_named("ssm_bwd")),
+    ("B4-bwd per head selective_scan_heads_bwd",
+     _kernel_named("mamba2_bwd")),
     ("B4 selective_scan", _kernel_named("ssm_scan_kernel")),
     ("B5 cross_entropy fwd", _kernel_named("xent_fwd", "xent_combine")),
     ("B5 cross_entropy_bwd", _kernel_named("xent_", "gemm_kernel")),
@@ -2956,14 +3167,16 @@ class record_train_shapes:
     wrapping the launchers that ``ops``' wrappers call on a CUDA tensor:
     B1 and B1-bwd by (B, S, Hq, Hkv, D), B5 and B5-bwd by (T, d, V), B4
     and B4-bwd by (B, L, D, N, ``hd``), ``hd`` the channels a head of
-    Mamba-2's layout (None: Mamba-1's). A B1 or B1-bwd launch that is not
+    Mamba-2's layout (None: Mamba-1's), the per-head B4-bwd by (B, L, D,
+    N, hd) from its own inputs. A B1 or B1-bwd launch that is not
     causal and unwindowed over T = S, or a B1 launch without the lse,
     fails: training runs none."""
 
     NAMES = {"flash_attention": "flash_attention",
              "flash_attention_bwd": "flash_attention_bwd",
              "selective_scan": "ssm_scan",
-             "selective_scan_bwd": "ssm_scan_bwd"}
+             "selective_scan_bwd": "ssm_scan_bwd",
+             "selective_scan_heads_bwd": "ssm_scan_heads_bwd"}
 
     def __init__(self, hd=None):
         from repro_torch.kernels import ops
@@ -2997,13 +3210,17 @@ class record_train_shapes:
         def scan_shape(x, dt, a, *args, **kw):
             return (*x.shape, a.shape[1], hd)
 
+        def heads_shape(x, dt, a, bm, *args, **kw):
+            return (*x.shape, bm.shape[-1], x.shape[-1] // a.shape[0])
+
         def xent_shape(hidden, w, *args, **kw):
             return (*hidden.shape, w.shape[1])
 
         shapes = {"flash_attention": attn_shape(True),
                   "flash_attention_bwd": attn_shape(False),
                   "selective_scan": scan_shape,
-                  "selective_scan_bwd": scan_shape}
+                  "selective_scan_bwd": scan_shape,
+                  "selective_scan_heads_bwd": heads_shape}
         for name, attr in self.NAMES.items():
             setattr(ops, attr, counted(name, shapes[name], self.saved[name]))
         ops.xent.cross_entropy_fwd = counted(
@@ -3026,8 +3243,9 @@ def ssm_train_kernel_phase(torch, dev, shapes):
     (``attention_train_case``) and B1-bwd (``attention_bwd_case``) at
     bf16's tolerance, B5 and B5-bwd (``xent_case``) at theirs, B4 in
     either layout at ``SCAN_TOL`` (``timed_scan_case``). B4-bwd is held
-    by [scan-bwd] at ``SCAN_BWD_SHAPES``: a shape launched outside them
-    fails. Returns the cases by kernel."""
+    by [scan-bwd] at ``SCAN_BWD_SHAPES``, the per-head B4-bwd at
+    ``SCAN_HEADS_BWD_SHAPES``: a shape launched outside them fails.
+    Returns the cases by kernel."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
     t_phase = time.perf_counter()
@@ -3072,18 +3290,23 @@ def ssm_train_kernel_phase(torch, dev, shapes):
                 "the training runs" + (", Mamba-2 layout" if hd else ""),
                 hd=hd)})
         del args, y, h, py, ph
-    held = {tuple(x) for x in SCAN_BWD_SHAPES}
-    for shape in shapes["selective_scan_bwd"]:
-        if shape not in held:
-            fail(f"B4-bwd launched at {shape} in training, a shape "
-                 f"[scan-bwd] does not hold")
-    cases["selective_scan_bwd"] = [
-        {"shape": "B={} L={} D={} N={} hd={}".format(*k), "launches": v,
-         "held_by": "[scan-bwd]"}
-        for k, v in shapes["selective_scan_bwd"].items()]
+    for name, held in (
+            ("selective_scan_bwd", {(*s, None) for s in SCAN_BWD_SHAPES}),
+            ("selective_scan_heads_bwd", set(SCAN_HEADS_BWD_SHAPES))):
+        for shape in shapes[name]:
+            if shape not in held:
+                fail(f"{name} launched at {shape} in training, a shape "
+                     f"[scan-bwd] does not hold")
+        cases[name] = [
+            {"shape": "B={} L={} D={} N={} hd={}".format(*k), "launches": v,
+             "held_by": "[scan-bwd]"}
+            for k, v in shapes[name].items()]
     seconds = time.perf_counter() - t_phase
     print(f"[train-kernels] B1, B1-bwd, B5, B5-bwd and B4 at every "
-          f"training shape held to their plain versions; phase "
+          f"training shape held to their plain versions (both B4-bwd "
+          f"kernels' shapes held by [scan-bwd]: "
+          f"{json.dumps(cases['selective_scan_bwd'])} "
+          f"{json.dumps(cases['selective_scan_heads_bwd'])}); phase "
           f"{seconds:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3101,8 +3324,9 @@ def ssm_grad_case(torch, ctx, state, batch, ref, kernels, limit):
     loss's gradients with the kernel families in ``kernels`` as kernels
     (the others plain) against ``ref`` (every family plain), per-leaf
     relative L2 (``leaf_rel_l2``); then the same with the B4-bwd
-    launcher's ddt scaled by ``PLANTED_SCAN_GRAD_DDT_SCALE``. Returns
-    (result, launches of the unplanted run)."""
+    launchers' ddt (per channel and per head) scaled by
+    ``PLANTED_SCAN_GRAD_DDT_SCALE``. Returns (result, launches of the
+    unplanted run)."""
     from repro_torch.core.psl import value_and_grad
     from repro_torch.kernels import ops
     others = tuple(n for n in ALL_KERNELS if n not in kernels)
@@ -3117,18 +3341,23 @@ def ssm_grad_case(torch, ctx, state, batch, ref, kernels, limit):
     out = {"kernels": list(kernels), "loss": float(loss),
            "worst_rel_l2": err, "worst_leaf": worst, "median_rel_l2": median,
            "rel_l2_by_leaf": rels, "limit": limit}
-    kernel_bwd = ops.ssm_scan_bwd
+    launchers = {name: getattr(ops, name)
+                 for name in ("ssm_scan_bwd", "ssm_scan_heads_bwd")}
 
-    def planted_bwd(*args, **kw):
-        dx, ddt, da, dbm, dcm = kernel_bwd(*args, **kw)
-        return dx, ddt * PLANTED_SCAN_GRAD_DDT_SCALE, da, dbm, dcm
-    ops.ssm_scan_bwd = planted_bwd
+    def planted(launcher):
+        def run(*args, **kw):
+            dx, ddt, da, dbm, dcm = launcher(*args, **kw)
+            return dx, ddt * PLANTED_SCAN_GRAD_DDT_SCALE, da, dbm, dcm
+        return run
+    for name, fn in launchers.items():
+        setattr(ops, name, planted(fn))
     try:
         with plain_kernels(torch, others):
             _, planted = value_and_grad(ctx.model.loss_fn, state.params,
                                         batch)
     finally:
-        ops.ssm_scan_bwd = kernel_bwd
+        for name, fn in launchers.items():
+            setattr(ops, name, fn)
     pworst, perr, _ = grad_spread(leaf_rel_l2(planted, ref))
     out.update(planted_worst_rel_l2=perr, planted_leaf=pworst)
     return out, launches
@@ -3210,7 +3439,8 @@ def ssm_grad_check(torch, dev, tag: str, arch: str, layers: int,
         n_attn = ctx.model.n_super
         want = {k: 0 for k in launches}
         if "selective_scan" in kernels:
-            want.update(selective_scan=layers, selective_scan_bwd=layers)
+            want.update({"selective_scan": layers, scan_bwd_name(
+                ctx.model.cfg): layers})
         if "attention" in kernels:
             want.update(flash_attention=n_attn, flash_attention_bwd=n_attn)
         if "cross_entropy" in kernels:
@@ -3242,13 +3472,21 @@ def ssm_grad_check(torch, dev, tag: str, arch: str, layers: int,
     return {"cases": out, **extra}
 
 
+def scan_bwd_name(cfg) -> str:
+    """The B4-bwd wrapper a Mamba layer of ``cfg`` trains through: the
+    per-head one in Mamba-2's layout, the per-channel one in Mamba-1's."""
+    return ("selective_scan_heads_bwd" if cfg.ssm_variant == "mamba2"
+            else "selective_scan_bwd")
+
+
 def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
-                    layers: int, grad_layers: int, grad_rows: int,
-                    grad_cases):
+                    layers: int, steps: int, grad_layers: int,
+                    grad_rows: int, grad_cases):
     """[ssm-train] / [hybrid-train]: full-width ``arch`` at ``layers``
     layers (cut 2), PSL-UGS through ``api.run`` in the granite training
-    setting for ``SSM_TRAIN_STEPS`` steps: per-step loss, accuracy, grad
-    norm and step ms; launches exactly one B4 and one B4-bwd a Mamba
+    setting for ``steps`` steps: per-step loss, accuracy, grad
+    norm and step ms; launches exactly one B4 and one B4-bwd (per head
+    in Mamba-2's layout, ``scan_bwd_name``) a Mamba
     layer, one B1 and one B1-bwd a shared-attention application, one B5
     and one B5-bwd a step, nothing else; finite losses and grad norms;
     init and training peak memory; one more step profiled by group
@@ -3276,7 +3514,7 @@ def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
     spec = api.apply_overrides(default_lm_spec(), [
         f"model.arch={arch}", f"model.overrides.num_layers={layers}",
         "model.overrides.cut_layer=2",
-        f"execution.max_steps={SSM_TRAIN_STEPS}", "obs.enabled=true",
+        f"execution.max_steps={steps}", "obs.enabled=true",
         "obs.monitor=false", f"obs.events_path={events}"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -3305,7 +3543,7 @@ def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     step_ms = span_means(events)["device_step"]
-    steps = len(result.step_metrics)
+    ran = len(result.step_metrics)
     for i, m in enumerate(result.step_metrics):
         print(f"[{tag}] step {i}: loss {m['loss']:.4f} accuracy "
               f"{m['accuracy']:.4f} tokens {m['tokens']:.0f} grad_norm "
@@ -3314,14 +3552,15 @@ def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
             fail(f"[{tag}] step {i} is not finite: {m}")
     attn = model.n_super
     want = {name: 0 for name in launches}
-    want.update({"selective_scan": layers * steps,
-                 "selective_scan_bwd": layers * steps,
-                 "flash_attention": attn * steps,
-                 "flash_attention_bwd": attn * steps,
-                 "cross_entropy": steps, "cross_entropy_bwd": steps})
-    if steps != SSM_TRAIN_STEPS or launches != want:
-        fail(f"[{tag}] {steps} steps, launches {launches}, wanted {want} "
-             f"({layers} B4 + {layers} B4-bwd + {attn} B1 + {attn} B1-bwd "
+    want.update({"selective_scan": layers * ran,
+                 scan_bwd_name(cfg): layers * ran,
+                 "flash_attention": attn * ran,
+                 "flash_attention_bwd": attn * ran,
+                 "cross_entropy": ran, "cross_entropy_bwd": ran})
+    if ran != steps or launches != want:
+        fail(f"[{tag}] {ran} steps of {steps}, launches {launches}, wanted {want} "
+             f"({layers} B4 + {layers} {scan_bwd_name(cfg)} + {attn} B1 + "
+             f"{attn} B1-bwd "
              f"+ 1 B5 + 1 B5-bwd a step)")
     n_params = sum(p.numel() for p in _leaves(result.params))
     median = statistics.median(step_ms[1:])
@@ -4298,7 +4537,8 @@ def main() -> int:
           flush=True)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    for log in _build.build(_build.SOURCES, verbose=True):
+    logs = _build.build(_build.SOURCES, verbose=True)
+    for log in logs:
         for line in log.splitlines():
             if line.startswith("[nvcc") or "registers" in line \
                     or "spill" in line:
@@ -4346,6 +4586,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     b4_bwd = scan_bwd_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b4_heads = scan_heads_bwd_phase(
+        torch, dev, ptxas_usage(logs, "mamba2_bwd_kernel"))
     ssm_train, train_shapes = {}, {}
     for tag, cell in (("ssm-train", SSM_TRAIN),
                       ("hybrid-train", HYBRID_TRAIN)):
@@ -4363,7 +4607,8 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd", "cross_entropy",
                  "cross_entropy_bwd", "selective_scan"):
         family_cases[name] += train_cases[name]
-    together = (b4_bwd["seconds"] + train_cases["seconds"]
+    together = (b4_bwd["seconds"] + b4_heads["seconds"]
+                + train_cases["seconds"]
                 + sum(t["seconds"] for t in ssm_train.values()))
     print(f"[scan-bwd]/[ssm-train]/[hybrid-train]/[train-kernels] "
           f"{together:.1f} s together", flush=True)
@@ -4479,14 +4724,25 @@ def main() -> int:
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
          "replaces": "src/repro/models/layers.py:655",
-         "launches": ssm_train["hybrid-train"]["launches"][
+         "launches": ssm_train["ssm-train"]["launches"][
              "selective_scan_bwd"],
          "launches_by_path": by_path["selective_scan_bwd"],
          **{k: b4_bwd[k] for k in ("max_abs_err", "device_ms", "exp_count",
-                                   "kernel_exp_count", "generic_bound_ms",
                                    "cases") + timing},
          "train_cases": train_cases["selective_scan_bwd"],
          "async_copy_count": asyncs["ssm_bwd_kernel"]},
+        {"name": "selective_scan_heads_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba2_bwd.cu",
+         "replaces": "src/repro/models/layers.py:655",
+         "launches": ssm_train["hybrid-train"]["launches"][
+             "selective_scan_heads_bwd"],
+         "launches_by_path": by_path["selective_scan_heads_bwd"],
+         **{k: b4_heads[k] for k in ("max_abs_err", "device_ms", "exp_count",
+                                     "kernel_exp_count", "per_channel_ms",
+                                     "per_channel_device_ms", "bound_share",
+                                     "fp32", "cases", "ptxas") + timing},
+         "train_cases": train_cases["selective_scan_heads_bwd"],
+         "async_copy_count": asyncs["mamba2_bwd_kernel"]},
         {"name": "cross_entropy", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:68",

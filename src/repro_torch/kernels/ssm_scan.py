@@ -17,6 +17,13 @@ dt (B, L, D) and a (D, N) fp32. Returns (y (B, L, D) fp32, h_last
 (B, D, N) fp32). The backward takes the same inputs with dy (B, L, D)
 fp32 and an optional dh_last (B, D, N) fp32 and returns (dx, ddt, da,
 dB, dC): dx, dB and dC in the model dtype, ddt and da in fp32.
+
+Mamba-2's layout (one decay a head): :func:`expand_heads` gives B4 a
+per-head dt (B, L, nh) and a (nh,) per channel, and
+:func:`ssm_scan_heads_bwd` launches the per-head backward
+(``csrc/mamba2_bwd.cu``) on the unexpanded inputs, returning ddt
+(B, L, nh) and da (nh,); :func:`ssm_scan_heads_bwd_plain` is its plain
+version.
 """
 from __future__ import annotations
 
@@ -115,15 +122,22 @@ BWD_PARTIAL_BYTES = 64 << 20
 CHUNK = 16        # the kernels' time steps a chunk (kChunk)
 
 
+def _bwd_groups(units: int, b: int, l: int, n: int):
+    """(units_per_block, groups): ``units`` (channel tiles or heads) dealt
+    to groups of blocks, ~BWD_BLOCKS blocks in all, with the dB / dC
+    partials, (groups, B, L, N) fp32 twice, within BWD_PARTIAL_BYTES."""
+    groups = max(1, min(units, -(-BWD_BLOCKS // b),
+                        BWD_PARTIAL_BYTES // (8 * b * l * n)))
+    per = -(-units // groups)
+    return per, -(-units // per)
+
+
 def bwd_grid(b: int, l: int, d: int, n: int):
     """(tiles_per_block, groups): the channel tiles (512 / NT channels
     each) that each B4-bwd block walks, and the launch's groups of them
     (its grid is (groups, B))."""
-    tiles = -(-d // (128 * PER_LANE // _state_tiers(n)))
-    groups = max(1, min(tiles, -(-BWD_BLOCKS // b),
-                        BWD_PARTIAL_BYTES // (8 * b * l * n)))
-    per = -(-tiles // groups)
-    return per, -(-tiles // per)
+    return _bwd_groups(-(-d // (128 * PER_LANE // _state_tiers(n))), b, l,
+                       n)
 
 
 def ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
@@ -154,6 +168,125 @@ def ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
              da.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
              da_part.data_ptr(), ckpt.data_ptr(), b, l, d, n, per, stream)
     _build.check(err, lib, "ssm_scan_bwd")
+    return dx, ddt, da, dbm, dcm
+
+
+# ------------------------------------------------- Mamba-2's layout
+
+HEADS_CHUNK = 8   # mamba2_bwd.cu's steps between checkpoints (kChunk)
+
+
+def expand_heads(dt, a, hd: int, n: int):
+    """Mamba-2's per-head decay in the selective scan's per-channel
+    layout: dt (B, L, nh) -> (B, L, nh*hd), each head's value on its hd
+    channels, and a (nh,) -> (nh*hd, N), row c the value of head c // hd
+    in every state. Both contiguous fp32, as B4 takes them."""
+    dt_c = dt.repeat_interleave(hd, dim=-1).contiguous()
+    a_c = a.repeat_interleave(hd)
+    return dt_c, a_c[:, None].expand(a_c.shape[0], n).contiguous()
+
+
+def _check_heads(x, dt, a, bmat, cmat, dy, dh_last):
+    dev = x.get_device()
+    if not x.is_cuda or any(t.get_device() != dev
+                            for t in (dt, a, bmat, cmat)):
+        raise ValueError("ssm_scan_heads_bwd: every input must be a CUDA "
+                         "tensor on one device")
+    if x.dtype not in _DTYPE_CODES or bmat.dtype != x.dtype \
+            or cmat.dtype != x.dtype:
+        raise ValueError(f"ssm_scan_heads_bwd: x, B and C must share one "
+                         f"of {list(_DTYPE_CODES)}, got {x.dtype}/"
+                         f"{bmat.dtype}/{cmat.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError("ssm_scan_heads_bwd: dt and a must be float32")
+    if x.dim() != 3 or a.dim() != 1 or dt.shape != (*x.shape[:2],
+                                                     a.shape[0]):
+        raise ValueError(f"ssm_scan_heads_bwd: x must be (B, L, D), a "
+                         f"(nh,) and dt (B, L, nh), got {tuple(x.shape)} / "
+                         f"{tuple(a.shape)} / {tuple(dt.shape)}")
+    b, l, d = x.shape
+    nh = a.shape[0]
+    if d % nh:
+        raise ValueError(f"ssm_scan_heads_bwd: D = {d} is not a multiple "
+                         f"of the {nh} heads")
+    if bmat.dim() != 3 or not 1 <= bmat.shape[-1] <= MAX_N:
+        raise ValueError(f"ssm_scan_heads_bwd: state size of B "
+                         f"{tuple(bmat.shape)} must be in 1..{MAX_N}")
+    n = bmat.shape[-1]
+    if bmat.shape != (b, l, n) or cmat.shape != (b, l, n):
+        raise ValueError(f"ssm_scan_heads_bwd: B and C must be "
+                         f"{(b, l, n)}, got {tuple(bmat.shape)} / "
+                         f"{tuple(cmat.shape)}")
+    if b > 65535:
+        raise ValueError(f"ssm_scan_heads_bwd: batch {b} > 65535")
+    if not all(t.is_contiguous() for t in (x, dt, a, bmat, cmat)):
+        raise ValueError("ssm_scan_heads_bwd: inputs must be contiguous")
+    if dy.get_device() != dev or dy.dtype != torch.float32 \
+            or dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"ssm_scan_heads_bwd: dy must be a contiguous "
+                         f"float32 {(b, l, d)} CUDA tensor, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    if dh_last is not None and (
+            dh_last.get_device() != dev or dh_last.dtype != torch.float32
+            or dh_last.shape != (b, d, n) or not dh_last.is_contiguous()):
+        raise ValueError(f"ssm_scan_heads_bwd: dh_last must be a "
+                         f"contiguous float32 {(b, d, n)} CUDA tensor or "
+                         f"None")
+
+
+def heads_bwd_grid(b: int, l: int, nh: int, n: int):
+    """(heads_per_block, groups): the heads each block of the per-head
+    backward walks in turn, and the launch's groups of them (its grid is
+    (groups, B))."""
+    return _bwd_groups(nh, b, l, n)
+
+
+def ssm_scan_heads_bwd(x, dt, a, bmat, cmat, dy, dh_last=None,
+                       exp_count=None):
+    """Launch the per-head (Mamba-2) backward; raises on anything it does
+    not take. x (B, L, D), dt (B, L, nh) fp32, a (nh,) fp32, B and C
+    (B, L, N), dy (B, L, D) fp32, dh_last (B, D, N) fp32 or None;
+    ``exp_count``, a (1,) int64 tensor on x's device or None, gains one
+    for each exp(dt a) the kernel evaluates. Returns (dx, ddt (B, L, nh),
+    da (nh,), dB, dC)."""
+    _check_heads(x, dt, a, bmat, cmat, dy, dh_last)
+    if exp_count is not None and (
+            exp_count.dtype != torch.int64 or exp_count.numel() != 1
+            or exp_count.get_device() != x.get_device()):
+        raise ValueError("ssm_scan_heads_bwd: exp_count must be one int64 "
+                         "on x's device")
+    b, l, d = x.shape
+    nh, n = a.shape[0], bmat.shape[-1]
+    cpl = 2 if d // nh > 32 else 1           # channels a lane
+    per, groups = heads_bwd_grid(b, l, nh, n)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, l, nh), **f32)
+    da = torch.empty((nh,), **f32)
+    dbm = torch.empty_like(bmat)
+    dcm = torch.empty_like(cmat)
+    db_part = torch.empty((groups, b, l, n), **f32)
+    dc_part = torch.empty((groups, b, l, n), **f32)
+    da_part = torch.empty((b, nh), **f32)
+    escr = torch.empty((b, nh, l), **f32)
+    ckpt = torch.empty((max(1, groups * b * (-(-l // HEADS_CHUNK) - 1)
+                            * 32 * _state_tiers(n) * cpl),), **f32)
+    lib = _build.load("mamba2_bwd")
+    fn = lib.ssm_scan_heads_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 18 + [i] * 6 + [p]
+        fn.restype = ctypes.c_int
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
+             a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
+             None if dh_last is None else dh_last.data_ptr(),
+             dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+             da.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+             da_part.data_ptr(), escr.data_ptr(), ckpt.data_ptr(),
+             None if exp_count is None else exp_count.data_ptr(), b, l, d,
+             n, nh, per, stream)
+    _build.check(err, lib, "ssm_scan_heads_bwd")
     return dx, ddt, da, dbm, dcm
 
 
@@ -237,6 +370,56 @@ def ssm_scan_bwd_plain(x, dt, a, bmat, cmat, dy, dh_last=None):
         dcm.append((dyf[:, t, :, None] * hs[t]).sum(1))
         da = da + ((g * dtt[..., None]) * (a_bar * hp)).sum(0)
         g = a_bar * g
+    flip = lambda seq: torch.stack(seq[::-1], dim=1)    # noqa: E731
+    return (flip(dx).to(x.dtype), flip(ddt), da, flip(dbm).to(bmat.dtype),
+            flip(dcm).to(cmat.dtype))
+
+
+def ssm_scan_heads_bwd_plain(x, dt, a, bmat, cmat, dy, dh_last=None):
+    """The per-head backward's function in plain PyTorch (no autograd):
+    the states (B, nh, hd, N) recomputed forward with one decay e_t =
+    exp(dt_t a) a (b, t, head), then the reverse recurrence of their
+    adjoint,
+
+        g_t = dy_t C_t + e_{t+1} g_{t+1},   g_{L-1} = dh_last + dy C,
+
+    with ddt_t = x_t . gb_t + a e_t S_t and da = sum_{b,t} dt_t e_t S_t
+    per head, where gb_t[c] = g_t[c] . B_t and S_t = g_t . h_{t-1} over
+    the head's channels and states. x (B, L, D), dt (B, L, nh) fp32, a
+    (nh,) fp32, B and C (B, L, N), dy (B, L, D), dh_last (B, D, N) or
+    None. Returns (dx, ddt (B, L, nh), da (nh,), dB, dC): dx, dB and dC
+    in the inputs' dtype, ddt and da fp32."""
+    b, l, d = x.shape
+    nh, n = a.shape[0], bmat.shape[-1]
+    hd = d // nh
+    xf = x.float().reshape(b, l, nh, hd)
+    dyf = dy.float().reshape(b, l, nh, hd)
+    dtf, af = dt.float(), a.float()
+    bf, cf = bmat.float(), cmat.float()
+    e = torch.exp(dtf * af)                       # (B, L, nh)
+    h = torch.zeros((b, nh, hd, n), dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(l):
+        u = dtf[:, t, :, None] * xf[:, t]         # (B, nh, hd)
+        h = e[:, t, :, None, None] * h + u[..., None] * bf[:, t, None,
+                                                           None, :]
+        hs.append(h)
+    g = (torch.zeros_like(h) if dh_last is None
+         else dh_last.float().reshape(b, nh, hd, n).clone())
+    dx, ddt, dbm, dcm = [], [], [], []
+    da = torch.zeros((nh,), dtype=torch.float32, device=x.device)
+    for t in reversed(range(l)):
+        dtt, et, xt = dtf[:, t], e[:, t], xf[:, t]
+        hp = hs[t - 1] if t else torch.zeros_like(h)
+        g = g + dyf[:, t, ..., None] * cf[:, t, None, None, :]
+        gb = (g * bf[:, t, None, None, :]).sum(-1)          # (B, nh, hd)
+        s = (g * hp).sum((-2, -1))                          # (B, nh)
+        dx.append((dtt[..., None] * gb).reshape(b, d))
+        ddt.append((xt * gb).sum(-1) + af * et * s)
+        da = da + (dtt * et * s).sum(0)
+        dbm.append((g * (dtt[..., None] * xt)[..., None]).sum((1, 2)))
+        dcm.append((dyf[:, t, ..., None] * hs[t]).sum((1, 2)))
+        g = et[..., None, None] * g
     flip = lambda seq: torch.stack(seq[::-1], dim=1)    # noqa: E731
     return (flip(dx).to(x.dtype), flip(ddt), da, flip(dbm).to(bmat.dtype),
             flip(dcm).to(cmat.dtype))

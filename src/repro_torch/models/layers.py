@@ -479,16 +479,6 @@ def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def mamba2_scan_inputs(dt, a_log, hd: int, n: int):
-    """Mamba-2's per-head decay in the selective scan's per-channel layout:
-    dt (B, L, nh) -> (B, L, nh*hd), each head's value on its hd channels,
-    and a (nh*hd, N) whose row c is -exp(a_log[c // hd]) in every state.
-    Both contiguous fp32, as the kernel takes them."""
-    dt_c = dt.repeat_interleave(hd, dim=-1).contiguous()
-    a = (-torch.exp(a_log)).repeat_interleave(hd)
-    return dt_c, a[:, None].expand(a.shape[0], n).contiguous()
-
-
 def mamba2_apply(p, x, cfg: ModelConfig, state=None,
                  return_state: bool = False):
     """Mamba-2 (SSD, scalar decay per head, ngroups=1). x: (B, S, d).
@@ -496,12 +486,14 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None,
     state: None (training/prefill from zero) or dict(conv (B, K-1, di+2N),
     ssm (B, nh, hd, N)) for streaming decode; returns as
     :func:`mamba1_apply` does. With one group the recurrence is the
-    selective scan's (``ops.selective_scan``): x the (B, S, di) channels,
-    dt and A given per channel (:func:`mamba2_scan_inputs`), B and C the
-    shared (B, S, N) rows; its y is ``repro``'s hs . C and its h_last
-    (B, di, N) the (B, nh, hd, N) state, so ``repro``'s (B, S, nh, hd, N)
-    ``bx`` is never built. The one-token decode update stays plain torch,
-    as in ``repro``."""
+    selective scan's, one decay a head (``ops.selective_scan_heads``): x
+    the (B, S, di) channels, dt (B, S, nh) and A = -exp(a_log) per head,
+    B and C the shared (B, S, N) rows. Its forward is B4 on dt and A
+    given per channel (``kernels.ssm_scan.expand_heads``); under grad its
+    backward is the per-head B4-bwd, which returns d(dt) and dA per head.
+    y is ``repro``'s hs . C and h_last (B, di, N) the (B, nh, hd, N)
+    state, so ``repro``'s (B, S, nh, hd, N) ``bx`` is never built. The
+    one-token decode update stays plain torch, as in ``repro``."""
     b, s, _ = x.shape
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
     hd = di // nh
@@ -528,8 +520,8 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None,
         y = (h * cmat[:, 0].float()[:, None, None, :]).sum(-1)[:, None]
         new_ssm = h
     else:
-        dt_c, a = mamba2_scan_inputs(dt, p["a_log"], hd, n)
-        y, h_last = ops.selective_scan(xs, dt_c, a, bmat, cmat)
+        y, h_last = ops.selective_scan_heads(xs, dt, -torch.exp(p["a_log"]),
+                                             bmat, cmat)
         y = y.reshape(b, s, nh, hd)
         new_ssm = h_last.reshape(b, nh, hd, n)
     y = y + p["d_skip"][None, None, :, None] * xh

@@ -507,8 +507,8 @@ def test_ssm_scan_backward_kernel_matches_plain(dev, dtype, b, l, d, n, hd):
     """B4-bwd against ssm_scan_bwd_plain, with and without dh_last, and
     its launch count; a gradient off by 1% in ddt, or in dB, fails the
     limits."""
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_plain
-    from repro_torch.models.layers import mamba2_scan_inputs
+    from repro_torch.kernels.ssm_scan import (expand_heads,
+                                              ssm_scan_bwd_plain)
     gen = torch.Generator(device=dev).manual_seed(17)
     if hd is None:
         args = _scan_case(gen, dev, dtype, b, l, d, n)
@@ -517,7 +517,7 @@ def test_ssm_scan_backward_kernel_matches_plain(dev, dtype, b, l, d, n, hd):
             torch.randn((b, l, d // hd), generator=gen, device=dev) - 1.0)
         a_log = torch.log(torch.arange(1, d // hd + 1, device=dev,
                                        dtype=torch.float32))
-        dt_c, a = mamba2_scan_inputs(dt, a_log, hd, n)
+        dt_c, a = expand_heads(dt, -torch.exp(a_log), hd, n)
         args = (_randn(gen, (b, l, d), dtype, dev), dt_c, a,
                 _randn(gen, (b, l, n), dtype, dev),
                 _randn(gen, (b, l, n), dtype, dev))
@@ -570,22 +570,112 @@ def test_ssm_scan_backward_refuses_what_it_does_not_take(dev):
                      torch.zeros((1, 8, 65), device=dev), dy)
 
 
+def _heads_case(gen, dev, dtype, b, l, d, n, hd):
+    """Mamba-2's per-head inputs: x, B, C in ``dtype``, dt (B, L, nh)
+    softplus-drawn, a = -exp(a_log) at a_log = log(1..nh) (the init: a
+    down to -nh)."""
+    nh = d // hd
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, nh), generator=gen, device=dev) - 1.0)
+    a = -torch.arange(1, nh + 1, device=dev, dtype=torch.float32)
+    return (_randn(gen, (b, l, d), dtype, dev), dt, a,
+            _randn(gen, (b, l, n), dtype, dev),
+            _randn(gen, (b, l, n), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n,hd", [
+    (16, 128, 5120, 64, 64),        # zamba2's training shape
+    (8, 32, 256, 8, 32),            # the reduced zamba2's
+    (3, 37, 60, 5, 12),             # ragged L, N, hd: 20 idle lanes
+    (2, 21, 160, 16, 80),           # hd 80: a head in two tiles
+])
+def test_ssm_scan_heads_backward_kernel_matches_plain(dev, dtype, b, l, d,
+                                                      n, hd):
+    """The per-head B4-bwd against ssm_scan_heads_bwd_plain at B4-bwd's
+    limits (``_check_scan_bwd``), with and without dh_last, and its
+    launch count; two launches give the same bits; the kernel counts one
+    exponential per (b, t, head), and counting changes no bit; a gradient
+    off by 1% in ddt, or in dB, fails the limits."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_heads_bwd,
+                                              ssm_scan_heads_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    args = _heads_case(gen, dev, dtype, b, l, d, n, hd)
+    dy = torch.randn((b, l, d), generator=gen, device=dev)
+    dh = torch.randn((b, d, n), generator=gen, device=dev)
+    for dh_last in (None, dh):
+        before = ops.selective_scan_heads_bwd.launches
+        got = ops.selective_scan_heads_bwd(*args, dy, dh_last)
+        torch.cuda.synchronize()
+        assert ops.selective_scan_heads_bwd.launches == before + 1
+        assert got[1].shape == (b, l, d // hd) and got[2].shape == (d // hd,)
+        want = ssm_scan_heads_bwd_plain(*args, dy, dh_last)
+        _check_scan_bwd(got, want)
+        assert all(torch.equal(g, h) for g, h in zip(
+            got, ops.selective_scan_heads_bwd(*args, dy, dh_last)))
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        counted = ssm_scan_heads_bwd(*args, dy, dh_last, exp_count=counter)
+        assert counter.item() == b * l * (d // hd)
+        assert all(torch.equal(g, h) for g, h in zip(got, counted))
+    for i in (1, 3):                # ddt, dB
+        planted = list(got)
+        planted[i] = (got[i].float() * 1.01).to(got[i].dtype)
+        with pytest.raises(AssertionError):
+            _check_scan_bwd(planted, want)
+
+
+def test_ssm_scan_heads_backward_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.ssm_scan import ssm_scan_heads_bwd
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, dt, a, bm, cm = _heads_case(gen, dev, torch.float32, 1, 8, 64, 8, 16)
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    ssm_scan_heads_bwd(x, dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan_heads_bwd(x.cpu(), dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_heads_bwd(x, dt, a, bm, cm, dy.cpu())
+    with pytest.raises(ValueError, match="share"):
+        ssm_scan_heads_bwd(x.double(), dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_heads_bwd(x, dt, a, bm, cm, dy.half())
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan_heads_bwd(x, dt.half(), a, bm, cm, dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_heads_bwd(x.transpose(1, 2).contiguous().transpose(1, 2),
+                           dt, a, bm, cm, dy)
+    with pytest.raises(ValueError, match="dh_last"):
+        ssm_scan_heads_bwd(x, dt, a, bm, cm, dy,
+                           torch.zeros((1, 64, 7), device=dev))
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan_heads_bwd(x, dt, a, torch.zeros((1, 8, 65), device=dev),
+                           torch.zeros((1, 8, 65), device=dev), dy)
+    with pytest.raises(ValueError, match="multiple"):     # D % nh
+        ssm_scan_heads_bwd(x, dt[..., :3].contiguous(), a[:3].contiguous(),
+                           bm, cm, dy)
+    with pytest.raises(ValueError, match=r"\(nh,\)"):     # a per channel
+        ssm_scan_heads_bwd(x, dt, torch.zeros((4, 8), device=dev), bm, cm,
+                           dy)
+    with pytest.raises(ValueError, match="exp_count"):
+        ssm_scan_heads_bwd(x, dt, a, bm, cm, dy, exp_count=torch.zeros(
+            1, dtype=torch.int32, device=dev))
+
+
 @pytest.mark.parametrize("b,l,nh,hd,n", [
     (1, 100, 80, 64, 64),       # full-width zamba2's Mamba-2 prefill
     (1, 32, 80, 64, 64),        # ... at the short prompt
 ])
 def test_ssm_scan_kernel_in_the_mamba2_layout(dev, b, l, nh, hd, n):
-    """B4 fed Mamba-2's layout (``mamba2_scan_inputs``: dt constant over
+    """B4 fed Mamba-2's layout (``expand_heads``: dt constant over
     each head's hd channels, A's rows constant over the N states), bf16
     x, B and C, against its plain version."""
-    from repro_torch.models.layers import mamba2_scan_inputs
+    from repro_torch.kernels.ssm_scan import expand_heads
     gen = torch.Generator(device=dev).manual_seed(11)
     x = _randn(gen, (b, l, nh * hd), torch.bfloat16, dev)
     dt = torch.nn.functional.softplus(
         torch.randn((b, l, nh), generator=gen, device=dev) - 1.0)
     a_log = torch.log(torch.arange(1, nh + 1, device=dev,
                                    dtype=torch.float32))
-    dt_c, a = mamba2_scan_inputs(dt, a_log, hd, n)
+    dt_c, a = expand_heads(dt, -torch.exp(a_log), hd, n)
     bm = _randn(gen, (b, l, n), torch.bfloat16, dev)
     cm = _randn(gen, (b, l, n), torch.bfloat16, dev)
     before = ops.selective_scan.launches
@@ -634,7 +724,8 @@ def test_reduced_zamba2_on_the_card(dev, layers):
 
 def test_hybrid_loss_under_grad_raises_on_the_card(dev):
     """The hybrid's loss under grad on the card (float32 reduced zamba2):
-    B4 and B4-bwd once per Mamba-2 layer, B1 and B1-bwd once per
+    B4 and the per-head B4-bwd once per Mamba-2 layer (the per-channel
+    one never), B1 and B1-bwd once per
     shared-attention application, B5 and B5-bwd once; the loss and every
     leaf's gradient against the same parameters on the CPU, where the
     plain versions run (relative 1e-4: fp32 sums in another order)."""
@@ -656,8 +747,9 @@ def test_hybrid_loss_under_grad_raises_on_the_card(dev):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     layers, n_super = model.cfg.num_layers, model.n_super
-    assert counts["selective_scan"] == counts["selective_scan_bwd"] \
+    assert counts["selective_scan"] == counts["selective_scan_heads_bwd"] \
         == layers
+    assert counts["selective_scan_bwd"] == 0
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == n_super
     assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 1
@@ -674,7 +766,8 @@ def test_reduced_ssm_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch,
     """Reduced falcon-mamba and zamba2 (float32), PSL-UGS through api.run,
     2 AdamW steps from one CPU-drawn init (stacked matrices at fan-in
     d_in): losses on the card against the CPU at rtol 1e-4, and B4 and
-    B4-bwd (and, for the hybrid, B1 and B1-bwd) launched every step."""
+    B4-bwd (the hybrid's the per-head one, with B1 and B1-bwd) launched
+    every step."""
     import math
     from repro_torch.api import protocols
     from repro_torch.core.psl import requires_grad_
@@ -705,8 +798,11 @@ def test_reduced_ssm_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch,
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
     layers = {"falcon-mamba-7b": 2, "zamba2-2.7b": 5}[arch]
     attn = {"falcon-mamba-7b": 0, "zamba2-2.7b": 2}[arch]
-    assert counts["selective_scan"] == counts["selective_scan_bwd"] \
-        == 2 * layers
+    bwd = {"falcon-mamba-7b": "selective_scan_bwd",
+           "zamba2-2.7b": "selective_scan_heads_bwd"}[arch]
+    assert counts["selective_scan"] == counts[bwd] == 2 * layers
+    assert counts["selective_scan_bwd"] + counts[
+        "selective_scan_heads_bwd"] == 2 * layers
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == 2 * attn
     assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 2

@@ -14,7 +14,7 @@ states in the thousands. The zero-init conv and dt biases are drawn
 
 Tolerances:
 
-- B4's plain version fed Mamba-2's layout (``mamba2_scan_inputs``)
+- B4's plain version fed Mamba-2's layout (``expand_heads``)
   against repro's ``_chunked_ssm_scan`` over the (B, S, nh, hd, N) bx:
   fp32 atol 1e-5 + rtol 1e-5, as ``tests/test_torch_ssm.py`` holds B4
   (the same products, associated sequentially against chunked);
@@ -46,7 +46,7 @@ from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import get_config as tget
 from repro_torch.core import psl as tpsl
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import ssm_scan_plain
+from repro_torch.kernels.ssm_scan import expand_heads, ssm_scan_plain
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
 from repro_torch.models.layers import tree_leaves
@@ -197,8 +197,8 @@ def test_mamba2_scan_through_b4_layout_matches_chunked_scan(b, s, nh, hd,
     a_full = a_bar[..., None, None] * jnp.ones((1, 1, 1, hd, n))
     hs, jh = JL._chunked_ssm_scan(a_full, bx, chunk)
     jy = (hs * jnp.asarray(cm)[:, :, None, None, :]).sum(-1)
-    dt_c, a = TL.mamba2_scan_inputs(torch.from_numpy(dt),
-                                    torch.from_numpy(a_log), hd, n)
+    dt_c, a = expand_heads(torch.from_numpy(dt),
+                           -torch.exp(torch.from_numpy(a_log)), hd, n)
     assert dt_c.is_contiguous() and a.is_contiguous()
     assert dt_c.shape == (b, s, nh * hd) and a.shape == (nh * hd, n)
     assert dt_c.dtype == a.dtype == torch.float32

@@ -183,18 +183,23 @@ def test_selective_scan_function_matches_plain_autograd(dtype, monkeypatch):
 # ------------------------------------------------- the Mamba-2 layout
 
 def test_mamba2_per_head_gradients_match_repro(monkeypatch):
-    """A Mamba-2 mixer's gradients through mamba2_scan_inputs (dt and A
-    expanded per channel, B4's layout): autograd sums ddt over each
-    head's channels into d(dt_bias) and da over its channels and states
-    into d(a_log); every leaf against jax.grad through repro's
-    mamba2_apply."""
+    """A Mamba-2 mixer's gradients through ops.selective_scan_heads: its
+    backward (SelectiveScanHeads, the per-head B4-bwd's plain version on
+    the CPU) returns ddt per head and da per head, which autograd carries
+    into d(dt_bias) and d(a_log); every leaf against jax.grad through
+    repro's mamba2_apply. The per-channel backward does not run."""
     calls = []
-    plain_bwd = ops.ssm_scan_bwd_plain
+    plain_bwd = ops.ssm_scan_heads_bwd_plain
 
     def counted(*args):
-        calls.append(tuple(args[0].shape))
+        calls.append(tuple(args[0].shape) + tuple(args[1].shape)
+                     + tuple(args[2].shape))
         return plain_bwd(*args)
-    monkeypatch.setattr(ops, "ssm_scan_bwd_plain", counted)
+
+    def per_channel(*args):
+        raise AssertionError("the per-channel backward ran")
+    monkeypatch.setattr(ops, "ssm_scan_heads_bwd_plain", counted)
+    monkeypatch.setattr(ops, "ssm_scan_bwd_plain", per_channel)
     jc, tc = hybrid_configs(5)
     jm = jbuild(jc)
     jp = fan_in_params(jm)
@@ -211,7 +216,8 @@ def test_mamba2_per_head_gradients_match_repro(monkeypatch):
     out = TL.mamba2_apply(tmix, torch.from_numpy(x), tc)
     tg = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
                              [tmix[k] for k in names])
-    assert calls == [(2, 21, tc.d_inner)]
+    nh = tc.ssm_num_heads
+    assert calls == [(2, 21, tc.d_inner, 2, 21, nh, nh)]
     assert tmix["dt_bias"].shape == tmix["a_log"].shape \
         == (tc.ssm_num_heads,)
     for k, g in zip(names, tg):
