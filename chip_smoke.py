@@ -13,8 +13,12 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    instructions are counted with ``cuobjdump -sass`` per kernel function
    (``SASS_CHECKS``): every instantiation of each wgmma kernel (B1
    forward, both B1-bwd passes, B5 forward, B5-bwd) must hold HGMMA, of
-   B3's 16-bit window kernel HMMA, and of B2, B3, B4 and both B4-bwd
-   main kernels (per channel, per head) an async copy.
+   B3's 16-bit window kernel HMMA, and of B2, B3, B4 (both layouts) and
+   both B4-bwd main kernels (per channel, per head) an async copy; the
+   scan kernels' exponentials (MUFU.EX2) are counted the same way, and
+   every instantiation of the per-head B4 must hold fewer than the 8
+   states a lane owns at least (``EXP_SASS_MAX``: no expf in a
+   per-state loop).
 2. Kernels. Each kernel is held against its plain PyTorch version on the
    card at the serving shapes of full-width granite-3-2b in bf16, and
    timed beside that plain version, the least time the card could take
@@ -110,8 +114,9 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    shared attention block, 32 q = kv heads, head_dim 80, before each of
    8 superblocks of 6 layers, after 4 pre-blocks; bf16, random weights
    from seed 0) served with the same requests through ``continuous``:
-   B1 8 times and B4 54 times a prefill call, nothing else, each
-   launch's shape recorded; state and KV bytes a slot against their
+   B1 8 times and the per-head B4 (``csrc/mamba2_fwd.cu``) 54 times a
+   prefill call, nothing else (B4 itself never), each launch's shape
+   recorded; state and KV bytes a slot against their
    reckoning; TTFT, tok/s, phase means, init and serving peaks. Its
    tokens' first differences from a serve of the same batches through
    the plain versions are printed with that run's top-2 gaps, at the
@@ -122,16 +127,22 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    rule (``NEAR_TIE_GAP``).
    Each of 7b–7e frees its model before the next. Then B1, B2, B1-bwd,
    B5 and B5-bwd are held to their plain versions and timed at the
-   shapes 7b–7d launch them, and B1 and B4 (in Mamba-2's layout, its
-   bound ``mamba2_scan_bound``) at every shape and dtype 7e launched
-   them (``family_kernel_phase``; the kernels line's ``family_cases``).
+   shapes 7b–7d launch them, and B1 and the per-head B4 at every shape
+   and dtype 7e launched them (``family_kernel_phase``; the kernels
+   line's ``family_cases``): the per-head B4 against its plain version
+   at ``SCAN_TOL``, bitwise against B4 on the inputs expanded per
+   channel and timed beside that B4 call (bound ``mamba2_scan_bound``),
+   its exponentials counted by the kernel (``heads_fwd_exp_count``).
 7f. Scan backward (``[scan-bwd]``). B4-bwd at ``SCAN_BWD_SHAPES``
    (falcon-mamba's training shape, a ragged one) in bf16 and fp32
    against ``ssm_scan_bwd_plain`` and autograd through
    ``ssm_scan_plain`` (``scan_bwd_errors``), ddt scaled by
    ``PLANTED_DDT_SCALE`` and dB by ``PLANTED_DB_SCALE`` caught, two
    launches bitwise equal; timed by events and device time beside its
-   plain version and ``scan_bwd_bound``. Then the per-head
+   plain version and ``scan_bwd_bound``; the exponentials it evaluates
+   counted by the kernel (its ``exp_count`` argument; ``bwd_exp_count``
+   or the phase fails) and its registers and spills printed, at most
+   128 registers and no spill in every instantiation. Then the per-head
    (Mamba-2) B4-bwd (``csrc/mamba2_bwd.cu``) at ``SCAN_HEADS_BWD_SHAPES``
    (zamba2's training shape, the reduced zamba2's, a ragged one) in bf16
    and fp32, with and without a dh_last, against
@@ -149,8 +160,8 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    layers, PSL-UGS through ``api.run`` in the granite setting for 3
    and 8 steps (each cell's ``steps``): finite losses and grad norms; exactly one
    B4 and one B4-bwd a Mamba layer (falcon-mamba the per-channel
-   B4-bwd, zamba2 the per-head one and never the per-channel one,
-   ``scan_bwd_name``), one B1 and one B1-bwd a shared
+   kernels, zamba2 the per-head ones and never the per-channel ones,
+   ``scan_fwd_name``, ``scan_bwd_name``), one B1 and one B1-bwd a shared
    attention, one B5 and one B5-bwd a step; step ms, tokens/s, peak
    memory, a profiled step by group (``SSM_TRAIN_GROUPS``); the loss on
    one fixed batch falling at each of 3 AdamW steps (fan-in d_in,
@@ -159,7 +170,8 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    gated, with a planted B4-bwd fault caught (``ssm_grad_check``; zamba2
    also prints ``attention_readings``). Every kernel launch of the two
    training runs is counted by shape (``record_train_shapes``); then
-   ``[train-kernels]`` holds B1, B1-bwd, B5, B5-bwd and B4 to their plain
+   ``[train-kernels]`` holds B1, B1-bwd, B5, B5-bwd and B4 (zamba2's the
+   per-head one, as ``family_kernel_phase`` holds it) to their plain
    versions at each of those shapes, and fails if B4-bwd ran at a shape
    outside ``SCAN_BWD_SHAPES`` or the per-head B4-bwd outside
    ``SCAN_HEADS_BWD_SHAPES`` (``ssm_train_kernel_phase``; the kernels
@@ -674,9 +686,11 @@ def add_rates(case, flops: float) -> None:
 
 # Kernels whose every instantiation must hold some instruction of a kind in
 # its SASS, by library: the wgmma kernels HGMMA, B3's 16-bit window
-# kernel HMMA (mma.sync), the redesigned B2, B3 and B4 and both B4-bwd
-# main kernels (per channel and per head) an async copy into shared
-# memory (LDGSTS for cp.async, UTMALDG for a TMA load).
+# kernel HMMA (mma.sync), the redesigned B2, B3, B4 (both layouts) and
+# both B4-bwd main kernels (per channel and per head) an async copy into
+# shared memory (LDGSTS for cp.async, UTMALDG for a TMA load). The scan
+# kernels' exponentials (MUFU.EX2) are counted too; EXP_SASS_MAX bounds
+# them where a kernel evaluates none per state.
 SASS_CHECKS = {
     "HGMMA": (("HGMMA",), {
         "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
@@ -686,14 +700,25 @@ SASS_CHECKS = {
         "spec_verify": ("spec_verify_mma_kernel",)}),
     "async copy": (("LDGSTS", "UTMALDG"), {
         "ssm_scan": ("ssm_scan_kernel", "ssm_bwd_kernel"),
+        "mamba2_fwd": ("mamba2_fwd_kernel",),
         "mamba2_bwd": ("mamba2_bwd_kernel",),
         "paged_attention": ("paged_fwd",),
         "spec_verify": ("spec_verify",)}),
+    "MUFU.EX2": (("MUFU.EX2",), {
+        "ssm_scan": ("ssm_scan_kernel", "ssm_bwd_kernel"),
+        "mamba2_fwd": ("mamba2_fwd_kernel",),
+        "mamba2_bwd": ("mamba2_bwd_kernel",)}),
 }
+# The per-head B4 evaluates exp(dt a) once per (step, head) in a chunk's
+# conversion, outside the step loop: each instantiation's SASS must hold
+# fewer MUFU.EX2 than the 8 states a lane owns at least (one per state of
+# one step, unrolled, would be 8 or more).
+EXP_SASS_MAX = {"mamba2_fwd_kernel": 7}
 # Substring of each serving kernel's name in a profiler trace.
 DEVICE_MATCH = {"paged_attention": "paged_fwd", "spec_verify": "spec_verify",
                 "selective_scan": "ssm_scan",
                 "selective_scan_bwd": "ssm_bwd",
+                "selective_scan_heads": "mamba2_fwd",
                 "selective_scan_heads_bwd": "mamba2_bwd"}
 
 
@@ -730,8 +755,14 @@ def sass_counts():
                     fail(f"kernel {kname} holds no {kind} instruction "
                          f"({'/'.join(opcodes)}) in some instantiation: "
                          f"{insts}")
+                if kind == "MUFU.EX2" and max(insts) > EXP_SASS_MAX.get(
+                        kname, max(insts)):
+                    fail(f"kernel {kname} holds {max(insts)} MUFU.EX2 in "
+                         f"an instantiation, more than "
+                         f"{EXP_SASS_MAX[kname]}: {insts}")
                 kernels[kname] = {"count": sum(insts),
-                                  "instantiations": len(insts)}
+                                  "instantiations": len(insts),
+                                  "most": max(insts)}
         print(f"{kind} instructions ({'/'.join(opcodes)}) in the SASS: "
               f"{libs}; per kernel {json.dumps(kernels)}", flush=True)
         out[kind] = {"libraries": libs, "kernels": kernels}
@@ -911,8 +942,8 @@ def scan_bound(b, l, d, n, elt):
 
 
 def mamba2_scan_bound(b, l, d, n, hd, elt):
-    """Least time for the Mamba-2 function that B4 computes in its layout
-    (``expand_heads``, ``hd`` channels a head): x (elt bytes) and y
+    """Least time for the per-head B4's function (Mamba-2's layout, ``hd``
+    channels a head): x (elt bytes) and y
     (fp32) once per (b, t, d), dt (fp32) once per (b, t, head), B and C
     once per (b, t, n), a_log and h_last once; against its operations,
     the larger of one exponential per (b, t, head), exp(dt a), at the
@@ -931,24 +962,15 @@ def mamba2_scan_bound(b, l, d, n, hd, elt):
             else (t_ops, "operations")) + (nbytes, exps)
 
 
-def timed_scan_case(torch, args, shape, err, launches, run: str, hd=None):
+def timed_scan_case(torch, args, shape, err, launches, run: str):
     """B4 on ``args`` (x, B, C in one dtype at ``shape`` (B, L, D, N)),
     already held to its plain version (``err``), timed by CUDA events and
-    by its device time (``device_ms``) beside its plain version and its
-    bound: ``scan_bound``'s, or with ``hd`` (Mamba-2's layout, ``hd``
-    channels a head) ``mamba2_scan_bound``'s, with ``scan_bound``'s
-    beside it as ``generic_bound_ms``."""
+    by its device time (``device_ms``) beside its plain version and
+    ``scan_bound``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
     elt = args[0].element_size()
     bnd, by, nbytes, exps = scan_bound(*shape, elt=elt)
-    extra, note = {}, ""
-    if hd is not None:
-        extra = {"generic_bound_ms": bnd, "generic_bound_by": by,
-                 "generic_exp_count": exps}
-        note = (f"; B4's generic bound {bnd:.5f} ms ({by}, "
-                f"{exps / 1e6:.1f} M exp)")
-        bnd, by, nbytes, exps = mamba2_scan_bound(*shape, hd=hd, elt=elt)
     name = str(args[0].dtype).replace("torch.", "")
     case = {"shape": "B={} L={} D={} N={} x/B/C {}".format(*shape, name),
             "launches": launches, "max_abs_err": err, "exp_count": exps,
@@ -958,19 +980,19 @@ def timed_scan_case(torch, args, shape, err, launches, run: str, hd=None):
                 DEVICE_MATCH["selective_scan"]),
             "plain_ms": time_ms(torch, lambda: ssm_scan_plain(*args),
                                 iters=3, warmup=1),
-            "bound_ms": bnd, "bound_by": by, "library_ms": None, **extra}
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
     print(f"kernel ssm_scan {case['shape']} ({launches} launches in {run}): "
           f"err {err:.3g} (atol {SCAN_TOL['atol']}, rtol "
           f"{SCAN_TOL['rtol']}); {case['ms']:.4f} ms (device "
           f"{case['device_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
           f"bound {bnd:.5f} ms ({by}: {nbytes / 1e6:.2f} MB; "
-          f"{exps / 1e6:.3g} M exp at {SFU_EXP_PER_CLOCK} a clock an SM)"
-          f"{note}", flush=True)
+          f"{exps / 1e6:.3g} M exp at {SFU_EXP_PER_CLOCK} a clock an SM)",
+          flush=True)
     return case
 
 
 def heads_case(torch, dev, gen, b, l, d, n, hd, dtype):
-    """The per-head backward's inputs in Mamba-2's layout: x, B and C in
+    """The per-head kernels' inputs in Mamba-2's layout: x, B and C in
     ``dtype``, dt (B, L, nh) drawn per head, a = -exp(a_log) at a_log =
     log(1..nh) (the init: a down to -nh)."""
     nh = d // hd
@@ -984,13 +1006,79 @@ def heads_case(torch, dev, gen, b, l, d, n, hd, dtype):
     return x, dt, a, bm, cm
 
 
-def mamba2_scan_case(torch, dev, gen, b, l, d, n, hd, dtype):
-    """B4's inputs in Mamba-2's layout: ``heads_case``'s, dt and a
-    expanded per channel (``expand_heads``, as
-    ``ops.selective_scan_heads`` hands them to B4)."""
-    from repro_torch.kernels.ssm_scan import expand_heads
-    x, dt, a, bm, cm = heads_case(torch, dev, gen, b, l, d, n, hd, dtype)
-    return (x, *expand_heads(dt, a, hd, n), bm, cm)
+def timed_heads_case(torch, args, shape, hd, launches, run: str):
+    """The per-head B4 (``ops.selective_scan_heads``) on ``args``
+    (``heads_case``'s, at ``shape`` (B, L, D, N), ``hd`` channels a
+    head): held to ``ssm_scan_heads_plain`` at ``SCAN_TOL``, bitwise to
+    B4 on the inputs expanded per channel (``expand_heads``) and to a
+    second launch that counts the exponentials the kernel evaluates,
+    which must be ``heads_fwd_exp_count``'s. Timed by CUDA events and
+    device time beside that B4 call, its plain version and
+    ``mamba2_scan_bound`` (B4's generic ``scan_bound`` beside it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import (expand_heads,
+                                              heads_fwd_exp_count, ssm_scan,
+                                              ssm_scan_heads,
+                                              ssm_scan_heads_plain)
+    b, l, d, n = shape
+    name = str(args[0].dtype).replace("torch.", "")
+    what = f"ssm_scan_heads {shape} hd={hd} {name}"
+    y, h = ops.selective_scan_heads(*args)
+    py, ph = ssm_scan_heads_plain(*args)
+    err = max(within_tol(torch, y, py, f"{what} y", **SCAN_TOL),
+              within_tol(torch, h, ph, f"{what} h_last", **SCAN_TOL))
+    del py, ph
+    expanded = (args[0], *expand_heads(args[1], args[2], hd, n), args[3],
+                args[4])
+    ry, rh = ssm_scan(*expanded)
+    counter = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    y2, h2 = ssm_scan_heads(*args, exp_count=counter)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, ry) and torch.equal(h, rh)):
+        diff = max((y - ry).abs().max().item(), (h - rh).abs().max().item())
+        fail(f"{what} is not bitwise B4 on the expanded inputs: max diff "
+             f"{diff}")
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        fail(f"{what}: a second (counted) launch gave other bits")
+    counted = int(counter.item())
+    want = heads_fwd_exp_count(b, l, d // hd, hd, n)
+    if counted != want:
+        fail(f"{what}: the kernel evaluated {counted} exponentials, its "
+             f"formula says {want}")
+    del y, h, ry, rh, y2, h2
+    elt = args[0].element_size()
+    gbnd, gby, _, gexps = scan_bound(*shape, elt=elt)
+    bnd, by, nbytes, exps = mamba2_scan_bound(*shape, hd=hd, elt=elt)
+    fn = lambda: ops.selective_scan_heads(*args)  # noqa: E731
+    fn_b4 = lambda: ssm_scan(*expanded)  # noqa: E731
+    case = {"shape": "B={} L={} D={} N={} hd={} x/B/C {}".format(
+                *shape, hd, name),
+            "launches": launches, "max_abs_err": err, "bitwise_b4": True,
+            "kernel_exp_count": counted, "exp_count": exps,
+            "ms": time_ms(torch, fn),
+            "device_ms": device_ms(torch, fn,
+                                   DEVICE_MATCH["selective_scan_heads"]),
+            "b4_ms": time_ms(torch, fn_b4),
+            "b4_device_ms": device_ms(torch, fn_b4,
+                                      DEVICE_MATCH["selective_scan"]),
+            "plain_ms": time_ms(torch, lambda: ssm_scan_heads_plain(*args),
+                                iters=3, warmup=1),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "generic_bound_ms": gbnd, "generic_bound_by": gby,
+            "generic_exp_count": gexps}
+    case["bound_share"] = bnd / case["device_ms"]
+    print(f"kernel ssm_scan_heads {case['shape']} ({launches} launches in "
+          f"{run}): err {err:.3g} (atol {SCAN_TOL['atol']}, rtol "
+          f"{SCAN_TOL['rtol']}), bitwise B4 on the expanded inputs; "
+          f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}, "
+          f"{case['bound_share']:.3f} of the bound), B4 on the expanded "
+          f"inputs {case['b4_ms']:.4f} ms (device "
+          f"{case['b4_device_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}: {nbytes / 1e6:.2f} MB; "
+          f"{exps / 1e6:.4g} M exp needed, the kernel counted {counted}); "
+          f"B4's generic bound {gbnd:.5f} ms ({gby}, {gexps / 1e6:.1f} M "
+          f"exp)", flush=True)
+    return case
 
 
 def scan_kernel_phase(torch, dev, shapes):
@@ -1091,7 +1179,7 @@ def scan_bwd_errors(torch, got, want):
     return out, ok
 
 
-def scan_bwd_phase(torch, dev):
+def scan_bwd_phase(torch, dev, ptxas):
     """[scan-bwd]: B4-bwd at ``SCAN_BWD_SHAPES`` in bf16 and fp32 against
     ``ssm_scan_bwd_plain`` and against autograd through ``ssm_scan_plain``
     (``scan_bwd_errors``' limits; the ragged shape also with a dh_last);
@@ -1099,10 +1187,23 @@ def scan_bwd_phase(torch, dev):
     ``PLANTED_DB_SCALE``, must each fail the same limits; two launches on
     the same inputs give the same bits (every sum has a fixed order).
     Timed by CUDA events and by its device time (both of its kernels,
-    ``device_ms``) beside its plain version and ``scan_bwd_bound``."""
+    ``device_ms``) beside its plain version and ``scan_bwd_bound``. At
+    every shape the kernel counts the exponentials it evaluates
+    (``exp_count``), which must be ``bwd_exp_count``'s without changing
+    a bit. Its registers and spills (``ptxas``: ``ptxas_usage``'s) are
+    printed: every instantiation must use at most 128 registers and
+    spill nothing."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssm_scan import (CHUNK, ssm_scan_bwd_plain,
+    from repro_torch.kernels.ssm_scan import (CHUNK, bwd_exp_count,
+                                              ssm_scan_bwd,
+                                              ssm_scan_bwd_plain,
                                               ssm_scan_plain)
+    over = {k: v for k, v in ptxas.items()
+            if v.get("registers", 0) > 128 or v.get("spill_stores", 0)
+            or v.get("spill_loads", 0)}
+    if not ptxas or over:
+        fail(f"[scan-bwd] ssm_bwd_kernel over 128 registers or spilling: "
+             f"{json.dumps(over or ptxas)}")
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -1153,8 +1254,19 @@ def scan_bwd_phase(torch, dev):
             del auto, ts
             bnd, by, nbytes, exps = scan_bwd_bound(
                 b, l, d, n, args[0].element_size())
+            counter = torch.zeros(1, dtype=torch.int64, device=dev)
+            counted = ssm_scan_bwd(*args, dy, exp_count=counter)
+            evaluated = int(counter.item())
+            if evaluated != bwd_exp_count(b, l, d, n) or not all(
+                    torch.equal(x, y) for x, y in zip(got, counted)):
+                fail(f"[scan-bwd] {tag}: the kernel evaluated {evaluated} "
+                     f"exponentials, its formula says "
+                     f"{bwd_exp_count(b, l, d, n)} (or the counted launch's "
+                     f"outputs differ)")
+            del counted
             case = {"shape": tag, "dtype": name, "errors": errs,
                     "max_abs_err": max_abs, "exp_count": exps,
+                    "kernel_exp_count": evaluated,
                     "bound_ms": bnd, "bound_by": by, "bound_bytes": nbytes,
                     "library_ms": None}
             if b * l * d >= 1 << 20:      # the training shape: timed
@@ -1175,19 +1287,21 @@ def scan_bwd_phase(torch, dev):
                       f"{o} {e[1]:.3g}" for o, e in v.items())
                       for k, v in errs.items())
                   + f"{timing}; bound {bnd:.5f} ms ({by}: "
-                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.4g} M exp)",
+                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.4g} M exp needed); "
+                  f"the kernel counted {evaluated} exp it evaluated",
                   flush=True)
             del args, dy, got
             gc.collect()
             torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     print(f"[scan-bwd] planted ddt x {PLANTED_DDT_SCALE} and dB x "
-          f"{PLANTED_DB_SCALE} caught at every shape and dtype; phase "
-          f"{seconds:.1f} s", flush=True)
+          f"{PLANTED_DB_SCALE} caught at every shape and dtype; "
+          f"ssm_bwd_kernel registers and spill bytes by instantiation "
+          f"{json.dumps(ptxas)}; phase {seconds:.1f} s", flush=True)
     # the kernels line reports falcon-mamba's training shape in bf16 (the
     # [ssm-train] run's)
     top = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16")
-    return {**top, "cases": cases, "seconds": seconds}
+    return {**top, "cases": cases, "ptxas": ptxas, "seconds": seconds}
 
 
 def per_head(got, b, l, nh):
@@ -1614,8 +1728,8 @@ def ssm_phase(torch, dev, events_dir: pathlib.Path):
         fail(f"[ssm] recorded B4 shapes {shapes} do not add up to "
              f"{launches['selective_scan']} launches")
     want = {"selective_scan": cfg.num_layers * prefills,
-            "selective_scan_bwd": 0, "flash_attention": 0,
-            "paged_attention": 0, "spec_verify": 0}
+            "selective_scan_bwd": 0, "selective_scan_heads": 0,
+            "flash_attention": 0, "paged_attention": 0, "spec_verify": 0}
     got = {k: launches[k] for k in want}
     if got != want or prefills < 1:
         fail(f"[ssm] launches {got}, wanted {want} (64 B4 a prefill)")
@@ -1666,9 +1780,10 @@ def hybrid_serve(torch, ctx, spec, tag: str):
     """Serve ``ctx``'s zamba2 through ``continuous`` (events to
     ``<tag>.jsonl`` beside ``spec``'s) with the launch counts set to 0
     just before and read just after: B1 once a shared attention
-    application (``n_super`` a prefill call), B4 once a Mamba-2 layer
-    (``num_layers`` a prefill call), nothing else. Returns (report,
-    numbers, each kernel's launches by shape, ``record_launch_shapes``)."""
+    application (``n_super`` a prefill call), the per-head B4 once a
+    Mamba-2 layer (``num_layers`` a prefill call), nothing else (B4
+    itself never). Returns (report, numbers, each kernel's launches by
+    shape, ``record_launch_shapes``)."""
     spec = spec.replace(obs=spec.obs.replace(events_path=str(
         pathlib.Path(spec.obs.events_path).with_name(f"{tag}.jsonl"))))
     model, cfg = ctx.model, ctx.model.cfg
@@ -1681,10 +1796,11 @@ def hybrid_serve(torch, ctx, spec, tag: str):
     peak = torch.cuda.max_memory_allocated()
     want = {name: 0 for name in launches}
     want["flash_attention"] = model.n_super * prefills
-    want["selective_scan"] = cfg.num_layers * prefills
+    want["selective_scan_heads"] = cfg.num_layers * prefills
     if launches != want or prefills < 1 or report.steps < 1:
         fail(f"[{tag}] launches {launches}, wanted {want} "
-             f"({model.n_super} B1 and {cfg.num_layers} B4 a prefill call)")
+             f"({model.n_super} B1 and {cfg.num_layers} B4 per head a "
+             f"prefill call)")
     for name, counts in shapes.items():
         if sum(counts.values()) != launches[name]:
             fail(f"[{tag}] recorded {name} shapes {counts} do not add up "
@@ -1700,15 +1816,15 @@ def hybrid_serve(torch, ctx, spec, tag: str):
            "launch_shapes": {name: {"x".join(map(str, k)): v
                                     for k, v in sorted(counts.items())}
                              for name, counts in shapes.items()}}
-    print(f"[{tag}] B4 launches by (B, L, D, N): "
-          f"{shapes['selective_scan']}; B1 by (B, S, Hq, Hkv, D): "
+    print(f"[{tag}] B4 per head launches by (B, L, D, N): "
+          f"{shapes['selective_scan_heads']}; B1 by (B, S, Hq, Hkv, D): "
           f"{shapes['flash_attention']}; TTFT p50/p95 "
           f"{ttft['p50']:.1f}/{ttft['p95']:.1f} ms; decode "
           f"{report.decode_tok_per_s:.1f} tok/s; mean admit "
           f"{times['admit'][0]:.2f} ms, mean decode step "
           f"{times['decode_step'][0]:.2f} ms; serving peak "
           f"{peak / 2**30:.2f} GiB; launches as wanted ({model.n_super} B1 "
-          f"and {cfg.num_layers} B4 a prefill call)", flush=True)
+          f"and {cfg.num_layers} B4 per head a prefill call)", flush=True)
     return report, out, shapes
 
 
@@ -1905,18 +2021,21 @@ def hybrid_phase(torch, dev, events_dir: pathlib.Path):
 
 
 class record_launch_shapes:
-    """Count the B4 and B1 kernels' launches by shape until ``stop``, by
-    wrapping the kernel launchers that ``ops.selective_scan`` and
-    ``ops.attention`` call on a CUDA tensor (``ops.ssm_scan`` by (B, L,
-    D, N), ``ops.flash_attention`` by (B, S, Hq, Hkv, D)), as
-    ``count_prefills`` wraps the prefill. B1 launches are serving
-    prefills: causal, unwindowed, T = S (``serve_attention_case``'s
-    case); any other fails."""
+    """Count the B4, per-head B4 and B1 kernels' launches by shape until
+    ``stop``, by wrapping the kernel launchers that
+    ``ops.selective_scan``, ``ops.selective_scan_heads`` and
+    ``ops.attention`` call on a CUDA tensor (``ops.ssm_scan`` and
+    ``ops.ssm_scan_heads`` by (B, L, D, N), ``ops.flash_attention`` by
+    (B, S, Hq, Hkv, D)), as ``count_prefills`` wraps the prefill. B1
+    launches are serving prefills: causal, unwindowed, T = S
+    (``serve_attention_case``'s case); any other fails."""
 
     def __init__(self):
         from repro_torch.kernels import ops
         self.ops, self.scan, self.attn = ops, ops.ssm_scan, ops.flash_attention
-        self.counts = {"selective_scan": {}, "flash_attention": {}}
+        self.heads = ops.ssm_scan_heads
+        self.counts = {"selective_scan": {}, "selective_scan_heads": {},
+                       "flash_attention": {}}
 
         def count(name, shape):
             self.counts[name][shape] = self.counts[name].get(shape, 0) + 1
@@ -1924,6 +2043,10 @@ class record_launch_shapes:
         def scan(x, dt, a, bmat, cmat):
             count("selective_scan", (*x.shape, a.shape[1]))
             return self.scan(x, dt, a, bmat, cmat)
+
+        def heads(x, dt, a, bmat, cmat):
+            count("selective_scan_heads", (*x.shape, bmat.shape[-1]))
+            return self.heads(x, dt, a, bmat, cmat)
 
         def attn(q, k, v, *, causal=True, window=None, **kw):
             b, hq, s, d = q.shape
@@ -1933,9 +2056,11 @@ class record_launch_shapes:
             count("flash_attention", (b, s, hq, k.shape[1], d))
             return self.attn(q, k, v, causal=causal, window=window, **kw)
         ops.ssm_scan, ops.flash_attention = scan, attn
+        ops.ssm_scan_heads = heads
 
     def stop(self):
         self.ops.ssm_scan, self.ops.flash_attention = self.scan, self.attn
+        self.ops.ssm_scan_heads = self.heads
         return self.counts
 
 
@@ -2267,7 +2392,8 @@ def train_phase(torch, dev, events_dir: pathlib.Path):
             "flash_attention_bwd": layers * steps,
             "cross_entropy": steps, "cross_entropy_bwd": steps,
             "paged_attention": 0, "spec_verify": 0, "selective_scan": 0,
-            "selective_scan_bwd": 0, "selective_scan_heads_bwd": 0}
+            "selective_scan_bwd": 0, "selective_scan_heads": 0,
+            "selective_scan_heads_bwd": 0}
     if launches != want:
         fail(f"train launches {launches}, wanted {want}")
     median = statistics.median(step_ms[1:])
@@ -2425,10 +2551,10 @@ def plain_kernels(torch, which=("attention", "cross_entropy",
     """Inside: ``ops.attention``, ``ops.cross_entropy`` and
     ``ops.selective_scan`` with ``ops.selective_scan_heads`` (or those of
     them named in ``which``; "selective_scan" names both scans) are
-    their plain versions (autograd through plain PyTorch; the per-head
-    scan through ``expand_heads``, so autograd sums its per-channel
-    gradients per head), for a reference run. Under grad the plain scan
-    is checkpointed: its states
+    their plain versions (autograd through plain PyTorch: ``ssm_scan_plain``
+    and ``ssm_scan_heads_plain``, whose one exp(dt a) a head gives dt and
+    a their gradients per head), for a reference run. Under grad each
+    plain scan is checkpointed: its states
     are recomputed in the backward, one call at a time, so autograd
     holds one layer's (B, L, D, N) states at a time. With
     ``attention_formulas`` the plain attention's backward is B1-bwd's
@@ -2440,7 +2566,8 @@ def plain_kernels(torch, which=("attention", "cross_entropy",
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain)
-    from repro_torch.kernels.ssm_scan import expand_heads, ssm_scan_plain
+    from repro_torch.kernels.ssm_scan import (ssm_scan_heads_plain,
+                                              ssm_scan_plain)
 
     def plain_attention(q, k, v, *, causal=True, window=None):
         return flash_attention_plain(
@@ -2465,14 +2592,14 @@ def plain_kernels(torch, which=("attention", "cross_entropy",
                 causal=ctx.causal, window=ctx.window)
             return (*(g.transpose(1, 2) for g in grads), None, None)
 
-    def plain_scan(*args):
-        if torch.is_grad_enabled():
-            return checkpoint(ssm_scan_plain, *args, use_reentrant=False)
-        return ssm_scan_plain(*args)
-
-    def plain_scan_heads(x, dt, a, bmat, cmat):
-        return plain_scan(x, *expand_heads(dt, a, x.shape[-1] // a.shape[0],
-                                           bmat.shape[-1]), bmat, cmat)
+    def checkpointed(fn):
+        def run(*args):
+            if torch.is_grad_enabled():
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+        return run
+    plain_scan = checkpointed(ssm_scan_plain)
+    plain_scan_heads = checkpointed(ssm_scan_heads_plain)
 
     plain = {"attention": plain_attention,
              "cross_entropy": lambda h, w, labels:
@@ -3065,16 +3192,14 @@ def family_kernel_phase(torch, dev, hybrid_shapes):
     Hkv 8, Hc 16, D 128); training attention forward and backward of
     [moe-train] (B 16, S 128) and of [vlm]'s patched loss (B 4, S 384);
     the cross-entropy of [moe-train] (T 2048, d 1536, V 49,155) and of
-    [vlm] (T 1536, d 2048, V 92,553). Then [hybrid]'s: B1 and B4 (in
-    Mamba-2's layout, 64 channels a head) at every shape each [hybrid]
-    run launched them, in its dtype (``hybrid_shapes``: by dtype name,
-    each kernel's launches by shape), and in bf16 also at B = 1 and each
-    prompt length. B1 is held at bf16's tolerance or
-    ``FP32_ATTN_TOL``, B4 at ``SCAN_TOL``. Returns the cases by
-    kernel."""
+    [vlm] (T 1536, d 2048, V 92,553). Then [hybrid]'s: B1 and the
+    per-head B4 (64 channels a head) at every shape each [hybrid] run
+    launched them, in its dtype (``hybrid_shapes``: by dtype name, each
+    kernel's launches by shape), and in bf16 also at B = 1 and each
+    prompt length. B1 is held at bf16's tolerance or ``FP32_ATTN_TOL``,
+    the per-head B4 as ``timed_heads_case`` holds it. Returns the cases
+    by kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ssm_scan import ssm_scan_plain
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
 
@@ -3106,13 +3231,13 @@ def family_kernel_phase(torch, dev, hybrid_shapes):
         cases["cross_entropy"].append({"phase": tag, **fwd})
         cases["cross_entropy_bwd"].append({"phase": tag, **bwd})
     hcfg = get_config(HYBRID_ARCH)
-    cases["selective_scan"] = []
+    cases["selective_scan_heads"] = []
     for name, shapes in hybrid_shapes.items():
         dtype = getattr(torch, name)
         tol = (dict(atol=BF16_ATOL, rtol=BF16_RTOL) if name == "bfloat16"
                else FP32_ATTN_TOL)
         b1 = dict(shapes["flash_attention"])
-        b4 = dict(shapes["selective_scan"])
+        b4 = dict(shapes["selective_scan_heads"])
         if name == "bfloat16":    # the prefill shapes of one prompt alone
             for plen in SERVE["prompt_lens"]:
                 b1.setdefault((1, plen, hcfg.num_heads, hcfg.num_kv_heads,
@@ -3126,19 +3251,13 @@ def family_kernel_phase(torch, dev, hybrid_shapes):
                 "phase": "hybrid", "launches": n,
                 **serve_attention_case(torch, rnd, *shape, tol=tol)})
         for shape, n in sorted(b4.items()):
-            args = mamba2_scan_case(torch, dev, gen, *shape,
-                                    hd=hcfg.ssm_head_dim, dtype=dtype)
-            y, h = ops.selective_scan(*args)
-            py, ph = ssm_scan_plain(*args)
-            err = max(within_tol(torch, y, py, f"ssm_scan y mamba2 {name} "
-                                 f"{shape}", **SCAN_TOL),
-                      within_tol(torch, h, ph, f"ssm_scan h_last mamba2 "
-                                 f"{name} {shape}", **SCAN_TOL))
-            cases["selective_scan"].append({
-                "phase": "hybrid", **timed_scan_case(
-                    torch, args, shape, err, n,
-                    f"the [hybrid] {name} run, Mamba-2 layout",
-                    hd=hcfg.ssm_head_dim)})
+            args = heads_case(torch, dev, gen, *shape, hd=hcfg.ssm_head_dim,
+                              dtype=dtype)
+            cases["selective_scan_heads"].append({
+                "phase": "hybrid", **timed_heads_case(
+                    torch, args, shape, hcfg.ssm_head_dim, n,
+                    f"the [hybrid] {name} run")})
+            del args
     return cases
 
 
@@ -3150,6 +3269,7 @@ SSM_TRAIN_GROUPS = (
     ("B4-bwd selective_scan_bwd", _kernel_named("ssm_bwd")),
     ("B4-bwd per head selective_scan_heads_bwd",
      _kernel_named("mamba2_bwd")),
+    ("B4 per head selective_scan_heads", _kernel_named("mamba2_fwd")),
     ("B4 selective_scan", _kernel_named("ssm_scan_kernel")),
     ("B5 cross_entropy fwd", _kernel_named("xent_fwd", "xent_combine")),
     ("B5 cross_entropy_bwd", _kernel_named("xent_", "gemm_kernel")),
@@ -3166,9 +3286,8 @@ class record_train_shapes:
     """Count every training kernel's launches by shape until ``stop``, by
     wrapping the launchers that ``ops``' wrappers call on a CUDA tensor:
     B1 and B1-bwd by (B, S, Hq, Hkv, D), B5 and B5-bwd by (T, d, V), B4
-    and B4-bwd by (B, L, D, N, ``hd``), ``hd`` the channels a head of
-    Mamba-2's layout (None: Mamba-1's), the per-head B4-bwd by (B, L, D,
-    N, hd) from its own inputs. A B1 or B1-bwd launch that is not
+    and B4-bwd by (B, L, D, N, None), the per-head B4 and B4-bwd by (B,
+    L, D, N, hd), hd the channels a head. A B1 or B1-bwd launch that is not
     causal and unwindowed over T = S, or a B1 launch without the lse,
     fails: training runs none."""
 
@@ -3176,9 +3295,10 @@ class record_train_shapes:
              "flash_attention_bwd": "flash_attention_bwd",
              "selective_scan": "ssm_scan",
              "selective_scan_bwd": "ssm_scan_bwd",
+             "selective_scan_heads": "ssm_scan_heads",
              "selective_scan_heads_bwd": "ssm_scan_heads_bwd"}
 
-    def __init__(self, hd=None):
+    def __init__(self):
         from repro_torch.kernels import ops
         self.ops, self.xent = ops, ops.xent
         self.saved = {n: getattr(ops, a) for n, a in self.NAMES.items()}
@@ -3208,7 +3328,7 @@ class record_train_shapes:
             return shape_of
 
         def scan_shape(x, dt, a, *args, **kw):
-            return (*x.shape, a.shape[1], hd)
+            return (*x.shape, a.shape[1], None)
 
         def heads_shape(x, dt, a, bm, *args, **kw):
             return (*x.shape, bm.shape[-1], x.shape[-1] // a.shape[0])
@@ -3220,6 +3340,7 @@ class record_train_shapes:
                   "flash_attention_bwd": attn_shape(False),
                   "selective_scan": scan_shape,
                   "selective_scan_bwd": scan_shape,
+                  "selective_scan_heads": heads_shape,
                   "selective_scan_heads_bwd": heads_shape}
         for name, attr in self.NAMES.items():
             setattr(ops, attr, counted(name, shapes[name], self.saved[name]))
@@ -3241,8 +3362,9 @@ def ssm_train_kernel_phase(torch, dev, shapes):
     version and timed at each shape those runs launched it
     (``record_train_shapes``' counts, summed over both): B1 with its lse
     (``attention_train_case``) and B1-bwd (``attention_bwd_case``) at
-    bf16's tolerance, B5 and B5-bwd (``xent_case``) at theirs, B4 in
-    either layout at ``SCAN_TOL`` (``timed_scan_case``). B4-bwd is held
+    bf16's tolerance, B5 and B5-bwd (``xent_case``) at theirs, B4 at
+    ``SCAN_TOL`` (``timed_scan_case``) and the per-head B4 as
+    ``timed_heads_case`` holds it. B4-bwd is held
     by [scan-bwd] at ``SCAN_BWD_SHAPES``, the per-head B4-bwd at
     ``SCAN_HEADS_BWD_SHAPES``: a shape launched outside them fails.
     Returns the cases by kernel."""
@@ -3273,23 +3395,25 @@ def ssm_train_kernel_phase(torch, dev, shapes):
                            ("cross_entropy_bwd", bwd)):
             cases[name].append({"phase": "train", "launches":
                                 shapes[name].get(shape, 0), **case})
-    for (b, l, d, n, hd), count in sorted(
+    for (b, l, d, n, _), count in sorted(
             shapes["selective_scan"].items(), key=str):
-        args = (mamba2_scan_case(torch, dev, gen, b, l, d, n, hd,
-                                 torch.bfloat16) if hd else
-                scan_case(torch, dev, gen, torch.bfloat16, b, l, d, n))
+        args = scan_case(torch, dev, gen, torch.bfloat16, b, l, d, n)
         y, h = ops.selective_scan(*args)
         py, ph = ssm_scan_plain(*args)
-        what = f"ssm_scan training {(b, l, d, n)}" + (
-            f" Mamba-2 layout ({hd} channels a head)" if hd else "")
+        what = f"ssm_scan training {(b, l, d, n)}"
         err = max(within_tol(torch, y, py, f"{what} y", **SCAN_TOL),
                   within_tol(torch, h, ph, f"{what} h_last", **SCAN_TOL))
         cases["selective_scan"].append({
             "phase": "train", **timed_scan_case(
-                torch, args, (b, l, d, n), err, count,
-                "the training runs" + (", Mamba-2 layout" if hd else ""),
-                hd=hd)})
+                torch, args, (b, l, d, n), err, count, "the training runs")})
         del args, y, h, py, ph
+    for (b, l, d, n, hd), count in sorted(
+            shapes["selective_scan_heads"].items()):
+        args = heads_case(torch, dev, gen, b, l, d, n, hd, torch.bfloat16)
+        cases["selective_scan_heads"].append({
+            "phase": "train", **timed_heads_case(
+                torch, args, (b, l, d, n), hd, count, "the training runs")})
+        del args
     for name, held in (
             ("selective_scan_bwd", {(*s, None) for s in SCAN_BWD_SHAPES}),
             ("selective_scan_heads_bwd", set(SCAN_HEADS_BWD_SHAPES))):
@@ -3302,8 +3426,8 @@ def ssm_train_kernel_phase(torch, dev, shapes):
              "held_by": "[scan-bwd]"}
             for k, v in shapes[name].items()]
     seconds = time.perf_counter() - t_phase
-    print(f"[train-kernels] B1, B1-bwd, B5, B5-bwd and B4 at every "
-          f"training shape held to their plain versions (both B4-bwd "
+    print(f"[train-kernels] B1, B1-bwd, B5, B5-bwd, B4 and B4 per head at "
+          f"every training shape held to their plain versions (both B4-bwd "
           f"kernels' shapes held by [scan-bwd]: "
           f"{json.dumps(cases['selective_scan_bwd'])} "
           f"{json.dumps(cases['selective_scan_heads_bwd'])}); phase "
@@ -3439,8 +3563,8 @@ def ssm_grad_check(torch, dev, tag: str, arch: str, layers: int,
         n_attn = ctx.model.n_super
         want = {k: 0 for k in launches}
         if "selective_scan" in kernels:
-            want.update({"selective_scan": layers, scan_bwd_name(
-                ctx.model.cfg): layers})
+            want.update({scan_fwd_name(ctx.model.cfg): layers,
+                         scan_bwd_name(ctx.model.cfg): layers})
         if "attention" in kernels:
             want.update(flash_attention=n_attn, flash_attention_bwd=n_attn)
         if "cross_entropy" in kernels:
@@ -3472,9 +3596,16 @@ def ssm_grad_check(torch, dev, tag: str, arch: str, layers: int,
     return {"cases": out, **extra}
 
 
+def scan_fwd_name(cfg) -> str:
+    """The B4 wrapper a Mamba layer of ``cfg`` runs: the per-head one in
+    Mamba-2's layout, the per-channel one in Mamba-1's."""
+    return ("selective_scan_heads" if cfg.ssm_variant == "mamba2"
+            else "selective_scan")
+
+
 def scan_bwd_name(cfg) -> str:
-    """The B4-bwd wrapper a Mamba layer of ``cfg`` trains through: the
-    per-head one in Mamba-2's layout, the per-channel one in Mamba-1's."""
+    """The B4-bwd wrapper a Mamba layer of ``cfg`` trains through, as
+    ``scan_fwd_name`` picks B4's."""
     return ("selective_scan_heads_bwd" if cfg.ssm_variant == "mamba2"
             else "selective_scan_bwd")
 
@@ -3486,7 +3617,7 @@ def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
     layers (cut 2), PSL-UGS through ``api.run`` in the granite training
     setting for ``steps`` steps: per-step loss, accuracy, grad
     norm and step ms; launches exactly one B4 and one B4-bwd (per head
-    in Mamba-2's layout, ``scan_bwd_name``) a Mamba
+    in Mamba-2's layout, ``scan_fwd_name``, ``scan_bwd_name``) a Mamba
     layer, one B1 and one B1-bwd a shared-attention application, one B5
     and one B5-bwd a step, nothing else; finite losses and grad norms;
     init and training peak memory; one more step profiled by group
@@ -3533,8 +3664,7 @@ def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
           f"{spec.sampler.method}, {spec.optimizer.name}; built in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     ops.reset_launches()
-    recorder = record_train_shapes(
-        cfg.ssm_head_dim if cfg.ssm_variant == "mamba2" else None)
+    recorder = record_train_shapes()
     try:
         result = api.run(spec, ctx=ctx)
         torch.cuda.synchronize()
@@ -3552,14 +3682,15 @@ def ssm_train_phase(torch, dev, events_dir: pathlib.Path, tag: str, arch,
             fail(f"[{tag}] step {i} is not finite: {m}")
     attn = model.n_super
     want = {name: 0 for name in launches}
-    want.update({"selective_scan": layers * ran,
+    want.update({scan_fwd_name(cfg): layers * ran,
                  scan_bwd_name(cfg): layers * ran,
                  "flash_attention": attn * ran,
                  "flash_attention_bwd": attn * ran,
                  "cross_entropy": ran, "cross_entropy_bwd": ran})
     if ran != steps or launches != want:
         fail(f"[{tag}] {ran} steps of {steps}, launches {launches}, wanted {want} "
-             f"({layers} B4 + {layers} {scan_bwd_name(cfg)} + {attn} B1 + "
+             f"({layers} {scan_fwd_name(cfg)} + {layers} "
+             f"{scan_bwd_name(cfg)} + {attn} B1 + "
              f"{attn} B1-bwd "
              f"+ 1 B5 + 1 B5-bwd a step)")
     n_params = sum(p.numel() for p in _leaves(result.params))
@@ -4582,10 +4713,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family_cases = family_kernel_phase(torch, dev, hybrid_shapes)
+    heads_ptxas = ptxas_usage(logs, "mamba2_fwd_kernel")
+    print(f"[hybrid] mamba2_fwd_kernel registers and spill bytes by "
+          f"instantiation {json.dumps(heads_ptxas)}", flush=True)
     print(f"[families] summary {json.dumps(families)}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    b4_bwd = scan_bwd_phase(torch, dev)
+    b4_bwd = scan_bwd_phase(torch, dev, ptxas_usage(logs, "ssm_bwd_kernel"))
     gc.collect()
     torch.cuda.empty_cache()
     b4_heads = scan_heads_bwd_phase(
@@ -4605,8 +4739,9 @@ def main() -> int:
                     train_shapes[name].get(shape, 0) + n)
     train_cases = ssm_train_kernel_phase(torch, dev, train_shapes)
     for name in ("flash_attention", "flash_attention_bwd", "cross_entropy",
-                 "cross_entropy_bwd", "selective_scan"):
-        family_cases[name] += train_cases[name]
+                 "cross_entropy_bwd", "selective_scan",
+                 "selective_scan_heads"):
+        family_cases.setdefault(name, []).extend(train_cases[name])
     together = (b4_bwd["seconds"] + b4_heads["seconds"]
                 + train_cases["seconds"]
                 + sum(t["seconds"] for t in ssm_train.values()))
@@ -4646,6 +4781,9 @@ def main() -> int:
     rates = ("tflops", "bound_share")      # from ms, as measured
     b1 = max(b1_cases, key=lambda c: c["bound_ms"])      # B=16 S=512
     b1b = b1_bwd[0]                      # the training shape, S = 128
+    # the per-head B4 at zamba2's training shape ([hybrid-train]'s)
+    b4h = max(family_cases["selective_scan_heads"],
+              key=lambda c: c["bound_ms"])
     by_path = {name: {"serve_paged": launches["paged"][name],
                       "serve_continuous": launches["continuous"][name],
                       "serve_speculative": launches["speculative"][name],
@@ -4728,9 +4866,25 @@ def main() -> int:
              "selective_scan_bwd"],
          "launches_by_path": by_path["selective_scan_bwd"],
          **{k: b4_bwd[k] for k in ("max_abs_err", "device_ms", "exp_count",
-                                   "cases") + timing},
+                                   "kernel_exp_count", "cases", "ptxas")
+           + timing},
          "train_cases": train_cases["selective_scan_bwd"],
          "async_copy_count": asyncs["ssm_bwd_kernel"]},
+        {"name": "selective_scan_heads", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba2_fwd.cu",
+         "replaces": "src/repro/models/layers.py:655",
+         "launches": ssm_train["hybrid-train"]["launches"][
+             "selective_scan_heads"],
+         "launches_by_path": by_path["selective_scan_heads"],
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in family_cases["selective_scan_heads"]),
+         **{k: b4h[k] for k in ("device_ms", "exp_count", "kernel_exp_count",
+                                "b4_ms", "b4_device_ms", "bound_share")
+            + timing},
+         "family_cases": family_cases["selective_scan_heads"],
+         "ptxas": heads_ptxas,
+         "async_copy_count": asyncs["mamba2_fwd_kernel"],
+         "exp_sass": sass["MUFU.EX2"]["kernels"]["mamba2_fwd_kernel"]},
         {"name": "selective_scan_heads_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba2_bwd.cu",
          "replaces": "src/repro/models/layers.py:655",

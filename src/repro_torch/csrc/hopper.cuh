@@ -106,6 +106,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
+// 8 bytes (both addresses 8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -114,6 +120,40 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- warp sums -------------------------------------------------------------
+
+// Sum each of K values over the warp's 32 lanes by log2(K) transposing
+// xor levels (a lane sends half its values to its partner and keeps the
+// other half); then, with `full`, plain xor levels over the rest. Lane l
+// returns value l >> (5 - log2(K)): the warp's sum with `full`, else the
+// sum over the 2^log2(K) lanes that share l's low 5 - log2(K) bits, one
+// of 32 / K partial sums of that value.
+template <int K, bool full>
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[K],
+                                                    int lane) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int LK = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
+  static_assert((1 << LK) == K, "K must be 1, 2, 4 or 8");
+#pragma unroll
+  for (int lv = 0; lv < LK; ++lv) {
+    const int m = 16 >> lv;
+    const int half = K >> (lv + 1);
+    const bool up = (lane & m) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(kAll, send, m);
+    }
+  }
+  if (full) {
+#pragma unroll
+    for (int m = 16 >> LK; m >= 1; m >>= 1)
+      v[0] += __shfl_xor_sync(kAll, v[0], m);
+  }
+  return v[0];
 }
 
 // ---- wgmma -----------------------------------------------------------------

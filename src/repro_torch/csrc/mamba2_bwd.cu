@@ -126,43 +126,6 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
-// Sum each of K values over the warp's 32 lanes by log2(K) transposing
-// xor levels (a lane sends half its values to its partner and keeps the
-// other half); then, with `full`, plain xor levels over the rest. Lane l
-// returns value l >> (5 - log2(K)): the warp's sum with `full`, else the
-// sum over the 2^log2(K) lanes that share l's low 5 - log2(K) bits, one
-// of 32 / K partial sums of that value.
-template <int K, bool full>
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[K],
-                                                    int lane) {
-  constexpr int LK = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
-  static_assert((1 << LK) == K, "K must be 1, 2, 4 or 8");
-#pragma unroll
-  for (int lv = 0; lv < LK; ++lv) {
-    const int m = 16 >> lv;
-    const int half = K >> (lv + 1);
-    const bool up = (lane & m) != 0;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? v[i] : v[i + half];
-      const float keep = up ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, m);
-    }
-  }
-  if (full) {
-#pragma unroll
-    for (int m = 16 >> LK; m >= 1; m >>= 1)
-      v[0] += __shfl_xor_sync(kFull, v[0], m);
-  }
-  return v[0];
-}
-
-// 8 bytes (both addresses 8-byte aligned).
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-               :: "r"(hopper::smem_u32(dst)), "l"(src) : "memory");
-}
-
 // A lane's CPL adjacent channels of a shared-memory row as fp32 (one
 // 2-, 4- or 8-byte read).
 template <int CPL>
@@ -304,7 +267,7 @@ __device__ __forceinline__ void load_stage(
       if constexpr (sizeof(T) == 4)
         hopper::cp_async16(dst, src);
       else
-        cp_async8(dst, src);
+        hopper::cp_async8(dst, src);
     }
   } else {
     for (int i = tid; i < s.tn * NT * nmat; i += NTH) {
@@ -699,11 +662,12 @@ mamba2_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
             // (x . gb, g . h_{t-1}): one transposing level, lanes < 16
             // keep the first summed over lane pairs, the rest the second
             float p2[2] = {s1, s2};
-            sm.sp[buf][r][tid] = warp_transpose_sum<2, false>(p2, lane);
+            sm.sp[buf][r][tid] =
+                hopper::warp_transpose_sum<2, false>(p2, lane);
             // dB, dC over the warp's lanes (its channels), three of five
             // levels: lane l holds one of four partial sums of value l / 4
             sm.dbp[buf][r][warp][lane] =
-                warp_transpose_sum<2 * kNPer, false>(v, lane);
+                hopper::warp_transpose_sum<2 * kNPer, false>(v, lane);
           }
         }
       }

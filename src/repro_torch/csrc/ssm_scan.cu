@@ -50,6 +50,7 @@
 // masked.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -344,54 +345,92 @@ int launch(const void* x, const float* dt, const float* a, const void* bm,
 // B4-bwd: the selective scan's backward. Replaces no TPU kernel: the TPU had
 // no backward for B4, and repro differentiates its plain-JAX chunked scan
 // (src/repro/models/layers.py _chunked_ssm_scan) with jax.grad. With g_t
-// the adjoint of h_t (fp32 throughout):
+// the adjoint of h_t and e_t = exp(dt_t[d] a[d, n]) (fp32 throughout):
 //
 //   g_{L-1} = dh_last + dy_{L-1} C_{L-1}
-//   g_t     = dy_t C_t + exp(dt_{t+1} a) g_{t+1}
+//   g_t     = dy_t C_t + e_{t+1} g_{t+1}
 //   dx_t[d]  = dt_t[d] sum_n g_t[d,n] B_t[n]
-//   ddt_t[d] = sum_n g_t[d,n] (x_t[d] B_t[n] + a[d,n] exp(dt_t[d] a[d,n])
-//                              h_{t-1}[d,n])
+//   ddt_t[d] = sum_n g_t[d,n] (x_t[d] B_t[n] + (a[d,n] e_t) h_{t-1}[d,n])
 //   dB_t[n]  = sum_d g_t[d,n] dt_t[d] x_t[d]
 //   dC_t[n]  = sum_d dy_t[d] h_t[d,n]
-//   da[d,n]  = sum_{b,t} g_t[d,n] dt_t[d] exp(dt_t[d] a[d,n]) h_{t-1}[d,n]
+//   da[d,n]  = sum_{b,t} (g_t[d,n] dt_t[d]) (e_t h_{t-1}[d,n])
 //
 // What bounds it. Per (b, t, d) it reads x, dt and dy and writes dx and
-// ddt; per (b, t) B, C, dB and dC; a and da once. At the training shapes
-// (B 16, L 128; falcon-mamba D 8192 N 16, zamba2 D 5120 N 64) that is
-// ~0.1-0.3 GB against 0.27-0.67 G (b, t, d, n) elements, each needing one
-// exp(dt a) and ~15 fp32 operations: the exponentials at the SFUs' rate
-// bound it on paper. This first version evaluates each exponential three
-// times (below) and spends shuffles on the reductions over D.
+// ddt; per (b, t) B, C, dB and dC; a and da once: ~0.3 GB at falcon-mamba's
+// training shape (B 16, L 128, D 8192, N 16), 0.08 ms. Against that, 268 M
+// (b, t, d, n) state-steps, each needing one exp(dt a) and 22 fp32
+// operations (chip_smoke.py's scan_bwd_bound): 0.088 ms at the fp32 peak.
+// The decay differs per (channel, state), so the exponentials cannot be
+// shared as in Mamba-2's layout (csrc/mamba2_bwd.cu); what a design can
+// save is how often each is evaluated again. The first version of this
+// kernel evaluated three a state-step (a forward pass, a chunk's recompute and
+// the reverse step), held a chunk's 16 x 4 states in 244 registers (two
+// blocks of 4 warps an SM) and spent 28 shuffles a step on its sums.
 //
-// Design.
-// - h_{t-1} is recomputed, never recovered by dividing by exp(dt a) (which
-//   underflows). The forward saves nothing (serving is untouched, and the
-//   training graph holds no (B, L/16, D, N) states: 9 GB over zamba2's 54
-//   layers). The backward first runs the forward recurrence over a tile's
-//   channels and writes h at each chunk boundary (every kChunk = 16 steps)
-//   to a scratch the block alone reads, 512 floats a chunk; then walks the
-//   chunks in reverse, recomputing each chunk's 16 states into registers
-//   from its checkpoint and walking them backward.
-// - Threads own states as in the forward (NT / 4 lanes a channel, 4 states
-//   a lane). dx and ddt sum the N states across a channel's lanes by xor
-//   shuffles in sum_states' order; dB and dC sum over the channels: across
-//   a warp's channels by xor shuffles, then across the 4 warps in shared
-//   memory in warp order, then over a group of tiles_per_block channel
-//   tiles that the block walks one after the other (block-private partial
-//   sums in device memory, first tile stores, later tiles add), and last
-//   over the groups and, for da, over the batch rows, in a second kernel
-//   (ssm_bwd_reduce) in index order. Every sum has a fixed order: the
-//   gradients are deterministic. The scratch is (groups, B, L, N) twice,
-//   and the wrapper picks tiles_per_block to keep it near 64 MiB.
-// - Loads go through the forward's cp.async ring of kChunk-step stages
-//   (x, dt, B, C), plus dy, one chunk ahead, in both passes.
-// - Channels past D and states past N enter as zeros (dt = x = dy = 0,
-//   a = B = C = 0), so their gradients and contributions are exactly 0.
-// - exp and the products are unfused (__fmul_rn / __fadd_rn), as in the
-//   plain version (ssm_scan_bwd_plain) and the forward: the recomputed
-//   states equal the forward's bit for bit.
+// Design (Mamba-2's backward, csrc/mamba2_bwd.cu, carried over).
+// - Layout: channels across lanes, states across warps. A block walks
+//   tiles of 32 channels (lane l owns channel d0 + l) of one batch row;
+//   warp w owns states 4w .. 4w + 3, so a thread owns 4 (channel, state)
+//   pairs and the block (NT / 4 warps, NT = N rounded up to 8, 16, 32 or
+//   64) every state: 4 warps at falcon-mamba's N 16. Channels past D and
+//   states past N enter as zeros (dt = x = dy = 0, a = B = C = 0) and stay
+//   exactly 0.
+// - States are recomputed, never recovered by dividing by e_t (which
+//   underflows): a first pass runs the recurrence over the tile and writes
+//   h every kSub = 4 steps to a block-private scratch (~62 KB a block at
+//   falcon-mamba's L 128, L2-resident); the second walks 8-step chunks in
+//   reverse, each in its two sub-chunks: a sub-chunk's 4 states
+//   recomputed from its checkpoint (staged in shared memory one chunk
+//   ahead by cp.async), each state and its e_t kept in shared memory
+//   (every thread its own slots), and the 4 steps walked backward,
+//   reusing those e_t. So a (channel, state) pair evaluates
+//       4 (ceil(L / 4) - 1) + L
+//   exponentials, 252 at L 128 (1.97 a state-step), and the kernel's count
+//   is B * D * N times that: 528.5 M at falcon-mamba's shape, where the
+//   first version evaluated 771.8 M. (Checkpoints every 8 steps, with each
+//   second sub-chunk's start recomputed, took 2.44 a state-step and ran
+//   0.1 ms slower on the H100.) Given a counter (exp_count, null on the
+//   training path), each thread adds its evaluations to it once.
+// - Registers: a thread keeps 4 states, a, the carry g and da; its
+//   sub-chunk's history is in shared memory, so a sub-chunk's steps and
+//   its two halves run as rolled loops. At most 128 registers a thread
+//   (__launch_bounds__ caps every instantiation there) and no spill: 4
+//   blocks of 4 warps an SM, where the first version had 2 (it held a
+//   chunk's 16 x 4 states in 244 registers). Unrolled, the same steps
+//   spilled and ran ~10% slower on the H100.
+// - Reductions, each in a fixed order (no atomics: two launches give the
+//   same bits):
+//   - dx, ddt (over a channel's states, so across warps): a thread sums
+//     its 4 states in index order; the warps' partials go through shared
+//     memory and are summed pairwise when the chunk ends: sum_states'
+//     order, the plain version's (ssm_scan_bwd_plain). The reverse step's
+//     products are fused (fmaf): the gradients are held to the plain
+//     version at tolerances.
+//   - dB, dC (over channels, so across lanes): three transposing xor levels
+//     (7 shuffles for 8 values, where the first version spent 24) leave
+//     each lane one of four partial sums of one value, which are summed
+//     in lane order when the chunk ends; the block's sums are added to a
+//     (groups, B, L, N) partial (its first tile stores, later tiles add),
+//     which ssm_bwd_reduce sums over the groups in order.
+//   - da: each thread's pairs over the tile's steps in registers, written
+//     per batch row to a (B, D, N) partial that ssm_bwd_reduce sums over
+//     the rows in order.
+//   A chunk's sums run after the next chunk's first barrier; a second
+//   frees the (single) partial buffers for its walk.
+// - Loads: a 3-stage cp.async ring of 8-step chunks (x, dt, dy, and B and
+//   C interleaved by quads of states, so one read gives a thread its 4
+//   states of both), two chunks ahead, 16-byte copies where rows are
+//   aligned.
+// - The recomputed states use B4's exp and products, unfused (expf,
+//   __fmul_rn / __fadd_rn): they equal the forward's bit for bit.
 
-constexpr int kWarps = kThreads / 32;
+namespace bwd {
+
+constexpr int kChunk = 8;      // steps a stage
+constexpr int kSub = 4;        // steps between checkpoints (a sub-chunk)
+constexpr int kStages = 3;     // chunks k + 1 and k + 2 load while k runs
+constexpr int kNPer = 4;       // states a thread (and a warp) owns
+constexpr int kCT = 32;        // channels a tile: one a lane
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
@@ -403,283 +442,422 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
-template <typename T, int NT, int CW>
-struct __align__(16) BwdSmem {
-  Stage<T, NT, CW> ring[kStages];
-  float dy[kStages][kChunk][CW];
-  float red_b[kWarps][kChunk][NT];   // a warp's dB / dC sums a chunk
-  float red_c[kWarps][kChunk][NT];
-  float dxs[kChunk][CW];
-  float ddts[kChunk][CW];
+// One ring stage: kChunk steps of the tile's channels of x, dt and dy, and
+// B and C interleaved by quads of states (row: B[0..3], C[0..3], B[4..7],
+// ...; states past N zero).
+template <typename T, int NT>
+struct __align__(16) Stage {
+  T x[kChunk][kCT];
+  float dt[kChunk][kCT];
+  float dy[kChunk][kCT];
+  T bc[kChunk][2 * NT];
 };
 
-struct BwdFlags {
-  Flags f;
-  bool vec_dy;    // dy rows 16-byte aligned: 16-byte copies
+template <typename T, int NT>
+struct __align__(16) Smem {
+  static constexpr int W = NT / kNPer;
+  static constexpr int NTH = 32 * W;
+  Stage<T, NT> ring[kStages];
+  float ckb[2][2][NTH * kNPer];      // each thread's checkpoint slices
+  float4 abs[kSub][NTH];             // a sub-chunk's e_t, each thread's 4
+  float4 hsm[kSub][NTH];             // and its states after each step
+  float2 part[W][kChunk][kCT];       // each warp's (dx, ddt) partial
+  float dbp[kChunk][W][32];          // each lane's dB / dC partial
+  float dtb[kChunk][kCT];            // the chunk's dt, kept for its end
 };
 
-// dy for time steps t0 .. t0 + tn - 1 of the block's CW channels.
-template <int CW>
-__device__ __forceinline__ void load_dy(float (&dst)[kChunk][CW],
-                                        const float* __restrict__ dy,
-                                        long long row, int t0, int tn,
-                                        int d0, int D, bool vec) {
+struct Flags {
+  bool vec_x;     // x rows 16-byte aligned: 16-byte copies
+  bool vec_dt;    // dt alike
+  bool vec_dy;    // dy alike
+  bool vec_bc;    // N == NT and B, C rows aligned: quad copies
+};
+
+// Rows t0 .. t0 + tn - 1 of the tile's channels d0 .. d0 + cw - 1 of a
+// (B, L, D) tensor, channels past cw zero.
+template <typename E, int NTH>
+__device__ __forceinline__ void load_rows(E (&dst)[kChunk][kCT],
+                                          const E* __restrict__ src,
+                                          long long row, int t0, int tn,
+                                          int d0, int cw, int D, bool vec) {
   const int tid = threadIdx.x;
   if (vec) {
-    constexpr int R = CW / 4;
-    for (int i = tid; i < kChunk * R; i += kThreads) {
-      const int r = i / R, d = d0 + (i % R) * 4;
-      if (r < tn && d < D)
-        hopper::cp_async16(&dst[r][d - d0], dy + (row + t0 + r) * D + d);
+    constexpr int V = 16 / sizeof(E);
+    constexpr int R = kCT / V;
+    for (int i = tid; i < tn * R; i += NTH) {
+      const int r = i / R, cc = (i % R) * V;
+      if (cc < cw)
+        hopper::cp_async16(&dst[r][cc], src + (row + t0 + r) * D + d0 + cc);
+      else
+        hopper::cp_async16(&dst[r][cc], src, 0);     // zeros
     }
   } else {
-    for (int i = tid; i < kChunk * CW; i += kThreads) {
-      const int r = i / CW, cc = i % CW;
-      if (r < tn && d0 + cc < D)
-        hopper::cp_async4(&dst[r][cc], dy + (row + t0 + r) * D + d0 + cc);
+    for (int i = tid; i < tn * kCT; i += NTH) {
+      const int r = i / kCT, cc = i % kCT;
+      if (cc < cw) {
+        const E* p = src + (row + t0 + r) * D + d0 + cc;
+        if constexpr (sizeof(E) == 4)
+          hopper::cp_async4(&dst[r][cc], p);
+        else
+          dst[r][cc] = *p;
+      } else {
+        dst[r][cc] = from_f<E>(0.f);
+      }
     }
   }
 }
 
+template <typename T, int NT, int NTH>
+__device__ __forceinline__ void load_stage(
+    Stage<T, NT>& st, const T* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ dy,
+    const T* __restrict__ bm, const T* __restrict__ cm, long long row,
+    int t0, int tn, int d0, int cw, int D, int N, bool with_dy_c, Flags f) {
+  load_rows<T, NTH>(st.x, x, row, t0, tn, d0, cw, D, f.vec_x);
+  load_rows<float, NTH>(st.dt, dt, row, t0, tn, d0, cw, D, f.vec_dt);
+  if (with_dy_c)
+    load_rows<float, NTH>(st.dy, dy, row, t0, tn, d0, cw, D, f.vec_dy);
+  // B (and C): quad q of row r to bc[r][8 q] (and bc[r][8 q + 4])
+  const int tid = threadIdx.x;
+  const int nmat = with_dy_c ? 2 : 1;
+  if (f.vec_bc) {
+    constexpr int Q = NT / 4;
+    for (int i = tid; i < tn * Q * nmat; i += NTH) {
+      const int m = i / (tn * Q), rq = i % (tn * Q);
+      const int r = rq / Q, q = rq % Q;
+      const T* src = (m ? cm : bm) + (row + t0 + r) * N + 4 * q;
+      T* dst = &st.bc[r][8 * q + 4 * m];
+      if constexpr (sizeof(T) == 4)
+        hopper::cp_async16(dst, src);
+      else
+        hopper::cp_async8(dst, src);
+    }
+  } else {
+    for (int i = tid; i < tn * NT * nmat; i += NTH) {
+      const int m = i / (tn * NT), rn = i % (tn * NT);
+      const int r = rn / NT, n = rn % NT;
+      T* dst = &st.bc[r][8 * (n / 4) + 4 * m + n % 4];
+      if (n < N) {
+        const T* src = (m ? cm : bm) + (row + t0 + r) * N + n;
+        if constexpr (sizeof(T) == 4)
+          hopper::cp_async4(dst, src);
+        else
+          *dst = *src;
+      } else {
+        *dst = from_f<T>(0.f);
+      }
+    }
+  }
+}
+
+// A quad of B (load_b), or of B and C (load_bc), from an interleaved B/C
+// row of the stage, as fp32.
+__device__ __forceinline__ void load_b(const float* p, float (&bv)[4]) {
+  load4(p, bv);
+}
+template <typename T>
+__device__ __forceinline__ void load_b(const T* p, float (&bv)[4]) {
+  load4(p, bv);
+}
+template <typename T>
+__device__ __forceinline__ void load_bc(const T* p, float (&bv)[4],
+                                        float (&cv)[4]) {
+  load_b(p, bv);
+  load_b(p + 4, cv);
+}
+
 // Grid (groups, B): block (g, b) walks channel tiles g * G .. g * G + G - 1
 // (G = tiles_per_block; the last group may hold fewer) of batch row b.
+// T: dtype of x, B, C, dx, dB, dC; NT: N rounded up.
 template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(8 * NT, 512 / (8 * NT))
 ssm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ a, const T* __restrict__ bm,
                const T* __restrict__ cm, const float* __restrict__ dy,
                const float* __restrict__ dh_last, T* __restrict__ dx,
                float* __restrict__ ddt, float* __restrict__ db_part,
                float* __restrict__ dc_part, float* __restrict__ da_part,
-               float* __restrict__ ckpt, int L, int D, int N, int G,
-               BwdFlags bf) {
-  constexpr int S = NT / kPerLane;     // lanes a channel
-  constexpr int CW = kThreads / S;     // channels a tile
+               float* __restrict__ ckpt,
+               unsigned long long* __restrict__ exp_count, int L, int D,
+               int N, int G, Flags f) {
+  constexpr int W = NT / kNPer;          // warps: states 4w .. 4w + 3
+  constexpr int NTH = 32 * W;
+  using Sm = Smem<T, NT>;
+  using St = Stage<T, NT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<BwdSmem<T, NT, CW>*>(smem_raw);
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int c = tid / S, s = tid % S;
-  const int b = blockIdx.y;
-  const int B = gridDim.y;
+  const int b = blockIdx.y, B = gridDim.y;
   const long long row = static_cast<long long>(b) * L;
+  const int tiles = (D + kCT - 1) / kCT;
   const int chunks = (L + kChunk - 1) / kChunk;
-  const int tiles = (D + CW - 1) / CW;
-  const int tile0 = blockIdx.x * G;
-  const int tile1 = min(tiles, tile0 + G);
-  // this block's checkpoints: chunks - 1 of 512 floats (h before chunk k)
-  float* ck = ckpt + (static_cast<long long>(blockIdx.y) * gridDim.x +
-                      blockIdx.x) * (chunks - 1) * (kThreads * kPerLane) +
-              tid * kPerLane;
-  const long long part_row =
-      (static_cast<long long>(blockIdx.x) * B + b) * L;   // (g, b) rows
+  const int tile0 = blockIdx.x * G, tile1 = min(tiles, tile0 + G);
+  // this block's checkpoints, the states before sub-chunks 1 .. subs -
+  // 1: subs - 1 of NTH * 4 floats
+  const int subs = (L + kSub - 1) / kSub;
+  float* ck = ckpt + (static_cast<long long>(b) * gridDim.x + blockIdx.x) *
+                         (subs - 1) * (NTH * kNPer) + tid * kNPer;
+  const long long part_row = (static_cast<long long>(blockIdx.x) * B + b) * L;
+  const int n0 = warp * kNPer;           // this thread's states
+  unsigned evaluated = 0;              // exponentials, real pairs
 
   for (int tile = tile0; tile < tile1; ++tile) {
-    const int d0 = tile * CW;
-    const int d = d0 + c;
-    const bool live = d < D;
-    float av[kPerLane], h[kPerLane];
+    const bool first_item = tile == tile0;
+    const int d0 = tile * kCT;
+    const int cw = min(kCT, D - d0);
+    const int d = d0 + lane;
+    const bool live = lane < cw;
+    float av[kNPer];
+    int nlive = 0;                       // this thread's real pairs
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int n = s * kPerLane + j;
-      av[j] = (live && n < N) ? a[static_cast<long long>(d) * N + n] : 0.f;
-      h[j] = 0.f;
+    for (int i = 0; i < kNPer; ++i) {
+      const bool ok = live && n0 + i < N;
+      av[i] = ok ? a[static_cast<long long>(d) * N + n0 + i] : 0.f;
+      nlive += ok;
     }
+    auto stage = [&](St& st, int k, bool with_dy_c) {
+      const int t0 = k * kChunk;
+      load_stage<T, NT, NTH>(st, x, dt, dy, bm, cm, row, t0,
+                             min(kChunk, L - t0), d0, cw, D, N, with_dy_c,
+                             f);
+    };
+    // One forward step of this thread's states, with each state's e_t.
+    auto fwd = [&](float (&hh)[kNPer], float (&ab)[kNPer], const St& st,
+                   int r) {
+      const float dtv = st.dt[r][lane];
+      const float xdt = __fmul_rn(dtv, to_f(st.x[r][lane]));
+      float bv[kNPer];
+      load_b(&st.bc[r][2 * n0], bv);
+#pragma unroll
+      for (int i = 0; i < kNPer; ++i) {
+        ab[i] = expf(__fmul_rn(dtv, av[i]));
+        hh[i] = __fadd_rn(__fmul_rn(ab[i], hh[i]), __fmul_rn(xdt, bv[i]));
+      }
+      evaluated += nlive;
+    };
 
-    // Pass 1: the forward recurrence over chunks 0 .. chunks - 2, writing
-    // h at the end of each (the state before chunk k + 1).
-    const int fchunks = chunks - 1;
+    // Pass 1: the recurrence over every sub-chunk but the last, writing h
+    // at the end of each (the state before sub-chunk j + 1 into slot j).
+    float hf[kNPer];
+#pragma unroll
+    for (int i = 0; i < kNPer; ++i) hf[i] = 0.f;
+    const int fsteps = kSub * (subs - 1);
+    const int fchunks = (fsteps + kChunk - 1) / kChunk;
 #pragma unroll
     for (int k = 0; k < kStages - 1; ++k) {
-      if (k < fchunks)
-        load_chunk(sm.ring[k], x, dt, bm, cm, row, k * kChunk, kChunk, d0,
-                   D, N, bf.f);
+      if (k < fchunks) stage(sm.ring[k], k, false);
       hopper::cp_async_commit();
     }
     for (int k = 0; k < fchunks; ++k) {
       hopper::cp_async_wait<kStages - 2>();
       __syncthreads();
       const int kn = k + kStages - 1;
-      if (kn < fchunks)
-        load_chunk(sm.ring[kn % kStages], x, dt, bm, cm, row, kn * kChunk,
-                   kChunk, d0, D, N, bf.f);
+      if (kn < fchunks) stage(sm.ring[kn % kStages], kn, false);
       hopper::cp_async_commit();
-      const Stage<T, NT, CW>& st = sm.ring[k % kStages];
-#pragma unroll 4
-      for (int r = 0; r < kChunk; ++r) {
-        const float dtv = live ? st.dt[r][c] : 0.f;
-        const float xdt = __fmul_rn(dtv, live ? to_f(st.x[r][c]) : 0.f);
-        float bv[kPerLane];
-        load4(&st.b[r][s * kPerLane], bv);
+      const St& st = sm.ring[k % kStages];
+#pragma unroll 1
+      for (int half = 0; half < kChunk / kSub; ++half) {
+        const int j = k * (kChunk / kSub) + half;   // this sub-chunk
+        if (half > 0 && j >= subs - 1) break;
 #pragma unroll
-        for (int j = 0; j < kPerLane; ++j)
-          h[j] = __fadd_rn(__fmul_rn(expf(__fmul_rn(dtv, av[j])), h[j]),
-                           __fmul_rn(xdt, bv[j]));
+        for (int q = 0; q < kSub; ++q) {
+          float ab[kNPer];
+          fwd(hf, ab, st, half * kSub + q);
+        }
+        *reinterpret_cast<float4*>(ck + static_cast<long long>(j) *
+                                            (NTH * kNPer)) =
+            make_float4(hf[0], hf[1], hf[2], hf[3]);
       }
-      *reinterpret_cast<float4*>(ck + k * (kThreads * kPerLane)) =
-          make_float4(h[0], h[1], h[2], h[3]);
     }
     hopper::cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();   // the ring is free; the checkpoints are written
 
-    // Pass 2: the chunks in reverse.
-    float gc[kPerLane], da[kPerLane];   // carry: exp(dt_{t+1} a) g_{t+1}
+    // Pass 2: the chunks in reverse. Iteration i walks chunk k = chunks -
+    // 1 - i backward into the partial buffers of parity i & 1; the block
+    // sums chunk i - 1's buffers (its "end") after iteration i's barrier.
+    float gc[kNPer], da[kNPer];          // carry: e_{t+1} g_{t+1}
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int n = s * kPerLane + j;
-      gc[j] = (dh_last != nullptr && live && n < N)
+    for (int i = 0; i < kNPer; ++i) {
+      const int n = n0 + i;
+      gc[i] = (dh_last != nullptr && live && n < N)
                   ? dh_last[(static_cast<long long>(b) * D + d) * N + n]
                   : 0.f;
-      da[j] = 0.f;
+      da[i] = 0.f;
     }
+    // this thread's checkpoints before iteration i's sub-chunks, staged
+    // one iteration ahead in its own slices of ckb (no barrier needed)
+    auto load_ck = [&](int i) {
+      const int k = chunks - 1 - i;
+#pragma unroll
+      for (int h = 0; h < kChunk / kSub; ++h) {
+        const int j = k * (kChunk / kSub) + h;   // its sub-chunk
+        float* dst = &sm.ckb[i & 1][h][tid * kNPer];
+        if (j > 0 && j < subs)
+          hopper::cp_async16(dst, ck + static_cast<long long>(j - 1) *
+                                           (NTH * kNPer));
+        else
+          hopper::cp_async16(dst, ck, 0);     // zeros
+      }
+    };
+    // The end of iteration j's chunk: dx and ddt, and the dB / dC partial
+    // (pb, pc: its earlier value, read at that iteration).
+    auto chunk_end = [&](int j, float pb, float pc) {
+      const int t0 = (chunks - 1 - j) * kChunk;
+      const int tn = min(kChunk, L - t0);
+      // over the warps (states) pairwise, in sum_states' order
+      for (int e = tid; e < tn * kCT; e += NTH) {
+        const int r = e / kCT, c = e % kCT;
+        if (c < cw) {
+          float2 p[W];
+#pragma unroll
+          for (int w = 0; w < W; ++w) p[w] = sm.part[w][r][c];
+#pragma unroll
+          for (int m = W; m > 1; m >>= 1)
+#pragma unroll
+            for (int i = 0; i < m / 2; ++i)
+              p[i] = make_float2(__fadd_rn(p[2 * i].x, p[2 * i + 1].x),
+                                 __fadd_rn(p[2 * i].y, p[2 * i + 1].y));
+          const long long off = (row + t0 + r) * D + d0 + c;
+          dx[off] = from_f<T>(__fmul_rn(sm.dtb[r][c], p[0].x));
+          ddt[off] = p[0].y;
+        }
+      }
+      // dB, dC: the four lane partials in order; the block's first tile
+      // stores, later tiles add
+      if (tid < tn * N) {
+        const int pr = tid / N, pn = tid % N;
+        const float4 pbv = *reinterpret_cast<const float4*>(
+            &sm.dbp[pr][pn / kNPer][4 * (pn % kNPer)]);
+        const float4 pcv = *reinterpret_cast<const float4*>(
+            &sm.dbp[pr][pn / kNPer][4 * (kNPer + pn % kNPer)]);
+        const float sb =
+            __fadd_rn(__fadd_rn(__fadd_rn(pbv.x, pbv.y), pbv.z), pbv.w);
+        const float sc =
+            __fadd_rn(__fadd_rn(__fadd_rn(pcv.x, pcv.y), pcv.z), pcv.w);
+        const long long off = (part_row + t0 + pr) * N + pn;
+        db_part[off] = first_item ? sb : __fadd_rn(pb, sb);
+        dc_part[off] = first_item ? sc : __fadd_rn(pc, sc);
+      }
+    };
+
+    load_ck(0);
+    hopper::cp_async_commit();
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) {
       const int k = chunks - 1 - i;
-      if (k >= 0) {
-        const int tn = min(kChunk, L - k * kChunk);
-        load_chunk(sm.ring[i], x, dt, bm, cm, row, k * kChunk, tn, d0, D,
-                   N, bf.f);
-        load_dy(sm.dy[i], dy, row, k * kChunk, tn, d0, D, bf.vec_dy);
-      }
+      if (k >= 0) stage(sm.ring[i], k, true);
       hopper::cp_async_commit();
     }
-    for (int i = 0; i < chunks; ++i) {
+    float pb = 0.f, pc = 0.f;            // chunk i - 1's dB / dC partial
+    // iteration i walks chunk chunks - 1 - i and ends chunk i - 1; the
+    // last (i == chunks) only ends the last chunk
+    for (int i = 0; i <= chunks; ++i) {
       const int k = chunks - 1 - i;
-      hopper::cp_async_wait<kStages - 2>();
+      // everything but the latest group: iteration i's stage and
+      // checkpoint
+      if (i < chunks)
+        hopper::cp_async_wait<1>();
+      else
+        hopper::cp_async_wait<0>();
       __syncthreads();
-      const int in = i + kStages - 1, kn = chunks - 1 - in;
-      if (kn >= 0) {
-        const int tn = min(kChunk, L - kn * kChunk);
-        load_chunk(sm.ring[in % kStages], x, dt, bm, cm, row, kn * kChunk,
-                   tn, d0, D, N, bf.f);
-        load_dy(sm.dy[in % kStages], dy, row, kn * kChunk, tn, d0, D,
-                bf.vec_dy);
+      if (i == chunks) {
+        chunk_end(i - 1, pb, pc);
+        break;
       }
+      if (i + 1 < chunks) load_ck(i + 1);
       hopper::cp_async_commit();
-      const Stage<T, NT, CW>& st = sm.ring[i % kStages];
-      const float (&dys)[kChunk][CW] = sm.dy[i % kStages];
+      const int in = i + kStages - 1, kn = chunks - 1 - in;
+      if (kn >= 0) stage(sm.ring[in % kStages], kn, true);
+      hopper::cp_async_commit();
+      const St& st = sm.ring[i % kStages];
+      const int buf = i & 1;
       const int t0 = k * kChunk;
       const int tn = min(kChunk, L - t0);
-
-      float h0[kPerLane];
-      if (k == 0) {
+      if (i > 0) {
+        chunk_end(i - 1, pb, pc);
+        __syncthreads();     // the partial buffers are free
+      }
+      for (int e = tid; e < kChunk * kCT; e += NTH)
+        sm.dtb[e / kCT][e % kCT] = st.dt[e / kCT][e % kCT];
+      // this chunk's dB / dC partial, read now for its end
+      if (tid < tn * N && !first_item) {
+        const long long off = (part_row + t0 + tid / N) * N + tid % N;
+        pb = db_part[off];
+        pc = dc_part[off];
+      }
+      // One sub-chunk, steps r0 .. r0 + kSub - 1 (those below tn): its
+      // states from its checkpoint, kept with their e_t in shared memory
+      // (each thread its own slots), then the steps backward. FULL:
+      // every step is there.
+      auto sub_walk = [&](int r0, auto full) {
+        constexpr bool FULL = decltype(full)::value;
+        const float* ckp = &sm.ckb[buf][r0 / kSub][tid * kNPer];
+        float h[kNPer];
+        load4(ckp, h);
+#pragma unroll 1
+        for (int q = 0; q < kSub; ++q) {
+          if (!FULL && r0 + q >= tn) break;
+          float ab[kNPer];
+          fwd(h, ab, st, r0 + q);
+          sm.abs[q][tid] = make_float4(ab[0], ab[1], ab[2], ab[3]);
+          sm.hsm[q][tid] = make_float4(h[0], h[1], h[2], h[3]);
+        }
+#pragma unroll 1
+        for (int q = kSub - 1; q >= 0; --q) {
+          const int r = r0 + q;
+          if (!FULL && r >= tn) continue;
+          const float dtv = st.dt[r][lane];
+          const float xv = to_f(st.x[r][lane]);
+          const float dyv = st.dy[r][lane];
+          const float xdt = __fmul_rn(dtv, xv);
+          float bv[kNPer], cv[kNPer], abq[kNPer], hp[kNPer], ht[kNPer];
+          load_bc(&st.bc[r][2 * n0], bv, cv);
+          load4(&sm.abs[q][tid].x, abq);
+          load4(q == 0 ? ckp : &sm.hsm[q > 0 ? q - 1 : 0][tid].x, hp);
+          load4(&sm.hsm[q][tid].x, ht);
+          float pdx = 0.f, pddt = 0.f, v[2 * kNPer];
 #pragma unroll
-        for (int j = 0; j < kPerLane; ++j) h0[j] = 0.f;
+          for (int i2 = 0; i2 < kNPer; ++i2) {
+            // fused: the gradients are held to the plain version at
+            // tolerances, the recomputed states bit for bit
+            const float ab = abq[i2];
+            const float g = fmaf(dyv, cv[i2], gc[i2]);
+            pdx = fmaf(g, bv[i2], pdx);
+            pddt = fmaf(g, fmaf(av[i2] * ab, hp[i2], xv * bv[i2]), pddt);
+            v[i2] = g * xdt;                                 // dB
+            v[kNPer + i2] = dyv * ht[i2];                    // dC
+            da[i2] = fmaf(g * dtv, ab * hp[i2], da[i2]);
+            gc[i2] = ab * g;
+          }
+          sm.part[warp][r][lane] = make_float2(pdx, pddt);
+          // dB, dC over the warp's lanes (its channels), three of five
+          // levels: lane l holds one of four partial sums of value l / 4
+          sm.dbp[r][warp][lane] =
+              hopper::warp_transpose_sum<2 * kNPer, false>(v, lane);
+        }
+      };
+      if (tn == kChunk) {
+#pragma unroll 1
+        for (int sub = kChunk / kSub - 1; sub >= 0; --sub)
+          sub_walk(sub * kSub, std::true_type());
       } else {
-        const float4 v = *reinterpret_cast<const float4*>(
-            ck + (k - 1) * (kThreads * kPerLane));
-        h0[0] = v.x; h0[1] = v.y; h0[2] = v.z; h0[3] = v.w;
-      }
-      // the chunk's states h_{t0} .. h_{t0 + tn - 1}, as the forward has them
-      float hist[kChunk][kPerLane];
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) {
-        if (r < tn) {
-          const float dtv = live ? st.dt[r][c] : 0.f;
-          const float xdt = __fmul_rn(dtv, live ? to_f(st.x[r][c]) : 0.f);
-          float bv[kPerLane];
-          load4(&st.b[r][s * kPerLane], bv);
-#pragma unroll
-          for (int j = 0; j < kPerLane; ++j) {
-            const float hp = r == 0 ? h0[j] : hist[r > 0 ? r - 1 : 0][j];
-            hist[r][j] = __fadd_rn(
-                __fmul_rn(expf(__fmul_rn(dtv, av[j])), hp),
-                __fmul_rn(xdt, bv[j]));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = kChunk - 1; r >= 0; --r) {
-        if (r >= tn) continue;
-        const float dtv = live ? st.dt[r][c] : 0.f;
-        const float xv = live ? to_f(st.x[r][c]) : 0.f;
-        const float dyv = live ? dys[r][c] : 0.f;
-        const float xdt = __fmul_rn(dtv, xv);
-        float bv[kPerLane], cv[kPerLane];
-        load4(&st.b[r][s * kPerLane], bv);
-        load4(&st.c[r][s * kPerLane], cv);
-        float pdx = 0.f, pddt = 0.f, db[kPerLane], dc[kPerLane];
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          const float ab = expf(__fmul_rn(dtv, av[j]));
-          const float hp = r == 0 ? h0[j] : hist[r > 0 ? r - 1 : 0][j];
-          const float g = __fadd_rn(gc[j], __fmul_rn(dyv, cv[j]));
-          const float tx = __fmul_rn(g, bv[j]);
-          const float tdt = __fmul_rn(
-              g, __fadd_rn(__fmul_rn(xv, bv[j]),
-                           __fmul_rn(__fmul_rn(av[j], ab), hp)));
-          pdx = j == 0 ? tx : __fadd_rn(pdx, tx);
-          pddt = j == 0 ? tdt : __fadd_rn(pddt, tdt);
-          db[j] = __fmul_rn(g, xdt);
-          dc[j] = __fmul_rn(dyv, hist[r][j]);
-          da[j] = __fadd_rn(da[j], __fmul_rn(__fmul_rn(g, dtv),
-                                             __fmul_rn(ab, hp)));
-          gc[j] = __fmul_rn(ab, g);
-        }
-        // over the channel's lanes (its states), in sum_states' order
-#pragma unroll
-        for (int o = 1; o < S; o <<= 1) {
-          pdx = __fadd_rn(pdx, __shfl_xor_sync(0xffffffffu, pdx, o));
-          pddt = __fadd_rn(pddt, __shfl_xor_sync(0xffffffffu, pddt, o));
-        }
-        // over the warp's channels
-#pragma unroll
-        for (int o = S; o < 32; o <<= 1)
-#pragma unroll
-          for (int j = 0; j < kPerLane; ++j) {
-            db[j] = __fadd_rn(db[j], __shfl_xor_sync(0xffffffffu, db[j], o));
-            dc[j] = __fadd_rn(dc[j], __shfl_xor_sync(0xffffffffu, dc[j], o));
-          }
-        if (s == 0) {
-          sm.dxs[r][c] = __fmul_rn(dtv, pdx);
-          sm.ddts[r][c] = pddt;
-        }
-        if (lane < S) {
-          *reinterpret_cast<float4*>(&sm.red_b[warp][r][s * kPerLane]) =
-              make_float4(db[0], db[1], db[2], db[3]);
-          *reinterpret_cast<float4*>(&sm.red_c[warp][r][s * kPerLane]) =
-              make_float4(dc[0], dc[1], dc[2], dc[3]);
-        }
-      }
-      __syncthreads();
-      for (int e = tid; e < tn * CW; e += kThreads) {
-        const int r = e / CW, cc = e % CW;
-        if (d0 + cc < D) {
-          const long long off = (row + t0 + r) * D + d0 + cc;
-          dx[off] = from_f<T>(sm.dxs[r][cc]);
-          ddt[off] = sm.ddts[r][cc];
-        }
-      }
-      for (int e = tid; e < tn * N; e += kThreads) {
-        const int r = e / N, n = e % N;
-        float sb = sm.red_b[0][r][n], sc = sm.red_c[0][r][n];
-#pragma unroll
-        for (int w = 1; w < kWarps; ++w) {
-          sb = __fadd_rn(sb, sm.red_b[w][r][n]);
-          sc = __fadd_rn(sc, sm.red_c[w][r][n]);
-        }
-        const long long off = (part_row + t0 + r) * N + n;
-        if (tile == tile0) {
-          db_part[off] = sb;
-          dc_part[off] = sc;
-        } else {
-          db_part[off] = __fadd_rn(db_part[off], sb);
-          dc_part[off] = __fadd_rn(dc_part[off], sc);
-        }
+#pragma unroll 1
+        for (int sub = (tn + kSub - 1) / kSub - 1; sub >= 0; --sub)
+          sub_walk(sub * kSub, std::false_type());
       }
     }
-    hopper::cp_async_wait<0>();
-    __syncthreads();   // the ring, dxs and red are free for the next tile
+    __syncthreads();   // the ring and the partial buffers are free
     if (live) {
       float* out = da_part + (static_cast<long long>(b) * D + d) * N;
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int n = s * kPerLane + j;
-        if (n < N) out[n] = da[j];
-      }
+      for (int i = 0; i < kNPer; ++i)
+        if (n0 + i < N) out[n0 + i] = da[i];
     }
   }
+  if (exp_count != nullptr && evaluated != 0)
+    atomicAdd(exp_count, static_cast<unsigned long long>(evaluated));
 }
 
 // dB, dC = the sums of the groups' partials in group order, in the input
@@ -714,60 +892,58 @@ __global__ void ssm_bwd_reduce(const float* __restrict__ db_part,
   }
 }
 
+struct Args {
+  const void* x; const float* dt; const float* a; const void* bm;
+  const void* cm; const float* dy; const float* dh_last; void* dx;
+  float* ddt; void* db; void* dc; float* da; float* db_part;
+  float* dc_part; float* da_part; float* ckpt;
+  unsigned long long* exp_count;
+  int B, L, D, N, G;
+};
+
 template <typename T, int NT>
-int launch_bwd_n(const void* x, const float* dt, const float* a,
-                 const void* bm, const void* cm, const float* dy,
-                 const float* dh_last, void* dx, float* ddt, void* db,
-                 void* dc, float* da, float* db_part, float* dc_part,
-                 float* da_part, float* ckpt, int B, int L, int D, int N,
-                 int G, cudaStream_t stream) {
-  constexpr int CW = kThreads / (NT / kPerLane);
-  constexpr int smem = static_cast<int>(sizeof(BwdSmem<T, NT, CW>));
-  BwdFlags bf;
-  bf.f.vec_xdt = D % 8 == 0 && aligned16(x) && aligned16(dt);
-  bf.f.vec_bc = N == NT && (N * sizeof(T)) % 16 == 0 && aligned16(bm) &&
-                aligned16(cm);
-  bf.f.vec_y = false;
-  bf.vec_dy = D % 4 == 0 && aligned16(dy);
+int launch_n(const Args& p, cudaStream_t stream) {
+  constexpr int NTH = 8 * NT;
+  constexpr int smem = static_cast<int>(sizeof(Smem<T, NT>));
+  Flags f;
+  f.vec_x = p.D % (16 / sizeof(T)) == 0 && aligned16(p.x);
+  f.vec_dt = p.D % 4 == 0 && aligned16(p.dt);
+  f.vec_dy = p.D % 4 == 0 && aligned16(p.dy);
+  f.vec_bc = p.N == NT && aligned16(p.bm) && aligned16(p.cm);
+  auto kern = ssm_bwd_kernel<T, NT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ssm_bwd_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int tiles = (D + CW - 1) / CW;
-  const int groups = (tiles + G - 1) / G;
-  ssm_bwd_kernel<T, NT><<<dim3(groups, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), dy, dh_last, static_cast<T*>(dx), ddt,
-      db_part, dc_part, da_part, ckpt, L, D, N, G, bf);
+  const int tiles = (p.D + kCT - 1) / kCT;
+  const int groups = (tiles + p.G - 1) / p.G;
+  kern<<<dim3(groups, p.B), NTH, smem, stream>>>(
+      static_cast<const T*>(p.x), p.dt, p.a, static_cast<const T*>(p.bm),
+      static_cast<const T*>(p.cm), p.dy, p.dh_last, static_cast<T*>(p.dx),
+      p.ddt, p.db_part, p.dc_part, p.da_part, p.ckpt, p.exp_count, p.L,
+      p.D, p.N, p.G, f);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long work = static_cast<long long>(B) * L * N +
-                         static_cast<long long>(D) * N;
+  const long long work = static_cast<long long>(p.B) * p.L * p.N +
+                         static_cast<long long>(p.D) * p.N;
   const int blocks = static_cast<int>(
       std::min<long long>((work + 255) / 256, 132LL * 8));
   ssm_bwd_reduce<T><<<blocks, 256, 0, stream>>>(
-      db_part, dc_part, da_part, static_cast<T*>(db), static_cast<T*>(dc),
-      da, groups, B, L, D, N);
+      p.db_part, p.dc_part, p.da_part, static_cast<T*>(p.db),
+      static_cast<T*>(p.dc), p.da, groups, p.B, p.L, p.D, p.N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_bwd(const void* x, const float* dt, const float* a,
-               const void* bm, const void* cm, const float* dy,
-               const float* dh_last, void* dx, float* ddt, void* db,
-               void* dc, float* da, float* db_part, float* dc_part,
-               float* da_part, float* ckpt, int B, int L, int D, int N,
-               int G, cudaStream_t s) {
-#define SSM_BWD_ARGS x, dt, a, bm, cm, dy, dh_last, dx, ddt, db, dc, da, \
-    db_part, dc_part, da_part, ckpt, B, L, D, N, G, s
-  if (N <= 8) return launch_bwd_n<T, 8>(SSM_BWD_ARGS);
-  if (N <= 16) return launch_bwd_n<T, 16>(SSM_BWD_ARGS);
-  if (N <= 32) return launch_bwd_n<T, 32>(SSM_BWD_ARGS);
-  return launch_bwd_n<T, 64>(SSM_BWD_ARGS);
-#undef SSM_BWD_ARGS
+int launch(const Args& p, cudaStream_t s) {
+  if (p.N <= 8) return launch_n<T, 8>(p, s);
+  if (p.N <= 16) return launch_n<T, 16>(p, s);
+  if (p.N <= 32) return launch_n<T, 32>(p, s);
+  return launch_n<T, 64>(p, s);
 }
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -799,30 +975,31 @@ int ssm_scan_fwd(int dtype, const void* x, const float* dt, const float* a,
 // fp32 or null (zero). Outputs dx (B, L, D) and dB, dC (B, L, N) in x's
 // dtype, ddt (B, L, D) and da (D, N) fp32. Scratch, fp32: db_part and
 // dc_part (groups, B, L, N), da_part (B, D, N), ckpt (groups * B,
-// ceil(L / 16) - 1, 512), with groups = ceil(ceil(D / CW) /
-// tiles_per_block) and CW = 512 / NT the channels a tile (NT: N rounded
-// up to 8, 16, 32 or 64). All contiguous. Launches ssm_bwd_kernel, then
+// ceil(L / 4) - 1, 32 * NT), with groups = ceil(ceil(D / 32) /
+// tiles_per_block) and NT = N rounded up to 8, 16, 32 or 64. All
+// contiguous. exp_count: null, or a uint64 on the device to which the
+// kernel adds the exponentials it evaluates. Launches ssm_bwd_kernel, then
 // ssm_bwd_reduce; returns cudaGetLastError().
 int ssm_scan_bwd(int dtype, const void* x, const float* dt, const float* a,
                  const void* bm, const void* cm, const float* dy,
                  const float* dh_last, void* dx, float* ddt, void* db,
                  void* dc, float* da, float* db_part, float* dc_part,
-                 float* da_part, float* ckpt, int B, int L, int D, int N,
-                 int tiles_per_block, void* stream) {
+                 float* da_part, float* ckpt, unsigned long long* exp_count,
+                 int B, int L, int D, int N, int tiles_per_block,
+                 void* stream) {
   if (N < 1 || N > kMaxN || B < 1 || B > 65535 || L < 1 || D < 1 ||
       tiles_per_block < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bwd::Args p{x, dt, a, bm, cm, dy, dh_last, dx, ddt, db, dc, da,
+                    db_part, dc_part, da_part, ckpt, exp_count, B, L, D, N,
+                    tiles_per_block};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SSM_BWD_CALL(T) launch_bwd<T>(x, dt, a, bm, cm, dy, dh_last, dx, \
-    ddt, db, dc, da, db_part, dc_part, da_part, ckpt, B, L, D, N, \
-    tiles_per_block, s)
   switch (dtype) {
-    case 0: return SSM_BWD_CALL(float);
-    case 1: return SSM_BWD_CALL(__nv_bfloat16);
-    case 2: return SSM_BWD_CALL(__half);
+    case 0: return bwd::launch<float>(p, s);
+    case 1: return bwd::launch<__nv_bfloat16>(p, s);
+    case 2: return bwd::launch<__half>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SSM_BWD_CALL
 }
 
 const char* kernel_error_string(int err) {

@@ -27,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every CUDA source of the port, csrc/<name>.cu
 SOURCES = ("flash_attention", "paged_attention", "spec_verify", "ssm_scan",
-           "mamba2_bwd", "cross_entropy")
+           "mamba2_fwd", "mamba2_bwd", "cross_entropy")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

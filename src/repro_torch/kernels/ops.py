@@ -12,8 +12,8 @@ path went through the kernels (``reset_launches`` / ``launch_counts``).
 Gradients go through ``torch.autograd.Function``s whose backward is a
 kernel too: :class:`FlashAttention` (forward B1 with its logsumexp,
 backward B1-bwd), :class:`SelectiveScan` (forward B4, backward B4-bwd),
-:class:`SelectiveScanHeads` (Mamba-2's layout: forward B4, backward the
-per-head B4-bwd) and :class:`CrossEntropy` (forward B5, backward
+:class:`SelectiveScanHeads` (Mamba-2's layout: forward the per-head B4,
+backward the per-head B4-bwd) and :class:`CrossEntropy` (forward B5, backward
 B5-bwd). On the CPU each
 runs the plain versions of both passes, so the CPU tests check the
 backward formulas the kernels implement.
@@ -37,10 +37,11 @@ from repro_torch.kernels.paged_attention import (paged_attention as
 from repro_torch.kernels.spec_verify import (spec_verify as
                                              _spec_verify_kernel,
                                              spec_verify_plain)
-from repro_torch.kernels.ssm_scan import (expand_heads, ssm_scan,
-                                          ssm_scan_bwd, ssm_scan_bwd_plain,
+from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_bwd,
+                                          ssm_scan_bwd_plain, ssm_scan_heads,
                                           ssm_scan_heads_bwd,
                                           ssm_scan_heads_bwd_plain,
+                                          ssm_scan_heads_plain,
                                           ssm_scan_plain)
 
 
@@ -207,17 +208,17 @@ def selective_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
 
 
 def _scan_heads_fwd(x, dt, a, bmat, cmat):
-    """B4 on Mamba-2's inputs expanded per channel (:func:`expand_heads`)."""
-    dt_c, a_c = expand_heads(dt, a, x.shape[-1] // a.shape[0],
-                             bmat.shape[-1])
-    return _scan_fwd(x, dt_c, a_c, bmat, cmat)
+    if _on_cpu(x, "selective_scan_heads"):
+        return ssm_scan_heads_plain(x, dt, a, bmat, cmat)
+    out = ssm_scan_heads(x, dt, a, bmat, cmat)
+    selective_scan_heads.launches += 1
+    return out
 
 
 class SelectiveScanHeads(torch.autograd.Function):
-    """The selective scan in Mamba-2's layout: the B4 forward runs on the
-    inputs expanded per channel; the Function saves the per-head inputs
-    (x, dt (B, L, nh), a (nh,), B, C), never the expanded copies, and its
-    backward runs :func:`selective_scan_heads_bwd`."""
+    """The selective scan in Mamba-2's layout: the per-head B4 forward
+    saves its per-head inputs (x, dt (B, L, nh), a (nh,), B, C) and no
+    state; its backward runs :func:`selective_scan_heads_bwd`."""
 
     @staticmethod
     def forward(ctx, x, dt, a, bmat, cmat):
@@ -237,10 +238,10 @@ def selective_scan_heads(x, dt, a, bmat, cmat):
     """Mamba-2's selective scan from a zero state, one decay a head. x
     (B, L, D) and B, C (B, L, N) in the model dtype, dt (B, L, nh) and a
     (nh,) fp32 (a = -exp(a_log)), D = nh * hd -> (y (B, L, D) fp32,
-    h_last (B, D, N) fp32), bit for bit B4 on :func:`expand_heads`'
-    inputs. With grad enabled and an input that requires it, the call
-    goes through :class:`SelectiveScanHeads`; otherwise (serving) it is
-    the plain forward launch."""
+    h_last (B, D, N) fp32), bit for bit B4 on ``expand_heads``' inputs.
+    With grad enabled and an input that requires it, the call goes
+    through :class:`SelectiveScanHeads`; otherwise (serving) it is the
+    plain forward launch."""
     args = tuple(t.contiguous() for t in (x, dt, a, bmat, cmat))
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return SelectiveScanHeads.apply(*args)
@@ -313,6 +314,7 @@ paged_attention.launches = 0
 spec_verify.launches = 0
 selective_scan.launches = 0
 selective_scan_bwd.launches = 0
+selective_scan_heads.launches = 0
 selective_scan_heads_bwd.launches = 0
 cross_entropy.launches = 0
 cross_entropy_bwd.launches = 0
@@ -323,6 +325,7 @@ WRAPPERS = {"flash_attention": attention,
             "spec_verify": spec_verify,
             "selective_scan": selective_scan,
             "selective_scan_bwd": selective_scan_bwd,
+            "selective_scan_heads": selective_scan_heads,
             "selective_scan_heads_bwd": selective_scan_heads_bwd,
             "cross_entropy": cross_entropy,
             "cross_entropy_bwd": cross_entropy_bwd}

@@ -1,5 +1,6 @@
-"""Mamba-1 selective scan: the hand-written CUDA kernels (forward B4 and
-backward B4-bwd) and their plain versions.
+"""The selective scan: the hand-written CUDA kernels (forward B4 and
+backward B4-bwd, in Mamba-1's layout and in Mamba-2's) and their plain
+versions.
 
 The forward replaces the Pallas TPU kernel ``src/repro/kernels/
 ssm_scan.py`` (``ssm_scan``). The TPU kernel has no backward: ``repro``
@@ -18,12 +19,16 @@ dt (B, L, D) and a (D, N) fp32. Returns (y (B, L, D) fp32, h_last
 fp32 and an optional dh_last (B, D, N) fp32 and returns (dx, ddt, da,
 dB, dC): dx, dB and dC in the model dtype, ddt and da in fp32.
 
-Mamba-2's layout (one decay a head): :func:`expand_heads` gives B4 a
-per-head dt (B, L, nh) and a (nh,) per channel, and
+Mamba-2's layout (one decay a head): dt (B, L, nh) and a (nh,) per head.
+:func:`ssm_scan_heads` launches the per-head forward
+(``csrc/mamba2_fwd.cu``), the function B4 computes on those inputs
+expanded per channel (:func:`expand_heads`), bit for bit;
 :func:`ssm_scan_heads_bwd` launches the per-head backward
-(``csrc/mamba2_bwd.cu``) on the unexpanded inputs, returning ddt
-(B, L, nh) and da (nh,); :func:`ssm_scan_heads_bwd_plain` is its plain
-version.
+(``csrc/mamba2_bwd.cu``), returning ddt (B, L, nh) and da (nh,).
+:func:`ssm_scan_heads_plain` and :func:`ssm_scan_heads_bwd_plain` are
+their plain versions. Given an ``exp_count`` (a (1,) int64 tensor on the
+card), each kernel but B4 adds to it the exponentials it evaluates:
+:func:`heads_fwd_exp_count` and :func:`bwd_exp_count` state how many.
 """
 from __future__ import annotations
 
@@ -84,17 +89,36 @@ def _check_bwd(x, dt, a, bmat, cmat, dy, dh_last):
                          f"float32 {(b, d, n)} CUDA tensor or None")
 
 
+# each launcher's (library, pointer arguments, int arguments)
+_LAUNCHERS = {"ssm_scan_fwd": ("ssm_scan", 7, 4),
+              "ssm_scan_bwd": ("ssm_scan", 17, 5),
+              "ssm_scan_heads_fwd": ("mamba2_fwd", 8, 5),
+              "ssm_scan_heads_bwd": ("mamba2_bwd", 18, 6)}
+
+
 def _kernel(name: str):
-    """The loaded library and a launcher (``ssm_scan_fwd`` or
-    ``ssm_scan_bwd``), argtypes declared once."""
-    lib = _build.load("ssm_scan")
+    """The loaded library and launcher ``name``, argtypes declared once:
+    the dtype code, the pointers, the ints, the stream."""
+    lib_name, ptrs, ints = _LAUNCHERS[name]
+    lib = _build.load(lib_name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [p] * 7 + [i] * 4 + [p] if name == "ssm_scan_fwd"
-                       else [i] + [p] * 16 + [i] * 5 + [p])
+        fn.argtypes = [i] + [p] * ptrs + [i] * ints + [p]
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _check_counter(what: str, exp_count, x) -> None:
+    if exp_count is not None and (
+            exp_count.dtype != torch.int64 or exp_count.numel() != 1
+            or exp_count.get_device() != x.get_device()):
+        raise ValueError(f"{what}: exp_count must be one int64 on x's "
+                         f"device")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def ssm_scan(x, dt, a, bmat, cmat):
@@ -119,7 +143,9 @@ def ssm_scan(x, dt, a, bmat, cmat):
 # within BWD_PARTIAL_BYTES.
 BWD_BLOCKS = 1024
 BWD_PARTIAL_BYTES = 64 << 20
-CHUNK = 16        # the kernels' time steps a chunk (kChunk)
+CHUNK = 8         # both backward kernels' steps a stage
+SUB = 4           # B4-bwd's steps between checkpoints
+BWD_TILE = 32     # the per-channel backward's channels a tile
 
 
 def _bwd_groups(units: int, b: int, l: int, n: int):
@@ -133,17 +159,26 @@ def _bwd_groups(units: int, b: int, l: int, n: int):
 
 
 def bwd_grid(b: int, l: int, d: int, n: int):
-    """(tiles_per_block, groups): the channel tiles (512 / NT channels
+    """(tiles_per_block, groups): the channel tiles (BWD_TILE channels
     each) that each B4-bwd block walks, and the launch's groups of them
     (its grid is (groups, B))."""
-    return _bwd_groups(-(-d // (128 * PER_LANE // _state_tiers(n))), b, l,
-                       n)
+    return _bwd_groups(-(-d // BWD_TILE), b, l, n)
 
 
-def ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
-    """Launch B4-bwd; raises on anything it does not take. Returns (dx,
-    ddt, da, dB, dC)."""
+def bwd_exp_count(b: int, l: int, d: int, n: int) -> int:
+    """The exponentials B4-bwd evaluates (``csrc/ssm_scan.cu``): each
+    (b, d, n) pair one a step of the first pass over every 4-step
+    sub-chunk but the last, and one a step of the second pass."""
+    return b * d * n * (SUB * (-(-l // SUB) - 1) + l)
+
+
+def ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None, exp_count=None):
+    """Launch B4-bwd; raises on anything it does not take. ``exp_count``,
+    a (1,) int64 tensor on x's device or None, gains the exponentials the
+    kernel evaluates (:func:`bwd_exp_count`). Returns (dx, ddt, da, dB,
+    dC)."""
     _check_bwd(x, dt, a, bmat, cmat, dy, dh_last)
+    _check_counter("ssm_scan_bwd", exp_count, x)
     b, l, d = x.shape
     n = a.shape[1]
     dev = x.device
@@ -157,70 +192,118 @@ def ssm_scan_bwd(x, dt, a, bmat, cmat, dy, dh_last=None):
     db_part = torch.empty((groups, b, l, n), **f32)
     dc_part = torch.empty((groups, b, l, n), **f32)
     da_part = torch.empty((b, d, n), **f32)
-    ckpt = torch.empty((max(1, groups * b * (-(-l // CHUNK) - 1) * 512),),
-                       **f32)
+    ckpt = torch.empty((max(1, groups * b * (-(-l // SUB) - 1) * 32
+                            * _state_tiers(n)),), **f32)
     lib, fn = _kernel("ssm_scan_bwd")
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
-             None if dh_last is None else dh_last.data_ptr(),
-             dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
-             da.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-             da_part.data_ptr(), ckpt.data_ptr(), b, l, d, n, per, stream)
+             _ptr(dh_last), dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(),
+             dcm.data_ptr(), da.data_ptr(), db_part.data_ptr(),
+             dc_part.data_ptr(), da_part.data_ptr(), ckpt.data_ptr(),
+             _ptr(exp_count), b, l, d, n, per, stream)
     _build.check(err, lib, "ssm_scan_bwd")
     return dx, ddt, da, dbm, dcm
 
 
 # ------------------------------------------------- Mamba-2's layout
 
-HEADS_CHUNK = 8   # mamba2_bwd.cu's steps between checkpoints (kChunk)
-
-
 def expand_heads(dt, a, hd: int, n: int):
     """Mamba-2's per-head decay in the selective scan's per-channel
     layout: dt (B, L, nh) -> (B, L, nh*hd), each head's value on its hd
     channels, and a (nh,) -> (nh*hd, N), row c the value of head c // hd
-    in every state. Both contiguous fp32, as B4 takes them."""
+    in every state. Both contiguous fp32, as B4 takes them. The model
+    never builds them: the tests and chip_smoke.py hold the per-head
+    kernels to B4 on them."""
     dt_c = dt.repeat_interleave(hd, dim=-1).contiguous()
     a_c = a.repeat_interleave(hd)
     return dt_c, a_c[:, None].expand(a_c.shape[0], n).contiguous()
 
 
-def _check_heads(x, dt, a, bmat, cmat, dy, dh_last):
+def _check_heads(what, x, dt, a, bmat, cmat):
     dev = x.get_device()
     if not x.is_cuda or any(t.get_device() != dev
                             for t in (dt, a, bmat, cmat)):
-        raise ValueError("ssm_scan_heads_bwd: every input must be a CUDA "
-                         "tensor on one device")
+        raise ValueError(f"{what}: every input must be a CUDA tensor on "
+                         f"one device")
     if x.dtype not in _DTYPE_CODES or bmat.dtype != x.dtype \
             or cmat.dtype != x.dtype:
-        raise ValueError(f"ssm_scan_heads_bwd: x, B and C must share one "
-                         f"of {list(_DTYPE_CODES)}, got {x.dtype}/"
+        raise ValueError(f"{what}: x, B and C must share one of "
+                         f"{list(_DTYPE_CODES)}, got {x.dtype}/"
                          f"{bmat.dtype}/{cmat.dtype}")
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise ValueError("ssm_scan_heads_bwd: dt and a must be float32")
+        raise ValueError(f"{what}: dt and a must be float32")
     if x.dim() != 3 or a.dim() != 1 or dt.shape != (*x.shape[:2],
                                                      a.shape[0]):
-        raise ValueError(f"ssm_scan_heads_bwd: x must be (B, L, D), a "
-                         f"(nh,) and dt (B, L, nh), got {tuple(x.shape)} / "
+        raise ValueError(f"{what}: x must be (B, L, D), a (nh,) and dt "
+                         f"(B, L, nh), got {tuple(x.shape)} / "
                          f"{tuple(a.shape)} / {tuple(dt.shape)}")
     b, l, d = x.shape
     nh = a.shape[0]
     if d % nh:
-        raise ValueError(f"ssm_scan_heads_bwd: D = {d} is not a multiple "
-                         f"of the {nh} heads")
+        raise ValueError(f"{what}: D = {d} is not a multiple of the {nh} "
+                         f"heads")
     if bmat.dim() != 3 or not 1 <= bmat.shape[-1] <= MAX_N:
-        raise ValueError(f"ssm_scan_heads_bwd: state size of B "
-                         f"{tuple(bmat.shape)} must be in 1..{MAX_N}")
+        raise ValueError(f"{what}: state size of B {tuple(bmat.shape)} "
+                         f"must be in 1..{MAX_N}")
     n = bmat.shape[-1]
     if bmat.shape != (b, l, n) or cmat.shape != (b, l, n):
-        raise ValueError(f"ssm_scan_heads_bwd: B and C must be "
-                         f"{(b, l, n)}, got {tuple(bmat.shape)} / "
-                         f"{tuple(cmat.shape)}")
+        raise ValueError(f"{what}: B and C must be {(b, l, n)}, got "
+                         f"{tuple(bmat.shape)} / {tuple(cmat.shape)}")
     if b > 65535:
-        raise ValueError(f"ssm_scan_heads_bwd: batch {b} > 65535")
+        raise ValueError(f"{what}: batch {b} > 65535")
     if not all(t.is_contiguous() for t in (x, dt, a, bmat, cmat)):
-        raise ValueError("ssm_scan_heads_bwd: inputs must be contiguous")
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+# mamba2_fwd.cu's kWideBlocks: two blocks an SM of the H100
+HEADS_WIDE_BLOCKS = 2 * 132
+
+
+def heads_fwd_exp_count(b: int, l: int, nh: int, hd: int, n: int) -> int:
+    """The exponentials the per-head forward evaluates
+    (``csrc/mamba2_fwd.cu``): one per (b, t, head) for each block that
+    owns some of the head's channels. A block owns CW channels, whole
+    heads when hd <= CW, else a tile of one head: ceil(hd / CW) blocks a
+    head. CW is 128 at N <= 32; at N > 32 it is 64, or 16 where 64 would
+    give the card fewer than HEADS_WIDE_BLOCKS blocks."""
+    def row_blocks(cw):
+        if hd <= cw:
+            return -(-nh // min(cw // hd, 32))
+        return nh * -(-hd // cw)
+    cw = 128
+    if n > 32:
+        cw = 64 if b * row_blocks(64) >= HEADS_WIDE_BLOCKS else 16
+    return b * l * nh * (-(-hd // cw) if hd > cw else 1)
+
+
+def ssm_scan_heads(x, dt, a, bmat, cmat, exp_count=None):
+    """Launch the per-head (Mamba-2) forward; raises on anything it does
+    not take. x (B, L, D), dt (B, L, nh) fp32, a (nh,) fp32, B and C
+    (B, L, N); ``exp_count``, a (1,) int64 tensor on x's device or None,
+    gains the exponentials the kernel evaluates
+    (:func:`heads_fwd_exp_count`). Returns (y (B, L, D) fp32, h_last
+    (B, D, N) fp32)."""
+    _check_heads("ssm_scan_heads", x, dt, a, bmat, cmat)
+    _check_counter("ssm_scan_heads", exp_count, x)
+    b, l, d = x.shape
+    nh, n = a.shape[0], bmat.shape[-1]
+    y = torch.empty((b, l, d), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
+    lib, fn = _kernel("ssm_scan_heads_fwd")
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
+             a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
+             h_last.data_ptr(), _ptr(exp_count), b, l, d, n, nh, stream)
+    _build.check(err, lib, "ssm_scan_heads")
+    return y, h_last
+
+
+def _check_heads_bwd(x, dt, a, bmat, cmat, dy, dh_last):
+    _check_heads("ssm_scan_heads_bwd", x, dt, a, bmat, cmat)
+    b, l, d = x.shape
+    n = bmat.shape[-1]
+    dev = x.get_device()
     if dy.get_device() != dev or dy.dtype != torch.float32 \
             or dy.shape != x.shape or not dy.is_contiguous():
         raise ValueError(f"ssm_scan_heads_bwd: dy must be a contiguous "
@@ -249,12 +332,8 @@ def ssm_scan_heads_bwd(x, dt, a, bmat, cmat, dy, dh_last=None,
     ``exp_count``, a (1,) int64 tensor on x's device or None, gains one
     for each exp(dt a) the kernel evaluates. Returns (dx, ddt (B, L, nh),
     da (nh,), dB, dC)."""
-    _check_heads(x, dt, a, bmat, cmat, dy, dh_last)
-    if exp_count is not None and (
-            exp_count.dtype != torch.int64 or exp_count.numel() != 1
-            or exp_count.get_device() != x.get_device()):
-        raise ValueError("ssm_scan_heads_bwd: exp_count must be one int64 "
-                         "on x's device")
+    _check_heads_bwd(x, dt, a, bmat, cmat, dy, dh_last)
+    _check_counter("ssm_scan_heads_bwd", exp_count, x)
     b, l, d = x.shape
     nh, n = a.shape[0], bmat.shape[-1]
     cpl = 2 if d // nh > 32 else 1           # channels a lane
@@ -269,23 +348,16 @@ def ssm_scan_heads_bwd(x, dt, a, bmat, cmat, dy, dh_last=None,
     dc_part = torch.empty((groups, b, l, n), **f32)
     da_part = torch.empty((b, nh), **f32)
     escr = torch.empty((b, nh, l), **f32)
-    ckpt = torch.empty((max(1, groups * b * (-(-l // HEADS_CHUNK) - 1)
+    ckpt = torch.empty((max(1, groups * b * (-(-l // CHUNK) - 1)
                             * 32 * _state_tiers(n) * cpl),), **f32)
-    lib = _build.load("mamba2_bwd")
-    fn = lib.ssm_scan_heads_bwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 18 + [i] * 6 + [p]
-        fn.restype = ctypes.c_int
+    lib, fn = _kernel("ssm_scan_heads_bwd")
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
-             None if dh_last is None else dh_last.data_ptr(),
-             dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
-             da.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-             da_part.data_ptr(), escr.data_ptr(), ckpt.data_ptr(),
-             None if exp_count is None else exp_count.data_ptr(), b, l, d,
-             n, nh, per, stream)
+             _ptr(dh_last), dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(),
+             dcm.data_ptr(), da.data_ptr(), db_part.data_ptr(),
+             dc_part.data_ptr(), da_part.data_ptr(), escr.data_ptr(),
+             ckpt.data_ptr(), _ptr(exp_count), b, l, d, n, nh, per, stream)
     _build.check(err, lib, "ssm_scan_heads_bwd")
     return dx, ddt, da, dbm, dcm
 
@@ -327,6 +399,31 @@ def ssm_scan_plain(x, dt, a, bmat, cmat):
     for t in range(l):
         dtt = dtf[:, t]                                        # (B, D)
         a_bar = torch.exp(dtt[..., None] * af[None])           # (B, D, N)
+        h = a_bar * h + (dtt * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(sum_states(h * cf[:, t, None, :]))
+    return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_heads_plain(x, dt, a, bmat, cmat):
+    """The per-head forward's function in plain PyTorch: e_t = exp(dt_t
+    a) once per (b, t, head), broadcast over the head's channels and the
+    states, then :func:`ssm_scan_plain`'s steps. Bit for bit
+    :func:`ssm_scan_plain` on :func:`expand_heads`' inputs (the same
+    products, in the same order). x (B, L, D), dt (B, L, nh) fp32, a
+    (nh,) fp32, B and C (B, L, N) -> (y (B, L, D) fp32, h_last (B, D, N)
+    fp32). Differentiable (the CPU training path of a Mamba-2 block runs
+    through it)."""
+    b, l, d = x.shape
+    nh, n = a.shape[0], bmat.shape[-1]
+    hd = d // nh
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf = bmat.float(), cmat.float()
+    e = torch.exp(dtf * af)                                    # (B, L, nh)
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        a_bar = e[:, t].repeat_interleave(hd, dim=-1)[..., None]  # (B, D, 1)
+        dtt = dtf[:, t].repeat_interleave(hd, dim=-1)             # (B, D)
         h = a_bar * h + (dtt * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(sum_states(h * cf[:, t, None, :]))
     return torch.stack(ys, dim=1), h

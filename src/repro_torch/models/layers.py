@@ -488,9 +488,9 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None,
     :func:`mamba1_apply` does. With one group the recurrence is the
     selective scan's, one decay a head (``ops.selective_scan_heads``): x
     the (B, S, di) channels, dt (B, S, nh) and A = -exp(a_log) per head,
-    B and C the shared (B, S, N) rows. Its forward is B4 on dt and A
-    given per channel (``kernels.ssm_scan.expand_heads``); under grad its
-    backward is the per-head B4-bwd, which returns d(dt) and dA per head.
+    B and C the shared (B, S, N) rows. Its forward is the per-head B4
+    (one exp(dt A) a (b, t, head)); under grad its backward is the
+    per-head B4-bwd, which returns d(dt) and dA per head.
     y is ``repro``'s hs . C and h_last (B, di, N) the (B, nh, hd, N)
     state, so ``repro``'s (B, S, nh, hd, N) ``bx`` is never built. The
     one-token decode update stays plain torch, as in ``repro``."""

@@ -505,9 +505,11 @@ def _check_scan_bwd(got, want):
 ])
 def test_ssm_scan_backward_kernel_matches_plain(dev, dtype, b, l, d, n, hd):
     """B4-bwd against ssm_scan_bwd_plain, with and without dh_last, and
-    its launch count; a gradient off by 1% in ddt, or in dB, fails the
-    limits."""
-    from repro_torch.kernels.ssm_scan import (expand_heads,
+    its launch count; the kernel counts the exponentials it evaluates at
+    its formula (bwd_exp_count), and counting changes no bit; a gradient
+    off by 1% in ddt, or in dB, fails the limits."""
+    from repro_torch.kernels.ssm_scan import (bwd_exp_count, expand_heads,
+                                              ssm_scan_bwd,
                                               ssm_scan_bwd_plain)
     gen = torch.Generator(device=dev).manual_seed(17)
     if hd is None:
@@ -532,6 +534,10 @@ def test_ssm_scan_backward_kernel_matches_plain(dev, dtype, b, l, d, n, hd):
         _check_scan_bwd(got, want)
         assert all(torch.equal(g, h) for g, h in zip(
             got, ops.selective_scan_bwd(*args, dy, dh_last)))  # fixed order
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        counted = ssm_scan_bwd(*args, dy, dh_last, exp_count=counter)
+        assert counter.item() == bwd_exp_count(b, l, d, n)
+        assert all(torch.equal(g, h) for g, h in zip(got, counted))
     for i in (1, 3):                # ddt, dB
         planted = list(got)
         planted[i] = (got[i].float() * 1.01).to(got[i].dtype)
@@ -660,6 +666,71 @@ def test_ssm_scan_heads_backward_refuses_what_it_does_not_take(dev):
             1, dtype=torch.int32, device=dev))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n,hd", [
+    (1, 100, 5120, 64, 64),     # zamba2's prefills: B = 1, L 100
+    (1, 32, 5120, 64, 64),      # ... L 32
+    (4, 32, 5120, 64, 64),      # ... four 32-token prompts
+    (16, 128, 5120, 64, 64),    # zamba2's training shape
+    (8, 32, 256, 8, 32),        # the reduced zamba2's hd and N
+    (3, 37, 60, 5, 5),          # ragged L, N and hd: 12 heads of 5
+])
+def test_ssm_scan_heads_kernel_matches_plain(dev, dtype, b, l, d, n, hd):
+    """The per-head B4 against ssm_scan_heads_plain at SCAN_TOL, bit for
+    bit B4 on expand_heads' inputs and a second launch, its launch count,
+    and the exponentials it evaluates at its formula
+    (heads_fwd_exp_count): none per (channel, state)."""
+    from repro_torch.kernels.ssm_scan import (expand_heads,
+                                              heads_fwd_exp_count,
+                                              ssm_scan_heads,
+                                              ssm_scan_heads_plain)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    args = _heads_case(gen, dev, dtype, b, l, d, n, hd)
+    before = ops.selective_scan_heads.launches
+    y, h = ops.selective_scan_heads(*args)
+    torch.cuda.synchronize()
+    assert ops.selective_scan_heads.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    py, ph = ssm_scan_heads_plain(*args)
+    torch.testing.assert_close(y, py, **SCAN_TOL)
+    torch.testing.assert_close(h, ph, **SCAN_TOL)
+    ry, rh = ops.selective_scan(args[0], *expand_heads(args[1], args[2], hd,
+                                                       n), args[3], args[4])
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    y2, h2 = ssm_scan_heads(*args, exp_count=counter)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert counter.item() == heads_fwd_exp_count(b, l, d // hd, hd, n)
+    assert counter.item() <= b * l * (d // hd) * -(-hd // 8)
+
+
+def test_ssm_scan_heads_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.ssm_scan import ssm_scan_heads
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, dt, a, bm, cm = _heads_case(gen, dev, torch.float32, 1, 8, 64, 8, 16)
+    ssm_scan_heads(x, dt, a, bm, cm)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan_heads(x.cpu(), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="share"):
+        ssm_scan_heads(x.double(), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan_heads(x, dt.half(), a, bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_heads(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                       a, bm, cm)
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan_heads(x, dt, a, torch.zeros((1, 8, 65), device=dev),
+                       torch.zeros((1, 8, 65), device=dev))
+    with pytest.raises(ValueError, match="multiple"):     # D % nh
+        ssm_scan_heads(x, dt[..., :3].contiguous(), a[:3].contiguous(), bm,
+                       cm)
+    with pytest.raises(ValueError, match=r"\(nh,\)"):     # a per channel
+        ssm_scan_heads(x, dt, torch.zeros((4, 8), device=dev), bm, cm)
+    with pytest.raises(ValueError, match="exp_count"):
+        ssm_scan_heads(x, dt, a, bm, cm, exp_count=torch.zeros(
+            1, dtype=torch.int32, device=dev))
+
+
 @pytest.mark.parametrize("b,l,nh,hd,n", [
     (1, 100, 80, 64, 64),       # full-width zamba2's Mamba-2 prefill
     (1, 32, 80, 64, 64),        # ... at the short prompt
@@ -700,9 +771,10 @@ def _hybrid_spec(layers, **kw):
 @pytest.mark.parametrize("layers", [5, 6])       # 6: one pre-block
 def test_reduced_zamba2_on_the_card(dev, layers):
     """Float32 reduced zamba2 on the card: one prefill launches B1 once
-    per shared-attention application and B4 once per Mamba-2 layer, and
-    the continuous engine's every request equals single-request decoding
-    (which also runs prefill and decode on the card)."""
+    per shared-attention application and the per-head B4 once per Mamba-2
+    layer (B4 itself never), and the continuous engine's every request
+    equals single-request decoding (which also runs prefill and decode
+    on the card)."""
     spec = _hybrid_spec(layers, report=api.ReportSpec(verify=-1))
     ctx = api.build_serve_context(spec)
     model = ctx.model
@@ -714,7 +786,8 @@ def test_reduced_zamba2_on_the_card(dev, layers):
     counts = ops.launch_counts()
     assert model.n_super == 2 and model.n_pre == layers - 5
     assert counts["flash_attention"] == model.n_super
-    assert counts["selective_scan"] == layers
+    assert counts["selective_scan_heads"] == layers
+    assert counts["selective_scan"] == 0
     assert sum(counts.values()) == model.n_super + layers
     assert bool(torch.isfinite(logits).all())
     assert cache["server_super"]["ssm"].is_cuda
@@ -724,8 +797,8 @@ def test_reduced_zamba2_on_the_card(dev, layers):
 
 def test_hybrid_loss_under_grad_raises_on_the_card(dev):
     """The hybrid's loss under grad on the card (float32 reduced zamba2):
-    B4 and the per-head B4-bwd once per Mamba-2 layer (the per-channel
-    one never), B1 and B1-bwd once per
+    the per-head B4 and B4-bwd once per Mamba-2 layer (the per-channel
+    ones never), B1 and B1-bwd once per
     shared-attention application, B5 and B5-bwd once; the loss and every
     leaf's gradient against the same parameters on the CPU, where the
     plain versions run (relative 1e-4: fp32 sums in another order)."""
@@ -747,9 +820,9 @@ def test_hybrid_loss_under_grad_raises_on_the_card(dev):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     layers, n_super = model.cfg.num_layers, model.n_super
-    assert counts["selective_scan"] == counts["selective_scan_heads_bwd"] \
-        == layers
-    assert counts["selective_scan_bwd"] == 0
+    assert counts["selective_scan_heads"] \
+        == counts["selective_scan_heads_bwd"] == layers
+    assert counts["selective_scan"] == counts["selective_scan_bwd"] == 0
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == n_super
     assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 1
@@ -766,7 +839,7 @@ def test_reduced_ssm_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch,
     """Reduced falcon-mamba and zamba2 (float32), PSL-UGS through api.run,
     2 AdamW steps from one CPU-drawn init (stacked matrices at fan-in
     d_in): losses on the card against the CPU at rtol 1e-4, and B4 and
-    B4-bwd (the hybrid's the per-head one, with B1 and B1-bwd) launched
+    B4-bwd (the hybrid's the per-head ones, with B1 and B1-bwd) launched
     every step."""
     import math
     from repro_torch.api import protocols
@@ -798,9 +871,12 @@ def test_reduced_ssm_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch,
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
     layers = {"falcon-mamba-7b": 2, "zamba2-2.7b": 5}[arch]
     attn = {"falcon-mamba-7b": 0, "zamba2-2.7b": 2}[arch]
-    bwd = {"falcon-mamba-7b": "selective_scan_bwd",
-           "zamba2-2.7b": "selective_scan_heads_bwd"}[arch]
-    assert counts["selective_scan"] == counts[bwd] == 2 * layers
+    fwd, bwd = {"falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
+                "zamba2-2.7b": ("selective_scan_heads",
+                                "selective_scan_heads_bwd")}[arch]
+    assert counts[fwd] == counts[bwd] == 2 * layers
+    assert counts["selective_scan"] + counts["selective_scan_heads"] \
+        == 2 * layers
     assert counts["selective_scan_bwd"] + counts[
         "selective_scan_heads_bwd"] == 2 * layers
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \

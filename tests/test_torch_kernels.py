@@ -25,7 +25,8 @@ from repro_torch.kernels.paged_attention import (combine_partials_plain,
                                                  paged_attention,
                                                  paged_attention_plain,
                                                  split_partials_plain)
-from repro_torch.kernels.ssm_scan import ssm_scan_heads_bwd
+from repro_torch.kernels.ssm_scan import (ssm_scan_heads,
+                                          ssm_scan_heads_bwd)
 
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]
@@ -242,6 +243,7 @@ def test_cpu_wrappers_do_not_count_launches():
                                    "spec_verify": 0,
                                    "selective_scan": 0,
                                    "selective_scan_bwd": 0,
+                                   "selective_scan_heads": 0,
                                    "selective_scan_heads_bwd": 0,
                                    "cross_entropy": 0,
                                    "cross_entropy_bwd": 0}
@@ -257,13 +259,18 @@ def test_wrappers_refuse_devices_without_a_kernel():
                             torch.empty((1,)))
 
 
-@pytest.mark.parametrize("which", ["flash", "paged", "ssm_scan_heads_bwd"])
+@pytest.mark.parametrize("which", ["flash", "paged", "ssm_scan_heads",
+                                   "ssm_scan_heads_bwd"])
 def test_kernel_launchers_reject_cpu_tensors(which):
     """The launchers take CUDA tensors only and check before building."""
     q = torch.zeros((1, 2, 4, 16))
     with pytest.raises(ValueError, match="CUDA"):
         if which == "flash":
             flash_attention(q, q, q)
+        elif which == "ssm_scan_heads":
+            ssm_scan_heads(torch.zeros((1, 4, 8)), torch.zeros((1, 4, 2)),
+                           torch.zeros((2,)), torch.zeros((1, 4, 3)),
+                           torch.zeros((1, 4, 3)))
         elif which == "ssm_scan_heads_bwd":
             x = torch.zeros((1, 4, 8))
             ssm_scan_heads_bwd(x, torch.zeros((1, 4, 2)), torch.zeros((2,)),

@@ -36,7 +36,7 @@ from repro_torch import checkpoint as tckpt
 from repro_torch.configs import get_config as tget
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_bwd,
-                                          ssm_scan_heads_bwd,
+                                          ssm_scan_heads, ssm_scan_heads_bwd,
                                           ssm_scan_plain, sum_states)
 from repro_torch.kernels.spec_verify import spec_verify
 from repro_torch.models import build_model as tbuild
@@ -153,7 +153,8 @@ def test_selective_scan_is_differentiable_on_the_cpu():
 
 
 @pytest.mark.parametrize("which", ["ssm_scan", "ssm_scan_bwd",
-                                   "ssm_scan_heads_bwd", "spec_verify"])
+                                   "ssm_scan_heads", "ssm_scan_heads_bwd",
+                                   "spec_verify"])
 def test_kernel_launchers_reject_cpu_tensors(which):
     """The launchers take CUDA tensors only and check before building."""
     with pytest.raises(ValueError, match="CUDA"):
@@ -165,6 +166,10 @@ def test_kernel_launchers_reject_cpu_tensors(which):
             x = torch.zeros((1, 4, 8))
             ssm_scan_bwd(x, x, torch.zeros((8, 2)), torch.zeros((1, 4, 2)),
                          torch.zeros((1, 4, 2)), x)
+        elif which == "ssm_scan_heads":
+            ssm_scan_heads(torch.zeros((1, 4, 8)), torch.zeros((1, 4, 2)),
+                           torch.zeros((2,)), torch.zeros((1, 4, 2)),
+                           torch.zeros((1, 4, 2)))
         elif which == "ssm_scan_heads_bwd":
             x = torch.zeros((1, 4, 8))
             ssm_scan_heads_bwd(x, torch.zeros((1, 4, 2)), torch.zeros((2,)),

@@ -42,7 +42,8 @@ from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.configs import get_config as tget
 from repro_torch.core import psl as tpsl
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import ssm_scan_bwd_plain, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (bwd_exp_count, ssm_scan_bwd_plain,
+                                          ssm_scan_plain)
 from repro_torch.launch.train import default_lm_spec as t_default_lm_spec
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
@@ -133,6 +134,20 @@ def test_scan_bwd_plain_matches_jax_grad(b, l, d, n, with_dh):
     for name, g, w in zip(NAMES, got, want):
         assert g.dtype == torch.float32, name
         _close(g, w)
+
+
+@pytest.mark.parametrize("l,per_pair", [
+    (1, 1), (4, 4), (5, 9), (8, 12), (37, 73),
+    (128, 252),          # falcon-mamba's training L: 1.97 a state-step
+])
+def test_scan_bwd_exp_count_formula(l, per_pair):
+    """B4-bwd's stated count: per (b, d, n) pair one exponential a step of
+    the first pass over every 4-step sub-chunk but the last, and one a
+    step of the second pass; at falcon-mamba's training shape below the
+    first version's 771.8 M."""
+    assert bwd_exp_count(2, l, 3, 5) == 2 * 3 * 5 * per_pair
+    if l == 128:
+        assert bwd_exp_count(16, l, 8192, 16) == 528_482_304 < 771.8e6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
