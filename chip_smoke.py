@@ -47,6 +47,14 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    must be below ``NEAR_TIE_GAP``. The speculative run's tokens are also
    held against the paged run's: at a first difference the top-2 gap along
    the paged run's own tokens must be below ``NEAR_TIE_GAP``.
+4a. Static serve (``[static]``). granite's weights served through the
+   static engine (``repro_torch.runtime.static.BatchedServer``): the 8
+   requests in batches of equal prompt length, 40 B1 launches a
+   prefill and nothing else, each request's tokens held to the
+   ``continuous`` run's under the near-tie rule (the gap read along the
+   continuous tokens); then the 8 as one left-padded batch through
+   ``run_serve``: its ServeReport (shared TTFT, padded prefill tokens),
+   the KV bytes against their reckoning.
 4b. SSM serve. granite's weights are freed; ``run_serve`` then serves
    full-width falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192,
    N = 16, random weights from a seeded generator) through ``continuous``
@@ -133,6 +141,30 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    at ``SCAN_TOL``, bitwise against B4 on the inputs expanded per
    channel and timed beside that B4 call (bound ``mamba2_scan_bound``),
    its exponentials counted by the kernel (``heads_fwd_exp_count``).
+7e'. Audio (``[audio]``, ``[audio-grads]``, ``[audio-kernels]``).
+   Full-width whisper-tiny (4 encoder + 4 decoder layers, d_model 384,
+   6 heads of 64, 1500 frames, V 51,865; bf16, random weights from seed
+   0) served through the static engine with the 8 requests (one
+   left-padded batch, zero frames): B1 launched exactly as the path
+   implies, counted by (dtype, B, S, T, Hq, Hkv, D, causal)
+   (``record_kernel_shapes``, ``audio_serve_want``): per prefill 4
+   non-causal over the 1500 frames, 4 causal over the prompt, 4
+   non-causal cross-attention (S = prompt, T = 1500); per decode step 4
+   cross-attention at S = 1; nothing else. TTFT, tok/s, decode step, KV
+   bytes (rings and encoder states, reckoned), a profiled decode step.
+   Its tokens against a serve of the same batch through the plain
+   versions, printed at the own init and gated under the near-tie rule
+   at fan-in d_in, with zero frames and with frames drawn from the
+   seed; in float32 each equal-length batch against each request served
+   alone, gated. ``[audio-grads]``: ``decomposed_grads`` with the cut
+   at the encoder output on 8 x (1500 frames + 128 tokens), kernels
+   against plain per leaf (bf16 ``GRAD_REL_L2``, float32
+   ``AUDIO_GRAD_FP32_REL_L2``), exact B1, B1-bwd, B5 and B5-bwd launches
+   by shape, a planted B1-bwd fault caught, a falling fixed-batch loss
+   over 3 AdamW steps. ``[audio-kernels]``: every B1, B1-bwd, B5 and
+   B5-bwd shape those runs launched held to its plain version and timed
+   beside its bound (no causal halving without the mask) and SDPA or
+   matmul + ``F.cross_entropy`` (the kernels line's ``audio_cases``).
 7f. Scan backward (``[scan-bwd]``). B4-bwd at ``SCAN_BWD_SHAPES``
    (falcon-mamba's training shape, a ragged one) in bf16 and fp32
    against ``ssm_scan_bwd_plain`` and autograd through
@@ -519,41 +551,60 @@ def kernel_phase(torch, dev):
     return b1_cases, b2, b3
 
 
-def serve_attention_case(torch, rn, b, s, hq, hkv, d, tol=None):
-    """B1 forward as serving calls it (no grad, no lse) at one prefill
-    shape, in ``rn``'s dtype: held to the plain version (``tol``, bf16's
-    by default), timed (events and device) beside it, its bound and the
-    SDPA forward."""
+def attn_pairs(s: int, t: int, causal: bool) -> int:
+    """(query, key) pairs a B1 call scores: all S x T without the causal
+    mask; with it, row i sees keys 0..i (starts aligned)."""
+    if not causal:
+        return s * t
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
+
+
+def attn_shape(b, s, t, hq, hkv, d, causal) -> str:
+    seq = f"S=T={s}" if s == t else f"S={s} T={t}"
+    return (f"B={b} {seq} Hq={hq} Hkv={hkv} D={d} "
+            f"{'causal' if causal else 'non-causal'}")
+
+
+def serve_attention_case(torch, rn, b, s, hq, hkv, d, tol=None, t=None,
+                         causal=True):
+    """B1 forward as serving calls it (no grad, no lse) at one shape (T
+    keys, S by default; causal by default), in ``rn``'s dtype: held to
+    the plain version (``tol``, bf16's by default), timed (events and
+    device) beside it, its bound (every pair scored counted once: no
+    causal halving without the mask) and the SDPA forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
     serve_attention = torch.no_grad()(ops.attention)
-    q, k, v = rn(b, s, hq, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
+    t = s if t is None else t
+    q, k, v = rn(b, s, hq, d), rn(b, t, hkv, d), rn(b, t, hkv, d)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    got = serve_attention(q, k, v, causal=True)
-    want = flash_attention_plain(qt, kt, vt, causal=True).transpose(1, 2)
+    got = serve_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2)
     torch.cuda.synchronize()
     tol = tol or dict(atol=BF16_ATOL, rtol=BF16_RTOL)
     name = str(q.dtype).replace("torch.", "")
     err = within_tol(torch, got, want, f"flash_attention {name} "
-                     f"{(b, s, hq, hkv, d)}", **tol)
+                     f"{(b, s, t, hq, hkv, d, causal)}", **tol)
     fp32 = q.dtype == torch.float32       # the CUDA-core kernel, no wgmma
-    nbytes = q.element_size() * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-    flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
+    nbytes = q.element_size() * (2 * b * s * hq * d + 2 * b * t * hkv * d)
+    flops = 4.0 * b * hq * d * attn_pairs(s, t, causal)
     bnd, by = bound_ms(nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS)
     case = {
-        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal {name}",
+        "shape": f"{attn_shape(b, s, t, hq, hkv, d, causal)} {name}",
         "max_abs_err": err,
-        "ms": time_ms(torch, lambda: serve_attention(q, k, v)),
+        "ms": time_ms(torch, lambda: serve_attention(q, k, v,
+                                                     causal=causal)),
         "plain_ms": time_ms(torch, lambda: flash_attention_plain(
-            qt, kt, vt, causal=True)),
+            qt, kt, vt, causal=causal)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(
             torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
     }
     case["device_ms"] = device_ms(
-        torch, lambda: serve_attention(q, k, v),
+        torch, lambda: serve_attention(q, k, v, causal=causal),
         "flash_fwd_kernel" if fp32 else "flash_fwd_tc")
     add_rates(case, flops)
     print(f"kernel flash_attention {case['shape']}: err "
@@ -2250,63 +2301,72 @@ def train_kernel_phase(torch, dev):
     return b5, b5_bwd, b1_bwd
 
 
-def attention_bwd_case(torch, dev, gen, b, s, hq, hkv, dd):
-    """B1-bwd at one training shape, bf16, through ``ops.attention``'s
-    autograd against the plain forward's autograd; timed (events, device
-    by pass) beside the plain backward, its bound and the SDPA backward."""
+def attention_bwd_case(torch, dev, gen, b, s, hq, hkv, dd, t=None,
+                       causal=True, dtype=None):
+    """B1-bwd at one training shape (T keys, S by default; causal by
+    default), bf16 unless ``dtype``, through ``ops.attention``'s autograd
+    against the plain forward's autograd (bf16's tolerance, or
+    ``FP32_ATTN_TOL`` in float32); timed (events, device by pass) beside
+    the plain backward, its bound and the SDPA backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention as \
         fa_kernel
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain)
+    t = s if t is None else t
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    tol = FP32_ATTN_TOL if fp32 else dict(atol=BF16_ATOL, rtol=BF16_RTOL)
     q = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
-        torch.bfloat16).requires_grad_(True)
-    k = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
-        torch.bfloat16).requires_grad_(True)
-    vv = torch.randn((b, s, hkv, dd), generator=gen, device=dev).to(
-        torch.bfloat16).requires_grad_(True)
-    do = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(
-        torch.bfloat16)
-    out = ops.attention(q, k, vv, causal=True)
+        dtype).requires_grad_(True)
+    k = torch.randn((b, t, hkv, dd), generator=gen, device=dev).to(
+        dtype).requires_grad_(True)
+    vv = torch.randn((b, t, hkv, dd), generator=gen, device=dev).to(
+        dtype).requires_grad_(True)
+    do = torch.randn((b, s, hq, dd), generator=gen, device=dev).to(dtype)
+    out = ops.attention(q, k, vv, causal=causal)
     if out.grad_fn is None:
         fail("ops.attention under grad returned no grad_fn")
     got = torch.autograd.grad(out, (q, k, vv), grad_outputs=do)
     ref_out = flash_attention_plain(
         q.transpose(1, 2), k.transpose(1, 2),
-        vv.transpose(1, 2)).transpose(1, 2)
+        vv.transpose(1, 2), causal=causal).transpose(1, 2)
     want = torch.autograd.grad(ref_out, (q, k, vv), grad_outputs=do)
     torch.cuda.synchronize()
-    err = max(within_tol(torch, a, bb, f"flash_attention_bwd S={s}")
+    name = str(dtype).replace("torch.", "")
+    shape = attn_shape(b, s, t, hq, hkv, dd, causal)
+    err = max(within_tol(torch, a, bb, f"flash_attention_bwd {shape} "
+                         f"{name}", **tol)
               for a, bb in zip(got, want))
     qd, kd, vd, od = (x.detach() for x in (q, k, vv, out))
     lse_b1 = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
     fa_kernel(qd.transpose(1, 2), kd.transpose(1, 2),
-              vd.transpose(1, 2), lse=lse_b1)      # uncounted
-    elt = 2
-    nbytes = (elt * (4 * b * s * hq * dd + 4 * b * s * hkv * dd)
+              vd.transpose(1, 2), causal=causal, lse=lse_b1)  # uncounted
+    elt = q.element_size()
+    nbytes = (elt * (4 * b * s * hq * dd + 4 * b * t * hkv * dd)
               + 4 * b * hq * s)
-    flops = 10.0 * b * hq * dd * (s * (s + 1) / 2)
-    bnd, by = bound_ms(nbytes, flops)
+    flops = 10.0 * b * hq * dd * attn_pairs(s, t, causal)
+    bnd, by = bound_ms(nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS)
     qt, kt, vt, ot, dot = (x.transpose(1, 2) for x in (qd, kd, vd, od,
                                                        do))
     sd_q, sd_k, sd_v = (x.detach().transpose(1, 2).requires_grad_(True)
                         for x in (q, k, vv))
     sd_out = F.scaled_dot_product_attention(sd_q, sd_k, sd_v,
-                                            is_causal=True,
+                                            is_causal=causal,
                                             enable_gqa=True)
     def kernel_bwd():
-        return ops.attention_bwd(qd, kd, vd, od, do, lse_b1)
+        return ops.attention_bwd(qd, kd, vd, od, do, lse_b1, causal=causal)
 
     def sdpa_bwd():
         return torch.autograd.grad(sd_out, (sd_q, sd_k, sd_v),
                                    grad_outputs=dot, retain_graph=True)
     case = {
-        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={dd} causal",
+        "shape": shape if dtype == torch.bfloat16 else f"{shape} {name}",
         "max_abs_err": err,
         "ms": time_ms(torch, kernel_bwd),
         "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
-            qt, kt, vt, ot, dot, lse_b1)),
+            qt, kt, vt, ot, dot, lse_b1, causal=causal)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(torch, sdpa_bwd),
         # device time: the port's two passes, and every kernel of
@@ -2320,7 +2380,7 @@ def attention_bwd_case(torch, dev, gen, b, s, hq, hkv, dd):
     add_rates(case, flops)
     case["device_bound_share"] = bnd / case["device_ms"]
     print(f"kernel flash_attention_bwd {case['shape']}: err "
-          f"{err:.3g} (atol {BF16_ATOL}, rtol {BF16_RTOL}); "
+          f"{err:.3g} (atol {tol['atol']}, rtol {tol['rtol']}); "
           f"{case['ms']:.4f} ms (device {case['device_ms']:.4f}: "
           f"{json.dumps(case['device_ms_by_pass'])}), plain "
           f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}), sdpa "
@@ -3259,6 +3319,586 @@ def family_kernel_phase(torch, dev, hybrid_shapes):
                     f"the [hybrid] {name} run")})
             del args
     return cases
+
+
+# ---------------------------------------------------------------------------
+# The static engine (granite-3-2b) and the audio family (whisper-tiny)
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-tiny"
+# [audio-grads]: whisper-tiny CONFIG (bf16, and again in float32), 8 rows
+# of 1500 random frames before 128 tokens, the weights rescaled to fan-in
+# d_in (``rescale_to_fan_in``), then AUDIO_STEPS AdamW steps at
+# ``SSM_FIXED_BATCH_LR`` on that batch. float32 gradients are held at
+# AUDIO_GRAD_FP32_REL_L2 (fp32 sums in another order through 8 layers).
+AUDIO_GRADS = dict(batch=8, seq=128, steps=3)
+AUDIO_GRAD_FP32_REL_L2 = 1e-4
+AUDIO_DECODE_GROUPS = (
+    ("B1 flash_attention (cross-attention at S = 1)",
+     _kernel_named("flash_fwd")),
+    ("cuBLAS matmul (projections, LM head)",
+     _kernel_named("gemm", "sm90", "cutlass", "xmma", "nvjet")),
+    ("other (self-attention decode, norms, GELU, cache writes)",
+     lambda kern, names: True))
+
+
+class record_kernel_shapes:
+    """Count B1 and B1-bwd launches by (dtype, B, S, T, Hq, Hkv, D,
+    causal) and B5 and B5-bwd launches by (dtype, T, d, V) until
+    ``stop``, by wrapping the launchers that ``ops``' wrappers call on a
+    CUDA tensor (as ``record_train_shapes`` does). A windowed B1 or
+    B1-bwd launch fails: the static and audio paths run none."""
+
+    NAMES = {"flash_attention": "flash_attention",
+             "flash_attention_bwd": "flash_attention_bwd"}
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.xent = ops, ops.xent
+        self.saved = {n: getattr(ops, a) for n, a in self.NAMES.items()}
+        self.saved_xent = (ops.xent.cross_entropy_fwd,
+                           ops.xent.cross_entropy_bwd)
+        self.counts = {n: {} for n in ("flash_attention",
+                                       "flash_attention_bwd",
+                                       "cross_entropy", "cross_entropy_bwd")}
+
+        def dtype_name(t):
+            return str(t.dtype).replace("torch.", "")
+
+        def counted(name, shape_of, fn):
+            def launch(*args, **kw):
+                shape = shape_of(*args, **kw)
+                self.counts[name][shape] = self.counts[name].get(shape,
+                                                                 0) + 1
+                return fn(*args, **kw)
+            return launch
+
+        def attn_key(q, k, *args, causal=True, window=None, **kw):
+            if window is not None:
+                fail(f"a windowed B1 launch (window {window}) on the "
+                     f"static or audio path")
+            b, hq, s, d = q.shape
+            return (dtype_name(q), b, s, k.shape[2], hq, k.shape[1], d,
+                    bool(causal))
+
+        def xent_key(hidden, w, *args, **kw):
+            return (dtype_name(hidden), *hidden.shape, w.shape[1])
+
+        for name, attr in self.NAMES.items():
+            setattr(ops, attr, counted(name, attn_key, self.saved[name]))
+        ops.xent.cross_entropy_fwd = counted(
+            "cross_entropy", xent_key, self.saved_xent[0])
+        ops.xent.cross_entropy_bwd = counted(
+            "cross_entropy_bwd", xent_key, self.saved_xent[1])
+
+    def stop(self):
+        for name, attr in self.NAMES.items():
+            setattr(self.ops, attr, self.saved[name])
+        (self.xent.cross_entropy_fwd,
+         self.xent.cross_entropy_bwd) = self.saved_xent
+        return self.counts
+
+
+def merge_shapes(into, counts):
+    for name, by_shape in counts.items():
+        for shape, n in by_shape.items():
+            into.setdefault(name, {})
+            into[name][shape] = into[name].get(shape, 0) + n
+    return into
+
+
+@contextlib.contextmanager
+def static_hooks(torch, model, frames=None):
+    """Inside: ``model``'s prefill and decode steps record each row's
+    top-2 logit gap and top logit (the yielded list: one (gaps, tops) a
+    call, rows in the static batch's order), and with ``frames`` (audio)
+    the prefill reads them in place of the zero frames the static engine
+    feeds."""
+    calls = []
+    prefill, decode = model.prefill, model.decode_step
+
+    def note(logits):
+        top2 = logits.reshape(logits.shape[0], -1).float().topk(
+            2, dim=-1).values
+        calls.append(((top2[:, 0] - top2[:, 1]).tolist(),
+                      top2[:, 0].tolist()))
+
+    def recording_prefill(params, batch, **kw):
+        if frames is not None:
+            batch = dict(batch, frames=frames[:batch["tokens"].shape[0]])
+        out = prefill(params, batch, **kw)
+        note(out[0])
+        return out
+
+    def recording_decode(*args, **kw):
+        out = decode(*args, **kw)
+        note(out[0])
+        return out
+    model.prefill, model.decode_step = recording_prefill, recording_decode
+    try:
+        yield calls
+    finally:
+        del model.prefill, model.decode_step
+
+
+def static_serve(torch, ctx, spec, tag: str, requests, frames=None,
+                 want=None, entry: bool = False):
+    """One static serve of ``requests`` through ``ctx``'s engine (with
+    ``entry``, through ``run_serve(spec)``, whose workload ``requests``
+    must be, in its order) with the
+    launch counts set to 0 just before and read just after, every B1 and
+    B5 launch counted by shape (``record_kernel_shapes``) and each row's
+    top-2 gaps recorded (``static_hooks``). ``want``: the exact launches
+    by shape the run must show (B1's, or none), nothing else launched.
+    Prints the report, the shared TTFT, decode tok/s, the mean decode
+    step and the static KV bytes. Returns (report, numbers, shapes,
+    reference): ``reference(req)`` is (tokens, gaps, tops) of that row,
+    for ``agreement_phase``."""
+    from repro_torch.api import run_serve
+    from repro_torch.kernels import ops
+    spec = spec.replace(obs=spec.obs.replace(events_path=str(
+        pathlib.Path(spec.obs.events_path).with_name(f"{tag}.jsonl"))))
+    torch.cuda.reset_peak_memory_stats()
+    shapes = record_kernel_shapes()
+    try:
+        with static_hooks(torch, ctx.model, frames) as calls:
+            ops.reset_launches()
+            report = (run_serve(spec, ctx=ctx) if entry
+                      else ctx.engine.serve(requests, spec))
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+    finally:
+        shapes = shapes.stop()
+    peak = torch.cuda.max_memory_allocated()
+    b1 = shapes["flash_attention"]
+    if want is not None:
+        others = {k: v for k, v in launches.items()
+                  if k != "flash_attention" and v}
+        if b1 != want or others \
+                or launches["flash_attention"] != sum(want.values()):
+            fail(f"[{tag}] B1 launches by (dtype, B, S, T, Hq, Hkv, D, "
+                 f"causal) {b1}, wanted {want}; other launches {others}")
+    j = report.to_json()
+    ttft = j["ttft_ms"]["p50"]
+    step_ms = ((report.wall_s * 1e3 - ttft) / report.steps
+               if report.steps else 0.0)
+    util = report.cache_utilization
+    out = {"ttft_ms": ttft, "decode_tok_per_s": report.decode_tok_per_s,
+           "decode_step_ms_mean": step_ms, "wall_s": report.wall_s,
+           "steps": report.steps, "prefill_tokens": report.prefill_tokens,
+           "decode_tokens": report.decode_tokens,
+           "kv_bytes": util["capacity_bytes"],
+           "used_tokens": util["used_tokens"],
+           "allocated_tokens": util["allocated_tokens"],
+           "peak_memory_bytes": peak, "launches": launches,
+           "b1_launch_shapes": {"x".join(map(str, k)): v
+                                for k, v in sorted(b1.items())}}
+    print(f"[{tag}] {report.summary()}; shared TTFT {ttft:.2f} ms, decode "
+          f"{report.decode_tok_per_s:.1f} tok/s, mean decode step "
+          f"{step_ms:.2f} ms over {report.steps}, prefill_tokens "
+          f"{report.prefill_tokens} (padded), decode_tokens "
+          f"{report.decode_tokens}; static KV bytes {util['capacity_bytes']}"
+          f" ({util['used_tokens']} of {util['allocated_tokens']} token "
+          f"rows used); peak {peak / 2**30:.2f} GiB; launches {launches}; "
+          f"B1 by (dtype, B, S, T, Hq, Hkv, D, causal) {b1}", flush=True)
+    rows = {r.rid: i for i, r in enumerate(requests)}
+
+    def reference(req):
+        i = rows[req.rid]
+        return (_tokens_of(report, req.rid), [g[i] for g, _ in calls],
+                [t[i] for _, t in calls])
+    return report, out, shapes, reference
+
+
+def static_phase(torch, dev, ctx, continuous, requests,
+                 events_dir: pathlib.Path):
+    """[static]: full-width granite-3-2b (``ctx``'s weights) through the
+    static engine. The 8 [serve] requests in batches of equal prompt
+    length (no padding, where repro holds static token-identical to
+    continuous): 40 B1 a prefill and nothing else, each request's tokens
+    against the ``continuous`` run's (``continuous``) under the near-tie
+    rule, the gap read along the continuous tokens (``forced_gaps``).
+    Then the 8 requests as one mixed-length batch through ``run_serve``:
+    its ServeReport, padded prefill tokens and KV bytes against their
+    reckoning."""
+    from repro_torch.api import build_serve_context
+    t_phase = time.perf_counter()
+    spec = serve_spec("static", events_dir)
+    sctx = build_serve_context(spec, params=ctx.params, device=dev)
+    cfg = sctx.model.cfg
+    by_len = {}
+    for req in requests:
+        by_len.setdefault(len(req.prompt), []).append(req)
+    out, exact = {"groups": {}}, 0
+    for plen, group in sorted(by_len.items()):
+        want = {("bfloat16", len(group), plen, plen, cfg.num_heads,
+                 cfg.num_kv_heads, cfg.head_dim, True): cfg.num_layers}
+        report, nums, _, _ = static_serve(torch, sctx, spec,
+                                          f"static-{plen}", group, want=want)
+        out["groups"][plen] = nums
+        for req in group:
+            got, ref = _tokens_of(report, req.rid), \
+                _tokens_of(continuous, req.rid)
+            if got == ref:
+                exact += 1
+                continue
+            i = next(j for j in range(len(ref)) if got[j] != ref[j])
+            gap = forced_gaps(torch, ctx, req.prompt, ref)[i]
+            if gap >= NEAR_TIE_GAP:
+                fail(f"[static] request {req.rid} differs from continuous "
+                     f"at token {i} where the top-2 gap is {gap:.4f}")
+            print(f"[static] request {req.rid}: differs from continuous at "
+                  f"token {i}, a near-tie (gap {gap:.4f})", flush=True)
+    print(f"[static] against continuous at equal prompt lengths: {exact} of "
+          f"{len(requests)} token-identical, the rest near-ties", flush=True)
+    plen = max(len(r.prompt) for r in requests)
+    want = {("bfloat16", len(requests), plen, plen, cfg.num_heads,
+             cfg.num_kv_heads, cfg.head_dim, True): cfg.num_layers}
+    report, nums, _, _ = static_serve(torch, sctx, spec, "static-mixed",
+                                      requests, want=want, entry=True)
+    max_new = max(r.max_new_tokens for r in requests)
+    kv = (2 * cfg.num_layers * len(requests) * (plen + max_new)
+          * sctx.model.blocks.kv_cache_heads() * cfg.head_dim * 2)
+    if nums["kv_bytes"] != kv or report.prefill_tokens != \
+            len(requests) * plen or not report.ttft_shared:
+        fail(f"[static] mixed batch: KV bytes {nums['kv_bytes']} "
+             f"(reckoned {kv}), prefill_tokens {report.prefill_tokens}, "
+             f"ttft_shared {report.ttft_shared}")
+    out.update({"exact_vs_continuous": exact, "mixed": nums,
+                "seconds": time.perf_counter() - t_phase})
+    keys = ("engine", "wall_s", "num_requests", "prefill_tokens",
+            "decode_tokens", "steps", "ttft_ms", "ttft_shared",
+            "decode_tok_per_s", "cache_utilization")
+    j = report.to_json()
+    print(f"[static] mixed batch ServeReport "
+          f"{json.dumps({k: j[k] for k in keys})}", flush=True)
+    print(f"[static] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def audio_serve_want(cfg, b, plen, steps, dtype):
+    """The B1 launches a static whisper serve implies: per prefill the
+    encoder's ``encoder_layers`` non-causal at (B, 1500, 1500), the
+    decoder's ``num_layers`` causal at (B, plen, plen) and ``num_layers``
+    non-causal cross-attention at (B, plen, 1500); per decode step
+    ``num_layers`` cross-attention at (B, 1, 1500)."""
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    t = cfg.encoder_seq
+    want = {(dtype, b, t, t, *heads, False): cfg.encoder_layers,
+            (dtype, b, plen, plen, *heads, True): cfg.num_layers,
+            (dtype, b, plen, t, *heads, False): cfg.num_layers}
+    if steps:
+        want[(dtype, b, 1, t, *heads, False)] = cfg.num_layers * steps
+    return want
+
+
+def audio_phase(torch, dev, events_dir: pathlib.Path):
+    """[audio]: full-width whisper-tiny (bf16, random weights from seed
+    0) through the static engine with the 8 [serve] requests (one
+    left-padded batch, zero frames as repro feeds them): the exact B1
+    launches of ``audio_serve_want``, TTFT, tok/s, decode step, KV bytes
+    (the self-attention rings and the encoder states), a profiled decode
+    step by group. Its tokens against a serve of the same batch with
+    every kernel replaced by its plain version (``plain_kernels``),
+    printed at the model's own init (a stacked leaf's fan-in is its layer
+    count, 4: std 0.5, attention scores in the hundreds, where the top-2
+    rule cannot hold a bf16 path: ``hybrid_phase`` says why) and gated
+    under the near-tie rule at fan-in d_in (``rescale_to_fan_in``), with
+    zero frames and with frames drawn from the seed. Then float32 (the
+    same draws, fan-in d_in): each equal-length group served as a batch
+    against each request served alone (batch 1, single-request greedy
+    decoding), gated under the near-tie rule. Returns (numbers, every B1
+    launch by shape)."""
+    from repro_torch.api import build_workload
+    from repro_torch.runtime.kvcache import tree_nbytes
+    t_phase = time.perf_counter()
+    spec = serve_spec("static", events_dir, arch=AUDIO_ARCH)
+    ctx, n_params = build_family_ctx(torch, dev, spec, "audio")
+    cfg = ctx.model.cfg
+    requests = build_workload(spec, cfg.vocab_size)
+    b = len(requests)
+    plen = max(len(r.prompt) for r in requests)
+    max_new = max(r.max_new_tokens for r in requests)
+    want = audio_serve_want(cfg, b, plen, max_new - 1, "bfloat16")
+    shapes = {}
+    report, out, sh, _ = static_serve(torch, ctx, spec, "audio", requests,
+                                      want=want, entry=True)
+    merge_shapes(shapes, sh)
+    kv = (2 * cfg.num_layers * b * (plen + max_new)
+          * ctx.model.blocks.kv_cache_heads() * cfg.head_dim * 2
+          + b * cfg.encoder_seq * cfg.d_model * 2)
+    if out["kv_bytes"] != kv:
+        fail(f"[audio] KV bytes {out['kv_bytes']}, reckoned {kv}")
+    out.update({"params": n_params, "param_count": cfg.param_count(),
+                "encoder_layers": cfg.encoder_layers,
+                "decoder_layers": cfg.num_layers})
+    # one decode step of the served batch's shape, profiled by group
+    import numpy as np
+    prompts = np.zeros((b, plen), np.int32)
+    for i, r in enumerate(requests):
+        prompts[i, plen - len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.from_numpy(prompts).to(dev),
+             "frames": torch.zeros((b, cfg.encoder_seq, cfg.d_model),
+                                   dtype=cfg.torch_dtype, device=dev)}
+    _, cache, pos = ctx.model.prefill(ctx.params, batch,
+                                      cache_len=plen + max_new)
+    tok = batch["tokens"][:, -1:]
+    out["decode_profile"] = profile_groups(
+        torch, lambda: ctx.model.decode_step(ctx.params, cache, tok, pos),
+        AUDIO_DECODE_GROUPS, f"[audio] one static decode step (B={b})")
+    if tree_nbytes(cache) != kv:
+        fail(f"[audio] a prefill's cache holds {tree_nbytes(cache)} bytes")
+    del cache, batch
+
+    def against_plain(tag, frames=None, gate=True):
+        rep, _, sh, _ = static_serve(torch, ctx, spec, tag, requests,
+                                     frames=frames, want=want)
+        merge_shapes(shapes, sh)
+        with plain_kernels(torch):
+            _, _, _, plain_ref = static_serve(torch, ctx, spec,
+                                              f"{tag}-plain", requests,
+                                              frames=frames, want={})
+        return agreement_phase(torch, {tag: rep}, ctx, requests,
+                               reference=plain_ref, gate=gate)
+    out["own_init_vs_plain"] = against_plain("audio-own-init", gate=False)
+    rescale_to_fan_in(torch, ctx.params, ctx.model.param_specs())
+    out["fan_in_vs_plain"] = against_plain("audio-fan-in")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.torch_dtype)
+    out["frames_vs_plain"] = against_plain("audio-frames", frames=frames)
+    del ctx, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec32 = serve_spec("static", events_dir, arch=AUDIO_ARCH,
+                        overrides={"dtype": "float32"})
+    ctx, _ = build_family_ctx(torch, dev, spec32, "audio-fp32")
+    rescale_to_fan_in(torch, ctx.params, ctx.model.param_specs())
+    by_len = {}
+    for req in requests:
+        by_len.setdefault(len(req.prompt), []).append(req)
+    fp32 = {}
+    for p, group in sorted(by_len.items()):
+        tag = f"audio-fp32-{p}"
+        rep, fp32[p], sh, _ = static_serve(
+            torch, ctx, spec32, tag, group,
+            want=audio_serve_want(cfg, len(group), p, max_new - 1,
+                                  "float32"))
+        merge_shapes(shapes, sh)
+        alone = {}
+        for req in group:
+            _, _, sh, ref = static_serve(
+                torch, ctx, spec32, f"{tag}-alone-{req.rid}", [req],
+                want=audio_serve_want(cfg, 1, p, max_new - 1, "float32"))
+            merge_shapes(shapes, sh)
+            alone[req.rid] = ref(req)
+        fp32[p]["agreement"] = agreement_phase(
+            torch, {tag: rep}, ctx, group, reference=lambda r: alone[r.rid])
+    out["fp32"] = fp32
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[audio] phase {out['seconds']:.1f} s", flush=True)
+    return out, shapes
+
+
+def audio_grad_setup(torch, dev, dtype: str):
+    """Full-width whisper-tiny in ``dtype`` (random weights from seed 0,
+    the normal-init stacked matrices rescaled to fan-in d_in) and one
+    batch of ``AUDIO_GRADS``: frames drawn from the seed, random tokens,
+    every weight 1. Returns (model, params, batch)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.psl import requires_grad_
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(get_config(AUDIO_ARCH),
+                                            dtype=dtype))
+    cfg = model.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    rescale_to_fan_in(torch, params, model.param_specs())
+    b, s = AUDIO_GRADS["batch"], AUDIO_GRADS["seq"]
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev)
+    batch = {"frames": torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen, device=dev).to(
+                                       cfg.torch_dtype),
+             "tokens": toks[:, :s], "labels": toks[:, 1:].to(torch.int32),
+             "weights": torch.ones((b, s), device=dev)}
+    return model, requires_grad_(params), batch
+
+
+def audio_grads_phase(torch, dev):
+    """[audio-grads]: ``decomposed_grads`` (the literal PSL protocol, cut
+    at the encoder output) of full-width whisper-tiny on
+    ``audio_grad_setup``'s batch, through the kernels and through their
+    plain versions (``plain_kernels``): per-leaf relative L2 <=
+    ``GRAD_REL_L2`` in bf16 and <= ``AUDIO_GRAD_FP32_REL_L2`` in
+    float32, the client's encoder gradients (which arrive through the
+    cut) included; exact launches (B1 and B1-bwd: the encoder's layers
+    non-causal at (8, 1500, 1500), the decoder's causal at (8, 128, 128)
+    and non-causal cross-attention at (8, 128, 1500); one B5 and one
+    B5-bwd at (1024, 384, 51865)); the attention backward fed lse +
+    ``PLANTED_ATTN_LSE_SHIFT`` caught; then the loss on the batch falling
+    at each of ``AUDIO_GRADS['steps']`` AdamW steps at
+    ``SSM_FIXED_BATCH_LR``. Returns (numbers, launches by shape)."""
+    from repro_torch.core.psl import (decomposed_grads, make_train_step,
+                                      value_and_grad)
+    from repro_torch.kernels import ops
+    from repro_torch.optim import TrainState, adamw
+    t_phase = time.perf_counter()
+    out, shapes = {}, {}
+    for dtype, limit in (("bfloat16", GRAD_REL_L2),
+                         ("float32", AUDIO_GRAD_FP32_REL_L2)):
+        model, params, batch = audio_grad_setup(torch, dev, dtype)
+        cfg = model.cfg
+        b, s = batch["tokens"].shape
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        t = cfg.encoder_seq
+        want_b1 = {(dtype, b, t, t, *heads, False): cfg.encoder_layers,
+                   (dtype, b, s, s, *heads, True): cfg.num_layers,
+                   (dtype, b, s, t, *heads, False): cfg.num_layers}
+        want_b5 = {(dtype, b * s, cfg.d_model, cfg.vocab_size): 1}
+        want = {"flash_attention": want_b1, "flash_attention_bwd": want_b1,
+                "cross_entropy": want_b5, "cross_entropy_bwd": want_b5}
+        rec = record_kernel_shapes()
+        try:
+            ops.reset_launches()
+            loss, grads, cut = decomposed_grads(model, params, batch)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            counts = rec.stop()
+        if counts != want or sum(launches.values()) != sum(
+                sum(v.values()) for v in want.values()):
+            fail(f"[audio-grads] {dtype} launches {launches}, by shape "
+                 f"{counts}, wanted {want}")
+        merge_shapes(shapes, counts)
+        with plain_kernels(torch):
+            ref_loss, ref_grads, ref_cut = decomposed_grads(model, params,
+                                                            batch)
+        rels = leaf_rel_l2(grads, ref_grads)
+        worst_leaf, worst, median = grad_spread(rels)
+        enc = max(v for k, v in rels.items() if k.startswith("client."))
+        cut_rel = rel_l2(torch, cut, ref_cut)
+        print(f"[audio-grads] {dtype}: {b} x ({t} frames + {s} tokens), "
+              f"fan-in d_in; loss kernel {float(loss):.5f} vs plain "
+              f"{float(ref_loss):.5f}; cut activations rel L2 "
+              f"{cut_rel:.3g}; worst per-leaf relative L2 {worst:.3g} "
+              f"({worst_leaf}), encoder (client) worst {enc:.3g}, median "
+              f"{median:.3g} over {len(rels)} leaves (limit {limit}); "
+              f"launches {launches}", flush=True)
+        if not worst <= limit:
+            fail(f"[audio-grads] {dtype} gradients disagree: {worst} "
+                 f"({worst_leaf})")
+        res = {"loss": float(loss), "plain_loss": float(ref_loss),
+               "worst_rel_l2": worst, "worst_leaf": worst_leaf,
+               "encoder_worst_rel_l2": enc, "median_rel_l2": median,
+               "cut_rel_l2": cut_rel, "launches": launches}
+        del grads
+        if dtype == "bfloat16":
+            kernel_bwd = ops.flash_attention_bwd
+
+            def planted_bwd(q, k, v, o, dout, lse, **kw):
+                return kernel_bwd(q, k, v, o, dout,
+                                  lse + PLANTED_ATTN_LSE_SHIFT, **kw)
+            ops.flash_attention_bwd = planted_bwd
+            try:
+                _, planted, _ = decomposed_grads(model, params, batch)
+            finally:
+                ops.flash_attention_bwd = kernel_bwd
+            res["planted_worst_rel_l2"] = max(
+                leaf_rel_l2(planted, ref_grads).values())
+            print(f"[audio-grads] planted attention-backward lse + "
+                  f"{PLANTED_ATTN_LSE_SHIFT} caught: worst per-leaf "
+                  f"relative L2 {res['planted_worst_rel_l2']:.3g}",
+                  flush=True)
+            if res["planted_worst_rel_l2"] <= GRAD_REL_L2:
+                fail("[audio-grads] a planted lse shift in the attention "
+                     "backward passed the gradient check")
+            del planted
+            opt = adamw(SSM_FIXED_BATCH_LR, weight_decay=0.1)
+            step = make_train_step(model, opt)
+            st = TrainState(params, opt.init(params), 0)
+            losses, step_ms = [], []
+            for _ in range(AUDIO_GRADS["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, batch)
+                losses.append(float(m["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            (final, _), _ = value_and_grad(model.loss_fn, st.params, batch)
+            losses.append(float(final))
+            print(f"[audio-grads] fixed-batch losses over "
+                  f"{AUDIO_GRADS['steps']} AdamW steps at lr "
+                  f"{SSM_FIXED_BATCH_LR}: {losses}; step ms {step_ms}",
+                  flush=True)
+            if not all(y < x for x, y in zip(losses, losses[1:])):
+                fail(f"[audio-grads] the fixed-batch loss did not fall at "
+                     f"every step: {losses}")
+            res.update({"fixed_batch_losses": losses, "step_ms": step_ms})
+        out[dtype] = res
+        del model, params, batch, ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[audio-grads] phase {out['seconds']:.1f} s", flush=True)
+    return out, shapes
+
+
+def audio_kernel_phase(torch, dev, shapes):
+    """Every B1, B1-bwd, B5 and B5-bwd shape the [audio] and
+    [audio-grads] runs launched (``shapes``, by dtype), held to its plain
+    version at bf16's tolerance or ``FP32_ATTN_TOL`` (B5 at
+    ``xent_case``'s) and timed: B1 as serving calls it
+    (``serve_attention_case``: events, device ms, bound with no causal
+    halving, SDPA with ``is_causal=False``), B1-bwd
+    (``attention_bwd_case``: by pass, the SDPA backward), B5 and B5-bwd
+    in bf16 beside matmul + ``F.cross_entropy`` (float32's held, not
+    timed). Returns the cases by kernel."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    cases = {name: [] for name in ("flash_attention", "flash_attention_bwd",
+                                   "cross_entropy", "cross_entropy_bwd")}
+    for (dt, b, s, t, hq, hkv, d, causal), n in sorted(
+            shapes["flash_attention"].items()):
+        dtype = getattr(torch, dt)
+        tol = (dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+               if dtype == torch.bfloat16 else FP32_ATTN_TOL)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cases["flash_attention"].append({
+            "phase": "audio", "launches": n, **serve_attention_case(
+                torch, rnd, b, s, hq, hkv, d, tol=tol, t=t,
+                causal=causal)})
+    for (dt, b, s, t, hq, hkv, d, causal), n in sorted(
+            shapes["flash_attention_bwd"].items()):
+        cases["flash_attention_bwd"].append({
+            "phase": "audio-grads", "launches": n, **attention_bwd_case(
+                torch, dev, gen, b, s, hq, hkv, d, t=t, causal=causal,
+                dtype=getattr(torch, dt))})
+    for key in sorted(set(shapes["cross_entropy"])
+                      | set(shapes["cross_entropy_bwd"])):
+        dt, shape = key[0], key[1:]
+        fwd, bwd = xent_case(torch, dev, gen, getattr(torch, dt),
+                             timed=dt == "bfloat16", shape=shape)
+        for name, case in (("cross_entropy", fwd),
+                           ("cross_entropy_bwd", bwd)):
+            cases[name].append({"phase": "audio-grads", "launches":
+                                shapes[name].get(key, 0), **case})
+    seconds = time.perf_counter() - t_phase
+    print(f"[audio-kernels] {sum(len(c) for c in cases.values())} B1, "
+          f"B1-bwd, B5 and B5-bwd cases held to their plain versions; "
+          f"phase {seconds:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**cases, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -4684,6 +5324,9 @@ def main() -> int:
         reports, launches, ctx, requests = serve_phase(
             torch, dev, pathlib.Path(events_dir))
     agreement_phase(torch, reports, ctx, requests)
+    with tempfile.TemporaryDirectory() as events_dir:
+        static = static_phase(torch, dev, ctx, reports["continuous"],
+                              requests, pathlib.Path(events_dir))
     del ctx, reports
     with tempfile.TemporaryDirectory() as events_dir:
         launches["ssm"], scan_shapes = ssm_phase(torch, dev,
@@ -4717,6 +5360,20 @@ def main() -> int:
     print(f"[hybrid] mamba2_fwd_kernel registers and spill bytes by "
           f"instantiation {json.dumps(heads_ptxas)}", flush=True)
     print(f"[families] summary {json.dumps(families)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as events_dir:
+        audio, audio_shapes = audio_phase(torch, dev,
+                                          pathlib.Path(events_dir))
+    audio_grads, grad_shapes = audio_grads_phase(torch, dev)
+    audio_cases = audio_kernel_phase(
+        torch, dev, merge_shapes(audio_shapes, grad_shapes))
+    together = (static["seconds"] + audio["seconds"]
+                + audio_grads["seconds"] + audio_cases["seconds"])
+    print(f"[static]/[audio]/[audio-grads]/[audio-kernels] {together:.1f} s "
+          f"together", flush=True)
+    print(f"[audio] summary {json.dumps({'static': static, 'audio': audio, 'grads': audio_grads}, default=str)}",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     b4_bwd = scan_bwd_phase(torch, dev, ptxas_usage(logs, "ssm_bwd_kernel"))
@@ -4803,6 +5460,10 @@ def main() -> int:
                       "train_ssm": ssm_train["ssm-train"]["launches"][name],
                       "train_hybrid":
                           ssm_train["hybrid-train"]["launches"][name],
+                      "serve_static": static["mixed"]["launches"][name],
+                      "serve_audio": audio["launches"][name],
+                      "audio_grads":
+                          audio_grads["bfloat16"]["launches"][name],
                       "train_cnn": cnn_launches[name],
                       "plan_and_cnn_lds": plan_launches[name]}
                for name in ops.WRAPPERS}
@@ -4816,6 +5477,7 @@ def main() -> int:
          **{k: b1[k] for k in timing + rates + ("device_ms",)},
          "cases": b1_cases,
          "family_cases": family_cases["flash_attention"],
+         "audio_cases": audio_cases["flash_attention"],
          "hgmma_count": hgmma["flash_fwd_tc_kernel"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -4828,6 +5490,7 @@ def main() -> int:
              "device_bound_share")},
          "cases": b1_bwd,
          "family_cases": family_cases["flash_attention_bwd"],
+         "audio_cases": audio_cases["flash_attention_bwd"],
          "hgmma_count": {k: hgmma[k] for k in (
              "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")}},
         {"name": "paged_attention", "route": "cuda",
@@ -4905,6 +5568,7 @@ def main() -> int:
          **{k: b5[k] for k in ("max_abs_err", "argmax_near_ties", "fp32")
             + timing + rates},
          "family_cases": family_cases["cross_entropy"],
+         "audio_cases": audio_cases["cross_entropy"],
          "hgmma_count": hgmma["xent_fwd_tc_kernel"]},
         {"name": "cross_entropy_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",
@@ -4915,6 +5579,7 @@ def main() -> int:
                                      "planted_softmax_rel_l2", "fp32")
             + timing + rates},
          "family_cases": family_cases["cross_entropy_bwd"],
+         "audio_cases": audio_cases["cross_entropy_bwd"],
          "hgmma_count": hgmma["xent_tc_gemm"]},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:

@@ -19,6 +19,7 @@ _MODULES: Dict[str, str] = {
     "zamba2-2.7b": "zamba2_2_7b",
     "internvl2-2b": "internvl2_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "whisper-tiny": "whisper_tiny",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "paper-cnn": "paper_cnn",
 }

@@ -234,8 +234,14 @@ def decomposed_grads(model, params, batch):
 def cut_transfer_bytes(model, batch: Dict[str, Any]) -> Dict[str, int]:
     """Bytes crossing the client↔server boundary per step (both
     directions: activations up, cut gradients down): the client forward's
-    (B, S, d_model) output in the model dtype."""
+    output in the model dtype — (B, S, d_model) for a decoder LM (a VLM's
+    patches ahead of its S tokens), the encoder states (B, T_enc,
+    d_model) for the audio family."""
     b, s = batch["tokens"].shape[:2]
+    if "frames" in batch:
+        s = batch["frames"].shape[1]
+    elif "patches" in batch:
+        s += batch["patches"].shape[1]
     itemsize = torch.empty((), dtype=model.cfg.torch_dtype).element_size()
     n = int(b) * int(s) * model.cfg.d_model * itemsize
     return {"activations": n, "gradients": n, "total": 2 * n}

@@ -12,6 +12,8 @@ Usage:
       --speculative --draft-layers 4 --gamma 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --no-reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --no-reduced --static
   PYTHONPATH=src python -m repro_torch.launch.serve --config serve.json \\
       --set scheduler.policy=ljf --set workload.num_requests=64
   ... --device cpu          # reduced configs on the CPU
@@ -22,6 +24,8 @@ import argparse
 from typing import List
 
 from repro_torch import api
+# legacy re-exports, as in repro: the static engine lives in the runtime
+from repro_torch.runtime.static import BatchedServer, Request  # noqa: F401
 
 
 def default_serve_spec() -> api.ServeSpec:
@@ -41,6 +45,8 @@ def _legacy_overrides(args) -> List[str]:
     add("model.arch", args.arch)
     if args.reduced is not None:        # tri-state: --reduced/--no-reduced
         add("model.reduced", "true" if args.reduced else "false")
+    if args.static:
+        add("engine.name", "static")
     if args.paged:
         add("engine.name", "paged")
     if args.speculative:
@@ -87,7 +93,8 @@ def main(argv=None):
                     default=None,
                     help="smoke-size architecture (--no-reduced for full)")
     ap.add_argument("--static", action="store_true",
-                    help="static-batch engine (not ported yet)")
+                    help="use the static-batch engine (engine.name=static) "
+                         "instead of the continuous runtime")
     ap.add_argument("--paged", action="store_true",
                     help="use the paged-KV engine (engine.name=paged)")
     ap.add_argument("--page-size", type=int, default=None,
@@ -123,11 +130,9 @@ def main(argv=None):
                     help="serve params from a repro-format npz artifact")
     ap.add_argument("--seed", type=int, default=None)
     args = ap.parse_args(argv)
-    for flag, what in (("static", "the static engine"),
-                       ("sample", "sampled decoding")):
-        if getattr(args, flag):
-            ap.error(f"--{flag}: {what} is not ported to repro_torch yet "
-                     f"(see ROADMAP.md)")
+    if args.sample:
+        ap.error("--sample: sampled decoding is not ported to repro_torch "
+                 "yet (see ROADMAP.md)")
 
     spec = (api.load_any_spec(args.config) if args.config
             else default_serve_spec())

@@ -119,7 +119,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count of the registered LM configs, as
-        ``repro``'s (every expert; no encoder: audio is not ported)."""
+        ``repro``'s (every expert; the encoder and the decoder's
+        cross-attention blocks for the audio family)."""
         d, v, hd = self.d_model, self.vocab_size, self.head_dim
         n_attn = (self.num_heads * hd + 2 * self.num_kv_heads * hd) * d \
             + self.num_heads * hd * d
@@ -158,6 +159,11 @@ class ModelConfig:
             else:
                 per_layer = n_attn + n_mlp_dense + 2 * d
             total += self.num_layers * per_layer
+        if self.encoder_layers:
+            enc_per = n_attn + n_mlp_dense + 2 * d
+            total += self.encoder_layers * enc_per
+            # decoder cross-attention blocks
+            total += self.num_layers * (n_attn + d)
         return int(total)
 
 

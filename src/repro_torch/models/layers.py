@@ -1,6 +1,6 @@
-"""Neural-net building blocks of the dense and MoE LMs and the Mamba-1
-and Mamba-2 SSMs, in plain PyTorch (port of the dense, MoE and SSM parts
-of :mod:`repro.models.layers`).
+"""Neural-net building blocks of the dense and MoE LMs, the Mamba-1 and
+Mamba-2 SSMs and the encoder-decoder (cross-attention, GELU MLP), in
+plain PyTorch (port of :mod:`repro.models.layers`).
 
 Parameters are nested dicts of tensors with ``repro``'s key names and its
 ``(d_in, d_out)`` weight layout (``y = x @ W``), so the weights bridge is
@@ -217,8 +217,9 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def attention_qkv(p, x, cfg: ModelConfig, positions):
-    """Project to q, k, v (+bias, +rotary). x: (B, S, d)."""
+def attention_qkv(p, x, cfg: ModelConfig, positions, *, rope: bool = True):
+    """Project to q, k, v (+bias, +rotary unless ``rope`` is false or the
+    config has learned positions). x: (B, S, d)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ p["wq"]
@@ -229,7 +230,7 @@ def attention_qkv(p, x, cfg: ModelConfig, positions):
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
-    if not cfg.learned_pos_embed:
+    if rope and not cfg.learned_pos_embed:
         cos, sin = rotary_angles(positions, hd, cfg.rope_theta)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         q = apply_rotary(q, cos, sin)
@@ -237,19 +238,49 @@ def attention_qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def cross_attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return attention_specs(cfg)
+
+
+def cross_attention(p, x, enc, cfg: ModelConfig):
+    """x: (B, S, d) queries; enc: (B, T, d) encoder states (no rotary).
+    Non-causal attention of the S queries over the T encoder rows through
+    :func:`blockwise_attention` (the flash-attention kernel)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, -1, hd)
+    k = (enc @ p["wk"]).reshape(b, enc.shape[1], -1, hd)
+    v = (enc @ p["wv"]).reshape(b, enc.shape[1], -1, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(1, 1, -1, hd)
+        k = k + p["bk"].reshape(1, 1, -1, hd)
+        v = v + p["bv"].reshape(1, 1, -1, hd)
+    out = blockwise_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLPs (SwiGLU; whisper's two-matrix GELU MLP)
 # ---------------------------------------------------------------------------
 
-def mlp_specs(cfg: ModelConfig,
-              d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None,
+              gelu: bool = False) -> Dict[str, ParamSpec]:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if gelu:
+        return {"w_in": ParamSpec((d, ff), ("embed", "ff")),
+                "b_in": ParamSpec((ff,), ("ff",), init="zeros"),
+                "w_out": ParamSpec((ff, d), ("ff", "embed")),
+                "b_out": ParamSpec((d,), ("embed",), init="zeros")}
     return {"w_gate": ParamSpec((d, ff), ("embed", "ff")),
             "w_up": ParamSpec((d, ff), ("embed", "ff")),
             "w_down": ParamSpec((ff, d), ("ff", "embed"))}
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, gelu: bool = False):
+    if gelu:
+        # jax.nn.gelu's default is the tanh approximation, in fp32
+        h = F.gelu((x @ p["w_in"] + p["b_in"]).float(), approximate="tanh")
+        return h.to(x.dtype) @ p["w_out"] + p["b_out"]
     g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (g * (x @ p["w_up"])) @ p["w_down"]
 

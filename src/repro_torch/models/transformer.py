@@ -1,6 +1,7 @@
 """Decoder-only LM of the dense, moe, vlm, ssm (Mamba-1) and hybrid
-(Mamba-2 with a shared attention block, zamba2) families: the training
-loss, its PSL split, prefill and decode (port of those parts of
+(Mamba-2 with a shared attention block, zamba2) families, and the
+encoder-decoder of the audio family (whisper, :class:`EncDecModel`): the
+training loss, its PSL split, prefill and decode (port of
 :mod:`repro.models.transformer`).
 
 An MoE block routes its MLP through :func:`repro_torch.models.layers.
@@ -691,9 +692,213 @@ class LanguageModel:
         return (x @ self._lm_head(params)).float(), cache
 
 
-def build_model(cfg: ModelConfig) -> LanguageModel:
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper); the conv/mel frontend is stubbed as in repro:
+# the encoder consumes precomputed frame embeddings (B, T_enc, d).
+# ---------------------------------------------------------------------------
+
+class EncDecModel:
+    """Whisper-style encoder-decoder with the PSL cut at the encoder output
+    (port of ``repro``'s ``EncDecModel``): the client holds the encoder
+    (learned positions ``enc_pos``, pre-norm blocks of non-causal
+    self-attention and a GELU MLP, RMS norms as in ``repro``), the server
+    the decoder (learned positions ``dec_pos``; each block causal
+    self-attention, cross-attention over the encoder states, GELU MLP).
+
+    Self- and cross-attention over full sequences run the flash-attention
+    kernel (causal in the decoder, non-causal in the encoder and for
+    cross-attention, whose keys are the T_enc encoder rows). Decode is at
+    one scalar position shared by the batch (learned absolute positions):
+    the token's self-attention is plain ``decode_attention`` over a ring
+    cache, written in place, and its cross-attention runs the kernel at
+    S = 1 over ``cache["enc"]``, whose K/V are recomputed every step, as
+    ``repro`` does."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.blocks = _Blocks(cfg)
+
+    # ----- parameters -----
+    def _enc_block_specs(self):
+        cfg = self.cfg
+        return {"norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "attn": L.attention_specs(cfg),
+                "norm2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "mlp": L.mlp_specs(cfg, gelu=True)}
+
+    def _dec_block_specs(self):
+        cfg = self.cfg
+        return {"norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "attn": L.attention_specs(cfg),
+                "norm_x": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "xattn": L.cross_attention_specs(cfg),
+                "norm2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "mlp": L.mlp_specs(cfg, gelu=True)}
+
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        d, v = cfg.d_model, cfg.vocab_size
+        client = {  # the encoder lives on the client (the edge holds audio)
+            "enc_pos": ParamSpec((cfg.encoder_seq, d), (None, "embed"),
+                                 init="embed"),
+            "enc_blocks": stack_specs(self._enc_block_specs(),
+                                      cfg.encoder_layers),
+            "enc_norm": ParamSpec((d,), ("embed",), init="ones"),
+        }
+        server = {
+            "embed": ParamSpec((v, d), ("vocab", "embed"), init="embed"),
+            "dec_pos": ParamSpec((cfg.max_seq_len, d), (None, "embed"),
+                                 init="embed"),
+            "dec_blocks": stack_specs(self._dec_block_specs(),
+                                      cfg.num_layers),
+            "final_norm": ParamSpec((d,), ("embed",), init="ones"),
+            "lm_head": ParamSpec((d, v), ("embed", "vocab")),
+        }
+        return {"client": client, "server": server}
+
+    def init(self, generator: torch.Generator):
+        """Random parameters on the generator's device (``repro``'s init
+        rules; the draws differ from ``jax.random``'s)."""
+        return L.materialize(self.param_specs(), generator,
+                             self.cfg.torch_dtype, generator.device)
+
+    # ----- encoder -----
+    def encode(self, params, frames):
+        """frames: (B, T_enc, d) precomputed frontend embeddings -> the
+        encoder states (B, T_enc, d)."""
+        cfg = self.cfg
+        c = params["client"]
+        x = frames.to(cfg.torch_dtype) + c["enc_pos"][None]
+        b, s, _ = x.shape
+        for lp in _unstack(c["enc_blocks"]):
+            hn = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+            q, k, v = L.attention_qkv(lp["attn"], hn, cfg, None, rope=False)
+            a = L.blockwise_attention(q, k, v, causal=False)
+            x = x + a.reshape(b, s, -1) @ lp["attn"]["wo"]
+            hn2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+            x = x + L.mlp_apply(lp["mlp"], hn2, gelu=True)
+        return L.rms_norm(x, c["enc_norm"], cfg.norm_eps)
+
+    # ----- decoder -----
+    def _cross_and_mlp(self, lp, x, enc):
+        cfg = self.cfg
+        hx = L.rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        x = x + L.cross_attention(lp["xattn"], hx, enc, cfg)
+        hn2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+        return x + L.mlp_apply(lp["mlp"], hn2, gelu=True)
+
+    def _decoder(self, srv, enc, tokens, cache=None, pos=None,
+                 fill_len: Optional[int] = None):
+        """The decoder up to its final norm: (hidden, self cache or None).
+
+        Full sequence (``cache`` None): causal self-attention from
+        position 0; with ``fill_len`` it also returns the stacked ring
+        caches {"k", "v"} of that length. Cached decode: one token a row
+        at the scalar position ``pos`` (a (1,) long tensor), its K/V
+        written into ``cache`` in place at slot ``pos % C``."""
+        cfg = self.cfg
+        b, slen = tokens.shape
+        x = srv["embed"][tokens.long()]
+        if cache is None:
+            x = x + srv["dec_pos"][None, :slen]
+        else:
+            x = x + srv["dec_pos"].index_select(0, pos)[None]
+            slot = pos % cache["k"].shape[2]
+            posv = pos.expand(b)
+        rings = []
+        for i, lp in enumerate(_unstack(srv["dec_blocks"])):
+            hn = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+            q, k, v = L.attention_qkv(lp["attn"], hn, cfg, None, rope=False)
+            if cache is None:
+                a = L.blockwise_attention(q, k, v, causal=True)
+                if fill_len is not None:
+                    rings.append({
+                        "k": LanguageModel._to_ring(
+                            self.blocks._repeat_kv(k), fill_len),
+                        "v": LanguageModel._to_ring(
+                            self.blocks._repeat_kv(v), fill_len)})
+            else:
+                kc, vc = cache["k"][i], cache["v"][i]
+                kc.index_copy_(1, slot, self.blocks._repeat_kv(k))
+                vc.index_copy_(1, slot, self.blocks._repeat_kv(v))
+                a = L.decode_attention(q, kc, vc, posv)
+            x = x + a.reshape(b, slen, -1) @ lp["attn"]["wo"]
+            x = self._cross_and_mlp(lp, x, enc)
+        x = L.rms_norm(x, srv["final_norm"], cfg.norm_eps)
+        return x, (_stack_trees(rings) if rings else None)
+
+    # ----- training and the PSL decomposition -----
+    def loss_fn(self, params, batch, window: Optional[int] = None):
+        """batch: frames (B, T_enc, d), tokens (B, S), labels (B, S),
+        weights (B, S). Returns (loss, metrics) with ``repro``'s keys
+        (aux_loss 0)."""
+        enc = self.encode(params, batch["frames"])
+        h, _ = self._decoder(params["server"], enc, batch["tokens"])
+        loss, (cnt, cor) = chunked_xent(h, params["server"]["lm_head"],
+                                        batch["labels"], batch["weights"])
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss, "aux_loss": aux, "tokens": cnt,
+                      "accuracy": cor / torch.clamp(cnt, min=1.0)}
+
+    def client_forward(self, params, batch, window: Optional[int] = None):
+        """Client-side FP: the encoder; the cut activations are its
+        states (B, T_enc, d)."""
+        return self.encode(params, batch["frames"])
+
+    def server_loss(self, server_params, cut_acts, batch,
+                    window: Optional[int] = None):
+        """Server-side FP from the encoder states to the loss."""
+        h, _ = self._decoder(server_params, cut_acts, batch["tokens"])
+        loss, _ = chunked_xent(h, server_params["lm_head"], batch["labels"],
+                               batch["weights"])
+        return loss
+
+    # ----- caches -----
+    def cache_specs(self, batch: int, cache_len: int,
+                    window: Optional[int] = None) -> Dict[str, Any]:
+        cfg = self.cfg
+        attn_c = self.blocks.attn_cache_specs(batch, cache_len)
+        return {"self": stack_specs(attn_c, cfg.num_layers),
+                "enc": ParamSpec((batch, cfg.encoder_seq, cfg.d_model),
+                                 ("batch", None, "embed"), init="zeros")}
+
+    def init_cache(self, batch: int, cache_len: int,
+                   window: Optional[int] = None, *, device):
+        specs = self.cache_specs(batch, cache_len, window)
+        return L.tree_map(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype or
+                                  self.cfg.torch_dtype, device=device),
+            specs)
+
+    # ----- serving -----
+    @torch.no_grad()
+    def prefill(self, params, batch, cache_len: Optional[int] = None,
+                window: Optional[int] = None):
+        """Encode the frames and run the decoder prompt, filling the self
+        cache. Returns (last_logits (B, V) fp32, {"self", "enc"},
+        next_pos)."""
+        enc = self.encode(params, batch["frames"])
+        s = batch["tokens"].shape[1]
+        h, self_cache = self._decoder(params["server"], enc,
+                                      batch["tokens"], fill_len=cache_len or s)
+        logits = (h[:, -1] @ params["server"]["lm_head"]).float()
+        return logits, {"self": self_cache, "enc": enc}, s
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos,
+                    window: Optional[int] = None):
+        """One-token decode at the scalar position ``pos`` shared by the
+        batch (an int or a tensor holding it). tokens: (B, 1). Writes the
+        self cache in place. Returns (logits (B, 1, V) fp32, cache)."""
+        dev = cache["enc"].device
+        posv = torch.as_tensor(pos, device=dev).long().reshape(-1)[:1]
+        h, _ = self._decoder(params["server"], cache["enc"], tokens,
+                             cache=cache["self"], pos=posv)
+        logits = (h @ params["server"]["lm_head"]).float()
+        return logits, cache
+
+
+def build_model(cfg: ModelConfig):
     if cfg.family == "audio":
-        raise NotImplementedError(
-            "the encoder-decoder family is not ported to repro_torch yet; "
-            "see ROADMAP.md, 'Other model families'")
+        return EncDecModel(cfg)
     return LanguageModel(cfg)

@@ -15,7 +15,9 @@ Greedy continuous decoding is token-identical to single-request decoding
 logits only at rounding level.
 
 Known scope limits, as in ``repro``: the encoder-decoder (audio) family
-is not served here; MoE families route per batch, so capacity dropping
+decodes at one scalar position shared by the batch and is not served
+here — the static engine (:mod:`repro_torch.runtime.static`) serves it;
+MoE families route per batch, so capacity dropping
 can couple slots (inactive slots take capacity too) — exact equivalence
 with single-request decoding needs a high ``moe_capacity_factor`` (at
 least num_experts / experts_per_token leaves every expert room for every

@@ -72,7 +72,7 @@ def arch_pair(request):
 
 def test_registry_takes_every_ported_arch():
     from repro.configs import ARCH_IDS as J_ARCH_IDS
-    assert ARCH_IDS == [a for a in J_ARCH_IDS if a != "whisper-tiny"]
+    assert ARCH_IDS == J_ARCH_IDS
     for arch in ARCHS:
         for reduced in (False, True):
             t, j = tget(arch, reduced), jget(arch, reduced)

@@ -221,6 +221,7 @@ def _xent_inputs(gen, t, d, v, dtype, dev):
     (37, 24, 509),          # ragged tokens and vocab (509 is prime)
     (130, 64, 4099),        # several vocab splits, one backward chunk
     (2048, 32, 8300),       # two backward chunks, the second ragged
+    (1024, 384, 51865),     # whisper-tiny's loss (8 x 128 tokens)
 ])
 def test_cross_entropy_kernels_match_plain(dev, dtype, t, d, v):
     from repro_torch.kernels.cross_entropy import (cross_entropy_bwd_plain,
@@ -1533,3 +1534,71 @@ def test_granite_moe_psl_steps_on_the_card_match_the_cpu(dev, monkeypatch):
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == 2 * layers
     assert counts["cross_entropy"] == counts["cross_entropy_bwd"] == 2
+
+
+# --- the audio family: B1 and B1-bwd without a causal mask ----------------
+# whisper-tiny (6 heads of 64): the encoder's self-attention over 1500
+# frames, the decoder prompt's cross-attention over them (S != T) and a
+# decode step's (S = 1). T = 1500 ends in a partial 64-key tile (28 keys)
+# that TMA zero-fills: those keys must be masked, not scored 0.
+
+WHISPER_ATTN = [(2, 1500, 1500, 6, 6, 64), (2, 100, 1500, 6, 6, 64),
+                (8, 1, 1500, 6, 6, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d", WHISPER_ATTN)
+def test_whisper_attention_non_causal(dev, dtype, b, s, t, hq, hkv, d):
+    """The forward as serving calls it (``ops.attention`` under no_grad,
+    one counted launch), with its lse, and the backward, each against its
+    plain version; the keys of the partial last tile, made large, must
+    change the output (they are attended, not dropped)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = _attn_case(gen, dev, dtype, b, s, t, hq, hkv, d)
+    before = ops.attention.launches
+    with torch.no_grad():
+        out = ops.attention(q, k, v, causal=False)
+    assert ops.attention.launches == before + 1
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=False)
+    torch.testing.assert_close(out.float(), want.transpose(1, 2).float(),
+                               **TOL[dtype])
+    _check_attention_with_lse(dev, dtype, q, k, v, False, None)
+    do = _randn(gen, (b, s, hq, d), dtype, dev)
+    _check_attention_backward(dtype, q, k, v, do, False, None)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t - 1] = 4.0 * q[:, 0].mean(1, keepdim=True)
+    v2[:, t - 1] = 100.0
+    with torch.no_grad():
+        moved = ops.attention(q, k2, v2, causal=False)
+    assert bool((moved.float() - out.float()).abs().amax() > 1.0)
+
+
+def test_reduced_whisper_static_serve_on_the_card(dev):
+    """Float32 reduced whisper served through ``static`` on the card: one
+    prefill runs B1 non-causal once an encoder layer and once a decoder
+    layer (cross-attention), causal once a decoder layer; each decode step
+    B1 at S = 1 once a decoder layer; no other kernel. The tokens equal
+    the same serve on the CPU from the same weights."""
+    from repro_torch.models.layers import tree_map
+    spec = api.ServeSpec(
+        model=api.ModelSpec(arch="whisper-tiny", reduced=True),
+        engine=api.EngineSpec(name="static"),
+        workload=api.WorkloadSpec(num_requests=4, prompt_lens=[5, 9],
+                                  max_new_tokens=[6]))
+    cpu_ctx = api.build_serve_context(spec, device="cpu")
+    ctx = api.build_serve_context(
+        spec, params=tree_map(lambda p: p.to(dev), cpu_ctx.params))
+    cfg = ctx.model.cfg
+    ops.reset_launches()
+    report = api.run_serve(spec, ctx=ctx)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+    assert counts["flash_attention"] == per_prefill \
+        + cfg.num_layers * report.steps
+    assert sum(counts.values()) == counts["flash_attention"]
+    cpu = api.run_serve(spec, ctx=cpu_ctx)
+    assert {r["rid"]: r["tokens"] for r in report.per_request} == \
+        {r["rid"]: r["tokens"] for r in cpu.per_request}
+

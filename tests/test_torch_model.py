@@ -227,11 +227,20 @@ def test_weight_bridge_defaults_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("family_arch", ["whisper-tiny"])
 def test_other_families_raise_not_implemented(family_arch):
+    """The last family (audio) is ported: repro's config, copied field for
+    field, builds the encoder-decoder with repro's parameter tree, and the
+    registry returns it; only an arch no package registers still raises."""
     cfg = jget(family_arch, reduced=True)
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(cfg)}
     from repro_torch.models.config import ModelConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(ModelConfig(**fields))
+    from repro_torch.models.transformer import EncDecModel
+    model = tbuild(ModelConfig(**fields))
+    assert isinstance(model, EncDecModel)
+    jspecs = jax.tree_util.tree_leaves(
+        jbuild(cfg).param_specs(), is_leaf=lambda x: hasattr(x, "axes"))
+    assert [s.shape for s in tree_leaves(model.param_specs())] == \
+        [s.shape for s in jspecs]
+    assert dataclasses.asdict(tget(family_arch, reduced=True)) == fields
     with pytest.raises(NotImplementedError, match="not ported"):
-        tget(family_arch)
+        tget("no-such-arch")

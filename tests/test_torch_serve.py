@@ -158,19 +158,22 @@ def test_serve_cli_on_cpu_and_unported_flags(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[paged] 6 requests" in out
     assert "verified token-identical: 6 requests" in out
-    for flag in ("--static", "--sample"):
-        with pytest.raises(SystemExit) as exc:
-            serve_cli.main([flag])
-        assert exc.value.code == 2
-        assert "not ported" in capsys.readouterr().err, flag
+    serve_cli.main(["--config", str(cfg), "--device", "cpu", "--static"])
+    assert "[static] 6 requests" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as exc:
+        serve_cli.main(["--sample"])
+    assert exc.value.code == 2
+    assert "not ported" in capsys.readouterr().err
 
 
 def test_unported_spec_values_fail_clearly(tmp_path):
     spec = _spec(tapi)
+    spec.replace(model=tapi.ModelSpec(arch="whisper-tiny")).validate()
+    spec.replace(engine=tapi.EngineSpec(name="static")).validate()
     with pytest.raises(tapi.SpecError, match="not ported"):
-        spec.replace(model=tapi.ModelSpec(arch="whisper-tiny")).validate()
+        spec.replace(model=tapi.ModelSpec(arch="no-such-arch")).validate()
     with pytest.raises(tapi.SpecError, match="unknown engine"):
-        spec.replace(engine=tapi.EngineSpec(name="static")).validate()
+        spec.replace(engine=tapi.EngineSpec(name="no-such-engine")).validate()
     with pytest.raises(NotImplementedError, match="not ported"):
         tapi.run_serve(spec.replace(
             sampling=tapi.SamplingSpec(method="sample")), device="cpu")

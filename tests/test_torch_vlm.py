@@ -76,6 +76,7 @@ def test_vlm_client_forward_and_server_loss_match_repro(pair):
     tcut = tm.client_forward(tp, tb)
     p, s = jm.cfg.num_patches, tb["tokens"].shape[1]
     assert tuple(tcut.shape) == jcut.shape == (2, p + s, jm.cfg.d_model)
+    assert tpsl.cut_transfer_bytes(tm, tb) == jpsl.cut_transfer_bytes(jm, jb)
     np.testing.assert_allclose(tcut.detach().numpy(), np.asarray(jcut),
                                atol=1e-4, rtol=0)
     jloss = jm.server_loss(jp["server"], jcut, jb)
