@@ -55,7 +55,37 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    continuous tokens); then the 8 as one left-padded batch through
    ``run_serve``: its ServeReport (shared TTFT, padded prefill tokens),
    the KV bytes against their reckoning.
-4b. SSM serve. granite's weights are freed; ``run_serve`` then serves
+4a'. llama3-8b (``[llama]``). granite's weights are freed; full-width
+   llama3-8b (32 layers, d_model 4096, 32 q / 8 kv heads, head_dim 128,
+   V 128,256; bf16, 8.03 B random weights from seed 0; parameters and
+   init peak printed) serves the 8 requests greedily through ``paged``,
+   ``continuous`` and ``speculative`` under the granite gates (B1 32
+   times a prefill call, B2 32 times a paged decode step, B3 32 times a
+   verify step, B2 ``SPEC_DRAFT_LAYERS`` times a draft step, no page
+   leaked, agreement with ``reference_generate`` and of the speculative
+   tokens with the paged run's under ``NEAR_TIE_GAP``). One paged serve
+   again with ``obs.jax_profiler_dir`` set: the port's profiler hook must
+   write a trace naming B2's kernel, and the same tokens. Then sampled
+   (``SAMPLED``, seeded keys as ``repro``'s) through the three engines,
+   ``paged`` twice (identical tokens) and once more at top-p
+   ``SAMPLED_TOP_P``: ``continuous`` and ``speculative`` must equal the
+   paged run up to each request's first difference, and that difference
+   must be a near-tie on the paged run's context, within ``NEAR_TIE_GAP``
+   / temperature: each of the two tokens one that the sampler takes
+   when rounding within that limit moves the logits (kept or that near
+   the top-k boundary, and its perturbed score within the limit of the
+   best of the tokens no such rounding drops; ``sampled_tie``); the
+   sampler on the card against itself on the CPU on one decode step's
+   logits (a differing token a tie within ``SAMPLER_ULPS`` float32
+   ulps); its own device time a step beside greedy's argmax; TTFT,
+   tok/s, mean decode step greedy and sampled, acceptance, peak KV
+   bytes. Then B2 and B3 held to their plain versions and timed at head
+   dim 128, Hq 32, Hc 16 (the kv heads repeated as the cache holds them)
+   and Hc 8, and B1 (bf16 tolerance) at every (B, S, Hq, Hkv, D) the
+   phase's greedy and sampled serves launched it, counted by
+   ``record_launch_shapes``, and at B = 1 and each prompt length (the
+   kernels line's ``llama_cases``).
+4b. SSM serve. llama's weights are freed; ``run_serve`` then serves
    full-width falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192,
    N = 16, random weights from a seeded generator) through ``continuous``
    with the same requests: B4 must run 64 times a prefill call, and every
@@ -94,13 +124,17 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    fixed batch must fall at each of 5 AdamW steps.
 7b. MoE serve (``[moe]``). Full-width granite-moe-3b-a800m (32 layers,
    d_model 1536, 24 q / 8 kv heads, 40 experts top-8, bf16, random
-   weights from seed 0) served with the same requests through ``paged``
-   and ``continuous`` at capacity factor ``MOE_SERVE_FACTOR`` (nothing
-   dropped): B1 32 times a prefill call, B2 32 times a paged decode step,
-   nothing else; TTFT, tok/s, phase means, peak memory; one paged decode
+   weights from seed 0) served with the same requests through ``paged``,
+   ``continuous`` and ``speculative`` at capacity factor
+   ``MOE_SERVE_FACTOR`` (nothing dropped): B1 32 times a prefill call, B2
+   32 times a paged decode step, B3 32 times a verify step (the granite
+   speculative gates, no page leaked), nothing else; the speculative
+   engine again sampled (``SAMPLED``) under the same launch and page
+   gates; TTFT, tok/s, phase means, peak memory; one paged decode
    step profiled by group (``MOE_DECODE_GROUPS``); agreement with
    ``reference_generate``, where a divergence must be a top-2 near-tie
-   (``NEAR_TIE_GAP``), each printed with its rule;
+   (``NEAR_TIE_GAP``), each printed with its rule, and the greedy
+   speculative tokens held to the paged run's under the same rule;
    then one batched decode step at the config's factor 1.25, its dropped
    assignments printed (not gated: ``repro``'s documented coupling).
 7c. MoE training (``[moe-train]``). Full-width granite-moe cut to
@@ -342,6 +376,18 @@ FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 
 SERVE = dict(num_requests=8, prompt_lens=[32, 100], max_new_tokens=[16],
              token_budget=8, page_size=16)
+# [llama]: llama3-8b at full width through the three engines, greedy and
+# sampled. SAMPLED is repro's own test setting (tests/test_spec_decode.py's
+# SAMP); one paged run adds nucleus filtering at SAMPLED_TOP_P.
+LLAMA_ARCH = "llama3-8b"
+SAMPLED = dict(temperature=0.9, top_k=50, seed=7)
+SAMPLED_TOP_P = 0.9
+# The sampler on the card against itself on the CPU, on one decode step's
+# logits, each row under SAMPLER_CHECK_IDXS output indices: a token that
+# differs must be a tie of the perturbed scores within SAMPLER_ULPS
+# float32 ulps (the card's and the CPU's log round apart).
+SAMPLER_CHECK_IDXS = 16
+SAMPLER_ULPS = 4
 
 # The MoE and VLM phases (full-width granite-moe-3b-a800m and internvl2-2b)
 MOE_ARCH = "granite-moe-3b-a800m"
@@ -847,13 +893,15 @@ def ptxas_usage(logs, kernel: str):
     return out
 
 
-def verify_case(torch, dev, gen, dtype, w, wlens, starts):
+def verify_case(torch, dev, gen, dtype, w, wlens, starts, hq=32, hc=16,
+                d=64):
     """B3 inputs at the speculative run's geometry: 8 rows, a table of 8
     logical pages of 16 plus the always-scratch last column, a 64-page
     pool plus the scratch page; row r's window holds wlens[r] + 1 live
     lanes from position starts[r], its other lanes at the scratch
-    position, as the engine builds them."""
-    b, hq, hc, d, psize, m = 8, 32, 16, 64, 16, 9
+    position, as the engine builds them. Heads and head_dim default to
+    full-width granite's."""
+    b, psize, m = 8, 16, 9
     num_pages = b * (m - 1) + 1
     q = torch.randn((b, w, hq, d), generator=gen, device=dev).to(dtype)
     kp = torch.randn((num_pages, psize, hc, d), generator=gen,
@@ -897,11 +945,7 @@ def verify_kernel_phase(torch, dev, gen):
     from repro_torch.kernels.paged_attention import paged_attention_plain
     from repro_torch.kernels.spec_verify import spec_verify_plain
     w = SPEC_GAMMA + 1
-    starts = [14] + [int(x) for x in torch.randint(
-        32, 111, (7,), generator=gen, device=dev).tolist()]
-    full = verify_case(torch, dev, gen, torch.bfloat16, w, [w - 1] * 8,
-                       starts)
-    err = within(torch, ops.spec_verify(*full), spec_verify_plain(*full))
+    timed, starts = verify_window_case(torch, dev, gen)
     ragged_wl = [4, 2, 0, 3, 4, 1, 0, 4]
     ragged_start = [13, 30, 47, 95, 111, 0, 64, 15]
     tols = {torch.bfloat16: dict(atol=BF16_ATOL, rtol=BF16_RTOL),
@@ -933,12 +977,32 @@ def verify_kernel_phase(torch, dev, gen):
                                           f"W=1 paged_attention {name}",
                                           **tol),
             "bitwise_equal": True}
+    print(f"kernel spec_verify: ragged err {errs}; W=1 bitwise the paged "
+          f"kernel, err {w1_err}", flush=True)
+    return {**timed, "max_abs_err": max(timed["max_abs_err"],
+                                        errs["bfloat16"]),
+            "ragged_max_abs_err": errs, "w1_max_abs_err": w1_err}
+
+
+def verify_window_case(torch, dev, gen, hq=32, hc=16, d=64):
+    """B3 at the speculative run's window (W = gamma + 1, every row a full
+    window from a drawn start, row 0 crossing a page) with these heads,
+    bf16: held to its plain version, timed (events, device, host a
+    wrapper call) beside it and its bound. Returns the case and the
+    rows' starts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spec_verify import spec_verify_plain
+    w = SPEC_GAMMA + 1
+    starts = [14] + [int(x) for x in torch.randint(
+        32, 111, (7,), generator=gen, device=dev).tolist()]
+    full = verify_case(torch, dev, gen, torch.bfloat16, w, [w - 1] * 8,
+                       starts, hq, hc, d)
+    err = within(torch, ops.spec_verify(*full), spec_verify_plain(*full))
     bnd, by = verify_bound(full[0], full[1], full[3], full[4])
     case = {
-        "shape": f"B=8 W={w} Hq=32 Hc=16 D=64 P=16 M=9 (8 pages + scratch "
-                 f"column) starts={starts}",
-        "max_abs_err": max(err, errs["bfloat16"]),
-        "ragged_max_abs_err": errs, "w1_max_abs_err": w1_err,
+        "shape": f"B=8 W={w} Hq={hq} Hc={hc} D={d} P=16 M=9 (8 pages + "
+                 f"scratch column) starts={starts}",
+        "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.spec_verify(*full)),
         "plain_ms": time_ms(torch, lambda: spec_verify_plain(*full)),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
@@ -947,13 +1011,11 @@ def verify_kernel_phase(torch, dev, gen):
         "host_us": host_us(torch, lambda: ops.spec_verify(*full)),
     }
     print(f"kernel spec_verify {case['shape']}: err {err:.3g} (atol "
-          f"{BF16_ATOL}, rtol {BF16_RTOL}); ragged err {errs}; W=1 "
-          f"bitwise the paged kernel, err {w1_err}; {case['ms']:.4f} ms "
-          f"(device {case['device_ms']:.4f}; wrapper "
-          f"{case['host_us']:.1f} us of host a call), plain "
-          f"{case['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})",
-          flush=True)
-    return case
+          f"{BF16_ATOL}, rtol {BF16_RTOL}); {case['ms']:.4f} ms (device "
+          f"{case['device_ms']:.4f}; wrapper {case['host_us']:.1f} us of "
+          f"host a call), plain {case['plain_ms']:.4f} ms, bound "
+          f"{bnd:.5f} ms ({by})", flush=True)
+    return case, starts
 
 
 def scan_case(torch, dev, gen, dtype, b, l, d, n):
@@ -1508,10 +1570,14 @@ def scan_heads_bwd_phase(torch, dev, ptxas):
 
 
 def serve_spec(engine: str, events_dir: pathlib.Path,
-               arch: str = "granite-3-2b", overrides=None):
+               arch: str = "granite-3-2b", overrides=None, sampling=None,
+               profiler_dir=None):
+    """The ``SERVE`` workload through ``engine`` at full width; greedy, or
+    sampled with the ``SamplingSpec`` fields in ``sampling``; with
+    ``profiler_dir``, traced by the port's profiler hook."""
     from repro_torch.api import (AdmissionSpec, CacheSpec, DraftSpec,
-                                 EngineSpec, ModelSpec, ObsSpec, ServeSpec,
-                                 WorkloadSpec)
+                                 EngineSpec, ModelSpec, ObsSpec,
+                                 SamplingSpec, ServeSpec, WorkloadSpec)
     draft = (DraftSpec(num_layers=SPEC_DRAFT_LAYERS, gamma=SPEC_GAMMA)
              if engine == "speculative" else DraftSpec())
     return ServeSpec(
@@ -1524,8 +1590,11 @@ def serve_spec(engine: str, events_dir: pathlib.Path,
                               max_new_tokens=SERVE["max_new_tokens"]),
         cache=CacheSpec(page_size=SERVE["page_size"]),
         draft=draft,
+        sampling=(SamplingSpec(method="sample", **sampling) if sampling
+                  else SamplingSpec()),
         obs=ObsSpec(enabled=True,
-                    events_path=str(events_dir / f"{arch}-{engine}.jsonl")))
+                    events_path=str(events_dir / f"{arch}-{engine}.jsonl"),
+                    jax_profiler_dir=profiler_dir))
 
 
 def phase_times(events_path: str):
@@ -1606,24 +1675,28 @@ def serve_phase(torch, dev, events_dir: pathlib.Path):
     return reports, launches, ctx, requests
 
 
-def spec_checks(ctx, report, launches, prefills: int) -> None:
-    """The speculative run's launches follow its steps, its pages all came
-    home, and its acceptance is printed."""
+def spec_checks(ctx, report, launches, prefills: int,
+                tag: str = "speculative") -> None:
+    """The speculative run's launches follow its steps (one B3 a layer a
+    verify step, one B2 a draft layer a draft step, one B1 a layer a
+    prefill call, nothing else), its pages all came home, and its
+    acceptance is printed."""
     engine = ctx.engine
     layers = ctx.model.cfg.num_layers
-    want = {"spec_verify": layers * report.steps,
-            "paged_attention": SPEC_DRAFT_LAYERS * engine.draft_steps,
-            "flash_attention": layers * prefills}
-    got = {k: launches[k] for k in want}
-    if got != want or report.steps < 1:
-        fail(f"[speculative] launches {got}, wanted {want} (40 B3 a verify "
-             f"step, {SPEC_DRAFT_LAYERS} B2 a draft step, 40 B1 a prefill)")
+    want = {name: 0 for name in launches}
+    want.update({"spec_verify": layers * report.steps,
+                 "paged_attention": SPEC_DRAFT_LAYERS * engine.draft_steps,
+                 "flash_attention": layers * prefills})
+    if launches != want or report.steps < 1:
+        fail(f"[{tag}] launches {launches}, wanted {want} ({layers} B3 a "
+             f"verify step, {SPEC_DRAFT_LAYERS} B2 a draft step, {layers} "
+             f"B1 a prefill)")
     engine.pool.check_no_leaks()
     if engine.pool.pages_in_use:
-        fail(f"[speculative] {engine.pool.pages_in_use} pages still held")
+        fail(f"[{tag}] {engine.pool.pages_in_use} pages still held")
     s = report.speculation
     ttft = report.to_json()["ttft_ms"]
-    print(f"[speculative] draft {s['draft']} gamma {s['gamma']}: "
+    print(f"[{tag}] draft {s['draft']} gamma {s['gamma']}: "
           f"{report.steps} verify steps, {engine.draft_steps} draft steps, "
           f"{s['windows']} row windows, proposed {s['proposed']}, accepted "
           f"{s['accepted']} (acceptance {s['acceptance_rate']:.4f}), "
@@ -1734,6 +1807,361 @@ def agreement_phase(torch, reports, ctx, requests, limit=None,
         print(f"speculative vs paged: {same} of {len(requests)} requests "
               f"token-identical, the rest near-ties", flush=True)
     return {"exact": exact, "near_ties": near}
+
+
+def forced_logits(torch, ctx, prompt, tokens):
+    """Batch-1 fp32 logits (V,) after ``prompt`` and the forced
+    ``tokens``: the context of output index ``len(tokens)``."""
+    model, params = ctx.model, ctx.params
+    dev = params["client"]["embed"].device
+    logits, cache, pos = model.prefill(
+        params, {"tokens": torch.as_tensor(prompt[None], device=dev)},
+        cache_len=ctx.engine.pool.slot_len)
+    posv = torch.tensor([pos], device=dev)
+    for tok in tokens:
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([[tok]], device=dev), posv)
+        posv = posv + 1
+    return logits.reshape(-1).float()
+
+
+def sampled_tie(torch, sampler, logits, rid: int, idx: int, a: int,
+                b: int, limit: float):
+    """How near a tie the sampled picks ``a`` and ``b`` were on
+    ``logits`` under the key (rid, idx), where rounding moves each
+    logit / T by less than ``limit``: the gap of their perturbed scores
+    (logit / T + Gumbel noise, before the filter), each token's margin
+    to the top-k boundary with whether it is kept (a kept token's
+    distance, in logit / T, to the first one left out; a left-out
+    token's to the k-th kept), and whether each is a pick such rounding
+    allows: kept or within ``limit`` of the boundary, and its perturbed
+    score within ``limit`` of the best of the tokens kept by ``limit``
+    or more (those no such rounding drops). The logits are a third
+    rounding of the context, so either token may sit on either side of
+    the boundary here."""
+    from repro_torch.runtime.sampling import filtered_logits, perturbed_scores
+    if sampler.top_p is not None:
+        raise ValueError("sampled_tie reads the top-k boundary only")
+    dev = logits.device
+    key = lambda v: torch.tensor([v], dtype=torch.int32,    # noqa: E731
+                                 device=dev)
+    t = sampler.temperature
+    u = perturbed_scores(logits[None], key(rid), key(idx), temperature=t,
+                         seed=sampler.seed)[0]
+    lg = filtered_logits(logits[None], temperature=t)[0]
+    kth = out = float("-inf")
+    if sampler.top_k is not None:
+        vals = torch.topk(lg, sampler.top_k + 1).values
+        kth, out = float(vals[-2]), float(vals[-1])
+    firm = lg >= out + limit
+    margins, possible = {}, {}
+    for tok in (a, b):
+        x = float(lg[tok])
+        margins[tok] = (x - out, True) if x >= kth else (kth - x, False)
+        rivals = u.masked_fill(~firm, float("-inf"))
+        rivals[tok] = float("-inf")
+        possible[tok] = (x > kth - limit
+                         and float(u[tok]) > float(rivals.max()) - limit)
+    return abs(float(u[a] - u[b])), margins, possible
+
+
+def sampled_agreement(torch, reports, ctx, requests, tag: str):
+    """Each sampled report against the ``paged`` one, token for token up
+    to each request's first difference; a difference must be a near-tie
+    of the sampled pick on the paged run's context (``sampled_tie``,
+    ``sampled_difference``), within ``NEAR_TIE_GAP / temperature`` (the
+    logits' rounding scaled as the filter scales it): each engine's
+    token one that the sampler takes under some such rounding. Returns
+    identical counts and the near-ties."""
+    sampler = ctx.engine.sampler
+    limit = NEAR_TIE_GAP / sampler.temperature
+    vocab = ctx.engine.cfg.vocab_size
+    out = {}
+    for engine, report in reports.items():
+        if engine == "paged":
+            continue
+        same, near = 0, []
+        for req in requests:
+            want = _tokens_of(reports["paged"], req.rid)
+            got = _tokens_of(report, req.rid)
+            if len(got) != req.max_new_tokens or \
+                    not all(0 <= t < vocab for t in got):
+                fail(f"[{tag}] {engine} request {req.rid}: malformed "
+                     f"tokens {got}")
+            if got == want:
+                same += 1
+                continue
+            i = next(j for j in range(len(want)) if got[j] != want[j])
+            near.append(sampled_difference(
+                torch, sampler, forced_logits(torch, ctx, req.prompt,
+                                              want[:i]),
+                req.rid, i, want[i], got[i], limit,
+                f"[{tag}] sampled {engine} request {req.rid}"))
+        out[engine] = {"identical": same, "near_ties": near}
+        print(f"[{tag}] sampled {engine} vs paged: {same} of "
+              f"{len(requests)} requests token-identical, {len(near)} "
+              f"first differences, each a near-tie", flush=True)
+    return out
+
+
+def sampled_difference(torch, sampler, logits, rid: int, i: int, want: int,
+                       got: int, limit: float, what: str):
+    """One first difference of a sampled run from ``paged`` at output
+    index ``i`` (``want`` paged's token, ``got`` the other's) on the
+    paged context's ``logits``: passes only if both tokens are picks
+    that rounding within ``limit`` allows (``sampled_tie``): a near-tie
+    of the scores (their gap under ``limit``) or else of the top-k
+    boundary; else fails."""
+    gap, margins, possible = sampled_tie(torch, sampler, logits, rid, i,
+                                         want, got, limit)
+    rule = "scores" if gap < limit else "top-k boundary"
+    shown = {tok: round(m, 4) for tok, (m, _) in margins.items()}
+    desc = (f"tokens {want} / {got}, perturbed gap {gap:.4f}, top-k margins "
+            f"{shown}, kept {[margins[t][1] for t in (want, got)]}, "
+            f"possible picks {[possible[t] for t in (want, got)]}; limit "
+            f"{limit:.4f}")
+    if not (possible[want] and possible[got]):
+        fail(f"{what} differs from paged at token {i} beyond a near-tie "
+             f"({desc})")
+    print(f"{what}: differs from paged at token {i}, a near-tie of the "
+          f"{rule} ({desc})", flush=True)
+    return {"rid": rid, "token": i, "gap": gap, "rule": rule,
+            "margins": shown}
+
+
+def decode_logits(torch, ctx, requests):
+    """One batched paged decode step's logits (B, V) fp32 for the first 8
+    requests' last prompt tokens at their prompt lengths."""
+    rows = ([int(r.prompt[-1]) for r in requests[:8]],
+            [len(r.prompt) for r in requests[:8]])
+    tok, pos, table = paged_rows(torch, ctx.engine.pool, *rows)
+    logits, _ = ctx.model.decode_step_paged(
+        ctx.params, ctx.engine.pool.buffers, tok, pos, table)
+    return logits[:, -1].float().contiguous()
+
+
+def sampler_card_vs_cpu(torch, sampler, logits, rids):
+    """The sampler on the card against the same sampler on the CPU on the
+    copied logits, each row under ``SAMPLER_CHECK_IDXS`` output indices.
+    A differing token must be a tie of the CPU's perturbed scores within
+    ``SAMPLER_ULPS`` float32 ulps of their magnitude."""
+    import numpy as np
+    from repro_torch.runtime.sampling import perturbed_scores
+    n = SAMPLER_CHECK_IDXS
+    lg = logits.repeat_interleave(n, dim=0)
+    rid = torch.as_tensor(rids, dtype=torch.int32).repeat_interleave(n)
+    idx = torch.arange(n, dtype=torch.int32).repeat(logits.shape[0])
+    def perturbed(lg, rid, idx):
+        return perturbed_scores(lg, rid, idx, temperature=sampler.temperature,
+                                top_k=sampler.top_k, top_p=sampler.top_p,
+                                seed=sampler.seed)
+    card = sampler.sample(lg, rid.to(lg.device), idx.to(lg.device)).cpu()
+    card_scores = perturbed(lg, rid.to(lg.device), idx.to(lg.device)).cpu()
+    scores = perturbed(lg.cpu(), rid, idx)
+    host = torch.argmax(scores, dim=-1).to(torch.int32)
+    differ = torch.nonzero(card != host).flatten().tolist()
+    worst = 0.0
+    for r in differ:
+        a, b = scores[r, int(card[r])], scores[r, int(host[r])]
+        ulp = float(np.spacing(np.float32(max(abs(float(a)),
+                                              abs(float(b))))))
+        ulps = float(b - a) / ulp
+        worst = max(worst, ulps)
+        if ulps > SAMPLER_ULPS:
+            fail(f"[llama] sampler: row {r} takes {int(card[r])} on the "
+                 f"card and {int(host[r])} on the CPU, {ulps:.1f} ulps "
+                 f"apart (> {SAMPLER_ULPS})")
+    err = float((card_scores - scores).abs().max())
+    print(f"[llama] sampler on the card against the CPU: {len(differ)} of "
+          f"{len(host)} rows (V {logits.shape[1]}) differ, each a tie "
+          f"within {worst:.1f} <= {SAMPLER_ULPS} ulps; perturbed scores "
+          f"max abs diff {err:.3g}", flush=True)
+    return {"rows": len(host), "differ": len(differ), "worst_ulps": worst,
+            "scores_max_abs_diff": err}
+
+
+def sampler_device_ms(torch, sampler, logits, rids, iters: int = 10):
+    """The sampler's own device time and kernel launches a call, from
+    torch.profiler (every kernel and copy of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+    b = logits.shape[0]
+    rid = torch.as_tensor(rids, dtype=torch.int32, device=logits.device)
+    idx = torch.zeros(b, dtype=torch.int32, device=logits.device)
+    sampler.sample(logits, rid, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            sampler.sample(logits, rid, idx)
+        torch.cuda.synchronize()
+    us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        t = t if t is not None else evt.self_cuda_time_total
+        if t > 0:
+            us += t
+            launches += evt.count
+    return us / iters / 1e3, launches / iters
+
+
+def profiler_trace_check(prof_dir: str, report, paged_report):
+    """The profiler hook's output: one Chrome trace in ``prof_dir`` whose
+    events name B2's kernel, and the profiled serve's tokens equal to the
+    unprofiled one's."""
+    traces = list(pathlib.Path(prof_dir).glob("*.trace.json"))
+    if len(traces) != 1:
+        fail(f"[llama] the profiler hook wrote {len(traces)} traces")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    match = DEVICE_MATCH["paged_attention"]
+    named = sum(1 for e in events if match in str(e.get("name", "")))
+    if not named:
+        fail(f"[llama] the profiler trace ({len(events)} events) names no "
+             f"{match!r} kernel")
+    same = all(_tokens_of(report, r["rid"]) == r["tokens"]
+               for r in paged_report.per_request)
+    if not same:
+        fail("[llama] the profiled paged serve's tokens differ from the "
+             "unprofiled one's")
+    size = traces[0].stat().st_size
+    print(f"[llama] profiler hook: {traces[0].name} ({size} bytes, "
+          f"{len(events)} events, {named} named {match!r}); tokens equal "
+          f"to the unprofiled paged run's", flush=True)
+    return {"events": len(events), "b2_events": named, "bytes": size}
+
+
+def llama_phase(torch, dev, events_dir: pathlib.Path):
+    """[llama]: full-width llama3-8b (32 layers, d_model 4096, 32 q / 8 kv
+    heads, head_dim 128, V 128,256; bf16, random weights from seed 0)
+    with the ``SERVE`` workload. Greedy through ``paged``, ``continuous``
+    and ``speculative`` under the granite gates (launches by layer count,
+    no page leaked, agreement with ``reference_generate`` and of the
+    speculative tokens with the paged run's under ``NEAR_TIE_GAP``); one
+    paged serve again with ``obs.jax_profiler_dir`` set, whose trace must
+    name B2's kernel; then sampled (``SAMPLED``) through the three
+    engines and once more on ``paged``, plus a paged run at top-p
+    ``SAMPLED_TOP_P``: the two paged runs identical, the other engines
+    equal to paged up to near-ties of the perturbed scores
+    (``sampled_agreement``), the sampler on the card against the CPU
+    (``sampler_card_vs_cpu``) and its own device time a step. Then B2 and
+    B3 held and timed at the phase's shapes (Hq 32, Hc 16 after the kv
+    repeat, D 128) and at Hc 8, and B1 at every (B, S, Hq, Hkv, D) the
+    phase's serves launched it (``record_launch_shapes``) and at B = 1
+    and each prompt length."""
+    from repro_torch.api import build_workload, run_serve
+    from repro_torch.runtime.sampling import TokenSampler
+    t_phase = time.perf_counter()
+    reports, out, params, ctx = {}, {}, None, None
+    b1_shapes = {}
+
+    def recorded_run(ctx, spec, tag):
+        """``family_serve_run`` with B1's launches counted by shape into
+        ``b1_shapes`` (they must add up to the run's B1 launches)."""
+        rec = record_launch_shapes()
+        try:
+            report, numbers = family_serve_run(torch, ctx, spec, tag)
+        finally:
+            counts = rec.stop()["flash_attention"]
+        if sum(counts.values()) != numbers["launches"]["flash_attention"]:
+            fail(f"[{tag}] recorded B1 shapes {counts} do not add up to "
+                 f"{numbers['launches']['flash_attention']} launches")
+        for shape, n in counts.items():
+            b1_shapes[shape] = b1_shapes.get(shape, 0) + n
+        return report, numbers
+
+    for engine in ("paged", "continuous", "speculative"):
+        spec = serve_spec(engine, events_dir, arch=LLAMA_ARCH)
+        ctx, n_params = build_family_ctx(torch, dev, spec, "llama", params)
+        if params is None:
+            out["params"] = n_params
+            out["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        params = ctx.params
+        reports[engine], out[engine] = recorded_run(
+            ctx, spec, f"llama-{engine}")
+        if engine == "paged":
+            with tempfile.TemporaryDirectory() as prof_dir:
+                pspec = serve_spec(engine, events_dir, arch=LLAMA_ARCH,
+                                   profiler_dir=prof_dir)
+                t0 = time.perf_counter()
+                profiled = run_serve(pspec, ctx=ctx)
+                torch.cuda.synchronize()
+                out["profiled"] = profiler_trace_check(
+                    prof_dir, profiled, reports[engine])
+                out["profiled"]["wall_s"] = time.perf_counter() - t0
+    requests = build_workload(spec, ctx.model.cfg.vocab_size)
+    out["agreement"] = agreement_phase(torch, reports, ctx, requests)
+
+    sampled = {}
+    runs = (("paged", "paged", SAMPLED), ("paged-again", "paged", SAMPLED),
+            ("continuous", "continuous", SAMPLED),
+            ("speculative", "speculative", SAMPLED),
+            ("paged-top-p", "paged", {**SAMPLED, "top_p": SAMPLED_TOP_P}))
+    for name, engine, sampling in runs:
+        spec = serve_spec(engine, events_dir, arch=LLAMA_ARCH,
+                          sampling=sampling)
+        ctx, _ = build_family_ctx(torch, dev, spec, "llama", params)
+        sampled[name], out[f"sampled_{name}"] = recorded_run(
+            ctx, spec, f"llama-sampled-{name}")
+        if name == "paged":
+            paged_ctx = ctx
+    if any(_tokens_of(sampled["paged-again"], r.rid)
+           != _tokens_of(sampled["paged"], r.rid) for r in requests):
+        fail("[llama] two sampled paged runs of one spec differ")
+    print("[llama] sampled paged twice: identical tokens", flush=True)
+    out["sampled_agreement"] = sampled_agreement(
+        torch, {k: sampled[k] for k in ("paged", "continuous",
+                                        "speculative")},
+        paged_ctx, requests, "llama")
+    differ = sum(_tokens_of(sampled["paged-top-p"], r.rid)
+                 != _tokens_of(sampled["paged"], r.rid) for r in requests)
+    print(f"[llama] top-p {SAMPLED_TOP_P}: {differ} of {len(requests)} "
+          f"requests differ from the top-k-only run (printed)", flush=True)
+    logits = decode_logits(torch, paged_ctx, requests)
+    rids = [r.rid for r in requests[:8]]
+    sampler = paged_ctx.engine.sampler
+    out["sampler_check"] = sampler_card_vs_cpu(torch, sampler, logits, rids)
+    ms, calls = sampler_device_ms(torch, sampler, logits, rids)
+    greedy_ms, greedy_calls = sampler_device_ms(torch, TokenSampler(),
+                                                logits, rids)
+    out["sampler_device_ms"] = ms
+    out["sampler_launches"] = calls
+    out["argmax_device_ms"] = greedy_ms
+    step_g = out["paged"]["decode_step_ms_mean"]
+    step_s = out["sampled_paged"]["decode_step_ms_mean"]
+    print(f"[llama] paged mean decode step greedy {step_g:.2f} ms, sampled "
+          f"{step_s:.2f} ms; the sampler's own device time {ms:.4f} ms a "
+          f"step ({calls:.0f} kernels and copies, B={logits.shape[0]}, V "
+          f"{logits.shape[1]}; greedy argmax {greedy_ms:.4f} ms, "
+          f"{greedy_calls:.0f}); acceptance greedy "
+          f"{out['speculative']['acceptance']:.4f}, sampled "
+          f"{out['sampled_speculative']['acceptance']:.4f}", flush=True)
+    del ctx, paged_ctx, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = {"flash_attention": [], "paged_attention": [],
+             "spec_verify": []}
+    print(f"[llama] B1 launches by (B, S, Hq, Hkv, D): "
+          f"{dict(sorted(b1_shapes.items()))}", flush=True)
+    b1 = dict(b1_shapes)
+    for (_, _, hq, hkv, d) in b1_shapes:     # one prompt alone
+        for plen in SERVE["prompt_lens"]:
+            b1.setdefault((1, plen, hq, hkv, d), 0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    for shape, n in sorted(b1.items()):
+        cases["flash_attention"].append({
+            "launches": n, **serve_attention_case(torch, rn, *shape)})
+    for hc in (16, 8):
+        cases["paged_attention"].append(paged_kernel_case(
+            torch, paged_case(torch, dev, gen, hq=32, hc=hc, d=128)))
+        cases["spec_verify"].append(verify_window_case(
+            torch, dev, gen, hq=32, hc=hc, d=128)[0])
+    out["kernel_cases"] = cases
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[llama] phase {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def ssm_phase(torch, dev, events_dir: pathlib.Path):
@@ -2937,23 +3365,31 @@ def moe_drops_at(torch, ctx, factor: float, tokens, positions):
             sum(int((~k).sum()) for k in keeps))
 
 
-def family_serve_run(torch, ctx, spec, tag: str, want_b2: bool):
+def family_serve_run(torch, ctx, spec, tag: str):
     """``serve_run`` of a full-width family phase, with its peak memory,
-    TTFT, tok/s, phase means and the launch counts it must show: B1
-    num_layers times a prefill call, B2 num_layers times a decode step on
-    the paged engine (none on the continuous one), nothing else."""
+    TTFT, tok/s, phase means, peak KV bytes and the launch counts it must
+    show: B1 num_layers times a prefill call, B2 num_layers times a
+    decode step on the paged engine (none on the continuous one), nothing
+    else; on the speculative engine ``spec_checks``' counts and no page
+    leaked."""
     torch.cuda.reset_peak_memory_stats()
     report, launches, prefills = serve_run(torch, ctx, spec, tag)
     peak = torch.cuda.max_memory_allocated()
     layers = ctx.model.cfg.num_layers
-    want = {name: 0 for name in launches}
-    want["flash_attention"] = layers * prefills
-    if want_b2:
-        want["paged_attention"] = layers * report.steps
-    if launches != want or prefills < 1 or report.steps < 1:
-        fail(f"[{tag}] launches {launches}, wanted {want} ({layers} B1 a "
-             f"prefill call" + (f", {layers} B2 a decode step)" if want_b2
-                                else ")"))
+    engine = spec.engine.name
+    if engine == "speculative":
+        spec_checks(ctx, report, launches, prefills, tag)
+        wanted = (f"{layers} B3 a verify step, {SPEC_DRAFT_LAYERS} B2 a "
+                  f"draft step, {layers} B1 a prefill call")
+    else:
+        want = {name: 0 for name in launches}
+        want["flash_attention"] = layers * prefills
+        if engine == "paged":
+            want["paged_attention"] = layers * report.steps
+        wanted = f"{layers} B1 a prefill call" + (
+            f", {layers} B2 a decode step" if engine == "paged" else "")
+        if launches != want or prefills < 1 or report.steps < 1:
+            fail(f"[{tag}] launches {launches}, wanted {want} ({wanted})")
     times = phase_times(spec.obs.events_path)
     ttft = report.to_json()["ttft_ms"]
     out = {"ttft_ms_p50": ttft["p50"], "ttft_ms_p95": ttft["p95"],
@@ -2961,14 +3397,17 @@ def family_serve_run(torch, ctx, spec, tag: str, want_b2: bool):
            "admit_ms_mean": times["admit"][0],
            "decode_step_ms_mean": times["decode_step"][0],
            "steps": report.steps, "prefill_calls": prefills,
-           "peak_memory_bytes": peak, "launches": launches}
+           "peak_memory_bytes": peak,
+           "peak_kv_bytes": report.cache_utilization["peak_in_use_bytes"],
+           "launches": launches}
+    if report.speculation is not None:
+        out["acceptance"] = report.speculation["acceptance_rate"]
     print(f"[{tag}] TTFT p50/p95 {ttft['p50']:.1f}/{ttft['p95']:.1f} ms; "
           f"decode {report.decode_tok_per_s:.1f} tok/s; mean admit "
           f"{times['admit'][0]:.2f} ms, mean decode step "
           f"{times['decode_step'][0]:.2f} ms; serving peak memory "
-          f"{peak / 2**30:.2f} GiB; launches as wanted ({layers} B1 a "
-          f"prefill call" + (f", {layers} B2 a decode step)" if want_b2
-                             else ")"), flush=True)
+          f"{peak / 2**30:.2f} GiB; peak KV bytes {out['peak_kv_bytes']}; "
+          f"launches as wanted ({wanted})", flush=True)
     return report, out
 
 
@@ -2995,11 +3434,14 @@ def build_family_ctx(torch, dev, spec, tag: str, params=None):
 
 def moe_phase(torch, dev, events_dir: pathlib.Path):
     """[moe]: full-width granite-moe-3b-a800m (random weights, seed 0)
-    served through ``paged`` (B1, B2) and ``continuous`` (B1) at capacity
-    factor ``MOE_SERVE_FACTOR``; one decode step profiled by group;
-    agreement with ``reference_generate`` under the granite near-tie
-    rule; one batched decode step at the config's own
-    factor 1.25, its dropped assignments printed (not gated)."""
+    served through ``paged`` (B1, B2), ``continuous`` (B1) and
+    ``speculative`` (B3 under the MoE target, B2 in the draft, B1) at
+    capacity factor ``MOE_SERVE_FACTOR``; one decode step profiled by
+    group; agreement with ``reference_generate`` and of the speculative
+    tokens with the paged run's under the granite near-tie rule; the
+    speculative engine again sampled (``SAMPLED``: its launches and
+    pages gated); one batched decode step at the config's own factor
+    1.25, its dropped assignments printed (not gated)."""
     import dataclasses
     from repro_torch.api import build_workload
     from repro_torch.configs import get_config
@@ -3007,12 +3449,12 @@ def moe_phase(torch, dev, events_dir: pathlib.Path):
     t_phase = time.perf_counter()
     over = {"moe_capacity_factor": MOE_SERVE_FACTOR}
     reports, out, params, ctx = {}, {}, None, None
-    for engine in ("paged", "continuous"):
+    for engine in ("paged", "continuous", "speculative"):
         spec = serve_spec(engine, events_dir, arch=MOE_ARCH, overrides=over)
         ctx, n_params = build_family_ctx(torch, dev, spec, "moe", params)
         params = ctx.params
         reports[engine], out[engine] = family_serve_run(
-            torch, ctx, spec, f"moe-{engine}", want_b2=engine == "paged")
+            torch, ctx, spec, f"moe-{engine}")
         if engine == "paged":
             requests = build_workload(spec, ctx.model.cfg.vocab_size)
             rows = ([int(r.prompt[-1]) for r in requests[:8]],
@@ -3038,6 +3480,11 @@ def moe_phase(torch, dev, events_dir: pathlib.Path):
                   f"a layer): {dropped} dropped (printed, not gated: "
                   f"repro's documented batch coupling)", flush=True)
     agreement_phase(torch, reports, ctx, requests)
+    spec = serve_spec("speculative", events_dir, arch=MOE_ARCH,
+                      overrides=over, sampling=SAMPLED)
+    ctx, _ = build_family_ctx(torch, dev, spec, "moe", params)
+    _, out["speculative_sampled"] = family_serve_run(
+        torch, ctx, spec, "moe-speculative-sampled")
     out["params"] = n_params
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[moe] phase {out['seconds']:.1f} s", flush=True)
@@ -3181,8 +3628,7 @@ def vlm_phase(torch, dev, events_dir: pathlib.Path):
     t_phase = time.perf_counter()
     spec = serve_spec("paged", events_dir, arch=VLM_ARCH)
     ctx, n_params = build_family_ctx(torch, dev, spec, "vlm")
-    report, out = family_serve_run(torch, ctx, spec, "vlm-paged",
-                                   want_b2=True)
+    report, out = family_serve_run(torch, ctx, spec, "vlm-paged")
     requests = build_workload(spec, ctx.model.cfg.vocab_size)
     agreement_phase(torch, {"vlm-paged": report}, ctx, requests)
     out["params"] = n_params
@@ -5328,6 +5774,13 @@ def main() -> int:
         static = static_phase(torch, dev, ctx, reports["continuous"],
                               requests, pathlib.Path(events_dir))
     del ctx, reports
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as events_dir:
+        llama = llama_phase(torch, dev, pathlib.Path(events_dir))
+    print(f"[llama] summary {json.dumps(llama)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as events_dir:
         launches["ssm"], scan_shapes = ssm_phase(torch, dev,
                                                  pathlib.Path(events_dir))
@@ -5450,6 +5903,19 @@ def main() -> int:
                           families["moe"]["paged"]["launches"][name],
                       "serve_moe_continuous":
                           families["moe"]["continuous"]["launches"][name],
+                      "serve_moe_speculative":
+                          families["moe"]["speculative"]["launches"][name],
+                      "serve_moe_speculative_sampled": families["moe"][
+                          "speculative_sampled"]["launches"][name],
+                      "serve_llama_paged": llama["paged"]["launches"][name],
+                      "serve_llama_continuous":
+                          llama["continuous"]["launches"][name],
+                      "serve_llama_speculative":
+                          llama["speculative"]["launches"][name],
+                      "serve_llama_sampled": sum(
+                          llama[f"sampled_{run}"]["launches"][name]
+                          for run in ("paged", "paged-again", "continuous",
+                                      "speculative", "paged-top-p")),
                       "train_moe": families["moe_train"]["launches"][name],
                       "serve_vlm_paged": families["vlm"]["launches"][name],
                       "vlm_patched_loss":
@@ -5478,6 +5944,7 @@ def main() -> int:
          "cases": b1_cases,
          "family_cases": family_cases["flash_attention"],
          "audio_cases": audio_cases["flash_attention"],
+         "llama_cases": llama["kernel_cases"]["flash_attention"],
          "hgmma_count": hgmma["flash_fwd_tc_kernel"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -5501,6 +5968,7 @@ def main() -> int:
          **{k: b2[k] for k in ("max_abs_err", "device_ms", "host_us")
             + timing},
          "family_cases": family_cases["paged_attention"],
+         "llama_cases": llama["kernel_cases"]["paged_attention"],
          "async_copy_count": asyncs["paged_fwd"]},
         {"name": "spec_verify", "route": "cuda",
          "source": "src/repro_torch/csrc/spec_verify.cu",
@@ -5510,6 +5978,7 @@ def main() -> int:
          **{k: b3[k] for k in ("max_abs_err", "ragged_max_abs_err",
                                "w1_max_abs_err", "device_ms", "host_us")
             + timing},
+         "llama_cases": llama["kernel_cases"]["spec_verify"],
          "async_copy_count": asyncs["spec_verify"],
          "hmma_count": sass["HMMA"]["kernels"]["spec_verify_mma_kernel"]},
         {"name": "selective_scan", "route": "cuda",

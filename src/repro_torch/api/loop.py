@@ -17,9 +17,9 @@ device work) and ``eval`` (end-of-epoch callbacks) under per-epoch
 ``epoch`` spans inside one ``run`` span, and feeds each step's plan
 segment to the live GPSL invariant monitor (repro_torch.obs.monitor),
 whose per-epoch summaries land in ``record.extras["gpsl_monitor"]``.
-Instrumentation touches no RNG and no batch content. The device profiler
-(``obs.jax_profiler_dir``) is not ported yet and raises when asked for
-(ROADMAP A.9).
+Instrumentation touches no RNG and no batch content. With
+``obs.jax_profiler_dir`` set, the whole run is traced by
+``torch.profiler`` (``repro_torch.obs.maybe_profiler``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.api.events import EventBus
 from repro_torch.api.registry import ProtocolStrategy
-from repro_torch.obs import (check_profiler, monitor_from_spec,
+from repro_torch.obs import (maybe_profiler, monitor_from_spec,
                              tracer_from_spec, write_outputs)
 
 
@@ -123,7 +123,6 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
     no-op NullTracer when absent or disabled).
     """
     obs = getattr(ctx.spec, "obs", None)
-    check_profiler(obs)
     if tracer is None:
         tracer = tracer_from_spec(
             obs, meta={"kind": "train",
@@ -135,7 +134,7 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
     bus.emit("run_begin")
     stop = False
     pop = getattr(ctx.data, "pop", None)
-    with tracer.span("run", cat="train"):
+    with maybe_profiler(obs, ctx.device), tracer.span("run", cat="train"):
         for epoch in range(ctx.protocol.epochs):
             with tracer.span("epoch", cat="train", epoch=epoch):
                 bus.emit("epoch_begin", epoch=epoch)

@@ -22,7 +22,7 @@ import numpy as np
 from repro_torch.api.registry import get_engine
 from repro_torch.api.specs import ModelSpec, ServeSpec, SpecError
 from repro_torch.device import resolve_device
-from repro_torch.obs import check_profiler, tracer_from_spec, write_outputs
+from repro_torch.obs import maybe_profiler, tracer_from_spec, write_outputs
 
 
 @dataclasses.dataclass
@@ -207,8 +207,8 @@ def run_serve(spec: ServeSpec, ctx: Optional[ServeContext] = None,
     Runs on the card unless ``device="cpu"``. Pass a prebuilt ``ctx`` to
     reuse an engine (its device wins); the spec argument then rebinds the
     workload and scheduling axes. Telemetry (``spec.obs``) and streaming
-    (``spec.stream``) behave as in ``repro``; the device profiler slot
-    (``obs.jax_profiler_dir``) raises until it is ported.
+    (``spec.stream``) behave as in ``repro``; ``obs.jax_profiler_dir``
+    traces the serve with ``torch.profiler``.
     """
     if ctx is None:
         ctx = build_serve_context(spec, device=device)
@@ -216,7 +216,6 @@ def run_serve(spec: ServeSpec, ctx: Optional[ServeContext] = None,
         spec.validate()
         ctx = dataclasses.replace(ctx, spec=spec)
     obs = getattr(spec, "obs", None)
-    check_profiler(obs)
     clock = tracer = None
     if obs is not None and obs.enabled:
         from repro_torch.runtime.scheduler import make_clock
@@ -233,8 +232,9 @@ def run_serve(spec: ServeSpec, ctx: Optional[ServeContext] = None,
         ctx.engine.on_token = lambda rid, idx, tok, t_s: events.append(
             {"rid": rid, "idx": idx, "tok": tok, "t_s": round(t_s, 6)})
     try:
-        report = ctx.engine.serve(requests, spec, clock=clock,
-                                  tracer=tracer)
+        with maybe_profiler(obs, ctx.engine.device):
+            report = ctx.engine.serve(requests, spec, clock=clock,
+                                      tracer=tracer)
     finally:
         ctx.engine.on_token = None
     if events is not None:

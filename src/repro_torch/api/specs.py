@@ -11,9 +11,8 @@ ServeSpec JSON document drives both packages::
 
 ``to_dict``/``from_dict``/``to_json``/``from_json`` round-trip exactly;
 ``from_dict`` rejects unknown keys so stale configs fail loudly. Values
-the port does not run yet (other archs, engines, sampling methods,
-protocols, data kinds) fail validation or construction with a "not
-ported" error.
+the port does not run yet (other archs, engines, protocols, data
+kinds) fail validation or construction with a "not ported" error.
 """
 from __future__ import annotations
 
@@ -149,8 +148,9 @@ class ObsSpec(SpecBase):
     structured JSONL event log (spans + GPSL monitor records);
     ``monitor`` arms the live GPSL invariant monitors on plan-driven
     training runs (``monitor_delta`` is the whole-epoch false-alarm mass
-    of the Serfling deviation check); ``jax_profiler_dir`` keeps its slot
-    in the schema but raises in the port until its device profiler lands.
+    of the Serfling deviation check); ``jax_profiler_dir`` (the name is
+    ``repro``'s) wraps the run in ``torch.profiler`` and writes one Chrome
+    trace JSON into that directory.
     """
     enabled: bool = False
     trace_path: Optional[str] = None

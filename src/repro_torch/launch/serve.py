@@ -14,6 +14,8 @@ Usage:
       --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
       --no-reduced --static
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --no-reduced --paged --sample --temperature 0.9 --top-k 50
   PYTHONPATH=src python -m repro_torch.launch.serve --config serve.json \\
       --set scheduler.policy=ljf --set workload.num_requests=64
   ... --device cpu          # reduced configs on the CPU
@@ -60,6 +62,10 @@ def _legacy_overrides(args) -> List[str]:
         add("stream.enabled", "true")
         if args.stream:
             add("stream.path", args.stream)
+    add("sampling.method", "sample" if args.sample else None)
+    add("sampling.temperature", args.temperature)
+    add("sampling.top_k", args.top_k)
+    add("sampling.top_p", args.top_p)
     add("workload.num_requests", args.requests)
     if args.prompt_len is not None:
         add("workload.prompt_lens", f"[{args.prompt_len}]")
@@ -115,7 +121,12 @@ def main(argv=None):
                     help="stream every emitted token (stream.enabled); with "
                          "a path, also write the JSONL sink")
     ap.add_argument("--sample", action="store_true",
-                    help="stochastic sampling (not ported yet)")
+                    help="seeded stochastic sampling instead of greedy "
+                         "(sampling.method=sample; keyed by request id + "
+                         "token index, reproducible)")
+    ap.add_argument("--temperature", type=float, default=None)
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--top-p", type=float, default=None)
     ap.add_argument("--requests", type=int, default=None)
     ap.add_argument("--prompt-len", type=int, default=None)
     ap.add_argument("--max-new", type=int, default=None)
@@ -130,9 +141,6 @@ def main(argv=None):
                     help="serve params from a repro-format npz artifact")
     ap.add_argument("--seed", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.sample:
-        ap.error("--sample: sampled decoding is not ported to repro_torch "
-                 "yet (see ROADMAP.md)")
 
     spec = (api.load_any_spec(args.config) if args.config
             else default_serve_spec())

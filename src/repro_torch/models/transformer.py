@@ -69,6 +69,12 @@ def _stack_trees(trees):
             for k in trees[0]}
 
 
+def _zeros(specs, dtype, device):
+    """Zero tensors of a spec tree (a spec's own dtype, else ``dtype``)."""
+    return L.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype or dtype,
+                                            device=device), specs)
+
+
 def _unstack(stacked):
     """Per-layer parameter trees of a stacked tree, through one ``unbind``
     per leaf: autograd then stacks the layers' gradients once, where
@@ -494,11 +500,8 @@ class LanguageModel:
 
     def init_cache(self, batch: int, cache_len: int,
                    window: Optional[int] = None, *, device):
-        specs = self.cache_specs(batch, cache_len, window)
-        return L.tree_map(
-            lambda s: torch.zeros(s.shape, dtype=s.dtype or
-                                  self.cfg.torch_dtype, device=device),
-            specs)
+        return _zeros(self.cache_specs(batch, cache_len, window),
+                      self.cfg.torch_dtype, device)
 
     @staticmethod
     def _to_ring(k_full, cache_len: int):
@@ -549,8 +552,14 @@ class LanguageModel:
                 x, st = self._prefill_stack(_layer(srv["superblocks"], i),
                                             x, positions, window, c)
                 states.append(st)
-            cache["server_attn"] = _stack_trees(attn)
-            cache["server_super"] = _stack_trees(states)
+            if self.n_super:
+                cache["server_attn"] = _stack_trees(attn)
+                cache["server_super"] = _stack_trees(states)
+            else:       # too shallow for a superblock: empty stacks
+                specs = self.cache_specs(b, c, window)
+                for name in ("server_attn", "server_super"):
+                    cache[name] = _zeros(specs[name], cfg.torch_dtype,
+                                         x.device)
         else:
             x, cache["server"] = self._prefill_stack(srv["blocks"], x,
                                                      positions, window, c)
@@ -864,11 +873,8 @@ class EncDecModel:
 
     def init_cache(self, batch: int, cache_len: int,
                    window: Optional[int] = None, *, device):
-        specs = self.cache_specs(batch, cache_len, window)
-        return L.tree_map(
-            lambda s: torch.zeros(s.shape, dtype=s.dtype or
-                                  self.cfg.torch_dtype, device=device),
-            specs)
+        return _zeros(self.cache_specs(batch, cache_len, window),
+                      self.cfg.torch_dtype, device)
 
     # ----- serving -----
     @torch.no_grad()

@@ -6,13 +6,13 @@ from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      group_percentiles, percentiles)
 from repro_torch.obs.monitor import (GPSLMonitor, MonitorSummary,
                                      monitor_from_spec)
-from repro_torch.obs.trace import (NullTracer, Tracer, check_profiler,
+from repro_torch.obs.trace import (NullTracer, Tracer, maybe_profiler,
                                    null_tracer, tracer_from_spec,
                                    write_outputs)
 
 __all__ = [
     "Tracer", "NullTracer", "null_tracer", "tracer_from_spec",
-    "write_outputs", "check_profiler",
+    "write_outputs", "maybe_profiler",
     "GPSLMonitor", "MonitorSummary", "monitor_from_spec",
     "percentiles", "group_percentiles", "P2Quantile", "Counter", "Gauge",
     "Histogram", "MetricsRegistry",

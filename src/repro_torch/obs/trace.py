@@ -1,5 +1,6 @@
 """Nested timed spans with Chrome-trace / Perfetto export and a JSONL log
-(copy of :mod:`repro.obs.trace`; the profiler hook is not ported yet).
+(copy of :mod:`repro.obs.trace`; its JAX profiler hook becomes
+:func:`maybe_profiler` over ``torch.profiler``).
 
 A :class:`Tracer` records three shapes of telemetry:
 
@@ -31,7 +32,9 @@ code paths cost one attribute lookup and an empty ``with`` block.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import pathlib
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -259,12 +262,29 @@ def write_outputs(tracer, obs_spec) -> None:
         tracer.write_jsonl(obs_spec.events_path)
 
 
-def check_profiler(obs_spec) -> None:
-    """``ObsSpec.jax_profiler_dir`` keeps its schema slot, but the port's
-    device profiler (``torch.profiler``) is not wired in yet: asking for
-    it raises instead of silently tracing nothing."""
-    if obs_spec is not None and obs_spec.enabled \
-            and obs_spec.jax_profiler_dir:
-        raise NotImplementedError(
-            "obs.jax_profiler_dir: the device profiler is not ported to "
-            "repro_torch yet (torch.profiler is queued in ROADMAP.md)")
+@contextlib.contextmanager
+def maybe_profiler(obs_spec, device=None):
+    """Opt-in ``torch.profiler`` trace around a run (the port of
+    ``repro.obs.maybe_jax_profiler``; the spec field keeps ``repro``'s
+    name, ``jax_profiler_dir``).
+
+    Active only when the spec is enabled *and* names a profiler
+    directory: it records host operators, and the card's kernels when
+    ``device`` is a CUDA device, and writes one Chrome trace JSON into
+    that directory when the run ends. The profiler only observes, so a
+    profiled run computes what an unprofiled one does.
+    """
+    if obs_spec is None or not obs_spec.enabled \
+            or not obs_spec.jax_profiler_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device is not None and str(device).startswith("cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(obs_spec.jax_profiler_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(
+        out / f"torch_profile.{os.getpid()}.{time.time_ns()}.trace.json"))

@@ -8,13 +8,14 @@ attention is the spec-verify kernel on the card) scores all gamma+1
 positions against the paged KV at once, and the longest draft prefix that
 matches the target's own selections is accepted.
 
-**Acceptance is keyed coupling.** The draft proposes with the keys the
-target would use, the verify step computes the target's selection at
-every window position, and a draft token is accepted iff it equals that
-selection. Emitted tokens are always the target's selections, so the
-output equals non-speculative decoding by construction; the draft only
-decides how many tokens a window yields. (The port decodes greedily:
-sampled decoding is ROADMAP A.5.)
+**Acceptance is keyed coupling, not classic rejection sampling.** The
+serving sampler (:mod:`repro_torch.runtime.sampling`) derives every draw
+from ``(seed, rid, token_index)``. The draft proposes with the keys the
+target would use, the verify step computes the target's keyed selection
+at every window position, and a draft token is accepted iff it equals
+that selection. Emitted tokens are always the target's selections, so
+the output equals non-speculative decoding by construction, greedy and
+sampled alike; the draft only decides how many tokens a window yields.
 
 **Draft KV lives in forked page tables** over the shared
 :class:`~repro_torch.runtime.paging.PagePool`: a fork copies the row's

@@ -350,6 +350,8 @@ def _verify_case(gen, dev, dtype, b, w, hq, hc, d, psize, m, wlens,
     (2, 5, 32, 16, 64, 16, 17, [4, 4], [200, 130], False),  # 7 tiles of 32
     (3, 5, 32, 16, 64, 16, 9, [4, 4, 2], [30, 60, 90], True),  # ids off pool
     (2, 4, 8, 2, 40, 16, 9, [3, 1], None, False),     # D an odd number of 8s
+    (8, 5, 32, 8, 128, 16, 9, [4] * 8, None, False),  # llama3-8b, group 4
+    (8, 5, 32, 16, 128, 16, 9, [4] * 8, None, False),  # its cache heads
 ])
 def test_spec_verify_kernel_matches_plain(dev, dtype, b, w, hq, hc, d, psize,
                                           m, wlens, starts, bad_ids):
@@ -367,6 +369,31 @@ def test_spec_verify_kernel_matches_plain(dev, dtype, b, w, hq, hc, d, psize,
     assert ops.spec_verify.launches == before + 1
     assert bool(torch.isfinite(got.float()).all())
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("top_p", [None, 0.9])
+def test_sampler_on_the_card_matches_the_cpu(dev, top_p):
+    """The seeded sampler (temperature 0.9, top-k 50, seed 7) on the card
+    against itself on the CPU on the copied logits at llama3-8b's V: the
+    same keys and bits; a token may differ only where the two picks'
+    perturbed scores tie within 4 float32 ulps (the card's and the CPU's
+    ``log`` round apart)."""
+    import numpy as np
+    from repro_torch.runtime.sampling import TokenSampler, perturbed_scores
+    sampler = TokenSampler(api.SamplingSpec(method="sample", temperature=0.9,
+                                            top_k=50, top_p=top_p, seed=7))
+    gen = torch.Generator().manual_seed(8)
+    logits = 3.0 * torch.randn((64, 128256), generator=gen)
+    rids = torch.arange(64, dtype=torch.int32) % 7
+    idxs = torch.arange(64, dtype=torch.int32)
+    card = sampler.sample(logits.to(dev), rids.to(dev), idxs.to(dev)).cpu()
+    scores = perturbed_scores(logits, rids, idxs, temperature=0.9, top_k=50,
+                              top_p=top_p, seed=7)
+    host = torch.argmax(scores, dim=-1).to(torch.int32)
+    for r in torch.nonzero(card != host).flatten().tolist():
+        a, b = float(scores[r, card[r]]), float(scores[r, host[r]])
+        assert b - a <= 4 * np.spacing(np.float32(max(abs(a), abs(b))))
+    assert (card == host).float().mean() > 0.9
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -160,10 +160,21 @@ def test_serve_cli_on_cpu_and_unported_flags(tmp_path, capsys):
     assert "verified token-identical: 6 requests" in out
     serve_cli.main(["--config", str(cfg), "--device", "cpu", "--static"])
     assert "[static] 6 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as exc:
-        serve_cli.main(["--sample"])
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    # sampled decoding is ported: the flags map onto spec.sampling as in
+    # repro, and static and verify still refuse it with repro's messages
+    sets = ["--sample", "--temperature", "0.9", "--top-k", "50", "--top-p",
+            "0.95"]
+    serve_cli.main(sets + ["--print-spec"])
+    assert json.loads(capsys.readouterr().out)["sampling"] == {
+        "method": "sample", "temperature": 0.9, "top_k": 50, "top_p": 0.95,
+        "seed": 0}
+    serve_cli.main(["--config", str(cfg), "--device", "cpu"] + sets)
+    assert "[paged] 6 requests" in capsys.readouterr().out
+    for flags, msg in ((["--static"], "decodes greedily only"),
+                       (["--verify", "-1"], "sampling.method must be")):
+        with pytest.raises(tapi.SpecError, match=msg):
+            serve_cli.main(["--config", str(cfg), "--device", "cpu"]
+                           + sets + flags)
 
 
 def test_unported_spec_values_fail_clearly(tmp_path):
@@ -174,12 +185,21 @@ def test_unported_spec_values_fail_clearly(tmp_path):
         spec.replace(model=tapi.ModelSpec(arch="no-such-arch")).validate()
     with pytest.raises(tapi.SpecError, match="unknown engine"):
         spec.replace(engine=tapi.EngineSpec(name="no-such-engine")).validate()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapi.run_serve(spec.replace(
-            sampling=tapi.SamplingSpec(method="sample")), device="cpu")
-    with pytest.raises(NotImplementedError, match="profiler"):
-        tapi.run_serve(spec.replace(obs=tapi.ObsSpec(
-            enabled=True, jax_profiler_dir=str(tmp_path))), device="cpu")
+    # sampled decoding and the profiler hook are ported: a sampled serve
+    # runs, and a profiled one writes one Chrome trace and the same tokens
+    sampled = tapi.run_serve(spec.replace(
+        sampling=tapi.SamplingSpec(method="sample")), device="cpu")
+    plain = tapi.run_serve(spec, device="cpu")
+    assert sampled.per_request != plain.per_request
+    profiled = tapi.run_serve(spec.replace(obs=tapi.ObsSpec(
+        enabled=True, jax_profiler_dir=str(tmp_path / "prof"))),
+        device="cpu")
+    assert [r["tokens"] for r in profiled.per_request] == \
+        [r["tokens"] for r in plain.per_request]
+    assert profiled.steps == plain.steps
+    traces = list((tmp_path / "prof").glob("*.trace.json"))
+    assert len(traces) == 1
+    assert json.loads(traces[0].read_text())["traceEvents"]
     train = tmp_path / "train.json"
     train.write_text(json.dumps({"kind": "experiment"}))
     default = tapi.load_any_spec(str(train))

@@ -398,10 +398,19 @@ def test_run_rejects_what_the_port_does_not_run(tmp_path):
     with pytest.raises(tapi.SpecError, match="requires the psl protocol"):
         tapi.run(spec.replace(protocol=spec.protocol.replace(name="fl")),
                  device="cpu")
-    # the GPSL monitor is ported; the device profiler hook is not
-    with pytest.raises(NotImplementedError, match="profiler"):
-        tapi.run(spec.replace(obs=tapi.ObsSpec(
-            enabled=True, jax_profiler_dir=str(tmp_path))), device="cpu")
+    # the device profiler hook is ported: obs.jax_profiler_dir wraps the
+    # run in torch.profiler, writes one Chrome trace and leaves the losses
+    # bitwise (grad_norm's last bits vary from run to run on the CPU)
+    plain = tapi.run(spec, device="cpu")
+    profiled = tapi.run(spec.replace(obs=tapi.ObsSpec(
+        enabled=True, jax_profiler_dir=str(tmp_path / "prof"))),
+        device="cpu")
+    for key in ("loss", "accuracy", "tokens"):
+        assert [m[key] for m in profiled.step_metrics] == \
+            [m[key] for m in plain.step_metrics]
+    traces = list((tmp_path / "prof").glob("*.trace.json"))
+    assert len(traces) == 1
+    assert json.loads(traces[0].read_text())["traceEvents"]
 
 
 def test_train_cli_on_cpu_and_default_device(capsys, tmp_path):
