@@ -288,6 +288,21 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    class-deviation verdict is printed: LDS front-loads stragglers by
    design). Over phases 11–12 every kernel wrapper must read 0
    launches (``plan_and_cnn_lds``).
+13. Mesh (``[mesh]``). ``MESH_RANKS`` ranks of this script (``--mesh-rank``)
+   share the one card through gloo (the backend rule of
+   ``repro_torch.launch.mesh``), so this checks the collective structure
+   of ``repro_torch.launch.distributed.ShardedPSLEngine``, not scaling.
+   They train full-width granite-3-2b cut to ``MESH_LAYERS`` of 40 layers
+   in the ``[train]`` setting (fan-in d_in init) on each of ``MESH_RUNS``
+   (2x1 shard_map, 2x1 gspmd tp with 2 microbatches, 1x2 gspmd fsdp),
+   ``MESH_STEPS`` steps each, held to the one-card engine on the same
+   batches (``mesh_phase`` lists the gates; a planted unreduced gradient
+   must fail them); each rank launches exactly one B1 and one B1-bwd an
+   attention layer and one B5 and one B5-bwd a microbatch; the gspmd
+   run's checkpoint restores on one card bit for bit. Printed: backend,
+   stored bytes and peak a rank, step ms, collective ms by kind. Then B1,
+   B1-bwd, B5 and B5-bwd are held to their plain versions and timed at
+   the rank shapes (the kernels line's ``mesh_cases``).
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
@@ -2987,16 +3002,18 @@ def rescale_to_fan_in(torch, params, specs=None) -> None:
     product could agree. Rescaled, the scores are O(1). With ``specs``
     (the model's ``param_specs()``) only the normal-init leaves are
     rescaled: the hybrid's double-stacked (n_super, attn_period, ...)
-    a_log, D and norm weights have 3 axes and are not matrices."""
+    a_log, D and norm weights have 3 axes and are not matrices; the
+    factors come from the specs' shapes, so a rank's blocks of a sharded
+    state are rescaled as the whole leaves are."""
     import math
     from repro_torch.models.layers import tree_leaves
     leaves = tree_leaves(params)
-    inits = (["normal"] * len(leaves) if specs is None
-             else [sp.init for sp in tree_leaves(specs)])
+    kinds = ([("normal", x.shape) for x in leaves] if specs is None
+             else [(sp.init, sp.shape) for sp in tree_leaves(specs)])
     with torch.no_grad():
-        for leaf, init in zip(leaves, inits, strict=True):
-            if init == "normal" and leaf.dim() >= 3:
-                leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[-2]))
+        for leaf, (init, shape) in zip(leaves, kinds, strict=True):
+            if init == "normal" and len(shape) >= 3:
+                leaf.mul_(math.sqrt(shape[0] / shape[-2]))
 
 
 def grad_check_setup(torch, dev, rescale: bool = True, arch=None,
@@ -5723,6 +5740,345 @@ def cnn_lds_phase(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the sharded engine on a mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_LAYERS = 8                 # [mesh]: depth cut from 40 (cut 2)
+MESH_STEPS = 3
+# (mesh, profile, lowering, microbatches)
+MESH_RUNS = (("2x1", "tp", "shard_map", 1), ("2x1", "tp", "gspmd", 2),
+             ("1x2", "fsdp", "gspmd", 1))
+MESH_CHECKPOINT_RUN = 1         # the 2x1 gspmd run writes a checkpoint
+MESH_LOSS_RTOL = 1e-2           # per-step loss against the one-card run
+MESH_PG_TIMEOUT_S = 180         # a collective that waits longer fails
+MESH_CHILD_TIMEOUT_S = 420      # a rank that runs longer is killed
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.layers import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _worst(rels):
+    worst, value, median = grad_spread(rels)
+    return {"worst_leaf": worst, "worst": value, "median": median}
+
+
+def mesh_rank_run(torch, ctx, hosts, ref, i, work: pathlib.Path):
+    """One of ``MESH_RUNS`` on this rank (the ``[mesh]`` phase's child):
+    the sharded engine from the seeded init rescaled to fan-in d_in, its
+    step-0 gradient (and on rank 0 in the first run, the planted fault:
+    the rank's own unreduced gradient), ``MESH_STEPS`` steps with the
+    launches counted by shape, collectives timed, peak memory, the
+    parameters gathered after; the checkpoint run saves and restores."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.psl import fused_grads, requires_grad_
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.models.layers import tree_leaves
+    mesh_spec, profile, lowering, mb = MESH_RUNS[i]
+    model, specs, dev = ctx.model, ctx.model.param_specs(), ctx.device
+    mesh = make_training_mesh(mesh_spec, dev)
+    eng = ShardedPSLEngine(model, ctx.optimizer, mesh=mesh, profile=profile,
+                           lowering=lowering, microbatches=mb, device=dev,
+                           time_collectives=True)
+    st = eng.init_state(ctx.seed)
+    rescale_to_fan_in(torch, st.params, specs)
+    batches = [eng.put_batch(h) for h in hosts]
+    run = {"mesh": mesh_spec, "profile": profile, "lowering": lowering,
+           "microbatches": mb, "rows": int(batches[0]["tokens"].shape[0]),
+           "shards": batches[0].shards, "fallbacks": eng.report.fallbacks}
+    grads = eng.grads(st, batches[0])
+    if ref is not None:
+        run["grads"] = _worst(leaf_rel_l2(grads, ref["grads"]))
+    del grads
+    if ref is not None and i == 0:
+        whole = requires_grad_(eng.gather_params(st.params))
+        local = fused_grads(model, whole, batches[0], mb)[0]
+        run["planted_unreduced"] = _worst(leaf_rel_l2(local, ref["grads"]))
+        del whole, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng.comm.reset_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recorder = record_train_shapes()
+    step_ms, metrics = [], []
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            st, m = eng.step(st, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+    finally:
+        shapes = recorder.stop()
+    run.update({
+        "step_ms": step_ms, "metrics": metrics,
+        "launches": ops.launch_counts(),
+        "shapes": {k: [[list(s), n] for s, n in v.items()]
+                   for k, v in shapes.items() if v},
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "collectives": {k: dict(v) for k, v in eng.comm.stats.items()},
+        "param_bytes": _tree_bytes(st.params),
+        "moment_bytes": _tree_bytes({k: v for k, v in st.opt_state.items()
+                                     if k in ("mu", "m", "v")})})
+    whole = eng.gather_params(st.params)
+    if ref is not None:
+        run["params"] = _worst(leaf_rel_l2(whole, ref["params"]))
+    if i == MESH_CHECKPOINT_RUN:
+        path = work / "mesh_ckpt.npz"
+        save(str(path), st.params, mesh=mesh, layouts=eng.param_layouts)
+        dist.barrier()
+        if eng.comm.coord == {"data": 0, "model": 0}:
+            back = restore(str(path), dev)
+            run["checkpoint_bitwise"] = all(
+                torch.equal(a, b.detach()) for a, b in zip(
+                    tree_leaves(back), tree_leaves(whole), strict=True))
+            del back
+            path.unlink()
+        dist.barrier()
+    del st, eng, batches, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def mesh_rank_main(rank: int, workdir: str) -> int:
+    """A rank of the ``[mesh]`` phase (``chip_smoke.py --mesh-rank R
+    WORKDIR``): joins the ``MESH_RANKS``-rank group through a ``file://``
+    store in WORKDIR (the backend the rule picks: gloo, as the ranks share
+    the card), builds full-width granite-3-2b at ``MESH_LAYERS`` layers and
+    the ``[train]`` setting's first ``MESH_STEPS`` plan batches; rank 0
+    first runs the one-card engine on them (the reference: step-0
+    gradient, losses, parameters after, stored bytes); then every
+    ``MESH_RUNS`` entry (``mesh_rank_run``). Writes ``rank<R>.json``."""
+    import itertools
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.launch.distributed import (ShardedPSLEngine,
+                                                assign_clients_to_shards)
+    from repro_torch.launch.mesh import init_process_group, rank_device
+    from repro_torch.launch.train import default_lm_spec
+    work = pathlib.Path(workdir)
+    dev = rank_device("cuda")
+    backend = init_process_group(
+        dev, init_method=f"file://{work / 'pg'}", rank=rank,
+        world_size=MESH_RANKS, timeout_s=MESH_PG_TIMEOUT_S)
+    spec = api.apply_overrides(default_lm_spec(), [
+        f"model.overrides.num_layers={MESH_LAYERS}",
+        "model.overrides.cut_layer=2"])
+    ctx = api.build_context(spec, device=dev)
+    plan = make_plan(spec.sampler.method, ctx.data.pop,
+                     spec.protocol.global_batch_size, seed=spec.seed)
+    hosts = list(itertools.islice(lm_plan_batches(
+        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
+        spec.protocol.aggregation,
+        assign_clients_to_shards(len(ctx.data.lm_data), MESH_RANKS),
+        seed=spec.seed), MESH_STEPS))
+    out = {"rank": rank, "backend": backend, "device": str(dev),
+           "runs": []}
+    ref = None
+    if rank == 0:
+        eng = ShardedPSLEngine(ctx.model, ctx.optimizer, mesh="1x1",
+                               device=dev)
+        st = eng.init_state(spec.seed)
+        rescale_to_fan_in(torch, st.params, ctx.model.param_specs())
+        ref = {"grads": eng.grads(st, eng.put_batch(hosts[0]))}
+        losses = []
+        for h in hosts:
+            st, m = eng.step(st, eng.put_batch(h))
+            losses.append(m["loss"])
+        out["one_card"] = {
+            "losses": losses, "param_bytes": _tree_bytes(st.params),
+            "moment_bytes": _tree_bytes({k: v for k, v in
+                                         st.opt_state.items()
+                                         if k in ("mu", "m", "v")})}
+        ref["params"] = st.params
+        del eng, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    for i in range(len(MESH_RUNS)):
+        out["runs"].append(mesh_rank_run(torch, ctx, hosts, ref, i, work))
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, dev):
+    """``[mesh]``: ``MESH_RANKS`` ranks of this script on the one card
+    (gloo: they share it, so this checks the collective structure, not
+    scaling) train full-width granite-3-2b cut to ``MESH_LAYERS`` layers
+    in the ``[train]`` setting (PSL-UGS, global batch 16 x 128, AdamW,
+    seed 0, the init rescaled to fan-in d_in as ``[grads]`` does) for
+    ``MESH_STEPS`` steps on each of ``MESH_RUNS``. Gates, against the
+    one-card engine on the same batches: the step-0 gradient per leaf
+    within ``GRAD_REL_L2``, a planted fault (a rank's own unreduced
+    gradient) outside it, the losses within ``MESH_LOSS_RTOL``, the
+    parameters after the steps per leaf within ``GRAD_REL_L2``, equal
+    metrics on both ranks, exactly one B1 and one B1-bwd an attention
+    layer and one B5 and one B5-bwd a microbatch on each rank, the
+    checkpoint of the gspmd run restored on one card bit for bit. Prints
+    the backend, stored bytes and peak a rank, step ms and collective ms
+    by kind. Then B1, B1-bwd, B5 and B5-bwd are held to their plain
+    versions and timed at every rank shape they ran at (the kernels
+    line's ``mesh_cases``)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        procs, logs = [], []
+        for r in range(MESH_RANKS):
+            logs.append(open(work / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), str(work)], stdout=logs[-1],
+                stderr=subprocess.STDOUT, cwd=str(ROOT)))
+        deadline = time.perf_counter() + MESH_CHILD_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        codes = [p.returncode for p in procs]
+        if codes != [0] * MESH_RANKS:
+            for r in range(MESH_RANKS):
+                print(f"[mesh] rank {r} log tail:\n"
+                      + (work / f"rank{r}.log").read_text()[-4000:],
+                      flush=True)
+            fail(f"[mesh] ranks exited {codes} (a rank killed after "
+                 f"{MESH_CHILD_TIMEOUT_S} s reads -9)")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    children_s = time.perf_counter() - t_phase
+    one = ranks[0]["one_card"]
+    print(f"[mesh] {MESH_RANKS} ranks on one {torch.cuda.get_device_name(0)}"
+          f", backend {[r['backend'] for r in ranks]} (ranks sharing a "
+          f"card: this checks the collective structure, not scaling); "
+          f"granite-3-2b {MESH_LAYERS} of 40 layers (cut 2), full width, "
+          f"bf16, global batch 16 x 128, AdamW, seed 0, fan-in d_in init; "
+          f"one card: losses {one['losses']}, stored params "
+          f"{one['param_bytes']} B, moments {one['moment_bytes']} B",
+          flush=True)
+    if any(r["backend"] != "gloo" for r in ranks):
+        fail("[mesh] ranks sharing the card must take gloo")
+    layers = MESH_LAYERS
+    shapes = {}
+    for i, (mesh_spec, profile, lowering, mb) in enumerate(MESH_RUNS):
+        runs = [r["runs"][i] for r in ranks]
+        r0 = runs[0]
+        tag = f"[mesh] {mesh_spec} {profile} {lowering} mb {mb}"
+        coll = {k: [round(r["collectives"][k]["ms"] / MESH_STEPS, 3)
+                    for r in runs] for k in r0["collectives"]}
+        coll_bytes = {k: [r["collectives"][k]["bytes"] // MESH_STEPS
+                          for r in runs] for k in r0["collectives"]}
+        print(f"{tag}: rows a rank {r0['rows']} ({r0['shards']} shards); "
+              f"losses {[m['loss'] for m in r0['metrics']]}; step ms by "
+              f"rank {[r['step_ms'] for r in runs]}; collective ms a step "
+              f"by rank {json.dumps(coll)}, bytes a step by rank "
+              f"{json.dumps(coll_bytes)}; stored params B by rank "
+              f"{[r['param_bytes'] for r in runs]} (one card "
+              f"{one['param_bytes']}), moments B {[r['moment_bytes'] for r in runs]} "
+              f"(one card {one['moment_bytes']}); peak GiB by rank "
+              f"{[round(r['peak_bytes'] / 2**30, 2) for r in runs]}; "
+              f"step-0 grads {json.dumps(r0['grads'])}; params after "
+              f"{json.dumps(r0['params'])}; fallbacks {r0['fallbacks']}; "
+              f"launches {r0['launches']}", flush=True)
+        want = {name: 0 for name in r0["launches"]}
+        want.update({"flash_attention": layers * mb * MESH_STEPS,
+                     "flash_attention_bwd": layers * mb * MESH_STEPS,
+                     "cross_entropy": mb * MESH_STEPS,
+                     "cross_entropy_bwd": mb * MESH_STEPS})
+        for r, run in enumerate(runs):
+            if run["launches"] != want:
+                fail(f"{tag} rank {r} launches {run['launches']}, wanted "
+                     f"{want}")
+            if run["metrics"] != r0["metrics"]:
+                fail(f"{tag}: the ranks read different metrics")
+        if r0["grads"]["worst"] > GRAD_REL_L2 \
+                or r0["params"]["worst"] > GRAD_REL_L2:
+            fail(f"{tag} disagrees with the one-card engine: grads "
+                 f"{r0['grads']}, params {r0['params']} (limit "
+                 f"{GRAD_REL_L2})")
+        for got, ref in zip([m["loss"] for m in r0["metrics"]],
+                            one["losses"], strict=True):
+            if abs(got - ref) > MESH_LOSS_RTOL * abs(ref):
+                fail(f"{tag} losses {[m['loss'] for m in r0['metrics']]}"
+                     f" against one card's {one['losses']}")
+        if i == 0:
+            planted = r0["planted_unreduced"]
+            print(f"[mesh] planted fault, rank 0's own unreduced gradient "
+                  f"against the one-card one: {json.dumps(planted)}",
+                  flush=True)
+            if planted["worst"] <= GRAD_REL_L2:
+                fail(f"[mesh] the gradient gate ({GRAD_REL_L2}) missed the "
+                     f"unreduced gradient: {planted}")
+        if i == MESH_CHECKPOINT_RUN:
+            print(f"{tag}: checkpoint restored on one card bit for bit "
+                  f"{r0['checkpoint_bitwise']}", flush=True)
+            if not r0["checkpoint_bitwise"]:
+                fail(f"{tag}: the checkpoint did not restore bit for bit")
+        for run in runs[:1]:
+            for name, rows in run["shapes"].items():
+                for shape, n in rows:
+                    shapes.setdefault(name, {})
+                    shapes[name][tuple(shape)] = (
+                        shapes[name].get(tuple(shape), 0) + n)
+    print(f"[mesh] ranks done in {children_s:.1f} s; B1, B1-bwd, B5, B5-bwd"
+          f" launches by shape a rank: {json.dumps({k: [[list(s), n] for s, n in v.items()] for k, v in shapes.items()})}",
+          flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    cases = {name: [] for name in ("flash_attention", "flash_attention_bwd",
+                                   "cross_entropy", "cross_entropy_bwd")}
+    for shape in sorted(shapes["cross_entropy"]):
+        fwd, bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True,
+                             shape=shape)
+        for name, case in (("cross_entropy", fwd),
+                           ("cross_entropy_bwd", bwd)):
+            cases[name].append({"phase": "mesh", "launches":
+                                shapes[name].get(shape, 0), **case})
+    for shape, n in sorted(shapes["flash_attention"].items()):
+        b, s, hq, hkv, d = shape
+        cases["flash_attention"].append({
+            "phase": "mesh", "launches": n, **attention_train_case(
+                torch, dev, gen, rn, b=b, s=s, hq=hq, hkv=hkv, d=d)})
+    for shape, n in sorted(shapes["flash_attention_bwd"].items()):
+        cases["flash_attention_bwd"].append({
+            "phase": "mesh", "launches": n,
+            **attention_bwd_case(torch, dev, gen, *shape)})
+    seconds = time.perf_counter() - t_phase
+    launches = {name: sum(r["launches"][name] for r in ranks[0]["runs"])
+                for name in ranks[0]["runs"][0]["launches"]}
+    summary = {"ranks": ranks, "seconds": seconds, "launches": launches}
+    print(f"[mesh] phase {seconds:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, cases
+
+
 def _leaf_names(tree, prefix=""):
     """Dotted key paths in ``tree_leaves`` order (sorted keys, list items
     in order)."""
@@ -5883,6 +6239,10 @@ def main() -> int:
     if any(plan_launches.values()):
         fail(f"the planner path launched a kernel wrapper: {plan_launches}")
     print(f"[plan] summary {json.dumps(plans)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, mesh_cases = mesh_phase(torch, dev)
+    print(f"[mesh] summary {json.dumps(mesh)}", flush=True)
     print(f"command time {time.perf_counter() - t_start:.1f} s (kernel "
           f"build included)", flush=True)
 
@@ -5931,7 +6291,8 @@ def main() -> int:
                       "audio_grads":
                           audio_grads["bfloat16"]["launches"][name],
                       "train_cnn": cnn_launches[name],
-                      "plan_and_cnn_lds": plan_launches[name]}
+                      "plan_and_cnn_lds": plan_launches[name],
+                      "train_mesh_rank0": mesh["launches"][name]}
                for name in ops.WRAPPERS}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -5944,6 +6305,7 @@ def main() -> int:
          "cases": b1_cases,
          "family_cases": family_cases["flash_attention"],
          "audio_cases": audio_cases["flash_attention"],
+         "mesh_cases": mesh_cases["flash_attention"],
          "llama_cases": llama["kernel_cases"]["flash_attention"],
          "hgmma_count": hgmma["flash_fwd_tc_kernel"]},
         {"name": "flash_attention_bwd", "route": "cuda",
@@ -5957,6 +6319,7 @@ def main() -> int:
              "device_bound_share")},
          "cases": b1_bwd,
          "family_cases": family_cases["flash_attention_bwd"],
+         "mesh_cases": mesh_cases["flash_attention_bwd"],
          "audio_cases": audio_cases["flash_attention_bwd"],
          "hgmma_count": {k: hgmma[k] for k in (
              "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")}},
@@ -6037,6 +6400,7 @@ def main() -> int:
          **{k: b5[k] for k in ("max_abs_err", "argmax_near_ties", "fp32")
             + timing + rates},
          "family_cases": family_cases["cross_entropy"],
+         "mesh_cases": mesh_cases["cross_entropy"],
          "audio_cases": audio_cases["cross_entropy"],
          "hgmma_count": hgmma["xent_fwd_tc_kernel"]},
         {"name": "cross_entropy_bwd", "route": "cuda",
@@ -6048,6 +6412,7 @@ def main() -> int:
                                      "planted_softmax_rel_l2", "fp32")
             + timing + rates},
          "family_cases": family_cases["cross_entropy_bwd"],
+         "mesh_cases": mesh_cases["cross_entropy_bwd"],
          "audio_cases": audio_cases["cross_entropy_bwd"],
          "hgmma_count": hgmma["xent_tc_gemm"]},
     ]
@@ -6062,4 +6427,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

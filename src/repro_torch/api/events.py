@@ -125,7 +125,8 @@ class ShardArrivalCallback(Callback):
 
 class CheckpointCallback(Callback):
     """Saves eval params at run_end (and optionally every N epochs) in
-    ``repro``'s npz format."""
+    ``repro``'s npz format. The eval params are whole on every rank of a
+    mesh; rank 0 writes them."""
 
     def __init__(self, path: str, every: Optional[int] = None):
         self.path = path
@@ -133,7 +134,9 @@ class CheckpointCallback(Callback):
 
     def _save(self, params):
         from repro_torch.checkpoint import save
-        save(self.path, params)
+        from repro_torch.launch.mesh import is_main_process
+        if is_main_process():
+            save(self.path, params)
 
     def on_event(self, event, ctx, record):
         if event.name == "epoch_end" and self.every \
@@ -145,13 +148,17 @@ class CheckpointCallback(Callback):
 
 
 class ConsoleLogger(Callback):
-    """Step/epoch progress lines (the launch CLI's output format)."""
+    """Step/epoch progress lines (the launch CLI's output format), printed
+    by rank 0 of a mesh."""
 
     def __init__(self, every: int = 10):
         self.every = every
         self._epoch_steps = 0
 
     def on_event(self, event, ctx, record):
+        from repro_torch.launch.mesh import is_main_process
+        if not is_main_process():
+            return
         if event.name == "epoch_begin":
             self._epoch_steps = 0
         elif event.name == "step_end":

@@ -19,7 +19,9 @@ segment to the live GPSL invariant monitor (repro_torch.obs.monitor),
 whose per-epoch summaries land in ``record.extras["gpsl_monitor"]``.
 Instrumentation touches no RNG and no batch content. With
 ``obs.jax_profiler_dir`` set, the whole run is traced by
-``torch.profiler`` (``repro_torch.obs.maybe_profiler``).
+``torch.profiler`` (``repro_torch.obs.maybe_profiler``). On a mesh of
+ranks every rank runs the loop; only rank 0 writes the trace, the event
+log and the profiler's trace.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.api.events import EventBus
 from repro_torch.api.registry import ProtocolStrategy
+from repro_torch.launch.mesh import is_main_process
 from repro_torch.obs import (maybe_profiler, monitor_from_spec,
                              tracer_from_spec, write_outputs)
 
@@ -60,6 +63,11 @@ class DataBundle:
     pop: Any = None
     seq_len: Optional[int] = None       # synthetic_lm: training seq length
 
+    @classmethod
+    def from_store(cls, store, test=None, train=None):
+        return cls(store=store, test=test, train=train,
+                   pop=store.population if store is not None else None)
+
 
 @dataclasses.dataclass
 class RunContext:
@@ -71,6 +79,7 @@ class RunContext:
     spec: Any                       # ExperimentSpec
     seed: int = 0
     device: Any = None
+    mesh: Any = None                # prebuilt DeviceMesh (sharded engine)
 
     @property
     def protocol(self):
@@ -134,7 +143,8 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
     bus.emit("run_begin")
     stop = False
     pop = getattr(ctx.data, "pop", None)
-    with maybe_profiler(obs, ctx.device), tracer.span("run", cat="train"):
+    with maybe_profiler(obs if is_main_process() else None, ctx.device), \
+            tracer.span("run", cat="train"):
         for epoch in range(ctx.protocol.epochs):
             with tracer.span("epoch", cat="train", epoch=epoch):
                 bus.emit("epoch_begin", epoch=epoch)
@@ -182,7 +192,8 @@ def fit(ctx: RunContext, strategy: ProtocolStrategy,
         strategy.finalize(ctx, pstate, record)
         params = strategy.eval_params(ctx, pstate)
         bus.emit("run_end", params=params)
-    write_outputs(tracer, obs)
+    if is_main_process():
+        write_outputs(tracer, obs)
     step_metrics = [{k: float(v) for k, v in m.items()}
                     for m in record.step_metrics]
     return RunResult(history=History(record.test_acc, record.extras),

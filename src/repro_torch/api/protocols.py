@@ -18,9 +18,11 @@ client to client on purpose; each client gets a fresh optimizer state.
 PSL consults the ExecutionSpec: engine "fused" runs the fused step of
 :mod:`repro_torch.core.psl` on the context's device; engine "sharded"
 (and every LM workload, whatever ``execution.engine`` says, as in
-``repro``) goes through the one-card ShardedPSLEngine of
-:mod:`repro_torch.launch.distributed` with per-step straggler arrival
-accounting.
+``repro``) goes through the ShardedPSLEngine of
+:mod:`repro_torch.launch.distributed` (one card, or the mesh of
+``execution.mesh`` laid out by ``execution.sharding``) with per-step
+straggler arrival accounting; evaluation runs on the gathered
+parameters.
 """
 from __future__ import annotations
 
@@ -289,16 +291,20 @@ class PSLStrategy(ProtocolStrategy):
                     "engine": None}
         from repro_torch.launch.distributed import (ShardedPSLEngine,
                                                     assign_clients_to_shards)
-        # execution.sharding lays parameters out across cards; on the one
-        # card of this engine every profile is the same step
         engine = ShardedPSLEngine(
-            ctx.model, ctx.optimizer, mesh=ctx.execution.mesh,
+            ctx.model, ctx.optimizer,
+            mesh=ctx.mesh if ctx.mesh is not None else ctx.execution.mesh,
+            profile=ctx.execution.sharding,
             lowering=ctx.execution.lowering,
             microbatches=ctx.execution.microbatches, device=ctx.device)
         num_clients = (len(ctx.data.lm_data)
                        if ctx.data.kind == "synthetic_lm"
                        else ctx.data.store.num_clients)
-        return {"state": _fresh_state(ctx), "engine": engine,
+        # one card starts from _fresh_state, as every protocol does; on a
+        # mesh each rank draws the whole tree and keeps its blocks
+        state = (_fresh_state(ctx) if engine.mesh is None
+                 else engine.init_state(ctx.seed))
+        return {"state": state, "engine": engine,
                 "shard_of_client": assign_clients_to_shards(
                     num_clients, engine.num_shards)}
 
@@ -356,9 +362,12 @@ class PSLStrategy(ProtocolStrategy):
         return pstate, metrics
 
     def eval_params(self, ctx, pstate):
-        return pstate["state"].params
+        engine = pstate.get("engine")
+        if engine is None:
+            return pstate["state"].params
+        return engine.gather_params(pstate["state"].params)
 
     def finalize(self, ctx, pstate, record):
-        if pstate.get("engine") is not None:
-            # one card: no sharding profile can fall back
-            record.extras["sharding_fallbacks"] = []
+        engine = pstate.get("engine")
+        if engine is not None:
+            record.extras["sharding_fallbacks"] = engine.report.fallbacks

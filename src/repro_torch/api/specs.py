@@ -277,9 +277,12 @@ class ProtocolSpec(SpecBase):
 class ExecutionSpec(SpecBase):
     """Where and how the step runs: engine, mesh, lowering, microbatches.
 
-    The port runs the fused step on one card: ``mesh`` None (or a
-    one-device spec such as "1x1") and ``lowering="gspmd"``; other meshes
-    and ``shard_map`` raise in the engine (ROADMAP A.7).
+    engine "fused" runs the fused step on the context's device; "sharded"
+    runs it through repro_torch.launch.distributed.ShardedPSLEngine on a
+    (data x model) mesh of ranks (``mesh`` "DxM" or "auto"; None = every
+    running rank on ``data``, one card in a single process), laid out by
+    the ``sharding`` profile. ``tp`` with ``model > 1`` is refused
+    (tensor-parallel compute, ROADMAP A.19).
     """
     engine: str = "fused"
     mesh: Optional[str] = None
@@ -298,6 +301,15 @@ class ExecutionSpec(SpecBase):
                       f"unknown lowering {self.lowering!r}")
         self._require(self.microbatches >= 1,
                       "microbatches must be >= 1")
+        if self.mesh is not None:
+            from repro_torch.launch.distributed import TP_ITEM
+            from repro_torch.launch.mesh import parse_mesh_spec
+            try:
+                _, model = parse_mesh_spec(self.mesh)
+            except ValueError as e:
+                raise SpecError(str(e)) from None
+            self._require(self.sharding != "tp" or model == 1,
+                          f"execution.mesh {self.mesh!r}: {TP_ITEM}")
         return self
 
 

@@ -13,6 +13,12 @@ keeps JAX's ``(d_in, d_out)`` weight layout, so no leaf is transposed.
 The three loaders put the tree on the card unless the caller passes
 ``device="cpu"``; without a card they raise
 (:func:`repro_torch.device.resolve_device`).
+
+On a mesh of ranks (``repro_torch.launch.mesh``) a state is stored in
+blocks (``repro_torch.sharding`` layouts). ``save(..., mesh=, layouts=)``
+is called by every rank: it gathers each leaf and rank 0 writes the
+whole tree in the same format; ``restore(..., mesh=, layouts=)`` gives
+each rank its blocks, read leaf by leaf from the file.
 """
 from __future__ import annotations
 
@@ -111,12 +117,52 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def save(path: str, tree: Any) -> None:
+def _flat_layouts(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A layout tree flattened like :func:`_flatten` (a layout, itself a
+    tuple, is a leaf)."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flat_layouts(tree[k], f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            out.update(_flat_layouts(v, f"{prefix}#{i}{_SEP}"))
+    else:
+        out[prefix[:-len(_SEP)]] = tree
+    return out
+
+
+def _mesh_comm(mesh, layouts):
+    if layouts is None:
+        raise ValueError("a sharded checkpoint needs the tree's layouts "
+                         "(e.g. engine.param_layouts) beside its mesh")
+    from repro_torch.launch.mesh import MeshComm
+    return MeshComm(mesh)
+
+
+def save(path: str, tree: Any, mesh=None, layouts=None) -> None:
     """Write a tree of tensors in ``repro``'s npz format (bf16 leaves as
-    uint16 bit patterns listed in ``__bf16_keys__``)."""
+    uint16 bit patterns listed in ``__bf16_keys__``). With ``mesh`` every
+    rank calls it with its blocks and their ``layouts``; each leaf is
+    gathered and rank 0 writes."""
+    flat = _flatten(tree)
+    main = True
+    if mesh is not None:
+        from repro_torch.launch.mesh import is_main_process
+        from repro_torch.sharding import whole_shape
+        comm = _mesh_comm(mesh, layouts)
+        main = is_main_process()
+        lays = _flat_layouts(layouts)
+        for k, t in flat.items():
+            whole = comm.all_gather_leaf(
+                t.detach(), lays[k], whole_shape(t.shape, lays[k],
+                                                 comm.sizes))
+            flat[k] = whole.cpu() if main else None
+    if not main:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     arrays, bf16 = {}, []
-    for k, t in _flatten(tree).items():
+    for k, t in flat.items():
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             arrays[k] = t.view(torch.int16).numpy().view(np.uint16)
@@ -127,9 +173,15 @@ def save(path: str, tree: Any) -> None:
     np.savez(path, **arrays)
 
 
-def restore(path: str, device="cuda") -> Any:
-    """Load a ``repro``-format npz checkpoint onto ``device``."""
+def restore(path: str, device="cuda", mesh=None, layouts=None) -> Any:
+    """Load a ``repro``-format npz checkpoint onto ``device``; with
+    ``mesh`` and ``layouts``, only this rank's block of each leaf."""
     device = resolve_device(device)
+    lays = None
+    if mesh is not None:
+        from repro_torch.sharding import block_slices
+        comm = _mesh_comm(mesh, layouts)
+        lays = _flat_layouts(layouts)
     with np.load(path, allow_pickle=True) as data:
         bf16 = set(data["__bf16_keys__"].tolist())
         flat = {}
@@ -137,6 +189,9 @@ def restore(path: str, device="cuda") -> Any:
             if k == "__bf16_keys__":
                 continue
             v = data[k]
+            if lays is not None:
+                v = v[block_slices(v.shape, lays[k], comm.sizes,
+                                   comm.coord)]
             flat[k] = (_bf16_from_bits(v) if k in bf16
                        else torch.from_numpy(np.ascontiguousarray(v)))
     return _to_device(_unflatten(flat), device)

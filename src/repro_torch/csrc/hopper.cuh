@@ -470,23 +470,44 @@ typedef CUresult (*EncodeTiledFn)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled is a driver-API call; fetched through the
-// runtime so the library needs no -lcuda.
+typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+
+// A driver-API entry point, fetched through the runtime so the library
+// needs no -lcuda; nullptr if the driver lacks it.
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+  cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+  return q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
 inline EncodeTiledFn encode_fn() {
   static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+  if (fn == nullptr)
+    fn = reinterpret_cast<EncodeTiledFn>(driver_fn("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// The encoder needs a current context, and a thread that has made no CUDA
+// runtime call yet has none: autograd's device thread, when a kernel's
+// backward is the first CUDA work it runs. Bind the primary context of
+// the device that holds `ptr`, as a runtime call would. Returns 0 or a
+// cudaError_t.
+inline int bind_context(const void* ptr) {
+  static CtxGetCurrentFn current = nullptr;
+  if (current == nullptr)
+    current = reinterpret_cast<CtxGetCurrentFn>(driver_fn("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (current != nullptr && current(&ctx) == CUDA_SUCCESS && ctx != nullptr)
+    return 0;
+  cudaPointerAttributes attr;
+  cudaError_t e = cudaPointerGetAttributes(&attr, ptr);
+  if (e == cudaSuccess) e = cudaSetDevice(attr.device);
+  return static_cast<int>(e);
 }
 
 // A rank-`rank` map over a 16-bit tensor with 128-byte swizzle. dims[0]
@@ -498,6 +519,8 @@ inline int encode(CUtensorMap* map, bool bf16, int rank, const void* ptr,
                   const uint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int bound = bind_context(ptr);
+  if (bound != 0) return bound;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {

@@ -1,30 +1,95 @@
 """The PSL training engine of the port (mirrors
-:mod:`repro.launch.distributed`) on one CUDA card.
+:mod:`repro.launch.distributed`): the fused PSL step on one card, or on a
+(data × model) mesh of ranks over ``torch.distributed``.
 
-``repro`` lowers the fused PSL step onto a (data x model) device mesh;
-the port runs the same step on exactly one card: ``num_shards == 1`` and
-``lowering="gspmd"``, which here means the fused step of
-:mod:`repro_torch.core.psl` on that card. Any other mesh, and the
-explicit ``shard_map`` lowering, raise until the mesh engine is ported on
-``torch.distributed`` (ROADMAP A.7). The straggler helpers
-(``assign_clients_to_shards``, ``shard_arrivals``, ``step_timing``) are
-numpy and are ``repro``'s, copied.
+``repro`` lowers the fused step of ``repro.core.psl`` onto a device mesh
+from one controller. The port runs one process a rank (``python -m
+torch.distributed.run``), each holding its part of the state, and makes
+the collectives explicit (:class:`repro_torch.launch.mesh.MeshComm`). On
+a mesh both lowerings share the sum form of :mod:`repro_torch.core.psl`:
+
+* every rank sums the slot weights of its rows of the global batch, and an
+  all-reduce over the batch axes gives the weight mass ``w_total``;
+* ``accumulate_sum_grads`` runs on the rank's rows, giving fp32 gradient
+  and metric sums; the metric sums are all-reduced over the batch axes
+  and the gradient sums reduced there, then normalized once by the mass.
+  Because padding slots weigh 0, where slots land on ranks never changes
+  the step.
+
+The lowerings differ in what a rank stores:
+
+* ``lowering="gspmd"``: each rank stores only its block of each
+  parameter and moment, as ``repro_torch.sharding.train_state_shardings``
+  lays it out for the profile (tp / fsdp / ddp); client leaves stay
+  replicated over the data axes. Before the forward a rank all-gathers
+  the whole client and server trees; after the backward it
+  reduce-scatters (or all-reduces and slices) the fp32 gradient sums over
+  the batch axes into its blocks, and AdamW or SGD updates the blocks
+  (``repro_torch.optim`` is leaf by leaf). The gathered copy and the full
+  gradients are freed before the next step. The batch is split over the
+  profile's batch axes (``sharding.batch_axes``): under fsdp and ddp over
+  all axes, so every mesh shape computes without duplicate work.
+* ``lowering="shard_map"`` (explicit data parallelism, ``repro``'s
+  ``shard_map`` program): parameters and moments are replicated, the
+  batch is split over ``data``, and the gradient sums are all-reduced.
+
+``tp`` on a mesh with ``model > 1`` is Megatron tensor-parallel compute in
+``repro`` (heads split in B1, a vocab-parallel B5 with a cross-rank
+logsumexp, column- and row-parallel products) and raises here (ROADMAP
+A.19); ``tp`` on D × 1 keeps FSDP over ``data``. A batch whose leading
+axis does not divide over the batch axes is replicated: every rank then
+holds it whole and nothing is summed across ranks, so it is not counted
+once a rank.
+
+The aux loss (MoE load balancing) of a rank is computed on its own rows;
+its gradient enters with weight ``w_total / shards``, so the summed
+gradient is that of the mean over the shards, the metric
+``aux_sum / (shards · M)`` reports (``repro``'s shard_map program weights
+each shard's aux term by ``w_total``). Dense and CNN models carry no aux
+loss.
+
+On one card (a mesh of one rank: ``mesh`` None in a single process,
+"1x1", or "auto" with one rank) the engine runs the fused step of
+:mod:`repro_torch.core.psl` as it always has, for either lowering, with
+no process group. The straggler helpers (``assign_clients_to_shards``,
+``shard_arrivals``, ``step_timing``) are numpy and are ``repro``'s,
+copied.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import hashlib
+import math
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.psl import fused_grads, make_train_step, \
-    requires_grad_
+from repro_torch import sharding as shard_lib
+from repro_torch.core.psl import (accumulate_sum_grads, fused_grads,
+                                  make_train_step, requires_grad_)
+from repro_torch.launch.mesh import (AXES, MeshComm, make_training_mesh,
+                                     mesh_sizes, parse_mesh_spec,
+                                     rank_device)
+from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import Optimizer, TrainState
 
-_MESH_ITEM = ("the mesh engine is not ported to repro_torch yet "
-              "(ROADMAP A.7, launch/distributed.py on torch.distributed); "
-              "the port trains on exactly one card")
+TP_ITEM = ("profile 'tp' on a mesh with model > 1 is Megatron "
+           "tensor-parallel compute (heads split in B1, a vocab-parallel "
+           "B5 with a cross-rank logsumexp, column- and row-parallel "
+           "products), not ported to repro_torch yet (ROADMAP A.19); use "
+           "'fsdp' or 'ddp', or a Dx1 mesh")
+
+_SUMS = ("loss_sum", "acc_sum", "aux_sum", "tokens")
+_DTYPES = {"tokens": torch.int64, "labels": torch.int32,
+           "weights": torch.float32, "images": torch.float32}
+
+
+def data_shard_count(mesh, profile: str = "tp") -> int:
+    """Number of batch shards the mesh/profile splits the global batch
+    into."""
+    sizes = mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in shard_lib.batch_axes(mesh, profile))
 
 
 def assign_clients_to_shards(num_clients: int, num_shards: int) -> np.ndarray:
@@ -65,74 +130,222 @@ def step_timing(sizes_row: np.ndarray, delays: np.ndarray,
                       shard_skew_ms=float(arr.max() - arr.min()))
 
 
-def _mesh_size(mesh: Optional[str]) -> int:
-    """Devices a mesh spec names ("DxM" or "D"; None = one card here)."""
-    if mesh is None:
-        return 1
-    try:
-        dims = [int(x) for x in str(mesh).lower().split("x")]
-    except ValueError:
-        raise ValueError(f"bad mesh spec {mesh!r}; expected 'DxM'") from None
-    return int(np.prod(dims))
+class ShardedBatch(dict):
+    """A rank's rows of a global batch (``put_batch``); ``shards`` is the
+    number of distinct row blocks across ranks (1 when every rank holds
+    the whole batch)."""
+    shards: int = 1
+
+
+def _batch_digest(host: Dict[str, Any]) -> int:
+    """A signed 64-bit digest of a host batch (keys, dtypes, shapes and
+    bytes)."""
+    h = hashlib.blake2b(digest_size=8)
+    for key in sorted(host):
+        a = np.ascontiguousarray(host[key])
+        h.update(f"{key}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return int.from_bytes(h.digest(), "little", signed=True)
 
 
 class ShardedPSLEngine:
-    """The fused PSL step on one card, behind ``repro``'s engine API::
+    """The fused PSL step on one card or on a (data × model) mesh of
+    ranks, behind ``repro``'s engine API::
 
-        engine = ShardedPSLEngine(model, optimizer, device=dev)
+        engine = ShardedPSLEngine(model, optimizer, mesh="2x2",
+                                  profile="fsdp")
         state = engine.init_state(seed)
         state, metrics = engine.step(state, engine.put_batch(host_batch))
 
-    ``step`` updates the state's parameters in place and returns its
-    metrics as Python floats: reading them waits for the card, so the
-    loop's ``device_step`` span covers the step's device work.
+    ``mesh`` is a DeviceMesh (``repro_torch.launch.mesh``), a spec
+    ("DxM", "auto") or None ("auto"). ``step`` updates the state's
+    parameters in place and returns its metrics as Python floats, equal
+    on every rank: reading them waits for the card. With
+    ``time_collectives`` the mesh's collectives are timed
+    (``comm.stats``), which synchronizes around each of them.
     """
 
     def __init__(self, model, optimizer: Optimizer, mesh=None,
-                 lowering: str = "gspmd", microbatches: int = 1,
-                 device="cuda"):
+                 profile: str = "tp", lowering: str = "gspmd",
+                 microbatches: int = 1, device="cuda",
+                 time_collectives: bool = False):
         if lowering not in ("gspmd", "shard_map"):
             raise ValueError(f"unknown lowering {lowering!r}")
-        if lowering == "shard_map":
-            raise NotImplementedError(f"lowering 'shard_map': {_MESH_ITEM}")
-        if _mesh_size(mesh) != 1:
-            raise NotImplementedError(f"mesh {mesh!r}: {_MESH_ITEM}")
+        if profile not in ("tp", "fsdp", "ddp"):
+            raise ValueError(f"unknown sharding profile {profile!r}")
+        mesh = "auto" if mesh is None else mesh
+        shape = (parse_mesh_spec(mesh) if isinstance(mesh, str)
+                 else tuple(mesh_sizes(mesh)[a] for a in AXES))
+        if profile == "tp" and shape[1] > 1:
+            raise NotImplementedError(f"mesh {shape[0]}x{shape[1]}: "
+                                      f"{TP_ITEM}")
         self.model = model
         self.optimizer = optimizer
+        self.profile = profile
         self.lowering = lowering
         self.microbatches = microbatches
-        self.device = torch.device(device)
-        self.num_shards = 1
-        self._step = make_train_step(model, optimizer,
-                                     microbatches=microbatches)
+        self.report = shard_lib.ShardingReport()
+        if math.prod(shape) == 1:
+            self.mesh = self.comm = None
+            self.device = torch.device(device)
+            self.num_shards = 1
+            self._step = make_train_step(model, optimizer,
+                                         microbatches=microbatches)
+            return
+        self.mesh = (make_training_mesh(mesh, device)
+                     if isinstance(mesh, str) else mesh)
+        self.device = rank_device(device)
+        self.comm = MeshComm(self.mesh, timed=time_collectives)
+        self.num_shards = data_shard_count(self.mesh, profile)
+        layouts = shard_lib.train_state_shardings(
+            model, optimizer, self.mesh,
+            self.report if lowering == "gspmd" else None,
+            profile=profile).params
+        if lowering == "shard_map":
+            layouts = tree_map(lambda _: shard_lib.replicated(), layouts)
+            self._batch_axes: Tuple[str, ...] = ("data",)
+        else:
+            self._batch_axes = shard_lib.batch_axes(self.mesh, profile)
+        self.param_layouts = layouts
+        self._shapes = [s.shape for s in tree_leaves(model.param_specs())]
 
     # ------------------------------------------------------------- state
     def init_state(self, seed: int = 0) -> TrainState:
+        """Every rank draws the whole tree from ``seed`` on its device (the
+        one-card init, bit for bit) and keeps its blocks; the optimizer
+        state is made for those blocks."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        params = requires_grad_(self.model.init(gen))
+        params = self.model.init(gen)
+        params = (requires_grad_(params) if self.mesh is None
+                  else self.shard_tree(params))
         return TrainState(params=params,
                           opt_state=self.optimizer.init(params), step=0)
 
+    def shard_tree(self, tree):
+        """A whole parameter-shaped tree → this rank's blocks of it."""
+        if self.mesh is None:
+            return tree
+        comm = self.comm
+        return tree_map(
+            lambda x, lay: (shard_lib.local_slice(
+                x, lay, comm.sizes, comm.coord).clone()
+                if shard_lib.layout_axes(lay) else x),
+            tree, self.param_layouts)
+
+    def gather_params(self, params):
+        """The whole parameter tree from every rank's blocks (an
+        all-gather a sharded leaf; the stored tensor of a replicated
+        one)."""
+        if self.mesh is None:
+            return params
+        leaves = [self.comm.all_gather_leaf(p, lay, shape)
+                  for p, lay, shape in zip(
+                      tree_leaves(params), tree_leaves(self.param_layouts),
+                      self._shapes)]
+        return tree_unflatten(params, leaves)
+
     # ------------------------------------------------------------- batch
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Host numpy batch → tensors on the card (tokens int64 for the
-        embedding gather, labels int32, weights and images fp32)."""
-        dtypes = {"tokens": torch.int64, "labels": torch.int32,
-                  "weights": torch.float32, "images": torch.float32}
-        return {k: torch.as_tensor(np.asarray(v)).to(
-                    device=self.device, dtype=dtypes.get(k),
-                    non_blocking=True)
-                for k, v in batch.items()}
+        """Host numpy batch → this rank's rows on its device (tokens int64
+        for the embedding gather, labels int32, weights and images fp32).
+
+        On a mesh the rank keeps its contiguous block of the leading axis,
+        as ``PartitionSpec`` splits it over the batch axes, after the slot
+        layout of ``GlobalBatchIterator(num_shards=)``; a batch that does
+        not divide is kept whole (noted in ``report``). The ranks first
+        all-gather a 64-bit digest of the host batch and raise if they
+        disagree: ranks whose planners drew different plans fail here."""
+        if self.mesh is None:
+            return {k: torch.as_tensor(np.asarray(v)).to(
+                        device=self.device, dtype=_DTYPES.get(k),
+                        non_blocking=True)
+                    for k, v in batch.items()}
+        host = {k: np.asarray(v) for k, v in batch.items()}
+        digests = [row[0] for row in
+                   self.comm.all_gather_ints([_batch_digest(host)])]
+        if len(set(digests)) > 1:
+            raise ValueError(
+                f"the ranks were given different host batches (digests "
+                f"{digests}); every rank must draw the same plan and "
+                f"batches")
+        b = next(iter(host.values())).shape[0]
+        shard_lib.batch_shardings(host, self.mesh, b, self.report,
+                                  profile=self.profile)
+        sizes, coord = self.comm.sizes, self.comm.coord
+        total = math.prod(sizes[a] for a in self._batch_axes)
+        split = total > 1 and all(x.ndim and x.shape[0] % total == 0
+                                  for x in host.values())
+        rows = slice(None)
+        if split:
+            index = 0
+            for a in self._batch_axes:
+                index = index * sizes[a] + coord[a]
+            rows = slice(index * b // total, (index + 1) * b // total)
+        out = ShardedBatch({k: torch.as_tensor(v[rows]).to(
+            device=self.device, dtype=_DTYPES.get(k), non_blocking=True)
+            for k, v in host.items()})
+        out.shards = total if split else 1
+        return out
 
     # -------------------------------------------------------------- step
+    def _sum_grads(self, params, batch: ShardedBatch):
+        """Gather the tree, and sum the rank's gradients and metrics:
+        (fp32 gradient sums, metric sums all-reduced, reduce axes)."""
+        if not isinstance(batch, ShardedBatch):
+            raise TypeError("on a mesh, pass batches through put_batch")
+        axes = self._batch_axes if batch.shards > 1 else ()
+        full = requires_grad_(self.gather_params(params))
+        w_total = self.comm.all_reduce(batch["weights"].float().sum(), axes)
+        g_sum, m_sum = accumulate_sum_grads(
+            self.model, full, batch, self.microbatches,
+            w_total / batch.shards)
+        del full
+        sums = self.comm.all_reduce(torch.stack([m_sum[k] for k in _SUMS]),
+                                    axes)
+        return g_sum, sums, axes
+
+    def _metrics(self, sums, shards: int) -> Dict[str, torch.Tensor]:
+        denom = torch.clamp(sums[3], min=1e-6)
+        return {"loss": sums[0] / denom, "accuracy": sums[1] / denom,
+                "aux_loss": sums[2] / (shards * self.microbatches),
+                "tokens": sums[3]}
+
     def step(self, state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, float]]:
-        state, metrics = self._step(state, batch)
-        return state, {k: float(v) for k, v in metrics.items()}
+        if self.mesh is None:
+            state, metrics = self._step(state, batch)
+            return state, {k: float(v) for k, v in metrics.items()}
+        g_sum, sums, axes = self._sum_grads(state.params, batch)
+        denom = torch.clamp(sums[3], min=1e-6)
+        leaves = tree_leaves(g_sum)
+        del g_sum
+        layouts = tree_leaves(self.param_layouts)
+        local, sq = [], torch.zeros((), device=self.device)
+        for i, lay in enumerate(layouts):
+            g = self.comm.reduce_scatter_leaf(leaves[i], lay, axes)
+            leaves[i] = None                 # free the full sum
+            local.append(g.div_(denom))
+            if shard_lib.is_owner(lay, self.comm.coord):
+                sq = sq + torch.sum(g.float() ** 2)
+        grads = tree_unflatten(state.params, local)
+        metrics = self._metrics(sums, batch.shards)
+        metrics["grad_norm"] = torch.sqrt(self.comm.all_reduce(sq, AXES))
+        opt_state = self.optimizer.apply_updates(state.params, grads,
+                                                 state.opt_state)
+        return (TrainState(params=state.params, opt_state=opt_state,
+                           step=state.step + 1),
+                {k: float(v) for k, v in metrics.items()})
 
     # -------------------------------------------------------- diagnostics
     def grads(self, state: TrainState, batch: Dict[str, Any]):
-        """Normalized full-batch gradient (fp32) of this engine's step."""
-        return fused_grads(self.model, state.params, batch,
-                           self.microbatches)[0]
+        """Normalized full-batch gradient (fp32) of this engine's step,
+        whole on every rank — what the equivalence tests compare."""
+        if self.mesh is None:
+            return fused_grads(self.model, state.params, batch,
+                               self.microbatches)[0]
+        g_sum, sums, axes = self._sum_grads(state.params, batch)
+        denom = torch.clamp(sums[3], min=1e-6)
+        return tree_unflatten(g_sum, [
+            self.comm.all_reduce(g, axes).div_(denom)
+            for g in tree_leaves(g_sum)])

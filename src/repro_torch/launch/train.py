@@ -9,6 +9,13 @@ config may name any ported model, the paper's CNN (``paper-cnn``, the
 spec's default arch) included, with any protocol. It runs on the CUDA
 card; ``--device cpu`` runs on the CPU (meant for reduced models).
 
+On a (data × model) mesh, one process a rank: ``--mesh DxM`` (default
+``auto``: every rank on ``data``), ``--sharding tp|fsdp|ddp`` and
+``--lowering gspmd|shard_map`` under ``python -m torch.distributed.run
+--nproc-per-node D*M``. Each rank runs on ``cuda:(local_rank %
+device_count)`` (gloo where ranks share a card, nccl where each has its
+own; ``repro_torch.launch.mesh``); rank 0 prints and writes.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
@@ -21,6 +28,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --config cnn.json \\
       --device cpu --method lds --set sampler.kwargs.delta=1.5 \\
       --planner-backend jax          # LDS on the vectorized engine
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2 \\
+      --sharding fsdp --reduced --device cpu --steps 3   # a mesh of ranks
 """
 from __future__ import annotations
 
@@ -29,8 +39,66 @@ import math
 import time
 from typing import List
 
+import torch.distributed as dist
+
 from repro_torch import api
+from repro_torch.launch.mesh import is_main_process, rank_device
 from repro_torch.models.layers import tree_leaves
+from repro_torch.optim import TrainState
+
+
+class PSLTrainer:
+    """Sharded PSL trainer over a (data × model) mesh of ranks.
+
+    Deprecated epoch-level trainer kept for existing callers (``repro``'s
+    ``PSLTrainer``): the engine lives in
+    ``repro_torch.launch.distributed.ShardedPSLEngine`` and the
+    plan-driven LM batch assembly in
+    ``repro_torch.api.protocols.lm_plan_batches`` — the same pieces the
+    "psl" strategy composes when ``repro_torch.api.run`` executes an LM
+    spec. ``mesh`` None puts every running rank on ``data`` (one card in
+    a single process).
+    """
+
+    def __init__(self, cfg, optimizer=None, mesh=None,
+                 aggregation: str = "global_mean", profile: str = "tp",
+                 lowering: str = "gspmd", microbatches: int = 1,
+                 device="cuda"):
+        from repro_torch import optim as optim_lib
+        from repro_torch.launch.distributed import (ShardedPSLEngine,
+                                                    assign_clients_to_shards)
+        from repro_torch.models import build_model
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.optimizer = optimizer or optim_lib.adamw(1e-3)
+        self.aggregation = aggregation
+        self.engine = ShardedPSLEngine(self.model, self.optimizer,
+                                       mesh=mesh, profile=profile,
+                                       lowering=lowering,
+                                       microbatches=microbatches,
+                                       device=device)
+        self.mesh = self.engine.mesh
+        self._assign = assign_clients_to_shards
+        self.report = self.engine.report
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        return self.engine.init_state(seed)
+
+    def train_epoch(self, state: TrainState, data, pop, plan,
+                    seq_len: int, seed: int = 0, max_steps=None):
+        """One PSL epoch from an EpochPlan over per-client token arrays."""
+        from repro_torch.api.protocols import lm_plan_batches
+        shard_of_client = self._assign(len(data), self.engine.num_shards)
+        metrics_hist = []
+        for t, host in enumerate(lm_plan_batches(
+                data, pop, plan, seq_len, self.aggregation,
+                shard_of_client, seed=seed)):
+            if max_steps is not None and t >= max_steps:
+                break
+            state, metrics = self.engine.step(state,
+                                              self.engine.put_batch(host))
+            metrics_hist.append(dict(metrics))
+        return state, metrics_hist
 
 
 def default_lm_spec() -> api.ExperimentSpec:
@@ -119,15 +187,19 @@ def main(argv=None):
                     choices=["dense", "sparse", "auto"])
     ap.add_argument("--aggregation", default=None)
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="the port trains on one card: '1x1' or unset")
+                    help="(data × model) mesh of ranks for the sharded "
+                         "engine, e.g. '2x1' or '2x2'; default: every "
+                         "rank on data. Launch D*M ranks with python -m "
+                         "torch.distributed.run --nproc-per-node D*M")
     ap.add_argument("--sharding", default=None,
                     choices=["tp", "fsdp", "ddp"],
-                    help="server-segment sharding profile (one card: no "
-                         "effect)")
+                    help="sharding profile of the parameters and moments "
+                         "(tp needs model = 1: ROADMAP A.19)")
     ap.add_argument("--lowering", default=None,
                     choices=["gspmd", "shard_map"],
-                    help="gspmd: the fused step on the card; shard_map "
-                         "raises (ROADMAP A.7)")
+                    help="gspmd: each rank stores its blocks of the "
+                         "state (profile layouts); shard_map: replicated "
+                         "state, explicit data parallelism over data")
     ap.add_argument("--microbatches", type=int, default=None,
                     help="gradient-accumulation slices of the global batch")
     ap.add_argument("--lr", type=float, default=None)
@@ -150,22 +222,31 @@ def main(argv=None):
         print(spec.to_json())
         return
 
-    ctx = api.build_context(spec, device=args.device)
+    owns_group = not dist.is_initialized()
+    ctx = api.build_context(spec, device=rank_device(args.device))
+    main_rank = is_main_process()
     n_params = sum(math.prod(s.shape)
                    for s in tree_leaves(ctx.model.param_specs()))
-    print(f"arch={ctx.model.cfg.name} params={n_params / 1e6:.1f}M "
-          f"clients={ctx.data.pop.num_clients} "
-          f"D0={ctx.data.pop.total_size} method={spec.sampler.method} "
-          f"device={ctx.device}", flush=True)
+    if main_rank:
+        print(f"arch={ctx.model.cfg.name} params={n_params / 1e6:.1f}M "
+              f"clients={ctx.data.pop.num_clients} "
+              f"D0={ctx.data.pop.total_size} method={spec.sampler.method} "
+              f"device={ctx.device}", flush=True)
     t0 = time.time()
     result = api.run(spec, callbacks=[api.ConsoleLogger(every=10)],
                      ctx=ctx)
     steps = len(result.step_metrics)
-    if steps:
-        print(f"{steps} steps in {time.time() - t0:.1f}s "
-              f"(final loss {result.step_metrics[-1]['loss']:.4f})")
-    if spec.execution.checkpoint:
-        print("checkpoint saved to", spec.execution.checkpoint)
+    if main_rank:
+        fallbacks = result.history.extras.get("sharding_fallbacks")
+        if fallbacks:
+            print("sharding fallbacks:", "; ".join(fallbacks))
+        if steps:
+            print(f"{steps} steps in {time.time() - t0:.1f}s "
+                  f"(final loss {result.step_metrics[-1]['loss']:.4f})")
+        if spec.execution.checkpoint:
+            print("checkpoint saved to", spec.execution.checkpoint)
+    if owns_group and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1629,3 +1629,45 @@ def test_reduced_whisper_static_serve_on_the_card(dev):
     assert {r["rid"]: r["tokens"] for r in report.per_request} == \
         {r["rid"]: r["tokens"] for r in cpu.per_request}
 
+
+
+_FIRST_BACKWARD = r"""
+import sys, torch
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+dev = resolve_device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+q, k, v = (torch.randn((4, 128, h, 64), generator=gen, device=dev)
+           .to(torch.bfloat16).requires_grad_(True) for h in (32, 8, 8))
+h = torch.randn((256, 64), generator=gen, device=dev).to(torch.bfloat16)
+w = torch.randn((64, 512), generator=gen, device=dev).to(torch.bfloat16)
+labels = torch.randint(0, 512, (256,), generator=gen, device=dev)
+out = ops.attention(q, k, v, causal=True)
+torch.autograd.grad(out, (q, k, v), grad_outputs=torch.ones_like(out))
+torch.cuda.synchronize()
+h.requires_grad_(True)
+loss = ops.cross_entropy(h, w.requires_grad_(True), labels)[0].sum()
+torch.autograd.grad(loss, (h, w))
+torch.cuda.synchronize()
+print("FIRST_BACKWARD_OK", ops.launch_counts()["flash_attention_bwd"],
+      ops.launch_counts()["cross_entropy_bwd"])
+"""
+
+
+def test_kernel_backward_is_the_first_work_of_autograds_thread(dev):
+    """B1-bwd as the first CUDA work of autograd's device thread, in a
+    fresh process: that thread has no current context until a runtime
+    call makes one, and the tensor-map encoder (a driver call) needs it
+    (``hopper_host::bind_context``). The process starts after this
+    one's kernels are built."""
+    import os
+    import subprocess
+    import sys
+    ops.attention(*(torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16,
+                                device=dev) for _ in range(3)))
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    proc = subprocess.run([sys.executable, "-c", _FIRST_BACKWARD],
+                          env=dict(os.environ, PYTHONPATH=src),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FIRST_BACKWARD_OK 1 1" in proc.stdout

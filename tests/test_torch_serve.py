@@ -115,7 +115,9 @@ want = {"repro_torch.core.psl", "repro_torch.core.sampling",
         "repro_torch.configs.falcon_mamba_7b", "repro_torch.models.cnn",
         "repro_torch.configs.paper_cnn", "repro_torch.core.partition",
         "repro_torch.core.straggler", "repro_torch.core.deviation",
-        "repro_torch.obs.monitor", "repro_torch.api.evaluation"}
+        "repro_torch.obs.monitor", "repro_torch.api.evaluation",
+        "repro_torch.sharding", "repro_torch.launch.mesh",
+        "repro_torch.frameworks.trainers"}
 assert want <= set(mods), sorted(want - set(mods))
 print(len(mods), bad)
 assert not bad, bad

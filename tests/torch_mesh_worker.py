@@ -1,0 +1,212 @@
+"""One rank of the 4-rank gloo group that ``test_torch_mesh.py`` starts.
+
+    python tests/torch_mesh_worker.py RANK WORLD WORKDIR
+
+Imports torch, numpy and ``repro_torch`` only (never JAX or ``repro``).
+The group comes up through a ``file://`` store under WORKDIR; the bridged
+initial parameters are read from ``WORKDIR/<model>.npz`` (``repro``'s
+checkpoint format, written by the test). Every case of ``CASES`` trains 3
+steps of the sharded engine on the batches of ``host_batch``; each rank
+writes ``rank<r>.json`` (metrics, stored elements, bitwise checks,
+fallbacks, the raising paths' messages), and rank 0 also ``rank0.pt``
+(the step-0 gradient, the moments after the first step and the
+parameters after the last, gathered).
+The test imports ``CASES``, ``host_batch`` and ``build`` from here, so
+both sides build the same models and batches.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
+
+STEPS = 3
+PG_TIMEOUT_S = 60
+
+# name: (model, mesh, profile, lowering, microbatches, batch, optimizer)
+CASES = {
+    "cnn-gspmd-mb1": ("cnn", "4x1", "tp", "gspmd", 1, "even", "sgd"),
+    "cnn-gspmd-mb2": ("cnn", "4x1", "tp", "gspmd", 2, "even", "sgd"),
+    "cnn-shard_map-mb1": ("cnn", "4x1", "tp", "shard_map", 1, "even",
+                          "sgd"),
+    "cnn-shard_map-mb2": ("cnn", "4x1", "tp", "shard_map", 2, "even",
+                          "sgd"),
+    "cnn-ragged": ("cnn", "4x1", "tp", "gspmd", 1, "ragged", "sgd"),
+    "cnn-indivisible": ("cnn", "4x1", "tp", "gspmd", 1, "indivisible",
+                        "sgd"),
+    "lm-tp-4x1": ("lm", "4x1", "tp", "gspmd", 1, "even", "sgd"),
+    "lm-fsdp-2x2": ("lm", "2x2", "fsdp", "gspmd", 1, "even", "adamw"),
+    "lm-ddp-2x2": ("lm", "2x2", "ddp", "gspmd", 1, "even", "sgd"),
+}
+CHECKPOINT_CASE = "lm-fsdp-2x2"
+LM_SEQ, LM_VOCAB = 24, 512
+
+
+def build(kind: str, optimizer: str):
+    """(model, optimizer) of a case: the CNN of tests/test_distributed.py
+    with SGD(0.05, momentum 0.9), or reduced granite-3-2b with SGD(1e-3,
+    momentum 0.9) or AdamW at lr 1e-5. The LM's steps are small on
+    purpose: at repro's init (stacked leaves of fan-in 1, sharp attention)
+    lr 0.05 turns the fp32 reassociation of one engine against itself
+    (microbatches 1 against 2) into parameters 0.0226 apart after 3
+    steps, 1.1e-5 at lr 1e-3. An AdamW update moves a parameter by at
+    most ~lr a step, so a sign that rounding flips stays inside the 1e-4
+    parameter limit; its moments are held on their own."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.cnn import CNNConfig, CNNModel
+    model = (CNNModel(CNNConfig(channels=(8, 16), image_size=16))
+             if kind == "cnn" else
+             build_model(get_config("granite-3-2b", reduced=True)))
+    if optimizer == "adamw":
+        return model, optim.adamw(1e-5)
+    opt = optim.sgd(0.05 if kind == "cnn" else 1e-3, momentum=0.9)
+    return model, opt
+
+
+def host_batch(kind: str, layout: str, step: int, rank: int = 0):
+    """Step ``step``'s host batch (numpy, from a seed). The LM's is
+    ``tests/test_torch_train.py``'s ``_batch(seed=step)``: 4 rows of 24
+    tokens, one of them padding. The CNN's has 16 rows; "ragged" ends in
+    5 zero-weight padding slots (the last rank's rows are all padding);
+    "indivisible" has 18 rows, which do not split over 4 ranks; "digest"
+    differs from rank to rank."""
+    if kind == "lm":                 # tests/test_torch_train.py's _batch
+        rng = np.random.default_rng(step)
+        toks = rng.integers(0, LM_VOCAB, (4, LM_SEQ + 1)).astype(np.int32)
+        w = np.ones((4, LM_SEQ), np.float32)
+        w[-1] = 0.0                                  # a padding slot
+        w[1] *= 0.5                                  # client-weighted slot
+        return {"tokens": toks[:, :LM_SEQ], "labels": toks[:, 1:],
+                "weights": w}
+    rng = np.random.default_rng(100 * step + (rank if layout == "digest"
+                                              else 0))
+    n = 18 if layout == "indivisible" else 16
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    if layout == "ragged":
+        w[-5:] = 0.0
+    return {"images": rng.normal(size=(n, 16, 16, 3)).astype(np.float32),
+            "labels": rng.integers(0, 10, n).astype(np.int32),
+            "weights": w}
+
+
+def _equal(a, b) -> bool:
+    from repro_torch.models.layers import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x.detach(), y.detach())
+        for x, y in zip(la, lb))
+
+
+def _numel(tree) -> int:
+    from repro_torch.models.layers import tree_leaves
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def run_case(name, workdir, rank):
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import TrainState
+    kind, mesh_spec, profile, lowering, mb, layout, optname = CASES[name]
+    model, opt = build(kind, optname)
+    mesh = make_training_mesh(mesh_spec, device="cpu")
+    engine = ShardedPSLEngine(model, opt, mesh=mesh, profile=profile,
+                              lowering=lowering, microbatches=mb,
+                              device="cpu")
+    out = {}
+    # init: every rank's blocks are the blocks of the one-card draw
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    out["init_is_slice"] = _equal(engine.init_state(0).params,
+                                  engine.shard_tree(model.init(gen)))
+    # the bridged parameters: each rank reads only its blocks
+    path = os.path.join(workdir, f"{kind}.npz")
+    params = restore(path, "cpu", mesh=mesh, layouts=engine.param_layouts)
+    out["restore_is_slice"] = _equal(
+        params, engine.shard_tree(restore(path, "cpu")))
+    state = TrainState(params, opt.init(params), 0)
+    grads = engine.grads(state, engine.put_batch(host_batch(kind, layout,
+                                                            0)))
+    metrics, first = [], {}
+    for t in range(STEPS):
+        state, m = engine.step(state, engine.put_batch(
+            host_batch(kind, layout, t)))
+        metrics.append(m)
+        if t == 0:                   # the moments after the first step
+            first = {k: [x.clone() for x in
+                         tree_leaves(engine.gather_params(v))]
+                     for k, v in state.opt_state.items()
+                     if k in ("mu", "m", "v")}
+    whole = engine.gather_params(state.params)
+    out["stored_is_slice"] = _equal(state.params, engine.shard_tree(whole))
+    out["metrics"] = metrics
+    out["stored_params"] = _numel(state.params)
+    out["stored_moments"] = {k: _numel(v)
+                             for k, v in state.opt_state.items()
+                             if k in ("mu", "m", "v")}
+    out["fallbacks"] = engine.report.fallbacks
+    tensors = {"grads": grads, "params": whole, "moments": first}
+    if name == CHECKPOINT_CASE:
+        ckpt = os.path.join(workdir, "sharded_ckpt.npz")
+        save(ckpt, state.params, mesh=mesh, layouts=engine.param_layouts)
+        torch.distributed.barrier()
+        out["checkpoint_restores_blocks"] = _equal(
+            restore(ckpt, "cpu", mesh=mesh, layouts=engine.param_layouts),
+            state.params)
+    return out, tensors
+
+
+def raising_paths(rank):
+    """The messages of the paths that must raise on every rank."""
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    from repro_torch.launch.mesh import make_training_mesh
+    out = {}
+    try:
+        make_training_mesh("8x1", device="cpu")
+    except ValueError as e:
+        out["mesh_larger_than_world"] = str(e)
+    model, opt = build("cnn", "sgd")
+    engine = ShardedPSLEngine(model, opt, mesh=make_training_mesh(
+        "4x1", device="cpu"), device="cpu")
+    try:
+        engine.put_batch(host_batch("cnn", "digest", 0, rank))
+    except ValueError as e:
+        out["digest_mismatch"] = str(e)
+    return out
+
+
+def main(rank: int, world: int, workdir: str) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group
+    torch.set_num_threads(1)
+    backend = init_process_group(
+        "cpu", init_method=f"file://{os.path.join(workdir, 'pg')}",
+        rank=rank, world_size=world, timeout_s=PG_TIMEOUT_S)
+    results = {"backend": backend, "cases": {}}
+    saved = {}
+    for name in CASES:
+        results["cases"][name], saved[name] = run_case(name, workdir, rank)
+    results["raises"] = raising_paths(rank)
+    results["imports"] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    if rank == 0:
+        torch.save(saved, os.path.join(workdir, "rank0.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
