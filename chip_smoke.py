@@ -295,14 +295,23 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    They train full-width granite-3-2b cut to ``MESH_LAYERS`` of 40 layers
    in the ``[train]`` setting (fan-in d_in init) on each of ``MESH_RUNS``
    (2x1 shard_map, 2x1 gspmd tp with 2 microbatches, 1x2 gspmd fsdp),
-   ``MESH_STEPS`` steps each, held to the one-card engine on the same
-   batches (``mesh_phase`` lists the gates; a planted unreduced gradient
-   must fail them); each rank launches exactly one B1 and one B1-bwd an
-   attention layer and one B5 and one B5-bwd a microbatch; the gspmd
-   run's checkpoint restores on one card bit for bit. Printed: backend,
-   stored bytes and peak a rank, step ms, collective ms by kind. Then B1,
+   then ``MESH_TP_RUNS``, tensor-parallel on 1x2 at 4 layers (the constant
+   says why): granite (heads and MLP split, the vocab of 49,155
+   replicated) and llama3-8b (cut 1: 16 q and 4 kv heads a rank in B1
+   and B1-bwd, the vocab-parallel B5 and B5-bwd on 64,128 columns a
+   rank), ``MESH_STEPS`` steps each, held to the
+   one-card engine on the same batches and depth (``mesh_phase`` lists
+   the gates; a planted unreduced gradient and, in the granite tp run, a
+   row-parallel product whose all-reduce rank 0 skips must fail them);
+   each rank launches exactly one B1 and one B1-bwd an attention layer
+   and one B5 (the vocab-parallel one where the head's vocab is split)
+   and one B5-bwd a microbatch; the 2x1 gspmd run's checkpoint restores
+   on one card bit for bit. Printed: backend, stored bytes and peak a
+   rank, step ms, collective ms and bytes by kind (the tp runs' all-reduce
+   bytes beside the prediction, ``tp_all_reduce_bytes``). Then B1,
    B1-bwd, B5 and B5-bwd are held to their plain versions and timed at
-   the rank shapes (the kernels line's ``mesh_cases``).
+   the rank shapes (the kernels line's ``mesh_cases``), the vocab-
+   parallel B5 and the -1-label B5-bwd at llama's (``xent_tp_case``).
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
@@ -2575,8 +2584,10 @@ def rel_l2(torch, got, want) -> float:
 
 def xent_softmax_part(torch, dh, dw, h, w, labels, g):
     """The B5 gradients less their one-hot part, in fp32: dh + g W[:, y]^T,
-    and dW with each token's g h added back into its label column."""
-    lab = labels.long()
+    and dW with each token's g h added back into its label column (a
+    label of -1, outside a vocab slice, has no one-hot part)."""
+    lab = labels.long().clamp(min=0)
+    g = torch.where(labels >= 0, g, torch.zeros_like(g))
     soft_dh = dh.float() + g[:, None] * w[:, lab].T.float()
     soft_dw = dw.to(torch.float32, copy=True)
     soft_dw.index_add_(1, lab, (g[:, None] * h.float()).T)
@@ -2896,7 +2907,7 @@ def train_phase(torch, dev, events_dir: pathlib.Path):
             "cross_entropy": steps, "cross_entropy_bwd": steps,
             "paged_attention": 0, "spec_verify": 0, "selective_scan": 0,
             "selective_scan_bwd": 0, "selective_scan_heads": 0,
-            "selective_scan_heads_bwd": 0}
+            "selective_scan_heads_bwd": 0, "cross_entropy_partials": 0}
     if launches != want:
         fail(f"train launches {launches}, wanted {want}")
     median = statistics.median(step_ms[1:])
@@ -4390,7 +4401,8 @@ class record_train_shapes:
     wrapping the launchers that ``ops``' wrappers call on a CUDA tensor:
     B1 and B1-bwd by (B, S, Hq, Hkv, D), B5 and B5-bwd by (T, d, V), B4
     and B4-bwd by (B, L, D, N, None), the per-head B4 and B4-bwd by (B,
-    L, D, N, hd), hd the channels a head. A B1 or B1-bwd launch that is not
+    L, D, N, hd), hd the channels a head, the vocab-parallel B5 by (T, d, V
+    of the slice). A B1 or B1-bwd launch that is not
     causal and unwindowed over T = S, or a B1 launch without the lse,
     fails: training runs none."""
 
@@ -4406,7 +4418,8 @@ class record_train_shapes:
         self.ops, self.xent = ops, ops.xent
         self.saved = {n: getattr(ops, a) for n, a in self.NAMES.items()}
         self.saved_xent = (ops.xent.cross_entropy_fwd,
-                           ops.xent.cross_entropy_bwd)
+                           ops.xent.cross_entropy_bwd,
+                           ops.xent.cross_entropy_partials)
         self.counts = {n: {} for n in ops.WRAPPERS
                        if n not in ("paged_attention", "spec_verify")}
 
@@ -4451,12 +4464,14 @@ class record_train_shapes:
             "cross_entropy", xent_shape, self.saved_xent[0])
         ops.xent.cross_entropy_bwd = counted(
             "cross_entropy_bwd", xent_shape, self.saved_xent[1])
+        ops.xent.cross_entropy_partials = counted(
+            "cross_entropy_partials", xent_shape, self.saved_xent[2])
 
     def stop(self):
         for name, attr in self.NAMES.items():
             setattr(self.ops, attr, self.saved[name])
-        (self.xent.cross_entropy_fwd,
-         self.xent.cross_entropy_bwd) = self.saved_xent
+        (self.xent.cross_entropy_fwd, self.xent.cross_entropy_bwd,
+         self.xent.cross_entropy_partials) = self.saved_xent
         return self.counts
 
 
@@ -5747,10 +5762,22 @@ def cnn_lds_phase(torch, dev):
 MESH_RANKS = 2
 MESH_LAYERS = 8                 # [mesh]: depth cut from 40 (cut 2)
 MESH_STEPS = 3
-# (mesh, profile, lowering, microbatches)
+# (mesh, profile, lowering, microbatches), on granite-3-2b
 MESH_RUNS = (("2x1", "tp", "shard_map", 1), ("2x1", "tp", "gspmd", 2),
              ("1x2", "fsdp", "gspmd", 1))
 MESH_CHECKPOINT_RUN = 1         # the 2x1 gspmd run writes a checkpoint
+# Tensor-parallel runs, full width: (arch, layers, cut, run). Their
+# row-parallel products sum partial products over the ranks, which
+# changes the rounding of the products by construction, as swapping a
+# kernel does; so they run at the 4 layers the gradient gate was set
+# for (``grad_check_setup``). At 8 layers granite's step-0 gradient
+# moves by 0.0212 (worst leaf) in one process when only its row products
+# go through another exact GEMM (fp32; ``tools/tp_rounding.py`` on an
+# H100), past GRAD_REL_L2: ``mesh_reference`` reads that floor for each
+# run.
+MESH_TP_RUNS = (("granite-3-2b", 4, 2, ("1x2", "tp", "gspmd", 1)),
+                ("llama3-8b", 4, 1, ("1x2", "tp", "gspmd", 1)))
+MESH_SKIP_RUN = 0               # granite tp 1x2: rank 0 skips a reduce
 MESH_LOSS_RTOL = 1e-2           # per-step loss against the one-card run
 MESH_PG_TIMEOUT_S = 180         # a collective that waits longer fails
 MESH_CHILD_TIMEOUT_S = 420      # a rank that runs longer is killed
@@ -5766,13 +5793,138 @@ def _worst(rels):
     return {"worst_leaf": worst, "worst": value, "median": median}
 
 
-def mesh_rank_run(torch, ctx, hosts, ref, i, work: pathlib.Path):
-    """One of ``MESH_RUNS`` on this rank (the ``[mesh]`` phase's child):
-    the sharded engine from the seeded init rescaled to fan-in d_in, its
-    step-0 gradient (and on rank 0 in the first run, the planted fault:
-    the rank's own unreduced gradient), ``MESH_STEPS`` steps with the
-    launches counted by shape, collectives timed, peak memory, the
-    parameters gathered after; the checkpoint run saves and restores."""
+def tp_all_reduce_bytes(elements: int, itemsize: int, layers: int,
+                        vocab_parallel: bool) -> int:
+    """The all-reduce bytes a step of tensor parallelism over ``model``, in
+    (tokens, d_model) activations of ``elements``, all in fp32 but the
+    embedding's: a layer's two row-parallel outputs (``wo``, ``w_down``)
+    forward and its five column-parallel products' input gradients (q, k,
+    v, gate, up) backward; with the vocab split, the embedding's rows (in
+    the model's ``itemsize``) and the head's dh."""
+    return elements * (layers * 7 * 4
+                       + (itemsize + 4 if vocab_parallel else 0))
+
+
+def mesh_setup(api, dev, layers: int, cut: int, arch=None):
+    """The ``[train]`` setting's context at ``layers`` layers (cut
+    ``cut``; granite-3-2b unless ``arch``) and its first ``MESH_STEPS``
+    plan batches."""
+    import itertools
+    from repro_torch.api.protocols import lm_plan_batches
+    from repro_torch.core.sampling import make_plan
+    from repro_torch.launch.distributed import assign_clients_to_shards
+    from repro_torch.launch.train import default_lm_spec
+    sets = [f"model.overrides.num_layers={layers}",
+            f"model.overrides.cut_layer={cut}"]
+    if arch:
+        sets.append(f"model.arch={arch}")
+    spec = api.apply_overrides(default_lm_spec(), sets)
+    ctx = api.build_context(spec, device=dev)
+    plan = make_plan(spec.sampler.method, ctx.data.pop,
+                     spec.protocol.global_batch_size, seed=spec.seed)
+    hosts = list(itertools.islice(lm_plan_batches(
+        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
+        spec.protocol.aggregation,
+        assign_clients_to_shards(len(ctx.data.lm_data), MESH_RANKS),
+        seed=spec.seed), MESH_STEPS))
+    return ctx, hosts
+
+
+@contextlib.contextmanager
+def fp32_row_products():
+    """The row-parallel products (``wo``, ``w_down``) of one process
+    through an fp32 GEMM of their 16-bit inputs, rounded once: exact as
+    the 16-bit GEMM's fp32 sums are, in another order."""
+    import torch
+    from repro_torch.launch import tensor_parallel as tpl
+    row_parallel = tpl.row_parallel
+    tpl.row_parallel = lambda part: (
+        lambda a, w: torch.matmul(a.float(), w.float()).to(a.dtype))
+    try:
+        yield
+    finally:
+        tpl.row_parallel = row_parallel
+
+
+def mesh_reference(torch, ctx, hosts, floor=False):
+    """The one-card engine on ``hosts`` from the fan-in d_in init: (the
+    reference: step-0 gradient and the parameters after the steps; the
+    losses and stored bytes). With ``floor``, also how far its step-0
+    gradient moves when only the rounding of its row products changes
+    (``fp32_row_products``): no tensor-parallel run can be held closer."""
+    from repro_torch.launch.distributed import ShardedPSLEngine
+    eng = ShardedPSLEngine(ctx.model, ctx.optimizer, mesh="1x1",
+                           device=ctx.device)
+    st = eng.init_state(ctx.seed)
+    rescale_to_fan_in(torch, st.params, ctx.model.param_specs())
+    torch.cuda.reset_peak_memory_stats()
+    ref = {"grads": eng.grads(st, eng.put_batch(hosts[0]))}
+    floor_rel = None
+    if floor:
+        with fp32_row_products():
+            moved = eng.grads(st, eng.put_batch(hosts[0]))
+        floor_rel = _worst(leaf_rel_l2(moved, ref["grads"]))
+        del moved
+    losses = []
+    for h in hosts:
+        st, m = eng.step(st, eng.put_batch(h))
+        losses.append(m["loss"])
+    one = {"losses": losses, "param_bytes": _tree_bytes(st.params),
+           "moment_bytes": _tree_bytes({k: v for k, v in
+                                        st.opt_state.items()
+                                        if k in ("mu", "m", "v")}),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "fp32_row_products": floor_rel}
+    ref["params"] = st.params
+    del eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, one
+
+
+@contextlib.contextmanager
+def skipped_reduce(rank: int):
+    """A planted fault: on rank ``rank``, the first row-parallel product
+    (``tensor_parallel.row_parallel`` of the attention or the MLP) runs
+    its all-reduce but the rank goes on with its own partial product.
+    Every rank still takes part in every collective, so the ranks stay in
+    step. Yields the list of skipped parts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import tensor_parallel as tpl
+    row_parallel, skipped = tpl.row_parallel, []
+
+    def planted(part):
+        product = row_parallel(part)
+        if product is torch.matmul:
+            return product
+
+        def once(a, w):
+            y = product(a, w)
+            if dist.get_rank() == rank and not skipped:
+                skipped.append(part)
+                return torch.matmul(a, w)
+            return y
+        return once
+    tpl.row_parallel = planted
+    try:
+        yield skipped
+    finally:
+        tpl.row_parallel = row_parallel
+
+
+def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
+                  planted_unreduced=False, planted_skip=False,
+                  checkpoint=False):
+    """One run (``run_spec``: mesh, profile, lowering, microbatches) on this
+    rank (the ``[mesh]`` phase's child): the sharded engine from the
+    seeded init rescaled to fan-in d_in, its step-0 gradient (with
+    ``planted_unreduced``, rank 0 also computes its own unreduced
+    gradient; with ``planted_skip``, every rank computes the step-0
+    gradient again while rank 0 skips one row-parallel all-reduce),
+    ``MESH_STEPS`` steps with the launches counted by shape, collectives
+    timed, peak memory, the parameters gathered after; a ``checkpoint``
+    run saves and restores."""
     import torch.distributed as dist
     from repro_torch.checkpoint import restore, save
     from repro_torch.core.psl import fused_grads, requires_grad_
@@ -5780,27 +5932,43 @@ def mesh_rank_run(torch, ctx, hosts, ref, i, work: pathlib.Path):
     from repro_torch.launch.distributed import ShardedPSLEngine
     from repro_torch.launch.mesh import make_training_mesh
     from repro_torch.models.layers import tree_leaves
-    mesh_spec, profile, lowering, mb = MESH_RUNS[i]
+    mesh_spec, profile, lowering, mb = run_spec
     model, specs, dev = ctx.model, ctx.model.param_specs(), ctx.device
     mesh = make_training_mesh(mesh_spec, dev)
     eng = ShardedPSLEngine(model, ctx.optimizer, mesh=mesh, profile=profile,
                            lowering=lowering, microbatches=mb, device=dev,
                            time_collectives=True)
+    tp = eng.tp
     st = eng.init_state(ctx.seed)
     rescale_to_fan_in(torch, st.params, specs)
     batches = [eng.put_batch(h) for h in hosts]
-    run = {"mesh": mesh_spec, "profile": profile, "lowering": lowering,
-           "microbatches": mb, "rows": int(batches[0]["tokens"].shape[0]),
-           "shards": batches[0].shards, "fallbacks": eng.report.fallbacks}
+    run = {"arch": model.cfg.name, "mesh": mesh_spec, "profile": profile,
+           "lowering": lowering, "microbatches": mb,
+           "rows": int(batches[0]["tokens"].shape[0]),
+           "activation": [int(batches[0]["tokens"].numel())
+                          * model.cfg.d_model, torch.empty(
+                              (), dtype=model.cfg.torch_dtype).element_size()],
+           "shards": batches[0].shards, "fallbacks": eng.report.fallbacks,
+           "tensor_parallel": None if tp is None else {
+               "heads": tp.heads, "kv_heads": tp.kv_heads, "ff": tp.ff,
+               "embed_vocab": tp.embed_vocab, "head_vocab": tp.head_vocab}}
     grads = eng.grads(st, batches[0])
     if ref is not None:
         run["grads"] = _worst(leaf_rel_l2(grads, ref["grads"]))
     del grads
-    if ref is not None and i == 0:
+    if ref is not None and planted_unreduced:
         whole = requires_grad_(eng.gather_params(st.params))
         local = fused_grads(model, whole, batches[0], mb)[0]
         run["planted_unreduced"] = _worst(leaf_rel_l2(local, ref["grads"]))
         del whole, local
+    if planted_skip:
+        with skipped_reduce(0) as skipped:
+            faulty = eng.grads(st, batches[0])
+        if ref is not None:
+            run["planted_skipped_reduce"] = {
+                "skipped": skipped,
+                **_worst(leaf_rel_l2(faulty, ref["grads"]))}
+        del faulty
     gc.collect()
     torch.cuda.empty_cache()
     eng.comm.reset_stats()
@@ -5831,7 +5999,7 @@ def mesh_rank_run(torch, ctx, hosts, ref, i, work: pathlib.Path):
     whole = eng.gather_params(st.params)
     if ref is not None:
         run["params"] = _worst(leaf_rel_l2(whole, ref["params"]))
-    if i == MESH_CHECKPOINT_RUN:
+    if checkpoint:
         path = work / "mesh_ckpt.npz"
         save(str(path), st.params, mesh=mesh, layouts=eng.param_layouts)
         dist.barrier()
@@ -5855,64 +6023,258 @@ def mesh_rank_main(rank: int, workdir: str) -> int:
     store in WORKDIR (the backend the rule picks: gloo, as the ranks share
     the card), builds full-width granite-3-2b at ``MESH_LAYERS`` layers and
     the ``[train]`` setting's first ``MESH_STEPS`` plan batches; rank 0
-    first runs the one-card engine on them (the reference: step-0
-    gradient, losses, parameters after, stored bytes); then every
-    ``MESH_RUNS`` entry (``mesh_rank_run``). Writes ``rank<R>.json``."""
-    import itertools
+    first runs the one-card engine on them (``mesh_reference``); then
+    every ``MESH_RUNS`` entry (``mesh_rank_run``). Then each of
+    ``MESH_TP_RUNS`` alike, at its own arch and depth. Writes
+    ``rank<R>.json``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
     from repro_torch import api
-    from repro_torch.api.protocols import lm_plan_batches
-    from repro_torch.core.sampling import make_plan
-    from repro_torch.launch.distributed import (ShardedPSLEngine,
-                                                assign_clients_to_shards)
     from repro_torch.launch.mesh import init_process_group, rank_device
-    from repro_torch.launch.train import default_lm_spec
     work = pathlib.Path(workdir)
     dev = rank_device("cuda")
     backend = init_process_group(
         dev, init_method=f"file://{work / 'pg'}", rank=rank,
         world_size=MESH_RANKS, timeout_s=MESH_PG_TIMEOUT_S)
-    spec = api.apply_overrides(default_lm_spec(), [
-        f"model.overrides.num_layers={MESH_LAYERS}",
-        "model.overrides.cut_layer=2"])
-    ctx = api.build_context(spec, device=dev)
-    plan = make_plan(spec.sampler.method, ctx.data.pop,
-                     spec.protocol.global_batch_size, seed=spec.seed)
-    hosts = list(itertools.islice(lm_plan_batches(
-        ctx.data.lm_data, ctx.data.pop, plan, spec.data.seq_len,
-        spec.protocol.aggregation,
-        assign_clients_to_shards(len(ctx.data.lm_data), MESH_RANKS),
-        seed=spec.seed), MESH_STEPS))
     out = {"rank": rank, "backend": backend, "device": str(dev),
-           "runs": []}
+           "runs": [], "tp_runs": []}
+    ctx, hosts = mesh_setup(api, dev, MESH_LAYERS, 2)
     ref = None
     if rank == 0:
-        eng = ShardedPSLEngine(ctx.model, ctx.optimizer, mesh="1x1",
-                               device=dev)
-        st = eng.init_state(spec.seed)
-        rescale_to_fan_in(torch, st.params, ctx.model.param_specs())
-        ref = {"grads": eng.grads(st, eng.put_batch(hosts[0]))}
-        losses = []
-        for h in hosts:
-            st, m = eng.step(st, eng.put_batch(h))
-            losses.append(m["loss"])
-        out["one_card"] = {
-            "losses": losses, "param_bytes": _tree_bytes(st.params),
-            "moment_bytes": _tree_bytes({k: v for k, v in
-                                         st.opt_state.items()
-                                         if k in ("mu", "m", "v")})}
-        ref["params"] = st.params
-        del eng, st
+        ref, out["one_card"] = mesh_reference(torch, ctx, hosts)
+    for i, run_spec in enumerate(MESH_RUNS):
+        out["runs"].append(mesh_rank_run(
+            torch, ctx, hosts, ref, run_spec, work,
+            planted_unreduced=i == 0, checkpoint=i == MESH_CHECKPOINT_RUN))
+    for i, (arch, layers, cut, run_spec) in enumerate(MESH_TP_RUNS):
+        del ctx, hosts, ref
         gc.collect()
         torch.cuda.empty_cache()
-    for i in range(len(MESH_RUNS)):
-        out["runs"].append(mesh_rank_run(torch, ctx, hosts, ref, i, work))
+        ctx, hosts = mesh_setup(api, dev, layers, cut, arch)
+        ref, one = None, None
+        if rank == 0:
+            ref, one = mesh_reference(torch, ctx, hosts, floor=True)
+        run = mesh_rank_run(torch, ctx, hosts, ref, run_spec, work,
+                            planted_skip=i == MESH_SKIP_RUN)
+        run["one_card"] = one
+        out["tp_runs"].append(run)
     (work / f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def mesh_gates(tag, runs, one, layers: int) -> None:
+    """Print one run of every rank and hold it to the one-card engine
+    (``one``): the step-0 gradient and the parameters after per leaf
+    within ``GRAD_REL_L2``, the losses within ``MESH_LOSS_RTOL``, equal
+    metrics on every rank, exactly one B1 and one B1-bwd an attention
+    layer and one B5 (vocab-parallel where the head's vocab is split) and
+    one B5-bwd a microbatch on each rank."""
+    r0 = runs[0]
+    mb = r0["microbatches"]
+    coll = {k: [round(r["collectives"][k]["ms"] / MESH_STEPS, 3)
+                for r in runs] for k in r0["collectives"]}
+    coll_bytes = {k: [r["collectives"][k]["bytes"] // MESH_STEPS
+                      for r in runs] for k in r0["collectives"]}
+    print(f"{tag}: rows a rank {r0['rows']} ({r0['shards']} shards); "
+          f"tensor parallel {r0['tensor_parallel']}; losses "
+          f"{[m['loss'] for m in r0['metrics']]}; step ms by "
+          f"rank {[r['step_ms'] for r in runs]}; collective ms a step "
+          f"by rank {json.dumps(coll)}, bytes a step by rank "
+          f"{json.dumps(coll_bytes)}; stored params B by rank "
+          f"{[r['param_bytes'] for r in runs]} (one card "
+          f"{one['param_bytes']}), moments B {[r['moment_bytes'] for r in runs]} "
+          f"(one card {one['moment_bytes']}); peak GiB by rank "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in runs]}; "
+          f"step-0 grads {json.dumps(r0['grads'])}; params after "
+          f"{json.dumps(r0['params'])}; fallbacks {r0['fallbacks']}; "
+          f"launches {r0['launches']}", flush=True)
+    b5 = ("cross_entropy_partials"
+          if (r0["tensor_parallel"] or {}).get("head_vocab")
+          else "cross_entropy")
+    want = {name: 0 for name in r0["launches"]}
+    want.update({"flash_attention": layers * mb * MESH_STEPS,
+                 "flash_attention_bwd": layers * mb * MESH_STEPS,
+                 b5: mb * MESH_STEPS,
+                 "cross_entropy_bwd": mb * MESH_STEPS})
+    for r, run in enumerate(runs):
+        if run["launches"] != want:
+            fail(f"{tag} rank {r} launches {run['launches']}, wanted "
+                 f"{want}")
+        if run["metrics"] != r0["metrics"]:
+            fail(f"{tag}: the ranks read different metrics")
+    if r0["grads"]["worst"] > GRAD_REL_L2 \
+            or r0["params"]["worst"] > GRAD_REL_L2:
+        fail(f"{tag} disagrees with the one-card engine: grads "
+             f"{r0['grads']}, params {r0['params']} (limit "
+             f"{GRAD_REL_L2})")
+    for got, ref in zip([m["loss"] for m in r0["metrics"]],
+                        one["losses"], strict=True):
+        if abs(got - ref) > MESH_LOSS_RTOL * abs(ref):
+            fail(f"{tag} losses {[m['loss'] for m in r0['metrics']]}"
+                 f" against one card's {one['losses']}")
+    for key, what in (("planted_unreduced", "rank 0's own unreduced "
+                       "gradient"),
+                      ("planted_skipped_reduce", "rank 0 skipping one "
+                       "row-parallel all-reduce")):
+        if key in r0:
+            print(f"{tag}: planted fault, {what}, against the one-card "
+                  f"gradient: {json.dumps(r0[key])}", flush=True)
+            if r0[key]["worst"] <= GRAD_REL_L2:
+                fail(f"{tag}: the gradient gate ({GRAD_REL_L2}) missed "
+                     f"the planted fault ({what}): {r0[key]}")
+    if "checkpoint_bitwise" in r0:
+        print(f"{tag}: checkpoint restored on one card bit for bit "
+              f"{r0['checkpoint_bitwise']}", flush=True)
+        if not r0["checkpoint_bitwise"]:
+            fail(f"{tag}: the checkpoint did not restore bit for bit")
+
+
+def mesh_tp_prediction(tag, runs, layers: int) -> dict:
+    """The tensor-parallel run's all-reduce bytes a step on every rank
+    beside ``tp_all_reduce_bytes``' prediction (what else moved is
+    printed with it); fails when a rank's all-reduce bytes fall short of
+    the prediction (a row-parallel sum not made) or exceed it by more
+    than 1% (the rest: the gradient norm's square, 4 bytes a step).
+    Microbatches split the tokens, not the bytes."""
+    r0 = runs[0]
+    vocab = r0["tensor_parallel"]["head_vocab"]
+    predicted = tp_all_reduce_bytes(*r0["activation"], layers, vocab)
+    got = [r["collectives"]["all_reduce"]["bytes"] // MESH_STEPS
+           for r in runs]
+    other = {k: [r["collectives"][k]["bytes"] // MESH_STEPS for r in runs]
+             for k in ("all_gather", "reduce_scatter")}
+    print(f"{tag}: all-reduce bytes a step by rank {got}, predicted "
+          f"{predicted} ({'with' if vocab else 'without'} the vocab's two, "
+          f"tp_all_reduce_bytes); "
+          f"all-gather and reduce-scatter bytes a step {json.dumps(other)}",
+          flush=True)
+    for b in got:
+        if not predicted <= b <= 1.01 * predicted:
+            fail(f"{tag}: all-reduce {got} bytes a step, predicted "
+                 f"{predicted}")
+    return {"all_reduce_bytes": got, "predicted": predicted, **other}
+
+
+def xent_tp_case(torch, dev, gen, shape):
+    """The vocab-parallel B5 and B5-bwd at a rank's shape (T, d, V of the
+    slice), bf16: rank 0's slice of a whole W of ``MESH_RANKS`` slices,
+    labels drawn over the whole vocab (a label outside the slice is -1 to
+    the kernel). The partials launch is held to its plain version (the
+    values at ``XENT_FP32_TOL``, the best index equal but at near-ties)
+    and, combined with the other slices' plain partials, to the whole
+    vocab's plain forward; B5-bwd with -1 labels to its plain version as
+    ``xent_case`` holds B5-bwd, a planted lse shift caught. Both timed
+    beside their plain versions, bounds and the matmul +
+    ``F.cross_entropy`` pair (``ignore_index=-1``) and its autograd."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cross_entropy import (
+        PART_BEST, PART_INDEX, combine_partials, cross_entropy_bwd,
+        cross_entropy_bwd_plain, cross_entropy_fwd_plain,
+        cross_entropy_partials_plain)
+    t, d, v = shape
+    h = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    whole = (torch.randn((d, v * MESH_RANKS), generator=gen, device=dev)
+             / d ** 0.5).to(torch.bfloat16)
+    labels = torch.randint(0, v * MESH_RANKS, (t,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    g = torch.rand((t,), generator=gen, device=dev)
+
+    def local(r):
+        return torch.where((labels >= r * v) & (labels < (r + 1) * v),
+                           labels - r * v, torch.full_like(labels, -1))
+    w, lab = whole[:, :v].contiguous(), local(0)
+    got = ops.cross_entropy_partials(h, w, lab, 0)
+    want = cross_entropy_partials_plain(h, w, lab, 0)
+    keep = [p for p in range(5) if p != PART_INDEX]
+    err_f = within_tol(torch, got[keep], want[keep],
+                       "cross_entropy_partials", **XENT_FP32_TOL)
+    idx = (got[PART_INDEX] != want[PART_INDEX]).nonzero()[:, 0]
+    if idx.numel():
+        s = torch.matmul(h[idx].float(), w.float())
+        gap = (want[PART_BEST][idx]
+               - s.gather(1, got[PART_INDEX][idx].long()[:, None])[:, 0])
+        if gap.abs().max().item() > XENT_TIE:
+            fail(f"cross_entropy_partials: best index differs on "
+                 f"{idx.numel()} tokens beyond a near-tie ({gap.max()})")
+    parts = torch.stack([got] + [cross_entropy_partials_plain(
+        h, whole[:, r * v:(r + 1) * v], local(r), r * v)
+        for r in range(1, MESH_RANKS)])
+    nll, lse, correct = combine_partials(parts, labels)
+    pnll, plse, pcorrect = cross_entropy_fwd_plain(h, whole, labels)
+    err_c = max(within_tol(torch, nll, pnll, "vocab-parallel nll",
+                           **XENT_FP32_TOL),
+                within_tol(torch, lse, plse, "vocab-parallel lse",
+                           **XENT_FP32_TOL))
+    ties = xent_argmax_ties(torch, correct, pcorrect, h, whole, labels)
+    del parts, pnll, pcorrect, whole
+    outside = int((lab < 0).sum())
+    dh, dw = ops.cross_entropy_bwd(h, w, lab, plse, g)
+    pdh, pdw = cross_entropy_bwd_plain(h, w, lab, plse, g)
+    bwd = xent_bwd_errors(torch, (dh, dw), (pdh, pdw), h, w, lab, g)
+    if not bwd["ok"]:
+        fail(f"cross_entropy_bwd with -1 labels disagrees with its plain "
+             f"version: {bwd}")
+    del dh, dw
+    planted = xent_bwd_errors(
+        torch, cross_entropy_bwd(h, w, lab, plse + PLANTED_LSE_SHIFT, g),
+        (pdh, pdw), h, w, lab, g)
+    if planted["ok"]:
+        fail(f"cross_entropy_bwd with -1 labels: a planted lse + "
+             f"{PLANTED_LSE_SHIFT} passed the checks: {planted}")
+    del pdh, pdw
+    name = f"T={t} d={d} V={v} bfloat16, vocab slice 1 of {MESH_RANKS}"
+    elt, flops = h.element_size(), 2.0 * t * d * v
+    bnd, by = bound_ms(elt * (t * d + d * v) + 4 * t + 5 * 4 * t, flops)
+    lib_labels = lab.long()
+
+    def library_fwd():
+        return F.cross_entropy(torch.matmul(h, w).float(), lib_labels,
+                               ignore_index=-1, reduction="none")
+    fwd = {"shape": name, "max_abs_err": err_f, "combined_max_abs_err":
+           err_c, "argmax_near_ties": ties,
+           "ms": time_ms(torch, lambda: ops.cross_entropy_partials(
+               h, w, lab, 0), iters=5, warmup=1),
+           "plain_ms": time_ms(torch, lambda: cross_entropy_partials_plain(
+               h, w, lab, 0), iters=5, warmup=1),
+           "bound_ms": bnd, "bound_by": by,
+           "library_ms": time_ms(torch, library_fwd, iters=5, warmup=1)}
+    add_rates(fwd, flops)
+    bnd_b, by_b = bound_ms(2 * elt * (t * d + d * v) + 3 * 4 * t, 3 * flops)
+    hl = h.detach().requires_grad_(True)
+    wl = w.detach().requires_grad_(True)
+    lib_loss = (F.cross_entropy(torch.matmul(hl, wl).float(), lib_labels,
+                                ignore_index=-1, reduction="none") * g).sum()
+    bwd_case = {"shape": name + f", {outside} of {t} labels -1",
+                "max_abs_err": bwd["whole"],
+                "softmax_rel_l2": bwd["softmax_rel_l2"],
+                "planted_softmax_rel_l2": planted["softmax_rel_l2"],
+                "ms": time_ms(torch, lambda: ops.cross_entropy_bwd(
+                    h, w, lab, plse, g), iters=5, warmup=1),
+                "plain_ms": time_ms(torch, lambda: cross_entropy_bwd_plain(
+                    h, w, lab, plse, g), iters=5, warmup=1),
+                "bound_ms": bnd_b, "bound_by": by_b,
+                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    lib_loss, (hl, wl), retain_graph=True), iters=5,
+                    warmup=1)}
+    add_rates(bwd_case, 3 * flops)
+    for kname, c in (("cross_entropy_partials", fwd),
+                     ("cross_entropy_bwd", bwd_case)):
+        print(f"kernel {kname} {c['shape']}: err {c['max_abs_err']:.3g}; "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}), library "
+              f"{c['library_ms']:.4f} ms ({c['ms'] / c['library_ms']:.3f}x); "
+              f"{c['tflops']:.1f} TFLOP/s, {c['bound_share']:.3f} of the "
+              f"bound", flush=True)
+    print(f"kernel cross_entropy_partials combined over {MESH_RANKS} slices"
+          f" against the whole vocab: nll/lse err {err_c:.3g}, argmax "
+          f"near-ties {ties}; bwd softmax-part rel L2 "
+          f"{bwd['softmax_rel_l2']:.3g}, planted lse+{PLANTED_LSE_SHIFT} "
+          f"caught at {planted['softmax_rel_l2']:.3g}", flush=True)
+    return fwd, bwd_case
 
 
 def mesh_phase(torch, dev):
@@ -5921,18 +6283,22 @@ def mesh_phase(torch, dev):
     scaling) train full-width granite-3-2b cut to ``MESH_LAYERS`` layers
     in the ``[train]`` setting (PSL-UGS, global batch 16 x 128, AdamW,
     seed 0, the init rescaled to fan-in d_in as ``[grads]`` does) for
-    ``MESH_STEPS`` steps on each of ``MESH_RUNS``. Gates, against the
-    one-card engine on the same batches: the step-0 gradient per leaf
-    within ``GRAD_REL_L2``, a planted fault (a rank's own unreduced
-    gradient) outside it, the losses within ``MESH_LOSS_RTOL``, the
-    parameters after the steps per leaf within ``GRAD_REL_L2``, equal
-    metrics on both ranks, exactly one B1 and one B1-bwd an attention
-    layer and one B5 and one B5-bwd a microbatch on each rank, the
-    checkpoint of the gspmd run restored on one card bit for bit. Prints
-    the backend, stored bytes and peak a rank, step ms and collective ms
-    by kind. Then B1, B1-bwd, B5 and B5-bwd are held to their plain
-    versions and timed at every rank shape they ran at (the kernels
-    line's ``mesh_cases``)."""
+    ``MESH_STEPS`` steps on each of ``MESH_RUNS``, then each of
+    ``MESH_TP_RUNS`` (granite and llama3-8b at 4 layers, tensor-parallel
+    on 1x2). Gates (``mesh_gates``),
+    against the one-card engine on the same batches and depth: the step-0
+    gradient per leaf within ``GRAD_REL_L2``, the planted faults (a rank's
+    own unreduced gradient; rank 0 skipping one row-parallel all-reduce)
+    outside it, the losses within ``MESH_LOSS_RTOL``, the parameters after
+    the steps per leaf within ``GRAD_REL_L2``, equal metrics on both
+    ranks, exactly one B1 and one B1-bwd an attention layer and one B5 and
+    one B5-bwd a microbatch on each rank, the checkpoint of the 2x1 gspmd
+    run restored on one card bit for bit; the tp runs' all-reduce bytes
+    a step as predicted (``mesh_tp_prediction``). Prints the backend,
+    stored bytes and peak a rank, step ms and collective ms by kind. Then
+    B1, B1-bwd, B5 and B5-bwd are held to their plain versions and timed
+    at every rank shape they ran at (the kernels line's ``mesh_cases``),
+    the vocab-parallel B5 and the -1-label B5-bwd by ``xent_tp_case``."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5969,79 +6335,43 @@ def mesh_phase(torch, dev):
         ranks = [json.loads((work / f"rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
     children_s = time.perf_counter() - t_phase
+
+    def card(one):
+        return (f"losses {one['losses']}, stored params {one['param_bytes']}"
+                f" B, moments {one['moment_bytes']} B, peak "
+                f"{round(one['peak_bytes'] / 2**30, 2)} GiB")
     one = ranks[0]["one_card"]
     print(f"[mesh] {MESH_RANKS} ranks on one {torch.cuda.get_device_name(0)}"
           f", backend {[r['backend'] for r in ranks]} (ranks sharing a "
           f"card: this checks the collective structure, not scaling); "
           f"granite-3-2b {MESH_LAYERS} of 40 layers (cut 2), full width, "
           f"bf16, global batch 16 x 128, AdamW, seed 0, fan-in d_in init; "
-          f"one card: losses {one['losses']}, stored params "
-          f"{one['param_bytes']} B, moments {one['moment_bytes']} B",
-          flush=True)
+          f"one card: {card(one)}", flush=True)
     if any(r["backend"] != "gloo" for r in ranks):
         fail("[mesh] ranks sharing the card must take gloo")
-    layers = MESH_LAYERS
-    shapes = {}
-    for i, (mesh_spec, profile, lowering, mb) in enumerate(MESH_RUNS):
-        runs = [r["runs"][i] for r in ranks]
-        r0 = runs[0]
-        tag = f"[mesh] {mesh_spec} {profile} {lowering} mb {mb}"
-        coll = {k: [round(r["collectives"][k]["ms"] / MESH_STEPS, 3)
-                    for r in runs] for k in r0["collectives"]}
-        coll_bytes = {k: [r["collectives"][k]["bytes"] // MESH_STEPS
-                          for r in runs] for k in r0["collectives"]}
-        print(f"{tag}: rows a rank {r0['rows']} ({r0['shards']} shards); "
-              f"losses {[m['loss'] for m in r0['metrics']]}; step ms by "
-              f"rank {[r['step_ms'] for r in runs]}; collective ms a step "
-              f"by rank {json.dumps(coll)}, bytes a step by rank "
-              f"{json.dumps(coll_bytes)}; stored params B by rank "
-              f"{[r['param_bytes'] for r in runs]} (one card "
-              f"{one['param_bytes']}), moments B {[r['moment_bytes'] for r in runs]} "
-              f"(one card {one['moment_bytes']}); peak GiB by rank "
-              f"{[round(r['peak_bytes'] / 2**30, 2) for r in runs]}; "
-              f"step-0 grads {json.dumps(r0['grads'])}; params after "
-              f"{json.dumps(r0['params'])}; fallbacks {r0['fallbacks']}; "
-              f"launches {r0['launches']}", flush=True)
-        want = {name: 0 for name in r0["launches"]}
-        want.update({"flash_attention": layers * mb * MESH_STEPS,
-                     "flash_attention_bwd": layers * mb * MESH_STEPS,
-                     "cross_entropy": mb * MESH_STEPS,
-                     "cross_entropy_bwd": mb * MESH_STEPS})
-        for r, run in enumerate(runs):
-            if run["launches"] != want:
-                fail(f"{tag} rank {r} launches {run['launches']}, wanted "
-                     f"{want}")
-            if run["metrics"] != r0["metrics"]:
-                fail(f"{tag}: the ranks read different metrics")
-        if r0["grads"]["worst"] > GRAD_REL_L2 \
-                or r0["params"]["worst"] > GRAD_REL_L2:
-            fail(f"{tag} disagrees with the one-card engine: grads "
-                 f"{r0['grads']}, params {r0['params']} (limit "
-                 f"{GRAD_REL_L2})")
-        for got, ref in zip([m["loss"] for m in r0["metrics"]],
-                            one["losses"], strict=True):
-            if abs(got - ref) > MESH_LOSS_RTOL * abs(ref):
-                fail(f"{tag} losses {[m['loss'] for m in r0['metrics']]}"
-                     f" against one card's {one['losses']}")
-        if i == 0:
-            planted = r0["planted_unreduced"]
-            print(f"[mesh] planted fault, rank 0's own unreduced gradient "
-                  f"against the one-card one: {json.dumps(planted)}",
-                  flush=True)
-            if planted["worst"] <= GRAD_REL_L2:
-                fail(f"[mesh] the gradient gate ({GRAD_REL_L2}) missed the "
-                     f"unreduced gradient: {planted}")
-        if i == MESH_CHECKPOINT_RUN:
-            print(f"{tag}: checkpoint restored on one card bit for bit "
-                  f"{r0['checkpoint_bitwise']}", flush=True)
-            if not r0["checkpoint_bitwise"]:
-                fail(f"{tag}: the checkpoint did not restore bit for bit")
-        for run in runs[:1]:
-            for name, rows in run["shapes"].items():
-                for shape, n in rows:
-                    shapes.setdefault(name, {})
-                    shapes[name][tuple(shape)] = (
-                        shapes[name].get(tuple(shape), 0) + n)
+    shapes, predictions = {}, {}
+    runs_by_tag = [(f"[mesh] {m} {p} {lw} mb {mb}",
+                    [r["runs"][i] for r in ranks], one, MESH_LAYERS)
+                   for i, (m, p, lw, mb) in enumerate(MESH_RUNS)]
+    for i, (arch, layers, cut, (m, p, lw, mb)) in enumerate(MESH_TP_RUNS):
+        tag = f"[mesh] {arch} {layers} layers {m} {p} {lw} mb {mb}"
+        tp_one = ranks[0]["tp_runs"][i]["one_card"]
+        print(f"{tag}: one card at {layers} layers (cut {cut}): "
+              f"{card(tp_one)}; its step-0 gradient with the row products "
+              f"through an fp32 GEMM (the floor of a tensor-parallel "
+              f"comparison): {json.dumps(tp_one['fp32_row_products'])}",
+              flush=True)
+        runs_by_tag.append((tag, [r["tp_runs"][i] for r in ranks], tp_one,
+                            layers))
+    for tag, runs, ref, layers in runs_by_tag:
+        mesh_gates(tag, runs, ref, layers)
+        if runs[0]["tensor_parallel"]:
+            predictions[tag] = mesh_tp_prediction(tag, runs, layers)
+        for name, rows in runs[0]["shapes"].items():
+            for shape, n in rows:
+                shapes.setdefault(name, {})
+                shapes[name][tuple(shape)] = (
+                    shapes[name].get(tuple(shape), 0) + n)
     print(f"[mesh] ranks done in {children_s:.1f} s; B1, B1-bwd, B5, B5-bwd"
           f" launches by shape a rank: {json.dumps({k: [[list(s), n] for s, n in v.items()] for k, v in shapes.items()})}",
           flush=True)
@@ -6052,13 +6382,20 @@ def mesh_phase(torch, dev):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
     cases = {name: [] for name in ("flash_attention", "flash_attention_bwd",
-                                   "cross_entropy", "cross_entropy_bwd")}
-    for shape in sorted(shapes["cross_entropy"]):
+                                   "cross_entropy", "cross_entropy_bwd",
+                                   "cross_entropy_partials")}
+    for shape in sorted(shapes.get("cross_entropy", {})):
         fwd, bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True,
                              shape=shape)
         for name, case in (("cross_entropy", fwd),
                            ("cross_entropy_bwd", bwd)):
             cases[name].append({"phase": "mesh", "launches":
+                                shapes[name].get(shape, 0), **case})
+    for shape in sorted(shapes.get("cross_entropy_partials", {})):
+        fwd, bwd = xent_tp_case(torch, dev, gen, shape)
+        for name, case in (("cross_entropy_partials", fwd),
+                           ("cross_entropy_bwd", bwd)):
+            cases[name].append({"phase": "mesh-tp", "launches":
                                 shapes[name].get(shape, 0), **case})
     for shape, n in sorted(shapes["flash_attention"].items()):
         b, s, hq, hkv, d = shape
@@ -6069,10 +6406,15 @@ def mesh_phase(torch, dev):
         cases["flash_attention_bwd"].append({
             "phase": "mesh", "launches": n,
             **attention_bwd_case(torch, dev, gen, *shape)})
+    if not cases["cross_entropy_partials"]:
+        fail("[mesh] no run launched the vocab-parallel B5")
     seconds = time.perf_counter() - t_phase
-    launches = {name: sum(r["launches"][name] for r in ranks[0]["runs"])
-                for name in ranks[0]["runs"][0]["launches"]}
-    summary = {"ranks": ranks, "seconds": seconds, "launches": launches}
+    all_runs = ranks[0]["runs"] + ranks[0]["tp_runs"]
+    launches = {name: sum(r["launches"][name] for r in all_runs)
+                for name in all_runs[0]["launches"]}
+    summary = {"ranks": ranks, "seconds": seconds, "launches": launches,
+               "tp_launches": ranks[0]["tp_runs"][-1]["launches"],
+               "tp_all_reduce": predictions}
     print(f"[mesh] phase {seconds:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6254,6 +6596,7 @@ def main() -> int:
     # the per-head B4 at zamba2's training shape ([hybrid-train]'s)
     b4h = max(family_cases["selective_scan_heads"],
               key=lambda c: c["bound_ms"])
+    b5_tp = mesh_cases["cross_entropy_partials"][0]   # llama's rank shape
     by_path = {name: {"serve_paged": launches["paged"][name],
                       "serve_continuous": launches["continuous"][name],
                       "serve_speculative": launches["speculative"][name],
@@ -6415,6 +6758,15 @@ def main() -> int:
          "mesh_cases": mesh_cases["cross_entropy_bwd"],
          "audio_cases": audio_cases["cross_entropy_bwd"],
          "hgmma_count": hgmma["xent_tc_gemm"]},
+        {"name": "cross_entropy_partials", "route": "cuda",
+         "source": "src/repro_torch/csrc/cross_entropy.cu",
+         "replaces": "src/repro/kernels/cross_entropy.py:68",
+         "launches": mesh["tp_launches"]["cross_entropy_partials"],
+         "launches_by_path": by_path["cross_entropy_partials"],
+         **{k: b5_tp[k] for k in ("max_abs_err", "combined_max_abs_err",
+                                  "argmax_near_ties") + timing + rates},
+         "mesh_cases": mesh_cases["cross_entropy_partials"],
+         "hgmma_count": hgmma["xent_fwd_tc_kernel"]},
     ]
     if set(ops.WRAPPERS) != {k["name"] for k in kernels}:
         fail(f"kernel list {sorted(ops.WRAPPERS)} not all reported")

@@ -281,8 +281,9 @@ class ExecutionSpec(SpecBase):
     runs it through repro_torch.launch.distributed.ShardedPSLEngine on a
     (data x model) mesh of ranks (``mesh`` "DxM" or "auto"; None = every
     running rank on ``data``, one card in a single process), laid out by
-    the ``sharding`` profile. ``tp`` with ``model > 1`` is refused
-    (tensor-parallel compute, ROADMAP A.19).
+    the ``sharding`` profile. ``tp`` with ``model > 1`` is tensor-parallel
+    compute for the dense and VLM families (the engine refuses the
+    families it does not compute in parallel: the spec knows no family).
     """
     engine: str = "fused"
     mesh: Optional[str] = None
@@ -302,14 +303,11 @@ class ExecutionSpec(SpecBase):
         self._require(self.microbatches >= 1,
                       "microbatches must be >= 1")
         if self.mesh is not None:
-            from repro_torch.launch.distributed import TP_ITEM
             from repro_torch.launch.mesh import parse_mesh_spec
             try:
-                _, model = parse_mesh_spec(self.mesh)
+                parse_mesh_spec(self.mesh)
             except ValueError as e:
                 raise SpecError(str(e)) from None
-            self._require(self.sharding != "tp" or model == 1,
-                          f"execution.mesh {self.mesh!r}: {TP_ITEM}")
         return self
 
 

@@ -47,6 +47,18 @@
 // and folds each into the same running state with half-warp shuffles.
 // wgmma in fp32 would be TF32 and break the fp32 tolerances.
 //
+// Vocab-parallel (tensor-parallel over `model`: W is one rank's slice of
+// the vocab columns). cross_entropy_partials runs the same split kernels
+// on the slice, with local labels (-1 for a label outside it), and writes
+// the splits' combined partials instead of (nll, lse, correct):
+// xent_partials_kernel. The ranks all-gather those (5, T) planes and
+// combine them in rank order with xent_combine_kernel's arithmetic
+// (repro_torch.kernels.cross_entropy.combine_partials), so every rank
+// holds the same bits. The backward takes the slice, the local labels and
+// the global lse: a label of -1 adds no one-hot part, and dh comes out
+// partial, in fp32 (dh null: left in dh_acc), for the caller to sum over
+// the ranks and round once, as one card rounds its dh once.
+//
 // Backward. ds = (exp(s - lse) - onehot(label)) * g, recomputed chunk by
 // chunk of the vocab axis (chunk columns chosen by the wrapper so the ds
 // scratch stays bounded): one product writes ds for the chunk, one writes
@@ -257,6 +269,33 @@ xent_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
   }
 }
 
+// The vocab splits of token t combined in split order: the running max,
+// the sum of exp(s - max), the label logit, the best logit and its index
+// (the first on ties: a later split wins only with a larger logit).
+struct Combined {
+  float m, l, tgt, best;
+  int best_i;
+};
+
+__device__ __forceinline__ Combined combine_splits(const float* __restrict__ part,
+                                                   int Tn, int nsplit, int t) {
+  const long long plane = static_cast<long long>(nsplit) * Tn;
+  Combined c{-INFINITY, 0.f, 0.f, -INFINITY, 0x7fffffff};
+  for (int s = 0; s < nsplit; ++s)
+    c.m = fmaxf(c.m, part[kPartM * plane + static_cast<long long>(s) * Tn + t]);
+  for (int s = 0; s < nsplit; ++s) {
+    const long long o = static_cast<long long>(s) * Tn + t;
+    c.l += part[kPartL * plane + o] * expf(part[kPartM * plane + o] - c.m);
+    c.tgt += part[kPartTgt * plane + o];
+    const float b = part[kPartBest * plane + o];
+    if (b > c.best) {
+      c.best = b;
+      c.best_i = __float_as_int(part[kPartIdx * plane + o]);
+    }
+  }
+  return c;
+}
+
 // Combine the vocab splits of each token, in split order.
 __global__ void xent_combine_kernel(const float* __restrict__ part,
                                     const int* __restrict__ labels, int Tn,
@@ -265,23 +304,44 @@ __global__ void xent_combine_kernel(const float* __restrict__ part,
                                     int* __restrict__ correct) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Tn) return;
-  const long long plane = static_cast<long long>(nsplit) * Tn;
-  float m = -INFINITY;
-  for (int s = 0; s < nsplit; ++s)
-    m = fmaxf(m, part[kPartM * plane + static_cast<long long>(s) * Tn + t]);
-  float l = 0.f, tg = 0.f, best = -INFINITY;
-  int best_i = 0x7fffffff;
-  for (int s = 0; s < nsplit; ++s) {
-    const long long o = static_cast<long long>(s) * Tn + t;
-    l += part[kPartL * plane + o] * expf(part[kPartM * plane + o] - m);
-    tg += part[kPartTgt * plane + o];
-    const float b = part[kPartBest * plane + o];
-    if (b > best) { best = b; best_i = __float_as_int(part[kPartIdx * plane + o]); }
-  }
-  const float ls = m + logf(fmaxf(l, 1e-30f));
+  const Combined c = combine_splits(part, Tn, nsplit, t);
+  const float ls = c.m + logf(fmaxf(c.l, 1e-30f));
   lse[t] = ls;
-  nll[t] = ls - tg;
-  correct[t] = best_i == labels[t] ? 1 : 0;
+  nll[t] = ls - c.tgt;
+  correct[t] = c.best_i == labels[t] ? 1 : 0;
+}
+
+// The vocab-parallel forward's output: the splits of each token combined
+// as above, written as five (T,) fp32 planes in the order of kPart* (the
+// best index as a value, offset by v0, the slice's first column) for the
+// cross-rank combine, which repeats xent_combine_kernel's arithmetic over
+// the slices of all ranks.
+__global__ void xent_partials_kernel(const float* __restrict__ part, int Tn,
+                                     int nsplit, int v0,
+                                     float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tn) return;
+  const Combined c = combine_splits(part, Tn, nsplit, t);
+  out[kPartM * Tn + t] = c.m;
+  out[kPartL * Tn + t] = c.l;
+  out[kPartBest * Tn + t] = c.best;
+  out[kPartIdx * Tn + t] = static_cast<float>(c.best_i + v0);
+  out[kPartTgt * Tn + t] = c.tgt;
+}
+
+// Either the combined (nll, lse, correct) or, with partials given, the
+// vocab-parallel partials of the splits in part.
+inline int finish(const float* part, const int* labels, int Tn, int nsplit,
+                  int v0, float* partials, float* nll, float* lse,
+                  int* correct, cudaStream_t stream) {
+  const int blocks = (Tn + 255) / 256;
+  if (partials != nullptr)
+    xent_partials_kernel<<<blocks, 256, 0, stream>>>(part, Tn, nsplit, v0,
+                                                     partials);
+  else
+    xent_combine_kernel<<<blocks, 256, 0, stream>>>(part, labels, Tn, nsplit,
+                                                    nll, lse, correct);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ds[t, c] = (exp(s - lse[t]) - [c0 + c == label[t]]) * g[t] for the chunk
@@ -353,8 +413,8 @@ inline int imin(int a, int b) { return a < b ? a : b; }
 
 template <typename T>
 int fwd(const void* h, const void* w, const int* labels, int Tn, int D, int V,
-        int nsplit, float* part, float* nll, float* lse, int* correct,
-        cudaStream_t stream) {
+        int nsplit, int v0, float* part, float* partials, float* nll,
+        float* lse, int* correct, cudaStream_t stream) {
   const int vtiles = cdiv(V, BN);
   const int per = cdiv(vtiles, nsplit);
   nsplit = cdiv(vtiles, per);               // no empty split
@@ -364,9 +424,8 @@ int fwd(const void* h, const void* w, const int* labels, int Tn, int D, int V,
       per, nsplit, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  xent_combine_kernel<<<cdiv(Tn, 256), 256, 0, stream>>>(
-      part, labels, Tn, nsplit, nll, lse, correct);
-  return static_cast<int>(cudaGetLastError());
+  return finish(part, labels, Tn, nsplit, v0, partials, nll, lse, correct,
+                stream);
 }
 
 template <typename T>
@@ -395,7 +454,7 @@ int bwd(const void* hv, const void* wv, const int* labels, const float* lse,
     gemm_kernel<float, T, T><<<dim3(cdiv(Tn, BM), cdiv(D, BN)), kThreads, 0,
                                stream>>>(
         ds, chunk, 1, w + c0, 1, V, Tn, D, cw, dh_acc, D, c0 > 0,
-        last ? dh : nullptr, D);
+        last ? dh : nullptr, D);          // dh null: fp32 dh in dh_acc
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -580,8 +639,10 @@ xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
       }
     } else if (EPI == kEpiDh) {
       const long long base = row * ep.ld;
-      // the one-hot part, once: dh[t, i] -= g[t] W[i, label[t]]
-      const T* w_lab = static_cast<const T*>(ep.src) + ep.labels[row];
+      // the one-hot part, once: dh[t, i] -= g[t] W[i, label[t]]; a label
+      // of -1 (outside this vocab slice) has none
+      const int lab = ep.labels[row];
+      const T* w_lab = static_cast<const T*>(ep.src) + (lab < 0 ? 0 : lab);
       const float gr = ep.g[row];
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
@@ -595,12 +656,14 @@ xent_tc_gemm(const __grid_constant__ CUtensorMap amap,
           v.x += old.x;
           v.y += old.y;
         }
-        if (ep.last) {
+        if (ep.last && lab >= 0) {
           v.x -= gr * to_f(w_lab[col * ep.src_ld]);
           v.y -= gr * to_f(w_lab[(col + 1) * ep.src_ld]);
+        }
+        if (ep.last && ep.out != nullptr) {
           *reinterpret_cast<uint32_t*>(static_cast<T*>(ep.out) + base + col) =
               pack2<T>(v.x, v.y);
-        } else {
+        } else {       // a running sum, or the fp32 dh (no out given)
           *reinterpret_cast<float2*>(ep.acc + base + col) = v;
         }
       }
@@ -817,8 +880,8 @@ int gemm(const CUtensorMap& a, const CUtensorMap& b, int M, int N, int K,
 // The splits come out of the kernel into part and are combined in order.
 template <typename T>
 int fwd(const void* h, const void* w, int ldw, const int* labels, int Tn,
-        int D, int V, int nsplit, float* part, float* nll, float* lse,
-        int* correct, cudaStream_t stream) {
+        int D, int V, int nsplit, int v0, float* part, float* partials,
+        float* nll, float* lse, int* correct, cudaStream_t stream) {
   CUtensorMap h_k, w_mn;
   int err = map2d<T>(&h_k, h, Tn, D, D, 64, kBM);       // A: K = D
   if (err == 0) err = map2d<T>(&w_mn, w, D, V, ldw, 64, 64);   // B
@@ -839,9 +902,8 @@ int fwd(const void* h, const void* w, int ldw, const int* labels, int Tn,
                                     part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  xent_combine_kernel<<<cdiv(Tn, 256), 256, 0, stream>>>(
-      part, labels, Tn, nsplit, nll, lse, correct);
-  return static_cast<int>(cudaGetLastError());
+  return finish(part, labels, Tn, nsplit, v0, partials, nll, lse, correct,
+                stream);
 }
 
 // h (Tn, D) contiguous; w (D, V) with row stride ldw (a multiple of 8);
@@ -890,9 +952,10 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16, 2 float16 (hidden and W alike). hidden
 // (T, D) contiguous; W (D, V) with row stride ldw (V for float32; for
 // 16-bit inputs a multiple of 8, so rows start 16-byte aligned); labels
-// (T,) int32 in [0, V). part is fp32 scratch of 5 * nsplit * T; nll, lse
-// (T,) fp32; correct (T,) int32. float32 runs the CUDA-core kernel, bf16
-// and fp16 the tensor-core one. Returns cudaGetLastError().
+// (T,) int32 in [0, V), or -1 (no label logit). part is fp32 scratch of
+// 5 * nsplit * T; nll, lse (T,) fp32; correct (T,) int32. float32 runs
+// the CUDA-core kernel, bf16 and fp16 the tensor-core one. Returns
+// cudaGetLastError().
 int cross_entropy_fwd(int dtype, const void* h, const void* w, int ldw,
                       const int* labels, int Tn, int D, int V, int nsplit,
                       float* part, float* nll, float* lse, int* correct,
@@ -903,26 +966,56 @@ int cross_entropy_fwd(int dtype, const void* h, const void* w, int ldw,
   switch (dtype) {
     case 0:
       if (ldw != V) return static_cast<int>(cudaErrorInvalidValue);
-      return fwd<float>(h, w, labels, Tn, D, V, nsplit, part, nll, lse,
-                        correct, s);
+      return fwd<float>(h, w, labels, Tn, D, V, nsplit, 0, part, nullptr,
+                        nll, lse, correct, s);
     case 1: return tc::fwd<__nv_bfloat16>(h, w, ldw, labels, Tn, D, V,
-                                          nsplit, part, nll, lse, correct,
-                                          s);
-    case 2: return tc::fwd<__half>(h, w, ldw, labels, Tn, D, V, nsplit, part,
-                                   nll, lse, correct, s);
+                                          nsplit, 0, part, nullptr, nll, lse,
+                                          correct, s);
+    case 2: return tc::fwd<__half>(h, w, ldw, labels, Tn, D, V, nsplit, 0,
+                                   part, nullptr, nll, lse, correct, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// g (T,) fp32 = dLoss/dnll. 16-bit inputs also take order (T,) int32,
+// The vocab-parallel forward over one slice of the vocab: W (D, V) holds
+// columns v0 .. v0 + V - 1 of the whole matrix, labels (T,) int32 are
+// local (label - v0, or -1 for a label outside the slice). Runs the same
+// split kernels as cross_entropy_fwd, then writes out (5, T) fp32, the
+// planes in kPart* order: row max, sum of exp(s - max), best logit, its
+// index in the whole vocab (a value, < 2^24), label logit (0 outside).
+int cross_entropy_partials(int dtype, const void* h, const void* w, int ldw,
+                           const int* labels, int Tn, int D, int V,
+                           int nsplit, int v0, float* part, float* out,
+                           void* stream) {
+  if (Tn <= 0 || D <= 0 || V <= 0 || nsplit <= 0 || ldw < V || v0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      if (ldw != V) return static_cast<int>(cudaErrorInvalidValue);
+      return fwd<float>(h, w, labels, Tn, D, V, nsplit, v0, part, out,
+                        nullptr, nullptr, nullptr, s);
+    case 1: return tc::fwd<__nv_bfloat16>(h, w, ldw, labels, Tn, D, V,
+                                          nsplit, v0, part, out, nullptr,
+                                          nullptr, nullptr, s);
+    case 2: return tc::fwd<__half>(h, w, ldw, labels, Tn, D, V, nsplit, v0,
+                                   part, out, nullptr, nullptr, nullptr, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// g (T,) fp32 = dLoss/dnll; a label of -1 (outside W's vocab slice) adds
+// no one-hot part. 16-bit inputs also take order (T,) int32,
 // the tokens sorted by label (stable), and starts (V + 1,) int32, the
 // first sorted position of each label (unused for float32; may be null).
 // w is (D, V) with row stride ldw (V for
 // float32; for 16-bit inputs a multiple of 8, so rows start 16-byte
 // aligned). ds is scratch of T * chunk in the input dtype (fp32 for
 // float32), dh_acc fp32 scratch of T * D; dh (T, D) and dW (D, V), unpadded,
-// come out in the input dtype. float32 runs the CUDA-core kernels, bf16
-// and fp16 the tensor-core ones (the dispatch rule noted at the top).
+// come out in the input dtype. With dh null, dh is left in dh_acc in fp32,
+// unrounded (the vocab-parallel backward sums it over ranks first).
+// float32 runs the CUDA-core kernels, bf16 and fp16 the tensor-core ones
+// (the dispatch rule noted at the top).
 int cross_entropy_bwd(int dtype, const void* h, const void* w, int ldw,
                       const int* labels, const int* order,
                       const int* starts, const float* lse, const float* g,

@@ -14,7 +14,15 @@ the (T, V) logits. :func:`cross_entropy_fwd_plain` and
 PyTorch — the CPU path and the on-card oracle.
 
 Shapes: hidden (T, d), w (d, V), both float32, bfloat16 or float16 of
-one dtype; labels (T,) int32 in [0, V). Products and sums are fp32.
+one dtype; labels (T,) int32 in [0, V), or -1 for a label outside W's
+columns (no label logit, no one-hot part). Products and sums are fp32.
+
+Vocab-parallel (tensor parallelism over ``model``):
+:func:`cross_entropy_partials` runs the forward on one rank's slice of
+W's columns and returns five fp32 partials a token (``PART_*``) instead
+of (nll, lse, correct); :func:`combine_partials` combines the ranks'
+partials in vocab order as the kernel combines its splits, and the
+backward takes the slice, the local labels and the global lse.
 
 Both passes dispatch on the dtype (``uses_tensor_cores``): bf16 and fp16
 run the tensor-core kernels, float32 the CUDA-core ones. The tensor-core
@@ -87,6 +95,8 @@ def _kernel(name: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "cross_entropy_fwd":
             fn.argtypes = [i, p, p, i, p, i, i, i, i, p, p, p, p, p]
+        elif name == "cross_entropy_partials":
+            fn.argtypes = [i, p, p, i, p, i, i, i, i, i, p, p, p]
         else:
             fn.argtypes = [i, p, p, i] + [p] * 5 + [i] * 4 + [p] * 5
         fn.restype = ctypes.c_int
@@ -193,11 +203,42 @@ def cross_entropy_fwd(hidden, w, labels
     return nll, lse, correct
 
 
-def cross_entropy_bwd(hidden, w, labels, lse, g
+def cross_entropy_partials(hidden, w, labels, v0: int) -> torch.Tensor:
+    """Launch the vocab-parallel forward on the slice ``w`` = columns
+    ``v0`` .. ``v0 + V - 1`` of the whole W, with local ``labels`` (label
+    - v0, or -1 outside the slice) -> (5, T) fp32 partials, the planes in
+    ``PART_*`` order. W as in :func:`cross_entropy_fwd`."""
+    _check(hidden, w, labels)
+    t, d = hidden.shape
+    v = w.shape[1]
+    if not (0 <= v0 and v0 + v <= 2 ** 24):
+        raise ValueError(f"cross_entropy_partials: vocab columns {v0} + {v} "
+                         f"past 2**24 (indices travel as fp32 values)")
+    dev = hidden.device
+    if uses_tensor_cores(hidden.dtype):
+        w = aligned_rows(w)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nsplit = tc_vocab_splits(t, v, sms)
+    else:
+        nsplit = num_vocab_splits(t, v)
+    part = torch.empty((5, nsplit, t), dtype=torch.float32, device=dev)
+    out = torch.empty((5, t), dtype=torch.float32, device=dev)
+    lib, fn = _kernel("cross_entropy_partials")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_DTYPE_CODES[hidden.dtype], hidden.data_ptr(), w.data_ptr(),
+             w.stride(0), labels.data_ptr(), t, d, v, nsplit, v0,
+             part.data_ptr(), out.data_ptr(), stream)
+    _build.check(err, lib, "cross_entropy_partials")
+    return out
+
+
+def cross_entropy_bwd(hidden, w, labels, lse, g, dh_fp32: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA backward -> (dh (T, d), dw (d, V), contiguous) in
     the inputs' dtype, for ``g`` = dLoss/dnll (T,) and the forward's
-    ``lse``. bf16/fp16 W as in :func:`cross_entropy_fwd`."""
+    ``lse``; with ``dh_fp32``, dh in fp32, unrounded (the vocab-parallel
+    backward sums the ranks' dh before it rounds). bf16/fp16 W as in
+    :func:`cross_entropy_fwd`."""
     _check(hidden, w, labels)
     t, d = hidden.shape
     v = w.shape[1]
@@ -215,7 +256,7 @@ def cross_entropy_bwd(hidden, w, labels, lse, g
     ds = torch.empty((t, chunk), dtype=hidden.dtype if tc else torch.float32,
                      device=dev)
     dh_acc = torch.empty((t, d), dtype=torch.float32, device=dev)
-    dh = torch.empty_like(hidden)
+    dh = None if dh_fp32 else torch.empty_like(hidden)
     dw = torch.empty((d, v), dtype=w.dtype, device=dev)
     lib, fn = _kernel("cross_entropy_bwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -224,33 +265,81 @@ def cross_entropy_bwd(hidden, w, labels, lse, g
              None if order is None else order.data_ptr(),
              None if starts is None else starts.data_ptr(),
              lse.data_ptr(), g.data_ptr(), t, d, v, chunk, ds.data_ptr(),
-             dh_acc.data_ptr(), dh.data_ptr(), dw.data_ptr(), stream)
+             dh_acc.data_ptr(), None if dh is None else dh.data_ptr(),
+             dw.data_ptr(), stream)
     _build.check(err, lib, "cross_entropy_bwd")
-    return dh, dw
+    return (dh_acc if dh is None else dh), dw
 
 
 def _logits(hidden, w):
     return torch.matmul(hidden.float(), w.float())
 
 
+def _label_logits(logits, labels):
+    """logits[t, labels[t]], 0 where the label is -1."""
+    lab = labels.long()
+    tgt = logits.gather(1, lab.clamp(min=0)[:, None])[:, 0]
+    return torch.where(lab >= 0, tgt, torch.zeros_like(tgt))
+
+
 def cross_entropy_fwd_plain(hidden, w, labels):
     """The forward kernel's function in plain PyTorch (full logits)."""
     logits = _logits(hidden, w)
     lse = torch.logsumexp(logits, dim=-1)
-    lab = labels.long()
-    tgt = logits.gather(1, lab[:, None])[:, 0]
-    correct = (logits.argmax(dim=-1) == lab).to(torch.int32)
-    return lse - tgt, lse, correct
+    correct = (logits.argmax(dim=-1) == labels.long()).to(torch.int32)
+    return lse - _label_logits(logits, labels), lse, correct
 
 
-def cross_entropy_bwd_plain(hidden, w, labels, lse, g):
+def cross_entropy_bwd_plain(hidden, w, labels, lse, g,
+                            dh_fp32: bool = False):
     """The backward kernel's function in plain PyTorch: recompute the
-    logits, ds = (exp(s - lse) - onehot(label)) * g, dh = ds W^T,
-    dw = h^T ds, all fp32, rounded once to the inputs' dtype."""
+    logits, ds = (exp(s - lse) - onehot(label)) * g (no one-hot part for a
+    label of -1), dh = ds W^T, dw = h^T ds, all fp32, rounded once to the
+    inputs' dtype (dh left in fp32 with ``dh_fp32``)."""
     logits = _logits(hidden, w)
     ds = torch.exp(logits - lse[:, None])
-    ds[torch.arange(ds.shape[0], device=ds.device), labels.long()] -= 1.0
+    rows = (labels >= 0).nonzero()[:, 0]
+    ds[rows, labels[rows].long()] -= 1.0
     ds = ds * g.float()[:, None]
     dh = torch.matmul(ds, w.float().T)
     dw = torch.matmul(hidden.float().T, ds)
-    return dh.to(hidden.dtype), dw.to(w.dtype)
+    return (dh if dh_fp32 else dh.to(hidden.dtype)), dw.to(w.dtype)
+
+
+# The planes of the vocab-parallel partials, the kernel's kPart* order.
+PART_MAX, PART_SUM, PART_BEST, PART_INDEX, PART_LABEL = range(5)
+
+
+def cross_entropy_partials_plain(hidden, w, labels, v0: int) -> torch.Tensor:
+    """:func:`cross_entropy_partials`' function in plain PyTorch."""
+    logits = _logits(hidden, w)
+    index = logits.argmax(dim=-1)              # the first index on ties
+    best = logits.gather(1, index[:, None])[:, 0]
+    total = torch.exp(logits - best[:, None]).sum(dim=-1)
+    return torch.stack([best, total, best, (index + v0).float(),
+                        _label_logits(logits, labels)])
+
+
+def combine_partials(parts, labels):
+    """The vocab slices' partials (R, 5, T), slice r holding the columns
+    after those of slice r - 1, with the whole vocab's ``labels`` (T,) ->
+    (nll, lse, correct) as :func:`cross_entropy_fwd` over the whole vocab
+    returns them. The arithmetic of the kernel's ``xent_combine_kernel``,
+    slice by slice in order: the best logit moves only to a strictly larger
+    one, so ``correct`` follows argmax's first index over the vocab. Plain
+    PyTorch on both devices: a (5, T) step after the ranks' all-gather,
+    equal bit for bit on every rank that holds the same ``parts``."""
+    m = parts[:, PART_MAX].amax(dim=0)
+    total = torch.zeros_like(m)
+    label_logit = torch.zeros_like(m)
+    best = torch.full_like(m, -float("inf"))
+    index = torch.full_like(m, -1.0)
+    for p in parts:
+        total = total + p[PART_SUM] * torch.exp(p[PART_MAX] - m)
+        label_logit = label_logit + p[PART_LABEL]
+        up = p[PART_BEST] > best
+        best = torch.where(up, p[PART_BEST], best)
+        index = torch.where(up, p[PART_INDEX], index)
+    lse = m + torch.log(torch.clamp(total, min=1e-30))
+    correct = (index == labels.float()).to(torch.int32)
+    return lse - label_logit, lse, correct

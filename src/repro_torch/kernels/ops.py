@@ -14,7 +14,9 @@ kernel too: :class:`FlashAttention` (forward B1 with its logsumexp,
 backward B1-bwd), :class:`SelectiveScan` (forward B4, backward B4-bwd),
 :class:`SelectiveScanHeads` (Mamba-2's layout: forward the per-head B4,
 backward the per-head B4-bwd) and :class:`CrossEntropy` (forward B5, backward
-B5-bwd). On the CPU each
+B5-bwd). :func:`cross_entropy_partials` is B5 on one rank's vocab slice
+(tensor parallelism; ``launch.tensor_parallel`` holds its autograd
+Function, whose backward is B5-bwd on the slice). On the CPU each
 runs the plain versions of both passes, so the CPU tests check the
 backward formulas the kernels implement.
 """
@@ -298,13 +300,28 @@ def cross_entropy(hidden, w, labels):
                               labels.to(torch.int32).contiguous())
 
 
-def cross_entropy_bwd(hidden, w, labels, lse, g):
-    """(dh, dw) of Σ g·nll, in the inputs' dtypes."""
+def cross_entropy_bwd(hidden, w, labels, lse, g, dh_fp32: bool = False):
+    """(dh, dw) of Σ g·nll, in the inputs' dtypes (dh in fp32, unrounded,
+    with ``dh_fp32``)."""
     g = g.float().contiguous()
     if _on_cpu(hidden, "cross_entropy_bwd"):
-        return xent.cross_entropy_bwd_plain(hidden, w, labels, lse, g)
-    out = xent.cross_entropy_bwd(hidden, w, labels, lse, g)
+        return xent.cross_entropy_bwd_plain(hidden, w, labels, lse, g,
+                                            dh_fp32)
+    out = xent.cross_entropy_bwd(hidden, w, labels, lse, g, dh_fp32)
     cross_entropy_bwd.launches += 1
+    return out
+
+
+def cross_entropy_partials(hidden, w, labels, v0: int) -> torch.Tensor:
+    """B5 on one rank's vocab slice ``w`` (columns ``v0`` ..): hidden (T,
+    d), labels (T,) int32 local (label - v0, or -1 outside the slice) ->
+    the (5, T) fp32 partials that ``xent.combine_partials`` combines over
+    the ranks. Forward only: the vocab-parallel backward is
+    :func:`cross_entropy_bwd` on the slice."""
+    if _on_cpu(hidden, "cross_entropy_partials"):
+        return xent.cross_entropy_partials_plain(hidden, w, labels, v0)
+    out = xent.cross_entropy_partials(hidden, w, labels, v0)
+    cross_entropy_partials.launches += 1
     return out
 
 
@@ -318,6 +335,7 @@ selective_scan_heads.launches = 0
 selective_scan_heads_bwd.launches = 0
 cross_entropy.launches = 0
 cross_entropy_bwd.launches = 0
+cross_entropy_partials.launches = 0
 
 WRAPPERS = {"flash_attention": attention,
             "flash_attention_bwd": attention_bwd,
@@ -328,7 +346,8 @@ WRAPPERS = {"flash_attention": attention,
             "selective_scan_heads": selective_scan_heads,
             "selective_scan_heads_bwd": selective_scan_heads_bwd,
             "cross_entropy": cross_entropy,
-            "cross_entropy_bwd": cross_entropy_bwd}
+            "cross_entropy_bwd": cross_entropy_bwd,
+            "cross_entropy_partials": cross_entropy_partials}
 
 
 def reset_launches() -> None:

@@ -33,10 +33,21 @@ The lowerings differ in what a rank stores:
   ``shard_map`` program): parameters and moments are replicated, the
   batch is split over ``data``, and the gradient sums are all-reduced.
 
-``tp`` on a mesh with ``model > 1`` is Megatron tensor-parallel compute in
-``repro`` (heads split in B1, a vocab-parallel B5 with a cross-rank
-logsumexp, column- and row-parallel products) and raises here (ROADMAP
-A.19); ``tp`` on D × 1 keeps FSDP over ``data``. A batch whose leading
+``tp`` on a mesh with ``model > 1`` (gspmd) is Megatron tensor-parallel
+compute, as GSPMD derives it in ``repro`` (:mod:`repro_torch.launch.
+tensor_parallel`): a rank all-gathers each leaf over the data axes only
+and keeps its ``model`` block; its q and kv heads go through B1 and
+B1-bwd, the MLP's columns through its products, row-parallel products
+are all-reduced over ``model``, and a split vocab runs a vocab-parallel
+embedding and B5 with a cross-rank logsumexp. The gradient sums of those
+blocks are reduce-scattered over the batch axes only; a leaf computed
+whole keeps the whole path (its sums reduced over the batch axes, and
+over ``model`` too where each rank's is partial). The dense and VLM
+families compute in parallel, the CNN runs replicated over ``model``,
+and MoE, SSM, hybrid and audio raise (ROADMAP A.21). ``repro``'s
+``shard_map`` program replicates every leaf whatever the profile, so
+``tp`` with ``shard_map`` runs as explicit data parallelism there too.
+``tp`` on D × 1 keeps FSDP over ``data``. A batch whose leading
 axis does not divide over the batch axes is replicated: every rank then
 holds it whole and nothing is summed across ranks, so it is not counted
 once a rank.
@@ -68,17 +79,12 @@ import torch
 from repro_torch import sharding as shard_lib
 from repro_torch.core.psl import (accumulate_sum_grads, fused_grads,
                                   make_train_step, requires_grad_)
+from repro_torch.launch import tensor_parallel as tp_lib
 from repro_torch.launch.mesh import (AXES, MeshComm, make_training_mesh,
                                      mesh_sizes, parse_mesh_spec,
                                      rank_device)
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import Optimizer, TrainState
-
-TP_ITEM = ("profile 'tp' on a mesh with model > 1 is Megatron "
-           "tensor-parallel compute (heads split in B1, a vocab-parallel "
-           "B5 with a cross-rank logsumexp, column- and row-parallel "
-           "products), not ported to repro_torch yet (ROADMAP A.19); use "
-           "'fsdp' or 'ddp', or a Dx1 mesh")
 
 _SUMS = ("loss_sum", "acc_sum", "aux_sum", "tokens")
 _DTYPES = {"tokens": torch.int64, "labels": torch.int32,
@@ -177,8 +183,11 @@ class ShardedPSLEngine:
         shape = (parse_mesh_spec(mesh) if isinstance(mesh, str)
                  else tuple(mesh_sizes(mesh)[a] for a in AXES))
         if profile == "tp" and shape[1] > 1:
-            raise NotImplementedError(f"mesh {shape[0]}x{shape[1]}: "
-                                      f"{TP_ITEM}")
+            try:
+                tp_lib.check_family(model)
+            except NotImplementedError as e:
+                raise NotImplementedError(
+                    f"mesh {shape[0]}x{shape[1]}: {e}") from None
         self.model = model
         self.optimizer = optimizer
         self.profile = profile
@@ -208,6 +217,27 @@ class ShardedPSLEngine:
             self._batch_axes = shard_lib.batch_axes(self.mesh, profile)
         self.param_layouts = layouts
         self._shapes = [s.shape for s in tree_leaves(model.param_specs())]
+        self.tp = None
+        modes = ["whole"] * len(self._shapes)
+        if profile == "tp" and any(
+                "model" in shard_lib.layout_axes(lay)
+                and self.comm.sizes["model"] > 1
+                for lay in tree_leaves(layouts)):
+            self.tp = tp_lib.TensorParallel(model, layouts, self.comm)
+            modes = self.tp.modes
+        # how each leaf is gathered for the compute, and over which extra
+        # axes its gradient sums are reduced (see tensor_parallel)
+        sizes = self.comm.sizes
+        self._modes = modes
+        self._compute_layouts = [
+            tp_lib.drop_model(lay) if mode == "local" else lay
+            for lay, mode in zip(tree_leaves(layouts), modes)]
+        self._compute_shapes = [
+            tuple(n // sizes["model"]
+                  if mode == "local" and d < len(lay) and "model" in lay[d]
+                  else n for d, n in enumerate(shape))
+            for shape, lay, mode in zip(self._shapes, tree_leaves(layouts),
+                                        modes)]
 
     # ------------------------------------------------------------- state
     def init_state(self, seed: int = 0) -> TrainState:
@@ -289,21 +319,44 @@ class ShardedPSLEngine:
         return out
 
     # -------------------------------------------------------------- step
+    def _compute_params(self, params):
+        """The tree the rank computes with: each leaf all-gathered whole,
+        or, under tensor parallelism, a "local" leaf over the data axes
+        only (its ``model`` block). A leaf with nothing to gather is an
+        alias of the stored block (detached: marking it differentiable
+        leaves the stored block as it is)."""
+        return tree_unflatten(params, [
+            self.comm.all_gather_leaf(p.detach(), lay, shape)
+            for p, lay, shape in zip(tree_leaves(params),
+                                     self._compute_layouts,
+                                     self._compute_shapes)])
+
     def _sum_grads(self, params, batch: ShardedBatch):
         """Gather the tree, and sum the rank's gradients and metrics:
         (fp32 gradient sums, metric sums all-reduced, reduce axes)."""
         if not isinstance(batch, ShardedBatch):
             raise TypeError("on a mesh, pass batches through put_batch")
         axes = self._batch_axes if batch.shards > 1 else ()
-        full = requires_grad_(self.gather_params(params))
+        full = requires_grad_(self._compute_params(params))
         w_total = self.comm.all_reduce(batch["weights"].float().sum(), axes)
-        g_sum, m_sum = accumulate_sum_grads(
-            self.model, full, batch, self.microbatches,
-            w_total / batch.shards)
+        prev = tp_lib.set_tensor_parallel(self.tp)
+        try:
+            g_sum, m_sum = accumulate_sum_grads(
+                self.model, full, batch, self.microbatches,
+                w_total / batch.shards)
+        finally:
+            tp_lib.set_tensor_parallel(prev)
         del full
         sums = self.comm.all_reduce(torch.stack([m_sum[k] for k in _SUMS]),
                                     axes)
         return g_sum, sums, axes
+
+    def _grad_axes(self, i: int, axes):
+        """The axes leaf ``i``'s gradient sums are reduced over: the batch
+        axes, and ``model`` where each rank's sum is partial."""
+        if self._modes[i] == "partial":
+            return tuple(axes) + ("model",)
+        return axes
 
     def _metrics(self, sums, shards: int) -> Dict[str, torch.Tensor]:
         denom = torch.clamp(sums[3], min=1e-6)
@@ -323,7 +376,8 @@ class ShardedPSLEngine:
         layouts = tree_leaves(self.param_layouts)
         local, sq = [], torch.zeros((), device=self.device)
         for i, lay in enumerate(layouts):
-            g = self.comm.reduce_scatter_leaf(leaves[i], lay, axes)
+            g = self.comm.reduce_scatter_leaf(
+                leaves[i], self._compute_layouts[i], self._grad_axes(i, axes))
             leaves[i] = None                 # free the full sum
             local.append(g.div_(denom))
             if shard_lib.is_owner(lay, self.comm.coord):
@@ -346,6 +400,13 @@ class ShardedPSLEngine:
                                self.microbatches)[0]
         g_sum, sums, axes = self._sum_grads(state.params, batch)
         denom = torch.clamp(sums[3], min=1e-6)
-        return tree_unflatten(g_sum, [
-            self.comm.all_reduce(g, axes).div_(denom)
-            for g in tree_leaves(g_sum)])
+        out = []
+        for i, (g, lay, shape) in enumerate(zip(
+                tree_leaves(g_sum), tree_leaves(self.param_layouts),
+                self._shapes)):
+            g = self.comm.all_reduce(g, self._grad_axes(i, axes)).div_(denom)
+            if self._modes[i] == "local":
+                g = self.comm.all_gather_leaf(g, tp_lib.model_only(lay),
+                                              shape)
+            out.append(g)
+        return tree_unflatten(g_sum, out)

@@ -233,6 +233,19 @@ class MeshComm:
                       lambda: dist.all_reduce(t, group=group))
         return t
 
+    def all_gather(self, t: torch.Tensor, axes: Sequence[str]
+                   ) -> torch.Tensor:
+        """Every rank's ``t`` over ``axes``, stacked in group-rank order:
+        (n, *t.shape)."""
+        group, n = self._group(axes)
+        if n == 1:
+            return t[None]
+        flat = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+        self._run("all_gather", flat.numel() * flat.element_size(),
+                  lambda: dist.all_gather_into_tensor(
+                      flat, t.reshape(-1), group=group))
+        return flat.view((n,) + tuple(t.shape))
+
     def group_coords(self, axes: Sequence[str], j: int) -> Dict[str, int]:
         """Coordinates of group rank ``j`` of the group over ``axes``."""
         out = {}
@@ -247,15 +260,10 @@ class MeshComm:
         is."""
         from repro_torch.sharding import block_slices, layout_axes
         axes = layout_axes(layout)
-        group, n = self._group(axes)
+        n = self._group(axes)[1]
         if n == 1:
             return local
-        flat = torch.empty(n * local.numel(), dtype=local.dtype,
-                           device=local.device)
-        self._run("all_gather", flat.numel() * flat.element_size(),
-                  lambda: dist.all_gather_into_tensor(
-                      flat, local.reshape(-1), group=group))
-        parts = flat.view((n,) + tuple(local.shape))
+        parts = self.all_gather(local, axes)
         full = torch.empty(tuple(full_shape), dtype=local.dtype,
                            device=local.device)
         for j in range(n):

@@ -1,0 +1,376 @@
+"""Tensor-parallel compute over the mesh's ``model`` axis (Megatron), for
+the ``tp`` profile of :class:`repro_torch.launch.distributed.
+ShardedPSLEngine`.
+
+``repro.sharding.server_rules(profile="tp")`` splits ``heads``,
+``kv_heads``, ``ff`` and ``vocab`` over ``model``, and GSPMD derives the
+compute from those layouts: column-parallel q/k/v and MLP-in products,
+row-parallel ``wo`` and ``w_down`` products followed by an all-reduce, a
+vocab-parallel embedding and loss. ``repro`` has no such file; this
+module holds the explicit pieces:
+
+* :class:`TensorParallel`, the context: the ``MeshComm`` whose ``model``
+  group it reduces over, this rank's ``model`` coordinate, and what the
+  leaf layouts split (q heads, kv heads, MLP columns, the embedding's and
+  the head's vocab). ``modes`` says, leaf by leaf, how the engine gathers
+  the leaf and reduces its gradient.
+* :func:`set_tensor_parallel`, module-level in the style of
+  ``repro.sharding.set_activation_sharding``; the model code calls the
+  hooks below, which are the identity while no context is set, so the
+  one-card path runs as it always has.
+* :class:`ColumnParallelProduct` (the products that start the attention
+  and the MLP: one card's forward, the input's gradient all-reduced
+  backward), :class:`RowParallelProduct` (the products that end them:
+  the partial products all-reduced forward) and :class:`ReduceFromModel`
+  (all-reduce forward, identity backward: the embedding's rows). Every
+  sum of partial products over ranks is taken in fp32 and rounded once,
+  as one card rounds each product once, so the ranks compute one card's
+  roundings up to fp32 reassociation: bf16 partials summed in bf16 differ
+  from one card's product in 37.5% of the elements, fp32 ones in 0.1 to
+  0.8% (``tools/tp_rounding.py`` on an H100), and at granite's full width
+  (4 layers) the bf16 sums move the step-0 gradient 2.4% from one card's,
+  the fp32 ones 1.7%, which is where any change of the rounding of the
+  row products lands. It costs bytes: 28 per (token, d_model) a layer
+  against Megatron's 8 in bf16.
+* :func:`embed`, the vocab-parallel lookup: a rank looks up the tokens of
+  its rows ``[v0, v1)``, zeroes the rest and all-reduces, so the
+  gradient lands on its own rows only.
+* :func:`vocab_parallel_cross_entropy`: B5's partials on the rank's vocab
+  slice (``ops.cross_entropy_partials``), all-gathered over ``model`` and
+  combined in rank order (``xent.combine_partials``); the backward is
+  B5-bwd on the slice with local labels (-1 outside it) and the global
+  lse, its partial dh all-reduced in fp32.
+
+A kv layout that cannot follow the q heads (reduced granite on 1x4: 2 kv
+heads of 16 over 4 ranks, split mid-head) is computed whole: each rank
+gathers the leaf and slices out the kv heads its q heads use, and the
+leaf's gradient, partial on each rank, is summed over ``model``
+(mode ``"partial"``). A vocab that does not divide is replicated by
+``spec_for`` (granite's 49,155): the lookup and B5 then run whole on
+every rank, as on one card.
+
+Families: the dense and VLM families compute in parallel; the CNN names
+no logical axis, so ``tp`` replicates it over ``model`` (mode
+``"whole"`` for every leaf) and its model ranks repeat their data rank's
+work, as in ``repro``. MoE, SSM, hybrid and audio raise (ROADMAP A.21).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import cross_entropy as xent
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import uses_tensor_cores
+from repro_torch.models.layers import tree_leaves
+
+Layout = Tuple[Tuple[str, ...], ...]      # repro_torch.sharding's
+
+A21 = {"moe": "experts over model",
+       "ssm": "the Mamba channels over model with a row-parallel out_proj",
+       "hybrid": "the Mamba channels over model with a row-parallel "
+                 "out_proj",
+       "audio": "EncDecModel's encoder, decoder and cross-attention"}
+
+_ACTIVE: Optional["TensorParallel"] = None
+
+
+def check_family(model) -> None:
+    """Raise NotImplementedError for a family whose tensor-parallel compute
+    is not ported (MoE, SSM, hybrid, audio: ROADMAP A.21); the dense, VLM
+    and CNN families pass."""
+    family = getattr(getattr(model, "cfg", None), "family", None)
+    if family in A21:
+        raise NotImplementedError(
+            f"profile 'tp' on a mesh with model > 1 computes the dense, vlm "
+            f"and cnn families tensor-parallel; the {family} family needs "
+            f"{A21[family]}, not ported to repro_torch yet (ROADMAP A.21); "
+            f"use 'fsdp' or 'ddp', or a Dx1 mesh")
+
+
+def _paths(tree, path=()) -> List[Tuple[str, ...]]:
+    """Key paths of a layout tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], path + (k,))]
+    return [path]
+
+
+def _split(layout: Layout) -> bool:
+    return any("model" in entry for entry in layout)
+
+
+def drop_model(layout: Layout) -> Layout:
+    """The layout less its ``model`` axis: what a rank gathers over the
+    data axes to hold its ``model`` block whole."""
+    return tuple(tuple(a for a in e if a != "model") for e in layout)
+
+
+def model_only(layout: Layout) -> Layout:
+    """The layout's ``model`` axis alone: how the ``model`` blocks of a
+    leaf tile it."""
+    return tuple(tuple(a for a in e if a == "model") for e in layout)
+
+
+class TensorParallel:
+    """What the ``tp`` layouts split over ``model``, for one rank of a
+    mesh with ``model > 1`` and a model of the dense or VLM family.
+
+    ``modes``: one of "local" (the rank computes with its ``model`` block),
+    "partial" (gathered whole; its gradient is partial and is summed over
+    ``model``) or "whole" (gathered whole; its gradient is whole on every
+    rank) for each leaf of ``layouts``, in ``tree_leaves`` order."""
+
+    def __init__(self, model, layouts, comm):
+        cfg = model.cfg
+        self.comm = comm
+        self.size, self.rank = comm.sizes["model"], comm.coord["model"]
+        m = self.size
+        blocks = layouts["server"].get("blocks") or \
+            layouts["client"]["blocks"]
+        attn = blocks["attn"]
+        self.heads = _split(attn["wq"]) and cfg.num_heads % m == 0
+        kv_local = self.heads and _split(attn["wk"]) \
+            and cfg.num_kv_heads % m == 0
+        self.ff = _split(blocks["mlp"]["w_gate"])
+        head = (layouts["client"]["embed"] if cfg.tie_embeddings
+                else layouts["server"]["lm_head"])
+        self.embed_vocab = _split(layouts["client"]["embed"])
+        self.head_vocab = _split(head)
+        # the kv heads this rank's q heads use, when kv is computed whole
+        self.kv_heads: Optional[Tuple[int, int]] = None
+        if self.heads and not kv_local:
+            hq_loc = cfg.num_heads // m
+            group = cfg.num_heads // cfg.num_kv_heads
+            if hq_loc % group and group % hq_loc:
+                raise NotImplementedError(
+                    f"tensor-parallel attention: {hq_loc} q heads a rank do "
+                    f"not align with kv groups of {group}")
+            q0 = self.rank * hq_loc
+            self.kv_heads = (q0 // group, (q0 + hq_loc - 1) // group + 1)
+        self.head_dim = cfg.head_dim
+        self.modes = [self._mode(p, lay) for p, lay in zip(
+            _paths(layouts), tree_leaves(layouts))]
+
+    def _mode(self, path: Sequence[str], layout: Layout) -> str:
+        name = path[-1]
+        if len(path) > 1 and path[-2] == "attn":
+            if not self.heads:
+                return "whole"
+            if name in ("wq", "wo", "bq"):
+                return "local"
+            return "partial" if self.kv_heads else "local"
+        if len(path) > 1 and path[-2] == "mlp":
+            return "local" if self.ff else "whole"
+        if path[-1] in ("embed", "lm_head"):
+            return "local" if _split(layout) else "whole"
+        if _split(layout):
+            raise NotImplementedError(
+                f"tensor-parallel leaf {'.'.join(path)}: layout {layout} "
+                f"splits over model, and nothing computes it in parallel")
+        return "whole"
+
+    # -------------------------------------------------------- collectives
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return self.comm.all_reduce(t, ("model",))
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return self.comm.all_gather(t, ("model",))
+
+
+def set_tensor_parallel(ctx: Optional[TensorParallel]
+                        ) -> Optional[TensorParallel]:
+    """Make ``ctx`` the context the model's hooks consult (None: every hook
+    is the identity); returns the one it replaces."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, ctx
+    return prev
+
+
+def active() -> Optional[TensorParallel]:
+    return _ACTIVE
+
+
+def fp32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in fp32, unrounded, for (..., K) ``a`` and (K, N) ``w``:
+    on the card a 16-bit product with an fp32 output (``torch.mm``'s
+    ``out_dtype``), else the product of the fp32 values."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(a2, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(a2.float(), w.float())
+    return y.reshape(*a.shape[:-1], w.shape[-1])
+
+
+class ColumnParallelProduct(torch.autograd.Function):
+    """``x @ w`` with ``w`` (K, N / M) the rank's columns and ``x`` whole on
+    every rank: the forward is one card's product (bit for bit: its sums
+    run over the whole K). Backward: dw = x^T dy as one card; dx is summed
+    over ``model``: the rank's partial dy w^T in fp32, all-reduced in fp32
+    and rounded once, as one card rounds its dx once (the module's
+    docstring gives the measured difference)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tp):
+        ctx.save_for_backward(x, w)
+        ctx.tp = tp
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = ctx.tp.all_reduce(fp32_product(dy, w.T)).to(x.dtype)
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                          dy.reshape(-1, dy.shape[-1]))
+        return dx, dw, None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """All-reduce over ``model`` forward (a partial sum on each rank);
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class RowParallelProduct(torch.autograd.Function):
+    """``a @ w`` summed over ``model``: ``a`` (..., K / M) holds the rank's
+    columns of the activations, ``w`` (K / M, N) its rows. The rank's
+    partial product is kept in fp32, all-reduced in fp32 and rounded to
+    ``a``'s dtype once, as one card rounds the whole product once. The
+    backward is the product's own, in ``a``'s dtype: da = dy w^T and dw =
+    a^T dy sum over dims that are whole on the rank."""
+
+    @staticmethod
+    def forward(ctx, a, w, tp):
+        ctx.save_for_backward(a, w)
+        return tp.all_reduce(fp32_product(a, w)).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w = ctx.saved_tensors
+        da = torch.matmul(dy, w.T)
+        dw = torch.matmul(a.reshape(-1, a.shape[-1]).T,
+                          dy.reshape(-1, dy.shape[-1]))
+        return da, dw, None
+
+
+def _parallel(part: str) -> Optional[TensorParallel]:
+    tp = _ACTIVE
+    if tp is None:
+        return None
+    split = {"attn": tp.heads, "mlp": tp.ff, "head": tp.head_vocab}[part]
+    return tp if split else None
+
+
+def column_parallel(part: str):
+    """The products that start ``part`` ("attn": q, k, v; "mlp": gate,
+    up): :class:`ColumnParallelProduct` when the active context splits
+    it, else ``torch.matmul``."""
+    tp = _parallel(part)
+    if tp is None:
+        return torch.matmul
+    return lambda x, w: ColumnParallelProduct.apply(x, w, tp)
+
+
+def row_parallel(part: str):
+    """The product that ends ``part`` ("attn": ``wo``, "mlp": ``w_down``):
+    :class:`RowParallelProduct` when the active context splits it, else
+    ``torch.matmul``."""
+    tp = _parallel(part)
+    if tp is None:
+        return torch.matmul
+    return lambda a, w: RowParallelProduct.apply(a, w, tp)
+
+
+def attention_params(p):
+    """The attention leaves a rank computes with: when kv is computed
+    whole, wk / wv (and bk / bv) cut to the kv heads of the rank's q
+    heads; else ``p``."""
+    tp = _ACTIVE
+    if tp is None or tp.kv_heads is None:
+        return p
+    k0, k1 = (h * tp.head_dim for h in tp.kv_heads)
+    out = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            out[name] = p[name][..., k0:k1]
+    return out
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; vocab-parallel when the active context splits the
+    embedding's vocab: ``table`` is the rank's rows ``[v0, v0 + n)``."""
+    tp = _ACTIVE
+    if tp is None or not tp.embed_vocab:
+        return table[tokens.long()]
+    n = table.shape[0]
+    idx = tokens.long() - tp.rank * n
+    outside = (idx < 0) | (idx >= n)
+    x = table[idx.masked_fill(outside, 0)].masked_fill(outside[..., None], 0)
+    return ReduceFromModel.apply(x, tp)
+
+
+class VocabParallelCrossEntropy(torch.autograd.Function):
+    """Per-token NLL over the whole vocab from each rank's slice of the
+    head: B5's partials on the slice, all-gathered over ``model`` and
+    combined in rank order, so every rank holds the same (nll, lse,
+    correct). The backward is B5-bwd on the slice (local labels, the
+    global lse): dW is the rank's slice; dh, partial, comes out in fp32
+    and is all-reduced over ``model`` before it is rounded once."""
+
+    @staticmethod
+    def forward(ctx, hidden, w, labels, tp):
+        v = w.shape[1]
+        v0 = tp.rank * v
+        local = torch.where((labels >= v0) & (labels < v0 + v), labels - v0,
+                            torch.full_like(labels, -1))
+        if hidden.is_cuda and uses_tensor_cores(w.dtype):
+            w = xent.aligned_rows(w)
+        parts = tp.all_gather(ops.cross_entropy_partials(hidden, w, local,
+                                                         v0))
+        nll, lse, correct = xent.combine_partials(parts, labels)
+        ctx.save_for_backward(hidden, w, local, lse)
+        ctx.tp = tp
+        ctx.mark_non_differentiable(lse, correct)
+        return nll, lse, correct
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse, g_correct):
+        hidden, w, local, lse = ctx.saved_tensors
+        dh, dw = ops.cross_entropy_bwd(hidden, w, local, lse, g_nll,
+                                       dh_fp32=True)
+        return ctx.tp.all_reduce(dh).to(hidden.dtype), dw, None, None
+
+
+def vocab_parallel_cross_entropy(hidden, w, labels, tp: TensorParallel):
+    """hidden (T, d) whole on every rank, w (d, V / M) the rank's slice,
+    labels (T,) of the whole vocab -> (nll, lse, correct) as
+    ``ops.cross_entropy`` over the whole vocab returns them; the gradient
+    of hidden is summed over ``model``."""
+    return VocabParallelCrossEntropy.apply(
+        hidden.contiguous(), w.contiguous(),
+        labels.to(torch.int32).contiguous(), tp)
+
+
+def cross_entropy(hidden, w, labels):
+    """``ops.cross_entropy``, or :func:`vocab_parallel_cross_entropy` when
+    the active context splits the head's vocab."""
+    tp = _parallel("head")
+    if tp is None:
+        return ops.cross_entropy(hidden, w, labels)
+    return vocab_parallel_cross_entropy(hidden, w, labels, tp)
+
+
+__all__ = ["A21", "ColumnParallelProduct", "ReduceFromModel",
+           "RowParallelProduct", "TensorParallel",
+           "VocabParallelCrossEntropy", "active", "attention_params",
+           "check_family", "column_parallel", "cross_entropy", "drop_model",
+           "embed", "fp32_product", "model_only", "row_parallel",
+           "set_tensor_parallel", "vocab_parallel_cross_entropy"]

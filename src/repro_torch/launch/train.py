@@ -193,8 +193,11 @@ def main(argv=None):
                          "torch.distributed.run --nproc-per-node D*M")
     ap.add_argument("--sharding", default=None,
                     choices=["tp", "fsdp", "ddp"],
-                    help="sharding profile of the parameters and moments "
-                         "(tp needs model = 1: ROADMAP A.19)")
+                    help="sharding profile of the parameters and moments; "
+                         "tp on a mesh with model > 1 computes the dense "
+                         "and vlm families tensor-parallel (heads, MLP "
+                         "columns and vocab over model) and refuses moe, "
+                         "ssm, hybrid and audio (ROADMAP A.21)")
     ap.add_argument("--lowering", default=None,
                     choices=["gspmd", "shard_map"],
                     help="gspmd: each rank stores its blocks of the "

@@ -217,14 +217,16 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def attention_qkv(p, x, cfg: ModelConfig, positions, *, rope: bool = True):
+def attention_qkv(p, x, cfg: ModelConfig, positions, *, rope: bool = True,
+                  matmul=torch.matmul):
     """Project to q, k, v (+bias, +rotary unless ``rope`` is false or the
-    config has learned positions). x: (B, S, d)."""
+    config has learned positions). x: (B, S, d). ``matmul`` computes the
+    three products (tensor parallelism passes a column-parallel one)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, -1, hd)
@@ -276,13 +278,18 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None,
             "w_down": ParamSpec((ff, d), ("ff", "embed"))}
 
 
-def mlp_apply(p, x, gelu: bool = False):
+def mlp_apply(p, x, gelu: bool = False, column=torch.matmul,
+              row=torch.matmul):
+    """The MLP; ``column`` computes its first products and ``row`` its
+    last (tensor parallelism passes column- and row-parallel ones; the
+    output bias is added after the last)."""
     if gelu:
         # jax.nn.gelu's default is the tanh approximation, in fp32
-        h = F.gelu((x @ p["w_in"] + p["b_in"]).float(), approximate="tanh")
-        return h.to(x.dtype) @ p["w_out"] + p["b_out"]
-    g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+        h = F.gelu((column(x, p["w_in"]) + p["b_in"]).float(),
+                   approximate="tanh")
+        return row(h.to(x.dtype), p["w_out"]) + p["b_out"]
+    g = F.silu(column(x, p["w_gate"]).float()).to(x.dtype)
+    return row(g * column(x, p["w_up"]), p["w_down"])
 
 
 # ---------------------------------------------------------------------------

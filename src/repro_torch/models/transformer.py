@@ -39,9 +39,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, ParamSpec
+from repro_torch.launch import tensor_parallel as tp
 
 
 def stack_specs(specs, n: int):
@@ -97,11 +97,13 @@ def chunked_xent(hidden, w_vocab, labels, weights):
     never materialized).
 
     hidden: (B, S, d); w_vocab: (d, V); labels, weights: (B, S).
-    Returns (loss, (weighted_token_count, correct_count)).
+    Returns (loss, (weighted_token_count, correct_count)). Under tensor
+    parallelism with the head's vocab split, ``w_vocab`` is the rank's
+    slice and the loss is vocab-parallel (``launch.tensor_parallel``).
     """
     d = hidden.shape[-1]
-    nll, _, correct = ops.cross_entropy(hidden.reshape(-1, d), w_vocab,
-                                        labels.reshape(-1))
+    nll, _, correct = tp.cross_entropy(hidden.reshape(-1, d), w_vocab,
+                                       labels.reshape(-1))
     w = weights.reshape(-1).float()
     tot = (nll * w).sum()
     cnt = w.sum()
@@ -145,22 +147,29 @@ class _Blocks:
         return specs
 
     def ffn(self, p, hn):
-        """The block's MLP or routed experts: (y, aux_loss or None)."""
+        """The block's MLP or routed experts: (y, aux_loss or None). Under
+        tensor parallelism the MLP is column- then row-parallel."""
         if self.cfg.is_moe:
             return L.moe_apply(p["moe"], hn, self.cfg)
-        return L.mlp_apply(p["mlp"], hn), None
+        return L.mlp_apply(p["mlp"], hn, column=tp.column_parallel("mlp"),
+                           row=tp.row_parallel("mlp")), None
 
     # ----- train / prefill -----
     def block(self, p, x, positions, *, window):
         """Full-sequence block (training and prefill); returns (x, k, v,
-        aux_loss or None)."""
+        aux_loss or None). Under tensor parallelism (``launch.
+        tensor_parallel``) the rank computes its q and kv heads, and the
+        ``wo`` product's partial sums are all-reduced over ``model``."""
         cfg = self.cfg
         b, s, _ = x.shape
         hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(p["attn"], hn, cfg, positions)
+        q, k, v = L.attention_qkv(tp.attention_params(p["attn"]), hn, cfg,
+                                  positions,
+                                  matmul=tp.column_parallel("attn"))
         attn_out = L.blockwise_attention(q, k, v, causal=True,
                                          window=window)
-        x = x + attn_out.reshape(b, s, -1) @ p["attn"]["wo"]
+        x = x + tp.row_parallel("attn")(attn_out.reshape(b, s, -1),
+                                        p["attn"]["wo"])
         hn = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         y, aux = self.ffn(p, hn)
         return x + y, k, v, aux
@@ -376,7 +385,7 @@ class LanguageModel:
 
     # ----- training forward pieces -----
     def _embed(self, params, batch):
-        x = params["client"]["embed"][batch["tokens"].long()]
+        x = tp.embed(params["client"]["embed"], batch["tokens"])
         if self.cfg.family == "vlm" and "patches" in batch:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         return x

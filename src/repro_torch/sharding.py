@@ -26,9 +26,10 @@ at coordinates c holds the block whose index is the row-major index of
 (c[a1], ..., c[ak]) — ``PartitionSpec``'s placement.
 
 ``repro``'s activation-sharding hints (``set_activation_sharding``,
-``constrain_activation``, ``activation_sharding_for``) steer GSPMD and
-have no counterpart in an engine whose collectives are explicit; they
-wait for tensor-parallel compute (ROADMAP A.19).
+``constrain_activation``, ``activation_sharding_for``) steer GSPMD; only
+``repro``'s dryrun sets them, and they wait with its twin (ROADMAP A.4).
+The port's tensor-parallel compute makes its collectives explicit
+(:mod:`repro_torch.launch.tensor_parallel`).
 """
 from __future__ import annotations
 

@@ -250,6 +250,64 @@ def test_cross_entropy_kernels_match_plain(dev, dtype, t, d, v):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,v,slices", [
+    (64, 32, 512, 2),       # tile multiples
+    (37, 24, 4098, 2),      # ragged tokens, odd slices (W's padded copy)
+    (130, 64, 4100, 4),     # several vocab splits a slice
+    (2048, 128, 16384, 2),  # two backward chunks a slice
+])
+def test_vocab_parallel_partials_and_sliced_bwd_match_plain(dev, dtype, t, d,
+                                                            v, slices):
+    """The vocab-parallel B5 (``ops.cross_entropy_partials``) on each slice
+    of W against its plain version, the slices combined against the
+    whole-vocab plain forward, and B5-bwd on each slice with -1 labels
+    against its plain version, at the tolerances above."""
+    from repro_torch.kernels.cross_entropy import (
+        PART_INDEX, combine_partials, cross_entropy_bwd_plain,
+        cross_entropy_fwd_plain, cross_entropy_partials_plain)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, w, labels = _xent_inputs(gen, t, d, v, dtype, dev)
+    g = torch.rand((t,), generator=gen, device=dev)
+    pnll, plse, pcorrect = cross_entropy_fwd_plain(h, w, labels)
+    n = v // slices
+    tol = dict(atol=2e-4, rtol=1e-4)     # fp32 sums in another order
+    before = dict(ops.launch_counts())
+    parts = []
+    for r in range(slices):
+        wr = w[:, r * n:(r + 1) * n].contiguous()
+        local = torch.where((labels >= r * n) & (labels < (r + 1) * n),
+                            labels - r * n, torch.full_like(labels, -1))
+        got = ops.cross_entropy_partials(h, wr, local, r * n)
+        want = cross_entropy_partials_plain(h, wr, local, r * n)
+        keep = [p for p in range(5) if p != PART_INDEX]
+        torch.testing.assert_close(got[keep], want[keep], **tol)
+        assert (got[PART_INDEX] == want[PART_INDEX]).float().mean() >= 0.97
+        parts.append(got)
+        dh, dw = ops.cross_entropy_bwd(h, wr, local, plse, g)
+        pdh, pdw = cross_entropy_bwd_plain(h, wr, local, plse, g)
+        assert dh.dtype == dtype and dw.dtype == dtype
+        torch.testing.assert_close(dh.float(), pdh.float(), **TOL[dtype])
+        torch.testing.assert_close(dw.float(), pdw.float(), **TOL[dtype])
+        # the unrounded dh the vocab-parallel backward sums over ranks
+        dh32, _ = ops.cross_entropy_bwd(h, wr, local, plse, g, dh_fp32=True)
+        pdh32, _ = cross_entropy_bwd_plain(h, wr, local, plse, g,
+                                           dh_fp32=True)
+        assert dh32.dtype == torch.float32
+        torch.testing.assert_close(dh32, pdh32, **TOL[dtype])
+        torch.testing.assert_close(dh32.to(dtype), dh)
+    nll, lse, correct = combine_partials(torch.stack(parts), labels)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["cross_entropy_partials"] == \
+        before["cross_entropy_partials"] + slices
+    assert counts["cross_entropy_bwd"] == \
+        before["cross_entropy_bwd"] + 2 * slices
+    torch.testing.assert_close(nll, pnll, **tol)
+    torch.testing.assert_close(lse, plse, **tol)
+    assert (correct == pcorrect).float().mean() >= 0.97
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hq,hkv,d,window", [
     (2, 32, 4, 4, 16, None),     # rep 1
     (2, 50, 8, 2, 16, None),     # rep 4, ragged S

@@ -237,6 +237,9 @@ def test_cpu_wrappers_do_not_count_launches():
                                     -torch.ones((4,)), xg[:, :, :4],
                                     xg[:, :, 4:8])
     torch.autograd.grad(y.sum(), qg)
+    # and the vocab-parallel B5 (its backward is B5-bwd's wrapper)
+    ops.cross_entropy_partials(h.detach(), h[:16].T.contiguous().detach(),
+                               torch.full((36,), -1, dtype=torch.int32), 16)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "paged_attention": 0,
@@ -246,7 +249,8 @@ def test_cpu_wrappers_do_not_count_launches():
                                    "selective_scan_heads": 0,
                                    "selective_scan_heads_bwd": 0,
                                    "cross_entropy": 0,
-                                   "cross_entropy_bwd": 0}
+                                   "cross_entropy_bwd": 0,
+                                   "cross_entropy_partials": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

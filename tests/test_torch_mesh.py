@@ -12,7 +12,10 @@ The engine: a 4-rank gloo group on the CPU (``tests/torch_mesh_worker.py``,
 ``file://`` store under the module's tmp dir; process-group timeout 60 s,
 each rank killed after ``CHILD_TIMEOUT_S``) trains every case of the
 worker's ``CASES`` for 3 steps from parameters ``repro`` initialized
-(bridged through its npz format). No rank imports JAX; the references
+(bridged through its npz format; the tensor-parallel LM cases from that
+init rescaled to fan-in d_in, as the worker's docstring says why),
+through the dp, fsdp, ddp and tp (Megatron over ``model``) layouts and
+both lowerings. No rank imports JAX; the references
 below are computed here, in the pytest process. Limits, float32:
 - the step-0 gradient against the port's one-process engine (one CPU
   thread, ``_one_thread`` says why) on the same parameters and batch:
@@ -211,11 +214,13 @@ def test_backend_rule_and_refusals(monkeypatch):
                        ".*--nproc-per-node 2"):
         tmesh.make_training_mesh("2x1", device="cpu")
     model, opt = W.build("lm", "sgd")
-    with pytest.raises(NotImplementedError, match="A.19"):
-        ShardedPSLEngine(model, opt, mesh="2x2", profile="tp",
-                         device="cpu")
-    with pytest.raises(tapi.SpecError, match="A.19"):
-        tapi.ExecutionSpec(mesh="2x2").validate()
+    # tp over a model axis computes the dense family tensor-parallel; an
+    # MoE model (experts over model) is refused, naming its queue item
+    moe = tapi.build_model(tapi.ModelSpec(arch="granite-moe-3b-a800m",
+                                          reduced=True))
+    with pytest.raises(NotImplementedError, match="A.21"):
+        ShardedPSLEngine(moe, opt, mesh="2x2", profile="tp", device="cpu")
+    tapi.ExecutionSpec(mesh="2x2").validate()
     with pytest.raises(tapi.SpecError, match="DATAxMODEL"):
         tapi.ExecutionSpec(mesh="2x").validate()
     tapi.ExecutionSpec(mesh="2x2", sharding="fsdp").validate()
@@ -231,12 +236,29 @@ def test_backend_rule_and_refusals(monkeypatch):
 # The 4-rank group
 # ---------------------------------------------------------------------------
 
+def _fan_in(jmodel, params):
+    """``params`` with every stacked matrix (L, d_in, d_out) of normal
+    init scaled by sqrt(L / d_in) (``chip_smoke.py``'s
+    ``rescale_to_fan_in``): the worker's "lm_fanin" kind."""
+    specs = jax.tree_util.tree_leaves(jmodel.param_specs(),
+                                      is_leaf=jL.is_spec)
+    leaves, treedef = jax.tree_util.tree_flatten(params)
+    out = [x if s.init != "normal" or len(s.shape) < 3
+           else (np.asarray(x) * np.float32(np.sqrt(s.shape[0]
+                                                    / s.shape[-2])))
+           .astype(np.asarray(x).dtype)
+           for x, s in zip(leaves, specs, strict=True)]
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
 def _repro_params(kind):
     if kind == "cnn":
         jmodel = JCNNModel(JCNNConfig(channels=(8, 16), image_size=16))
     else:
-        jmodel = _models("granite-3-2b")[0]
-    return jmodel, jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
+        jmodel = _models(W.ARCHS[kind])[0]
+    params = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
+    return jmodel, (_fan_in(jmodel, params) if kind.endswith("_fanin")
+                    else params)
 
 
 @pytest.fixture(scope="module")
@@ -244,7 +266,8 @@ def mesh_run(tmp_path_factory):
     """Start the 4 ranks once, wait for them, return (results by rank,
     rank 0's tensors, the workdir, repro's (model, params) by kind)."""
     work = tmp_path_factory.mktemp("mesh")
-    bridged = {kind: _repro_params(kind) for kind in ("cnn", "lm")}
+    bridged = {kind: _repro_params(kind)
+               for kind in ("cnn",) + tuple(W.ARCHS)}
     for kind, (_, jp) in bridged.items():
         jsave(str(work / f"{kind}.npz"), jp)
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -381,7 +404,7 @@ def test_mesh_grads_match_repro_fused_and_decomposed(mesh_run, name):
             a, b = a.double().numpy(), np.asarray(b, np.float64)
             assert a.shape == b.shape
             assert np.abs(a - b).max() <= GRAD_REL * np.abs(b).max()
-            if kind == "lm":
+            if kind != "cnn":
                 assert np.linalg.norm(a - b) <= \
                     GRAD_REL * np.linalg.norm(b)
     loss0 = results[0]["cases"][name]["metrics"][0]["loss"]

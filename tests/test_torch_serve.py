@@ -117,7 +117,8 @@ want = {"repro_torch.core.psl", "repro_torch.core.sampling",
         "repro_torch.core.straggler", "repro_torch.core.deviation",
         "repro_torch.obs.monitor", "repro_torch.api.evaluation",
         "repro_torch.sharding", "repro_torch.launch.mesh",
-        "repro_torch.frameworks.trainers"}
+        "repro_torch.frameworks.trainers",
+        "repro_torch.launch.tensor_parallel"}
 assert want <= set(mods), sorted(want - set(mods))
 print(len(mods), bad)
 assert not bad, bad

@@ -468,10 +468,11 @@ def test_cross_entropy_pads_w_once_a_step(monkeypatch):
         seen["fwd"] = w
         return xent.cross_entropy_fwd_plain(hidden, w, labels)
 
-    def bwd(hidden, w, labels, lse, g):
+    def bwd(hidden, w, labels, lse, g, dh_fp32=False):
         seen["bwd"] = w
         assert xent.aligned_rows(w) is w          # no second copy
-        return xent.cross_entropy_bwd_plain(hidden, w, labels, lse, g)
+        return xent.cross_entropy_bwd_plain(hidden, w, labels, lse, g,
+                                            dh_fp32)
 
     monkeypatch.setattr(ops, "_on_cpu", lambda t, what: False)
     monkeypatch.setattr(xent, "pad_vocab", counting_pad)

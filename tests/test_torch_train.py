@@ -388,12 +388,12 @@ def test_api_run_matches_repro(repro_run, monkeypatch, tmp_path):
 
 def test_run_rejects_what_the_port_does_not_run(tmp_path):
     spec = tapi.apply_overrides(train_cli.default_lm_spec(), SETS)
-    # a mesh needs its ranks (python -m torch.distributed.run), and tp
-    # over a model axis is tensor-parallel compute, not ported (A.19)
+    # a mesh needs its ranks (python -m torch.distributed.run); tp over a
+    # model axis is tensor-parallel compute, which needs them too
     with pytest.raises(ValueError, match="needs 2 ranks"):
         tapi.run(spec.replace(execution=spec.execution.replace(
             mesh="2x1")), device="cpu")
-    with pytest.raises(tapi.SpecError, match="A.19"):
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         tapi.run(spec.replace(execution=spec.execution.replace(
             mesh="2x2")), device="cpu")
     # the paper's baselines are ported: all five of repro's protocols

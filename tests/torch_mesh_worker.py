@@ -13,6 +13,19 @@ fallbacks, the raising paths' messages), and rank 0 also ``rank0.pt``
 parameters after the last, gathered).
 The test imports ``CASES``, ``host_batch`` and ``build`` from here, so
 both sides build the same models and batches.
+
+Model kinds: "cnn", "lm" (reduced granite-3-2b from ``repro``'s init)
+and "lm_fanin", the same LM from ``repro``'s init with every stacked
+matrix rescaled to fan-in d_in (``chip_smoke.py``'s ``rescale_to_fan_in``,
+written by the test); "qwen_fanin" (reduced qwen2-72b: qkv biases) and
+"vlm_fanin" (reduced internvl2-2b, its batches with patches) alike
+(``ARCHS``). The tensor-parallel cases take the fan-in kinds: their
+forward sums in another order than one process does (row-parallel
+products summed over ranks), and at ``repro``'s init (stacked leaves of
+fan-in 1, near-argmax attention) one process's own step-0 gradient moves
+by 7e-5 of a leaf's largest entry when one leaf is scaled by 1 + 2**-23,
+past the 1e-5 limit of any reassociation; from the fan-in init it moves
+by 1.1e-6.
 """
 from __future__ import annotations
 
@@ -44,14 +57,27 @@ CASES = {
     "lm-tp-4x1": ("lm", "4x1", "tp", "gspmd", 1, "even", "sgd"),
     "lm-fsdp-2x2": ("lm", "2x2", "fsdp", "gspmd", 1, "even", "adamw"),
     "lm-ddp-2x2": ("lm", "2x2", "ddp", "gspmd", 1, "even", "sgd"),
+    "lm-tp-2x2": ("lm_fanin", "2x2", "tp", "gspmd", 1, "even", "adamw"),
+    "lm-tp-2x2-mb2": ("lm_fanin", "2x2", "tp", "gspmd", 2, "even", "sgd"),
+    "lm-tp-1x4": ("lm_fanin", "1x4", "tp", "gspmd", 1, "even", "sgd"),
+    "lm-tp-2x2-shard_map": ("lm", "2x2", "tp", "shard_map", 1, "even",
+                            "sgd"),
+    "cnn-tp-2x2": ("cnn", "2x2", "tp", "gspmd", 1, "even", "sgd"),
+    "qwen-tp-2x2": ("qwen_fanin", "2x2", "tp", "gspmd", 1, "even", "sgd"),
+    "vlm-tp-1x4": ("vlm_fanin", "1x4", "tp", "gspmd", 1, "even", "sgd"),
 }
+# the LM kinds' reduced configs
+ARCHS = {"lm": "granite-3-2b", "lm_fanin": "granite-3-2b",
+         "qwen_fanin": "qwen2-72b", "vlm_fanin": "internvl2-2b"}
 CHECKPOINT_CASE = "lm-fsdp-2x2"
 LM_SEQ, LM_VOCAB = 24, 512
+VLM_PATCHES = 16                 # reduced internvl2: 16 patches of d 128
 
 
 def build(kind: str, optimizer: str):
     """(model, optimizer) of a case: the CNN of tests/test_distributed.py
-    with SGD(0.05, momentum 0.9), or reduced granite-3-2b with SGD(1e-3,
+    with SGD(0.05, momentum 0.9), or a reduced LM (granite-3-2b, or the
+    kind's ``ARCHS`` config) with SGD(1e-3,
     momentum 0.9) or AdamW at lr 1e-5. The LM's steps are small on
     purpose: at repro's init (stacked leaves of fan-in 1, sharp attention)
     lr 0.05 turns the fp32 reassociation of one engine against itself
@@ -65,7 +91,7 @@ def build(kind: str, optimizer: str):
     from repro_torch.models.cnn import CNNConfig, CNNModel
     model = (CNNModel(CNNConfig(channels=(8, 16), image_size=16))
              if kind == "cnn" else
-             build_model(get_config("granite-3-2b", reduced=True)))
+             build_model(get_config(ARCHS[kind], reduced=True)))
     if optimizer == "adamw":
         return model, optim.adamw(1e-5)
     opt = optim.sgd(0.05 if kind == "cnn" else 1e-3, momentum=0.9)
@@ -75,18 +101,23 @@ def build(kind: str, optimizer: str):
 def host_batch(kind: str, layout: str, step: int, rank: int = 0):
     """Step ``step``'s host batch (numpy, from a seed). The LM's is
     ``tests/test_torch_train.py``'s ``_batch(seed=step)``: 4 rows of 24
-    tokens, one of them padding. The CNN's has 16 rows; "ragged" ends in
+    tokens, one of them padding (the VLM's with 16 patches a row). The
+    CNN's has 16 rows; "ragged" ends in
     5 zero-weight padding slots (the last rank's rows are all padding);
     "indivisible" has 18 rows, which do not split over 4 ranks; "digest"
     differs from rank to rank."""
-    if kind == "lm":                 # tests/test_torch_train.py's _batch
+    if kind != "cnn":                # tests/test_torch_train.py's _batch
         rng = np.random.default_rng(step)
         toks = rng.integers(0, LM_VOCAB, (4, LM_SEQ + 1)).astype(np.int32)
         w = np.ones((4, LM_SEQ), np.float32)
         w[-1] = 0.0                                  # a padding slot
         w[1] *= 0.5                                  # client-weighted slot
-        return {"tokens": toks[:, :LM_SEQ], "labels": toks[:, 1:],
-                "weights": w}
+        out = {"tokens": toks[:, :LM_SEQ], "labels": toks[:, 1:],
+               "weights": w}
+        if kind == "vlm_fanin":      # tests/test_torch_vlm.py's patches
+            out["patches"] = (0.02 * rng.standard_normal(
+                (4, VLM_PATCHES, 128))).astype(np.float32)
+        return out
     rng = np.random.default_rng(100 * step + (rank if layout == "digest"
                                               else 0))
     n = 18 if layout == "indivisible" else 16
