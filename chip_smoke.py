@@ -200,7 +200,8 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    beside its bound (no causal halving without the mask) and SDPA or
    matmul + ``F.cross_entropy`` (the kernels line's ``audio_cases``).
 7f. Scan backward (``[scan-bwd]``). B4-bwd at ``SCAN_BWD_SHAPES``
-   (falcon-mamba's training shape, a ragged one) in bf16 and fp32
+   (falcon-mamba's training shape, its tensor-parallel rank shape, a
+   ragged one) in bf16 and fp32
    against ``ssm_scan_bwd_plain`` and autograd through
    ``ssm_scan_plain`` (``scan_bwd_errors``), ddt scaled by
    ``PLANTED_DDT_SCALE`` and dB by ``PLANTED_DB_SCALE`` caught, two
@@ -210,13 +211,14 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    or the phase fails) and its registers and spills printed, at most
    128 registers and no spill in every instantiation. Then the per-head
    (Mamba-2) B4-bwd (``csrc/mamba2_bwd.cu``) at ``SCAN_HEADS_BWD_SHAPES``
-   (zamba2's training shape, the reduced zamba2's, a ragged one) in bf16
-   and fp32, with and without a dh_last, against
+   (zamba2's training shape and its tensor-parallel rank shape, the
+   reduced zamba2's, a ragged one) in bf16 and fp32, with and without a
+   dh_last, against
    ``ssm_scan_heads_bwd_plain``, against the per-channel B4-bwd on the
    inputs expanded per channel (ddt and da summed per head) and against
    autograd through ``ssm_scan_plain``, at the same limits, the same
    planted faults caught and two launches bitwise equal; timed at
-   zamba2's shape by events and device time beside its plain version,
+   zamba2's shapes by events and device time beside its plain version,
    the per-channel B4-bwd on the same inputs and ``scan_bwd_bound``; the
    exponentials it evaluates counted by the kernel itself (its
    ``exp_count`` argument; one per (b, t, head) or the phase fails) and
@@ -295,23 +297,37 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    They train full-width granite-3-2b cut to ``MESH_LAYERS`` of 40 layers
    in the ``[train]`` setting (fan-in d_in init) on each of ``MESH_RUNS``
    (2x1 shard_map, 2x1 gspmd tp with 2 microbatches, 1x2 gspmd fsdp),
-   then ``MESH_TP_RUNS``, tensor-parallel on 1x2 at 4 layers (the constant
-   says why): granite (heads and MLP split, the vocab of 49,155
-   replicated) and llama3-8b (cut 1: 16 q and 4 kv heads a rank in B1
-   and B1-bwd, the vocab-parallel B5 and B5-bwd on 64,128 columns a
-   rank), ``MESH_STEPS`` steps each, held to the
-   one-card engine on the same batches and depth (``mesh_phase`` lists
-   the gates; a planted unreduced gradient and, in the granite tp run, a
-   row-parallel product whose all-reduce rank 0 skips must fail them);
-   each rank launches exactly one B1 and one B1-bwd an attention layer
-   and one B5 (the vocab-parallel one where the head's vocab is split)
-   and one B5-bwd a microbatch; the 2x1 gspmd run's checkpoint restores
-   on one card bit for bit. Printed: backend, stored bytes and peak a
-   rank, step ms, collective ms and bytes by kind (the tp runs' all-reduce
-   bytes beside the prediction, ``tp_all_reduce_bytes``). Then B1,
-   B1-bwd, B5 and B5-bwd are held to their plain versions and timed at
-   the rank shapes (the kernels line's ``mesh_cases``), the vocab-
-   parallel B5 and the -1-label B5-bwd at llama's (``xent_tp_case``).
+   then ``MESH_TP_RUNS``, tensor-parallel on 1x2 (the constant says at
+   which depth and why): granite (heads and MLP split, the vocab of
+   49,155 replicated), llama3-8b (cut 1: 16 q and 4 kv heads a rank in
+   B1 and B1-bwd, the vocab-parallel B5 and B5-bwd on 64,128 columns a
+   rank), falcon-mamba-7b (B4 and B4-bwd on 4,096 of the 8,192 channels
+   a rank, B5 on 32,512 columns) and zamba2-2.7b (the per-head B4 and
+   B4-bwd on 40 of the 80 heads, the shared attention's B1 and B1-bwd on
+   16 of 32 heads, B5 on 16,000 columns), the last two in float32 (the
+   constant says why; ``MESH_REL_L2`` gives their limits), ``MESH_STEPS``
+   steps each, held to the one-card engine on the same batches and depth
+   (``mesh_phase`` lists the gates; a planted unreduced gradient, in the
+   granite tp run a row-parallel product whose all-reduce rank 0 skips,
+   in the zamba2 run a Mamba-2 norm whose sum of squares rank 0 does not
+   add up over the ranks, and in both float32 runs every sum over
+   ``model`` rounded to bf16, must fail them); each rank launches
+   exactly one B1 and one B1-bwd an attention layer or shared-attention
+   application, one B4 and one B4-bwd a Mamba layer (falcon-mamba the
+   per-channel kernels, zamba2 the per-head ones) and one B5 (the
+   vocab-parallel one where the head's vocab is split) and one B5-bwd a
+   microbatch; the 2x1 gspmd run's checkpoint restores on one card bit
+   for bit. Printed: backend, stored bytes and peak a rank, step ms
+   against one card's, collective ms and bytes by kind (the tp runs'
+   activation all-reduce bytes beside the prediction,
+   ``tp_all_reduce_bytes`` or ``tp_mixer_all_reduce_bytes``, and the
+   gradient sums of the leaves computed whole beside theirs,
+   ``tp_partial_grad_bytes``). Then B1, B1-bwd, B5, B5-bwd, B4 and the
+   per-head B4 are held to their plain versions and timed at the rank
+   shapes, each in the dtype it ran in (the kernels line's
+   ``mesh_cases``; B4 in bf16 and fp32), the vocab-parallel B5 and the
+   -1-label B5-bwd by ``xent_tp_case``; both B4-bwd kernels' rank shapes
+   are [scan-bwd]'s.
 
 The line before the last lists the kernels as JSON; the last line is the
 device record ``{"ok": true, "device": {...}}``.
@@ -444,19 +460,23 @@ SCAN_BWD_FP32_REL_L2 = 1e-5
 SCAN_BWD_BF16_REL_L2 = 1e-3
 PLANTED_DDT_SCALE = 1.01
 PLANTED_DB_SCALE = 1.01
-# (B, L, D, N): falcon-mamba's training shape (global batch 16 x 128)
-# and a ragged one (L not a multiple of 16, N not of 8, a ragged D tile).
-# zamba2 trains through the per-head B4-bwd, whose phase runs this
-# kernel at zamba2's shape as its comparison.
-SCAN_BWD_SHAPES = ((16, 128, 8192, 16), (3, 37, 200, 5))
+# (B, L, D, N): falcon-mamba's training shape (global batch 16 x 128),
+# its shape on one rank of a tensor-parallel 1x2 mesh ([mesh]: 4096 of
+# the 8192 channels) and a ragged one (L not a multiple of 16, N not of
+# 8, a ragged D tile). zamba2 trains through the per-head B4-bwd, whose
+# phase runs this kernel at zamba2's shape as its comparison.
+SCAN_BWD_SHAPES = ((16, 128, 8192, 16), (16, 128, 4096, 16),
+                   (3, 37, 200, 5))
 # The per-head (Mamba-2) B4-bwd at (B, L, D, N, channels a head):
-# zamba2's training shape, the reduced zamba2's (hd 32, N 8) and a ragged
-# one (L not a multiple of 8, N not of 8, hd 12: 20 idle lanes), held to
+# zamba2's training shape, its shape on one rank of a tensor-parallel 1x2
+# mesh ([mesh]: 40 of the 80 heads), the reduced zamba2's (hd 32, N 8)
+# and a ragged one (L not a multiple of 8, N not of 8, hd 12: 20 idle
+# lanes), held to
 # the same limits against its plain version, against the per-channel
 # B4-bwd on the inputs expanded per channel (ddt and da then summed per
 # head) and against autograd through ``ssm_scan_plain`` on those inputs.
-SCAN_HEADS_BWD_SHAPES = ((16, 128, 5120, 64, 64), (8, 32, 256, 8, 32),
-                         (3, 37, 60, 5, 12))
+SCAN_HEADS_BWD_SHAPES = ((16, 128, 5120, 64, 64), (16, 128, 2560, 64, 64),
+                         (8, 32, 256, 8, 32), (3, 37, 60, 5, 12))
 # [ssm-train] and [hybrid-train]: the granite training setting
 # (default_lm_spec) for ``steps`` steps. falcon-mamba-7b cut to 8 of
 # its 64 layers (cut 2): at full depth AdamW alone needs 14.5 GB of bf16
@@ -755,27 +775,32 @@ def attention_train_case(torch, dev, gen, rn, b=ATTN_SHAPE["b"],
                          s=ATTN_SHAPE["seqs"][0], hq=ATTN_SHAPE["hq"],
                          hkv=ATTN_SHAPE["hkv"], d=ATTN_SHAPE["d"]):
     """B1 at a training shape (by default granite's: B = 16, S = 128,
-    Hq = 32, Hkv = 8, D = 64, causal) with the lse the backward reads,
-    against the plain version's output and lse, timed beside it and the
-    SDPA forward."""
+    Hq = 32, Hkv = 8, D = 64, causal) with the lse the backward reads, on
+    inputs drawn by ``rn`` (bf16; in float32 the CUDA-core kernel, held at
+    ``FP32_ATTN_TOL``), against the plain version's output and lse, timed
+    beside it and the SDPA forward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     qt, kt, vt = (rn(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv))
+    fp32 = qt.dtype == torch.float32
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
     got = flash_attention(qt, kt, vt, causal=True, lse=lse)   # uncounted
     want, want_lse = flash_attention_plain(qt, kt, vt, causal=True,
                                            with_lse=True)
     torch.cuda.synchronize()
-    err = within(torch, got, want)
+    err = (within_tol(torch, got, want, "flash_attention float32",
+                      **FP32_ATTN_TOL) if fp32 else within(torch, got, want))
     lse_err = within_tol(torch, lse, want_lse, "flash_attention lse",
                          **LSE_TOL)
     flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
-    bnd, by = bound_ms(2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-                       + 4 * b * hq * s, flops)
+    bnd, by = bound_ms(qt.element_size() * (2 * b * s * hq * d
+                                            + 2 * b * s * hkv * d)
+                       + 4 * b * hq * s, flops,
+                       FP32_FLOPS if fp32 else BF16_FLOPS)
     case = {
         "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal, with lse "
-                 f"(training)",
+                 f"(training)" + (" float32" if fp32 else ""),
         "max_abs_err": err, "lse_max_abs_err": lse_err,
         "ms": time_ms(torch, lambda: flash_attention(qt, kt, vt, lse=lse)),
         "plain_ms": time_ms(torch, lambda: flash_attention_plain(
@@ -786,7 +811,7 @@ def attention_train_case(torch, dev, gen, rn, b=ATTN_SHAPE["b"],
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
         "device_ms": device_ms(
             torch, lambda: flash_attention(qt, kt, vt, lse=lse),
-            "flash_fwd_tc"),
+            "flash_fwd_kernel" if fp32 else "flash_fwd_tc"),
     }
     add_rates(case, flops)
     print(f"kernel flash_attention {case['shape']}: err {err:.3g}, lse err "
@@ -2697,7 +2722,9 @@ def xent_case(torch, dev, gen, dtype, timed: bool, shape=XENT_SHAPE):
 
     elt = h.element_size()
     flops = 2.0 * t * d * v
-    bnd, by = bound_ms(elt * (t * d + d * v) + 4 * t + 3 * 4 * t, flops)
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    bnd, by = bound_ms(elt * (t * d + d * v) + 4 * t + 3 * 4 * t, flops,
+                       peak)
 
     def library_fwd():
         return F.cross_entropy(torch.matmul(h, w).float(), labels.long(),
@@ -2712,7 +2739,7 @@ def xent_case(torch, dev, gen, dtype, timed: bool, shape=XENT_SHAPE):
         "library_ms": time_ms(torch, library_fwd, iters=5, warmup=1)})
     add_rates(fwd, flops)
     bnd_b, by_b = bound_ms(2 * elt * (t * d + d * v) + 3 * 4 * t,
-                           3 * flops)
+                           3 * flops, peak)
     hl = h.detach().requires_grad_(True)
     wl = w.detach().requires_grad_(True)
     lib_loss = (F.cross_entropy(torch.matmul(hl, wl).float(),
@@ -4396,13 +4423,20 @@ SSM_TRAIN_GROUPS = (
      lambda kern, names: True))
 
 
+def dtype_name(dtype) -> str:
+    """``torch.bfloat16`` -> "bfloat16"."""
+    return str(dtype).replace("torch.", "")
+
+
 class record_train_shapes:
-    """Count every training kernel's launches by shape until ``stop``, by
-    wrapping the launchers that ``ops``' wrappers call on a CUDA tensor:
-    B1 and B1-bwd by (B, S, Hq, Hkv, D), B5 and B5-bwd by (T, d, V), B4
-    and B4-bwd by (B, L, D, N, None), the per-head B4 and B4-bwd by (B,
-    L, D, N, hd), hd the channels a head, the vocab-parallel B5 by (T, d, V
-    of the slice). A B1 or B1-bwd launch that is not
+    """Count every training kernel's launches by shape and dtype until
+    ``stop``, by wrapping the launchers that ``ops``' wrappers call on a
+    CUDA tensor: B1 and B1-bwd by (B, S, Hq, Hkv, D, dtype), B5 and B5-bwd
+    by (T, d, V, dtype), B4 and B4-bwd by (B, L, D, N, None, dtype), the
+    per-head B4 and B4-bwd by (B, L, D, N, hd, dtype), hd the channels a
+    head, the vocab-parallel B5 by (T, d, V of the slice, dtype); dtype is
+    the inputs' (``dtype_name``: a 16-bit and a float32 launch run
+    different kernels). A B1 or B1-bwd launch that is not
     causal and unwindowed over T = S, or a B1 launch without the lse,
     fails: training runs none."""
 
@@ -4440,17 +4474,18 @@ class record_train_shapes:
                     fail(f"a training B1 launch at T {k.shape[2]}, S {s}, "
                          f"causal {causal}, window {window}, lse "
                          f"{lse is not None}")
-                return (b, s, hq, k.shape[1], d)
+                return (b, s, hq, k.shape[1], d, dtype_name(q.dtype))
             return shape_of
 
         def scan_shape(x, dt, a, *args, **kw):
-            return (*x.shape, a.shape[1], None)
+            return (*x.shape, a.shape[1], None, dtype_name(x.dtype))
 
         def heads_shape(x, dt, a, bm, *args, **kw):
-            return (*x.shape, bm.shape[-1], x.shape[-1] // a.shape[0])
+            return (*x.shape, bm.shape[-1], x.shape[-1] // a.shape[0],
+                    dtype_name(x.dtype))
 
         def xent_shape(hidden, w, *args, **kw):
-            return (*hidden.shape, w.shape[1])
+            return (*hidden.shape, w.shape[1], dtype_name(hidden.dtype))
 
         shapes = {"flash_attention": attn_shape(True),
                   "flash_attention_bwd": attn_shape(False),
@@ -4475,6 +4510,31 @@ class record_train_shapes:
         return self.counts
 
 
+def scan_bwd_held(shapes, where: str) -> dict:
+    """B4-bwd's and the per-head B4-bwd's launches by (shape, dtype) in
+    ``shapes`` (``record_train_shapes``' counts), as the kernels line lists
+    them: [scan-bwd] holds both kernels to their plain versions at
+    ``SCAN_BWD_SHAPES`` and ``SCAN_HEADS_BWD_SHAPES`` in bf16 and fp32, so
+    a launch at any other shape or dtype fails."""
+    dtypes = ("bfloat16", "float32")
+    out = {}
+    for name, held in (
+            ("selective_scan_bwd", {(*s, None, dt) for s in SCAN_BWD_SHAPES
+                                    for dt in dtypes}),
+            ("selective_scan_heads_bwd", {(*s, dt) for s in
+                                          SCAN_HEADS_BWD_SHAPES
+                                          for dt in dtypes})):
+        for shape in shapes.get(name, {}):
+            if shape not in held:
+                fail(f"{name} launched at {shape} in {where}, a shape "
+                     f"[scan-bwd] does not hold")
+        out[name] = [
+            {"shape": "B={} L={} D={} N={} hd={} {}".format(*k),
+             "launches": v, "held_by": "[scan-bwd]"}
+            for k, v in shapes.get(name, {}).items()]
+    return out
+
+
 def ssm_train_kernel_phase(torch, dev, shapes):
     """Every kernel of [ssm-train] and [hybrid-train] held to its plain
     version and timed at each shape those runs launched it
@@ -4492,57 +4552,49 @@ def ssm_train_kernel_phase(torch, dev, shapes):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
 
-    def rn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+    def draw(dtype):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return rn
     cases = {name: [] for name in shapes}
     for shape, n in sorted(shapes["flash_attention"].items()):
-        b, s, hq, hkv, d = shape
+        b, s, hq, hkv, d, dt = shape
         cases["flash_attention"].append({
             "phase": "train", "launches": n, **attention_train_case(
-                torch, dev, gen, rn, b=b, s=s, hq=hq, hkv=hkv, d=d)})
+                torch, dev, gen, draw(getattr(torch, dt)), b=b, s=s, hq=hq,
+                hkv=hkv, d=d)})
     for shape, n in sorted(shapes["flash_attention_bwd"].items()):
         cases["flash_attention_bwd"].append({
-            "phase": "train", "launches": n,
-            **attention_bwd_case(torch, dev, gen, *shape)})
+            "phase": "train", "launches": n, **attention_bwd_case(
+                torch, dev, gen, *shape[:5], dtype=getattr(torch, shape[5]))})
     for shape in sorted(set(shapes["cross_entropy"])
                         | set(shapes["cross_entropy_bwd"])):
-        fwd, bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True,
-                             shape=shape)
+        fwd, bwd = xent_case(torch, dev, gen, getattr(torch, shape[3]),
+                             timed=True, shape=shape[:3])
         for name, case in (("cross_entropy", fwd),
                            ("cross_entropy_bwd", bwd)):
             cases[name].append({"phase": "train", "launches":
                                 shapes[name].get(shape, 0), **case})
-    for (b, l, d, n, _), count in sorted(
+    for (b, l, d, n, _, dt), count in sorted(
             shapes["selective_scan"].items(), key=str):
-        args = scan_case(torch, dev, gen, torch.bfloat16, b, l, d, n)
+        args = scan_case(torch, dev, gen, getattr(torch, dt), b, l, d, n)
         y, h = ops.selective_scan(*args)
         py, ph = ssm_scan_plain(*args)
-        what = f"ssm_scan training {(b, l, d, n)}"
+        what = f"ssm_scan training {(b, l, d, n)} {dt}"
         err = max(within_tol(torch, y, py, f"{what} y", **SCAN_TOL),
                   within_tol(torch, h, ph, f"{what} h_last", **SCAN_TOL))
         cases["selective_scan"].append({
             "phase": "train", **timed_scan_case(
                 torch, args, (b, l, d, n), err, count, "the training runs")})
         del args, y, h, py, ph
-    for (b, l, d, n, hd), count in sorted(
+    for (b, l, d, n, hd, dt), count in sorted(
             shapes["selective_scan_heads"].items()):
-        args = heads_case(torch, dev, gen, b, l, d, n, hd, torch.bfloat16)
+        args = heads_case(torch, dev, gen, b, l, d, n, hd, getattr(torch, dt))
         cases["selective_scan_heads"].append({
             "phase": "train", **timed_heads_case(
                 torch, args, (b, l, d, n), hd, count, "the training runs")})
         del args
-    for name, held in (
-            ("selective_scan_bwd", {(*s, None) for s in SCAN_BWD_SHAPES}),
-            ("selective_scan_heads_bwd", set(SCAN_HEADS_BWD_SHAPES))):
-        for shape in shapes[name]:
-            if shape not in held:
-                fail(f"{name} launched at {shape} in training, a shape "
-                     f"[scan-bwd] does not hold")
-        cases[name] = [
-            {"shape": "B={} L={} D={} N={} hd={}".format(*k), "launches": v,
-             "held_by": "[scan-bwd]"}
-            for k, v in shapes[name].items()]
+    cases.update(scan_bwd_held(shapes, "training"))
     seconds = time.perf_counter() - t_phase
     print(f"[train-kernels] B1, B1-bwd, B5, B5-bwd, B4 and B4 per head at "
           f"every training shape held to their plain versions (both B4-bwd "
@@ -5775,9 +5827,37 @@ MESH_CHECKPOINT_RUN = 1         # the 2x1 gspmd run writes a checkpoint
 # go through another exact GEMM (fp32; ``tools/tp_rounding.py`` on an
 # H100), past GRAD_REL_L2: ``mesh_reference`` reads that floor for each
 # run.
-MESH_TP_RUNS = (("granite-3-2b", 4, 2, ("1x2", "tp", "gspmd", 1)),
-                ("llama3-8b", 4, 1, ("1x2", "tp", "gspmd", 1)))
+# falcon-mamba-7b at 4 of 64 layers and zamba2-2.7b at 8 of 54 (one
+# superblock after the cut: the shared attention runs once), as
+# [ssm-train]'s and [hybrid-train]'s gradient checks cut them, in float32
+# (the model dtype, None: the config's bf16). In bf16 their one-process
+# floors (``mesh_reference(floor=True)`` on an H100) sit at or over
+# GRAD_REL_L2: the parameters after 3 AdamW steps move by 0.048
+# (falcon-mamba) and 0.146 (zamba2) when only the row products' rounding
+# changes (zero-init conv_b and dt_bias: AdamW's first updates are the
+# signs of near-zero gradient entries), and zamba2's step-0 gradient by
+# 0.0198 (the per-head a_log, dt_bias and d_skip, each a sum over every
+# token, channel and state of its head); at 2 and 7 layers still 0.027
+# and 0.099. In float32 they are held to MESH_REL_L2's own limits.
+MESH_TP_RUNS = (("granite-3-2b", 4, 2, None, ("1x2", "tp", "gspmd", 1)),
+                ("llama3-8b", 4, 1, None, ("1x2", "tp", "gspmd", 1)),
+                ("falcon-mamba-7b", 4, 2, "float32",
+                 ("1x2", "tp", "gspmd", 1)),
+                ("zamba2-2.7b", 8, 2, "float32",
+                 ("1x2", "tp", "gspmd", 1)))
+# Per-leaf relative L2 limits (step-0 gradient, parameters after the
+# steps) against the one-card engine, by the run's dtype. bf16: GRAD_REL_L2
+# for both. float32, from the float32 tp runs' own readings on an H100:
+# sound, at most 6.8e-6 (gradient) and 5.7e-4 (parameters; zamba2); with
+# every sum over model rounded to bf16 (``bf16_sums``, which each run
+# must fail), at least 5.7e-3 and 3.2e-2 (falcon-mamba). Each limit is
+# the geometric mean of the two, to one digit: about 29x over the sound
+# gradient and 28x under the control, 7x and 8x for the parameters.
+MESH_REL_L2 = {"bfloat16": (GRAD_REL_L2, GRAD_REL_L2),
+               "float32": (2e-4, 4e-3)}
 MESH_SKIP_RUN = 0               # granite tp 1x2: rank 0 skips a reduce
+MESH_NORM_SKIP_RUN = 3          # zamba2 tp 1x2: rank 0's norm, unsummed
+GRAD_NORM_BYTES = 4             # the gradient norm's all-reduce a step
 MESH_LOSS_RTOL = 1e-2           # per-step loss against the one-card run
 MESH_PG_TIMEOUT_S = 180         # a collective that waits longer fails
 MESH_CHILD_TIMEOUT_S = 420      # a rank that runs longer is killed
@@ -5795,20 +5875,52 @@ def _worst(rels):
 
 def tp_all_reduce_bytes(elements: int, itemsize: int, layers: int,
                         vocab_parallel: bool) -> int:
-    """The all-reduce bytes a step of tensor parallelism over ``model``, in
-    (tokens, d_model) activations of ``elements``, all in fp32 but the
-    embedding's: a layer's two row-parallel outputs (``wo``, ``w_down``)
-    forward and its five column-parallel products' input gradients (q, k,
-    v, gate, up) backward; with the vocab split, the embedding's rows (in
-    the model's ``itemsize``) and the head's dh."""
-    return elements * (layers * 7 * 4
-                       + (itemsize + 4 if vocab_parallel else 0))
+    """The activation all-reduce bytes a step of tensor parallelism over
+    ``model``, in (tokens, d_model) activations of ``elements``, all in
+    fp32 but the embedding's: a dense layer's two row-parallel outputs
+    (``wo``, ``w_down``) forward and its five column-parallel products'
+    input gradients (q, k, v, gate, up) backward; with the vocab split,
+    the embedding's rows (in the model's ``itemsize``) and the head's dh."""
+    return (elements * layers * 7 * 4
+            + (elements * (itemsize + 4) if vocab_parallel else 0))
 
 
-def mesh_setup(api, dev, layers: int, cut: int, arch=None):
+def tp_mixer_all_reduce_bytes(cfg, tokens: int, layers: int, attention: int,
+                              vocab_parallel: bool, itemsize: int) -> int:
+    """``tp_all_reduce_bytes`` for ``layers`` Mamba layers of an SSM or
+    hybrid config and ``attention`` shared-attention applications, all in
+    fp32 but the embedding's: a Mamba layer's out_proj sum forward and its
+    input's dx backward (``tokens`` x d_model each) and its other sum both
+    ways (Mamba-1's x_proj, r + 2N wide; Mamba-2's sum of squares, 1
+    wide); a shared-attention application its q, k, v dx and ``wo``; with
+    the vocab split, the embedding's rows and the head's dh."""
+    elements = tokens * cfg.d_model
+    width = (cfg.dt_rank + 2 * cfg.ssm_state
+             if cfg.ssm_variant == "mamba1" else 1)
+    return (layers * (elements * 2 * 4 + tokens * width * 2 * 4)
+            + attention * elements * 4 * 4
+            + (elements * (itemsize + 4) if vocab_parallel else 0))
+
+
+def tp_partial_grad_bytes(cfg, layers: int) -> int:
+    """The fp32 gradient sums over ``model`` a step of the Mamba leaves a
+    rank computes whole and slices (``tensor_parallel``'s "partial"
+    mode): Mamba-1's in_proj; Mamba-2's in_proj, conv_w, conv_b, a_log,
+    dt_bias and d_skip. 4 bytes an element, once a step."""
+    d, di, n, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    if cfg.ssm_variant == "mamba1":
+        per_layer = d * 2 * di
+    else:
+        nh = cfg.ssm_num_heads
+        per_layer = (d * (2 * di + 2 * n + nh) + (di + 2 * n) * (k + 1)
+                     + 3 * nh)
+    return layers * per_layer * 4
+
+
+def mesh_setup(api, dev, layers: int, cut: int, arch=None, dtype=None):
     """The ``[train]`` setting's context at ``layers`` layers (cut
-    ``cut``; granite-3-2b unless ``arch``) and its first ``MESH_STEPS``
-    plan batches."""
+    ``cut``; granite-3-2b unless ``arch``; the config's dtype unless
+    ``dtype``) and its first ``MESH_STEPS`` plan batches."""
     import itertools
     from repro_torch.api.protocols import lm_plan_batches
     from repro_torch.core.sampling import make_plan
@@ -5818,6 +5930,8 @@ def mesh_setup(api, dev, layers: int, cut: int, arch=None):
             f"model.overrides.cut_layer={cut}"]
     if arch:
         sets.append(f"model.arch={arch}")
+    if dtype:
+        sets.append(f"model.overrides.dtype={dtype}")
     spec = api.apply_overrides(default_lm_spec(), sets)
     ctx = api.build_context(spec, device=dev)
     plan = make_plan(spec.sampler.method, ctx.data.pop,
@@ -5832,51 +5946,77 @@ def mesh_setup(api, dev, layers: int, cut: int, arch=None):
 
 @contextlib.contextmanager
 def fp32_row_products():
-    """The row-parallel products (``wo``, ``w_down``) of one process
-    through an fp32 GEMM of their 16-bit inputs, rounded once: exact as
-    the 16-bit GEMM's fp32 sums are, in another order."""
+    """The row-parallel products (``wo``, ``w_down``; the Mamba mixers'
+    ``out_proj`` and Mamba-1's ``x_proj``) of one process through an fp32
+    GEMM of their 16-bit inputs, rounded once: exact as the 16-bit GEMM's
+    fp32 sums are, in another order."""
     import torch
     from repro_torch.launch import tensor_parallel as tpl
-    row_parallel = tpl.row_parallel
-    tpl.row_parallel = lambda part: (
-        lambda a, w: torch.matmul(a.float(), w.float()).to(a.dtype))
+    row_parallel, mixer_hooks = tpl.row_parallel, tpl.mixer_hooks
+
+    def fp32(a, w):
+        return torch.matmul(a.float(), w.float()).to(a.dtype)
+    tpl.row_parallel = lambda part: fp32
+    tpl.mixer_hooks = lambda cfg: (
+        {"row": fp32} if cfg.ssm_variant == "mamba2"
+        else {"row": fp32, "inner": fp32})
     try:
         yield
     finally:
-        tpl.row_parallel = row_parallel
+        tpl.row_parallel, tpl.mixer_hooks = row_parallel, mixer_hooks
 
 
 def mesh_reference(torch, ctx, hosts, floor=False):
     """The one-card engine on ``hosts`` from the fan-in d_in init: (the
     reference: step-0 gradient and the parameters after the steps; the
     losses and stored bytes). With ``floor``, also how far its step-0
-    gradient moves when only the rounding of its row products changes
-    (``fp32_row_products``): no tensor-parallel run can be held closer."""
+    gradient and its parameters after the steps move when only the
+    rounding of its row products changes (``fp32_row_products``): no
+    tensor-parallel run can be held closer."""
     from repro_torch.launch.distributed import ShardedPSLEngine
     eng = ShardedPSLEngine(ctx.model, ctx.optimizer, mesh="1x1",
                            device=ctx.device)
-    st = eng.init_state(ctx.seed)
-    rescale_to_fan_in(torch, st.params, ctx.model.param_specs())
+
+    def init():
+        st = eng.init_state(ctx.seed)
+        rescale_to_fan_in(torch, st.params, ctx.model.param_specs())
+        return st
+    st = init()
     torch.cuda.reset_peak_memory_stats()
     ref = {"grads": eng.grads(st, eng.put_batch(hosts[0]))}
     floor_rel = None
     if floor:
         with fp32_row_products():
             moved = eng.grads(st, eng.put_batch(hosts[0]))
-        floor_rel = _worst(leaf_rel_l2(moved, ref["grads"]))
+        floor_rel = {"grads": _worst(leaf_rel_l2(moved, ref["grads"]))}
         del moved
-    losses = []
+    losses, step_ms = [], []
     for h in hosts:
-        st, m = eng.step(st, eng.put_batch(h))
+        b = eng.put_batch(h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = eng.step(st, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(m["loss"])
-    one = {"losses": losses, "param_bytes": _tree_bytes(st.params),
+    one = {"losses": losses, "step_ms": step_ms,
+           "param_bytes": _tree_bytes(st.params),
            "moment_bytes": _tree_bytes({k: v for k, v in
                                         st.opt_state.items()
                                         if k in ("mu", "m", "v")}),
-           "peak_bytes": torch.cuda.max_memory_allocated(),
-           "fp32_row_products": floor_rel}
+           "peak_bytes": torch.cuda.max_memory_allocated()}
     ref["params"] = st.params
-    del eng, st
+    del st
+    if floor:
+        moved = init()
+        with fp32_row_products():
+            for h in hosts:
+                moved, _ = eng.step(moved, eng.put_batch(h))
+        floor_rel["params"] = _worst(leaf_rel_l2(moved.params,
+                                                 ref["params"]))
+        del moved
+    one["fp32_row_products"] = floor_rel
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     return ref, one
@@ -5913,18 +6053,70 @@ def skipped_reduce(rank: int):
         tpl.row_parallel = row_parallel
 
 
+@contextlib.contextmanager
+def skipped_norm_reduce(rank: int):
+    """A planted fault: on rank ``rank``, the first Mamba-2 norm over the
+    whole ``d_inner`` (``tensor_parallel.rms_norm_over_model``) runs its
+    all-reduce both ways but normalizes by the rank's own sum of
+    squares. Every rank still takes part in every collective, so the
+    ranks stay in step. Yields the list of skipped norms."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import tensor_parallel as tpl
+    norm, skipped = tpl.rms_norm_over_model, []
+
+    def planted(x, weight, eps, width, tp):
+        if dist.get_rank() != rank or skipped:
+            return norm(x, weight, eps, width, tp)
+        skipped.append("norm")
+        xf = x.float()
+        local = (xf * xf).sum(dim=-1, keepdim=True)
+        ss = local + 0 * tpl.SumOverModel.apply(local, tp)
+        y = xf * torch.rsqrt(ss / width + eps)
+        return (y * weight.float()).to(x.dtype)
+    tpl.rms_norm_over_model = planted
+    try:
+        yield skipped
+    finally:
+        tpl.rms_norm_over_model = norm
+
+
+@contextlib.contextmanager
+def bf16_sums():
+    """A planted fault: every sum over ``model`` of the tensor-parallel
+    compute (``TensorParallel.all_reduce``: the activations' sums both
+    ways, not the leaves' gradient sums) is rounded to bf16, as a tp path
+    whose fp32 sums were taken in bf16 would be."""
+    import torch
+    from repro_torch.launch.tensor_parallel import TensorParallel
+    all_reduce = TensorParallel.all_reduce
+
+    def rounded(self, t):
+        return all_reduce(self, t).to(torch.bfloat16).to(t.dtype)
+    TensorParallel.all_reduce = rounded
+    try:
+        yield
+    finally:
+        TensorParallel.all_reduce = all_reduce
+
+
 def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
                   planted_unreduced=False, planted_skip=False,
-                  checkpoint=False):
+                  planted_norm=False, planted_bf16=False, checkpoint=False):
     """One run (``run_spec``: mesh, profile, lowering, microbatches) on this
     rank (the ``[mesh]`` phase's child): the sharded engine from the
     seeded init rescaled to fan-in d_in, its step-0 gradient (with
     ``planted_unreduced``, rank 0 also computes its own unreduced
     gradient; with ``planted_skip``, every rank computes the step-0
-    gradient again while rank 0 skips one row-parallel all-reduce),
-    ``MESH_STEPS`` steps with the launches counted by shape, collectives
-    timed, peak memory, the parameters gathered after; a ``checkpoint``
-    run saves and restores."""
+    gradient again while rank 0 skips one row-parallel all-reduce; with
+    ``planted_norm``, while rank 0 normalizes one Mamba-2 norm by its own
+    sum of squares), ``MESH_STEPS`` steps with the launches counted by
+    shape and dtype, collectives timed (the bytes of the gradient sums
+    over ``model`` apart), peak memory, the parameters gathered after; a
+    ``checkpoint`` run saves and restores. With ``planted_bf16``, the run
+    is made again from the same init with every sum over ``model``
+    rounded to bf16 (``bf16_sums``): its step-0 gradient and parameters
+    after."""
     import torch.distributed as dist
     from repro_torch.checkpoint import restore, save
     from repro_torch.core.psl import fused_grads, requires_grad_
@@ -5942,8 +6134,15 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
     st = eng.init_state(ctx.seed)
     rescale_to_fan_in(torch, st.params, specs)
     batches = [eng.put_batch(h) for h in hosts]
-    run = {"arch": model.cfg.name, "mesh": mesh_spec, "profile": profile,
+    cfg = model.cfg
+    ssm = cfg.family in ("ssm", "hybrid")
+    run = {"arch": cfg.name, "mesh": mesh_spec, "profile": profile,
            "lowering": lowering, "microbatches": mb,
+           "dtype": dtype_name(cfg.torch_dtype),
+           "family": cfg.family, "ssm_variant": cfg.ssm_variant,
+           "mamba_layers": cfg.num_layers if ssm else 0,
+           "attention_layers": (getattr(model, "n_super", 0) if ssm
+                                else cfg.num_layers),
            "rows": int(batches[0]["tokens"].shape[0]),
            "activation": [int(batches[0]["tokens"].numel())
                           * model.cfg.d_model, torch.empty(
@@ -5951,7 +6150,10 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
            "shards": batches[0].shards, "fallbacks": eng.report.fallbacks,
            "tensor_parallel": None if tp is None else {
                "heads": tp.heads, "kv_heads": tp.kv_heads, "ff": tp.ff,
-               "embed_vocab": tp.embed_vocab, "head_vocab": tp.head_vocab}}
+               "channels": tp.channels, "ssm_heads": tp.ssm_heads,
+               "embed_vocab": tp.embed_vocab, "head_vocab": tp.head_vocab,
+               "partial_leaves": sum(
+                   m == "partial" for m in tp.modes)}}
     grads = eng.grads(st, batches[0])
     if ref is not None:
         run["grads"] = _worst(leaf_rel_l2(grads, ref["grads"]))
@@ -5969,8 +6171,28 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
                 "skipped": skipped,
                 **_worst(leaf_rel_l2(faulty, ref["grads"]))}
         del faulty
+    if planted_norm:
+        with skipped_norm_reduce(0) as skipped:
+            faulty = eng.grads(st, batches[0])
+        if ref is not None:
+            run["planted_skipped_norm"] = {
+                "skipped": skipped,
+                **_worst(leaf_rel_l2(faulty, ref["grads"]))}
+        del faulty
     gc.collect()
     torch.cuda.empty_cache()
+    # the gradient sums over model (the leaves computed whole) by kind
+    grad_bytes = {"all_reduce": 0, "reduce_scatter": 0}
+    reduce_scatter = eng.comm.reduce_scatter_leaf
+
+    def counted(full, layout, axes):
+        before = {k: eng.comm.stats[k]["bytes"] for k in grad_bytes}
+        out = reduce_scatter(full, layout, axes)
+        if "model" in axes:
+            for k in grad_bytes:
+                grad_bytes[k] += eng.comm.stats[k]["bytes"] - before[k]
+        return out
+    eng.comm.reduce_scatter_leaf = counted
     eng.comm.reset_stats()
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -5986,6 +6208,7 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
             metrics.append(m)
     finally:
         shapes = recorder.stop()
+        eng.comm.reduce_scatter_leaf = reduce_scatter
     run.update({
         "step_ms": step_ms, "metrics": metrics,
         "launches": ops.launch_counts(),
@@ -5993,6 +6216,7 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
                    for k, v in shapes.items() if v},
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "collectives": {k: dict(v) for k, v in eng.comm.stats.items()},
+        "partial_grad_bytes": dict(grad_bytes),
         "param_bytes": _tree_bytes(st.params),
         "moment_bytes": _tree_bytes({k: v for k, v in st.opt_state.items()
                                      if k in ("mu", "m", "v")})})
@@ -6011,7 +6235,23 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
             del back
             path.unlink()
         dist.barrier()
-    del st, eng, batches, whole
+    del st, whole
+    if planted_bf16:
+        gc.collect()
+        torch.cuda.empty_cache()
+        st = eng.init_state(ctx.seed)
+        rescale_to_fan_in(torch, st.params, specs)
+        with bf16_sums():
+            faulty = eng.grads(st, batches[0])
+            for b in batches:
+                st, _ = eng.step(st, b)
+        whole = eng.gather_params(st.params)
+        if ref is not None:
+            run["planted_bf16_sums"] = {
+                "grads": _worst(leaf_rel_l2(faulty, ref["grads"])),
+                "params": _worst(leaf_rel_l2(whole, ref["params"]))}
+        del st, faulty, whole
+    del eng, batches
     gc.collect()
     torch.cuda.empty_cache()
     return run
@@ -6025,7 +6265,7 @@ def mesh_rank_main(rank: int, workdir: str) -> int:
     the ``[train]`` setting's first ``MESH_STEPS`` plan batches; rank 0
     first runs the one-card engine on them (``mesh_reference``); then
     every ``MESH_RUNS`` entry (``mesh_rank_run``). Then each of
-    ``MESH_TP_RUNS`` alike, at its own arch and depth. Writes
+    ``MESH_TP_RUNS`` alike, at its own arch, depth and dtype. Writes
     ``rank<R>.json``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -6047,16 +6287,18 @@ def mesh_rank_main(rank: int, workdir: str) -> int:
         out["runs"].append(mesh_rank_run(
             torch, ctx, hosts, ref, run_spec, work,
             planted_unreduced=i == 0, checkpoint=i == MESH_CHECKPOINT_RUN))
-    for i, (arch, layers, cut, run_spec) in enumerate(MESH_TP_RUNS):
+    for i, (arch, layers, cut, dtype, run_spec) in enumerate(MESH_TP_RUNS):
         del ctx, hosts, ref
         gc.collect()
         torch.cuda.empty_cache()
-        ctx, hosts = mesh_setup(api, dev, layers, cut, arch)
+        ctx, hosts = mesh_setup(api, dev, layers, cut, arch, dtype)
         ref, one = None, None
         if rank == 0:
             ref, one = mesh_reference(torch, ctx, hosts, floor=True)
         run = mesh_rank_run(torch, ctx, hosts, ref, run_spec, work,
-                            planted_skip=i == MESH_SKIP_RUN)
+                            planted_skip=i == MESH_SKIP_RUN,
+                            planted_norm=i == MESH_NORM_SKIP_RUN,
+                            planted_bf16=dtype == "float32")
         run["one_card"] = one
         out["tp_runs"].append(run)
     (work / f"rank{rank}.json").write_text(json.dumps(out))
@@ -6065,13 +6307,17 @@ def mesh_rank_main(rank: int, workdir: str) -> int:
     return 0
 
 
-def mesh_gates(tag, runs, one, layers: int) -> None:
+def mesh_gates(tag, runs, one) -> None:
     """Print one run of every rank and hold it to the one-card engine
     (``one``): the step-0 gradient and the parameters after per leaf
-    within ``GRAD_REL_L2``, the losses within ``MESH_LOSS_RTOL``, equal
+    within ``MESH_REL_L2``'s limits for the run's dtype (a planted fault
+    outside them; the float32 runs' sums over ``model`` rounded to bf16
+    outside both), the losses within ``MESH_LOSS_RTOL``, equal
     metrics on every rank, exactly one B1 and one B1-bwd an attention
-    layer and one B5 (vocab-parallel where the head's vocab is split) and
-    one B5-bwd a microbatch on each rank."""
+    layer or shared-attention application, one B4 and one B4-bwd a Mamba
+    layer (the per-head ones for Mamba-2, ``scan_fwd_name``) and one B5
+    (vocab-parallel where the head's vocab is split) and one B5-bwd a
+    microbatch on each rank."""
     r0 = runs[0]
     mb = r0["microbatches"]
     coll = {k: [round(r["collectives"][k]["ms"] / MESH_STEPS, 3)
@@ -6083,7 +6329,8 @@ def mesh_gates(tag, runs, one, layers: int) -> None:
           f"{[m['loss'] for m in r0['metrics']]}; step ms by "
           f"rank {[r['step_ms'] for r in runs]}; collective ms a step "
           f"by rank {json.dumps(coll)}, bytes a step by rank "
-          f"{json.dumps(coll_bytes)}; stored params B by rank "
+          f"{json.dumps(coll_bytes)}; one card's step ms "
+          f"{one.get('step_ms')}; stored params B by rank "
           f"{[r['param_bytes'] for r in runs]} (one card "
           f"{one['param_bytes']}), moments B {[r['moment_bytes'] for r in runs]} "
           f"(one card {one['moment_bytes']}); peak GiB by rank "
@@ -6095,21 +6342,28 @@ def mesh_gates(tag, runs, one, layers: int) -> None:
           if (r0["tensor_parallel"] or {}).get("head_vocab")
           else "cross_entropy")
     want = {name: 0 for name in r0["launches"]}
-    want.update({"flash_attention": layers * mb * MESH_STEPS,
-                 "flash_attention_bwd": layers * mb * MESH_STEPS,
+    attention = r0["attention_layers"] * mb * MESH_STEPS
+    want.update({"flash_attention": attention,
+                 "flash_attention_bwd": attention,
                  b5: mb * MESH_STEPS,
                  "cross_entropy_bwd": mb * MESH_STEPS})
+    if r0["mamba_layers"]:
+        scan = ("selective_scan_heads" if r0["ssm_variant"] == "mamba2"
+                else "selective_scan")
+        want[scan] = want[scan + "_bwd"] = (r0["mamba_layers"] * mb
+                                            * MESH_STEPS)
     for r, run in enumerate(runs):
         if run["launches"] != want:
             fail(f"{tag} rank {r} launches {run['launches']}, wanted "
                  f"{want}")
         if run["metrics"] != r0["metrics"]:
             fail(f"{tag}: the ranks read different metrics")
-    if r0["grads"]["worst"] > GRAD_REL_L2 \
-            or r0["params"]["worst"] > GRAD_REL_L2:
+    grad_limit, param_limit = MESH_REL_L2[r0["dtype"]]
+    if r0["grads"]["worst"] > grad_limit \
+            or r0["params"]["worst"] > param_limit:
         fail(f"{tag} disagrees with the one-card engine: grads "
-             f"{r0['grads']}, params {r0['params']} (limit "
-             f"{GRAD_REL_L2})")
+             f"{r0['grads']}, params {r0['params']} (limits {grad_limit}, "
+             f"{param_limit})")
     for got, ref in zip([m["loss"] for m in r0["metrics"]],
                         one["losses"], strict=True):
         if abs(got - ref) > MESH_LOSS_RTOL * abs(ref):
@@ -6118,13 +6372,23 @@ def mesh_gates(tag, runs, one, layers: int) -> None:
     for key, what in (("planted_unreduced", "rank 0's own unreduced "
                        "gradient"),
                       ("planted_skipped_reduce", "rank 0 skipping one "
-                       "row-parallel all-reduce")):
+                       "row-parallel all-reduce"),
+                      ("planted_skipped_norm", "rank 0 normalizing one "
+                       "Mamba-2 norm by its own sum of squares")):
         if key in r0:
             print(f"{tag}: planted fault, {what}, against the one-card "
                   f"gradient: {json.dumps(r0[key])}", flush=True)
-            if r0[key]["worst"] <= GRAD_REL_L2:
-                fail(f"{tag}: the gradient gate ({GRAD_REL_L2}) missed "
+            if r0[key]["worst"] <= grad_limit:
+                fail(f"{tag}: the gradient gate ({grad_limit}) missed "
                      f"the planted fault ({what}): {r0[key]}")
+    if "planted_bf16_sums" in r0:
+        fault = r0["planted_bf16_sums"]
+        print(f"{tag}: planted fault, every sum over model rounded to bf16,"
+              f" against the one-card run: {json.dumps(fault)}", flush=True)
+        if fault["grads"]["worst"] <= grad_limit \
+                or fault["params"]["worst"] <= param_limit:
+            fail(f"{tag}: the gates ({grad_limit}, {param_limit}) missed "
+                 f"the sums over model rounded to bf16: {fault}")
     if "checkpoint_bitwise" in r0:
         print(f"{tag}: checkpoint restored on one card bit for bit "
               f"{r0['checkpoint_bitwise']}", flush=True)
@@ -6132,42 +6396,65 @@ def mesh_gates(tag, runs, one, layers: int) -> None:
             fail(f"{tag}: the checkpoint did not restore bit for bit")
 
 
-def mesh_tp_prediction(tag, runs, layers: int) -> dict:
-    """The tensor-parallel run's all-reduce bytes a step on every rank
-    beside ``tp_all_reduce_bytes``' prediction (what else moved is
-    printed with it); fails when a rank's all-reduce bytes fall short of
-    the prediction (a row-parallel sum not made) or exceed it by more
-    than 1% (the rest: the gradient norm's square, 4 bytes a step).
-    Microbatches split the tokens, not the bytes."""
+def mesh_tp_prediction(tag, runs, layers: int, cfg) -> dict:
+    """The tensor-parallel run's bytes a step on every rank beside their
+    predictions: the activation all-reduces (all-reduce bytes less those
+    of the gradient sums over ``model``) against ``tp_all_reduce_bytes``
+    plus ``GRAD_NORM_BYTES``, and the gradient sums over ``model`` of
+    the leaves computed whole (whatever collective carries them) against
+    ``tp_partial_grad_bytes``; both to the byte, or the run fails. What
+    else moved is printed with them. Microbatches split the tokens, not
+    the bytes."""
     r0 = runs[0]
     vocab = r0["tensor_parallel"]["head_vocab"]
-    predicted = tp_all_reduce_bytes(*r0["activation"], layers, vocab)
+    elements, itemsize = r0["activation"]
+    if r0["mamba_layers"]:
+        predicted = tp_mixer_all_reduce_bytes(
+            cfg, elements // cfg.d_model, layers, r0["attention_layers"],
+            vocab, itemsize)
+    else:
+        predicted = tp_all_reduce_bytes(elements, itemsize, layers, vocab)
+    predicted_partial = (tp_partial_grad_bytes(cfg, layers)
+                         if r0["mamba_layers"] else 0)
+    partial = [{k: v // MESH_STEPS for k, v in r["partial_grad_bytes"]
+                .items()} for r in runs]
     got = [r["collectives"]["all_reduce"]["bytes"] // MESH_STEPS
-           for r in runs]
+           - p["all_reduce"] for r, p in zip(runs, partial)]
     other = {k: [r["collectives"][k]["bytes"] // MESH_STEPS for r in runs]
              for k in ("all_gather", "reduce_scatter")}
-    print(f"{tag}: all-reduce bytes a step by rank {got}, predicted "
-          f"{predicted} ({'with' if vocab else 'without'} the vocab's two, "
-          f"tp_all_reduce_bytes); "
-          f"all-gather and reduce-scatter bytes a step {json.dumps(other)}",
-          flush=True)
-    for b in got:
-        if not predicted <= b <= 1.01 * predicted:
-            fail(f"{tag}: all-reduce {got} bytes a step, predicted "
-                 f"{predicted}")
-    return {"all_reduce_bytes": got, "predicted": predicted, **other}
+    print(f"{tag}: activation all-reduce bytes a step by rank {got}, "
+          f"predicted {predicted} + {GRAD_NORM_BYTES} (the gradient norm) "
+          f"({'with' if vocab else 'without'} the vocab's two, "
+          f"{'tp_mixer_all_reduce_bytes' if r0['mamba_layers'] else 'tp_all_reduce_bytes'}"
+          f"); gradient sums over model of the "
+          f"{r0['tensor_parallel']['partial_leaves']} leaves computed "
+          f"whole a step by rank {json.dumps(partial)}, predicted "
+          f"{predicted_partial} (tp_partial_grad_bytes); all-gather and "
+          f"reduce-scatter bytes a step (the gradient sums included) "
+          f"{json.dumps(other)}", flush=True)
+    for b, p in zip(got, partial):
+        if b != predicted + GRAD_NORM_BYTES:
+            fail(f"{tag}: activation all-reduce {got} bytes a step, "
+                 f"predicted {predicted} + {GRAD_NORM_BYTES}")
+        if sum(p.values()) != predicted_partial:
+            fail(f"{tag}: gradient sums over model {partial} bytes a step,"
+                 f" predicted {predicted_partial}")
+    return {"all_reduce_bytes": got, "predicted": predicted,
+            "partial_grad_bytes": partial,
+            "predicted_partial": predicted_partial, **other}
 
 
-def xent_tp_case(torch, dev, gen, shape):
+def xent_tp_case(torch, dev, gen, shape, dtype):
     """The vocab-parallel B5 and B5-bwd at a rank's shape (T, d, V of the
-    slice), bf16: rank 0's slice of a whole W of ``MESH_RANKS`` slices,
+    slice) in ``dtype``: rank 0's slice of a whole W of ``MESH_RANKS`` slices,
     labels drawn over the whole vocab (a label outside the slice is -1 to
     the kernel). The partials launch is held to its plain version (the
     values at ``XENT_FP32_TOL``, the best index equal but at near-ties)
     and, combined with the other slices' plain partials, to the whole
     vocab's plain forward; B5-bwd with -1 labels to its plain version as
-    ``xent_case`` holds B5-bwd, a planted lse shift caught. Both timed
-    beside their plain versions, bounds and the matmul +
+    ``xent_case`` holds B5-bwd (elementwise in float32), a planted lse
+    shift caught. Both timed beside their plain versions, bounds (float32:
+    the CUDA-core kernels, at the fp32 peak) and the matmul +
     ``F.cross_entropy`` pair (``ignore_index=-1``) and its autograd."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -6176,9 +6463,9 @@ def xent_tp_case(torch, dev, gen, shape):
         cross_entropy_bwd_plain, cross_entropy_fwd_plain,
         cross_entropy_partials_plain)
     t, d, v = shape
-    h = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    h = torch.randn((t, d), generator=gen, device=dev).to(dtype)
     whole = (torch.randn((d, v * MESH_RANKS), generator=gen, device=dev)
-             / d ** 0.5).to(torch.bfloat16)
+             / d ** 0.5).to(dtype)
     labels = torch.randint(0, v * MESH_RANKS, (t,), generator=gen,
                            device=dev, dtype=torch.int32)
     g = torch.rand((t,), generator=gen, device=dev)
@@ -6226,9 +6513,12 @@ def xent_tp_case(torch, dev, gen, shape):
         fail(f"cross_entropy_bwd with -1 labels: a planted lse + "
              f"{PLANTED_LSE_SHIFT} passed the checks: {planted}")
     del pdh, pdw
-    name = f"T={t} d={d} V={v} bfloat16, vocab slice 1 of {MESH_RANKS}"
+    name = (f"T={t} d={d} V={v} {dtype_name(dtype)}, vocab slice 1 of "
+            f"{MESH_RANKS}")
     elt, flops = h.element_size(), 2.0 * t * d * v
-    bnd, by = bound_ms(elt * (t * d + d * v) + 4 * t + 5 * 4 * t, flops)
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    bnd, by = bound_ms(elt * (t * d + d * v) + 4 * t + 5 * 4 * t, flops,
+                       peak)
     lib_labels = lab.long()
 
     def library_fwd():
@@ -6243,7 +6533,8 @@ def xent_tp_case(torch, dev, gen, shape):
            "bound_ms": bnd, "bound_by": by,
            "library_ms": time_ms(torch, library_fwd, iters=5, warmup=1)}
     add_rates(fwd, flops)
-    bnd_b, by_b = bound_ms(2 * elt * (t * d + d * v) + 3 * 4 * t, 3 * flops)
+    bnd_b, by_b = bound_ms(2 * elt * (t * d + d * v) + 3 * 4 * t, 3 * flops,
+                           peak)
     hl = h.detach().requires_grad_(True)
     wl = w.detach().requires_grad_(True)
     lib_loss = (F.cross_entropy(torch.matmul(hl, wl).float(), lib_labels,
@@ -6277,6 +6568,53 @@ def xent_tp_case(torch, dev, gen, shape):
     return fwd, bwd_case
 
 
+def mesh_scan_cases(torch, dev, gen, shapes):
+    """B4 and the per-head B4 at every rank shape the ``[mesh]`` runs
+    launched them (``shapes``: ``record_train_shapes``' counts), in bf16
+    and fp32 whichever dtype the runs launched (each case's launches are
+    those of its dtype): B4 held to its plain version at ``SCAN_TOL`` and
+    timed (``timed_scan_case``), the per-head B4 as ``timed_heads_case``
+    holds and times it. B4-bwd and the per-head B4-bwd are held and timed
+    by [scan-bwd] (``scan_bwd_held``). Returns the cases by kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    cases = {"selective_scan": [], "selective_scan_heads": []}
+    launched = {name: {} for name in cases}
+    for name in cases:
+        for (*shape, dt), count in shapes.get(name, {}).items():
+            launched[name].setdefault(tuple(shape), {})[dt] = count
+    for (b, l, d, n, _), counts in sorted(
+            launched["selective_scan"].items(), key=str):
+        for dtype in (torch.bfloat16, torch.float32):
+            count = counts.get(dtype_name(dtype), 0)
+            args = scan_case(torch, dev, gen, dtype, b, l, d, n)
+            y, h = ops.selective_scan(*args)
+            py, ph = ssm_scan_plain(*args)
+            what = f"ssm_scan tp rank {(b, l, d, n)} {dtype}"
+            err = max(within_tol(torch, y, py, f"{what} y", **SCAN_TOL),
+                      within_tol(torch, h, ph, f"{what} h_last",
+                                 **SCAN_TOL))
+            del y, h, py, ph
+            cases["selective_scan"].append({"phase": "mesh-tp", **(
+                timed_scan_case(torch, args, (b, l, d, n), err, count,
+                                "[mesh]"))})
+            del args
+    for (b, l, d, n, hd), counts in sorted(
+            launched["selective_scan_heads"].items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            count = counts.get(dtype_name(dtype), 0)
+            args = heads_case(torch, dev, gen, b, l, d, n, hd, dtype)
+            cases["selective_scan_heads"].append({"phase": "mesh-tp", **(
+                timed_heads_case(torch, args, (b, l, d, n), hd, count,
+                                 "[mesh]"))})
+            del args
+    for name, rows in scan_bwd_held(shapes, "[mesh]").items():
+        cases[name] = [{"phase": "mesh-tp", **row} for row in rows]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases
+
+
 def mesh_phase(torch, dev):
     """``[mesh]``: ``MESH_RANKS`` ranks of this script on the one card
     (gloo: they share it, so this checks the collective structure, not
@@ -6284,21 +6622,31 @@ def mesh_phase(torch, dev):
     in the ``[train]`` setting (PSL-UGS, global batch 16 x 128, AdamW,
     seed 0, the init rescaled to fan-in d_in as ``[grads]`` does) for
     ``MESH_STEPS`` steps on each of ``MESH_RUNS``, then each of
-    ``MESH_TP_RUNS`` (granite and llama3-8b at 4 layers, tensor-parallel
-    on 1x2). Gates (``mesh_gates``),
-    against the one-card engine on the same batches and depth: the step-0
-    gradient per leaf within ``GRAD_REL_L2``, the planted faults (a rank's
-    own unreduced gradient; rank 0 skipping one row-parallel all-reduce)
-    outside it, the losses within ``MESH_LOSS_RTOL``, the parameters after
-    the steps per leaf within ``GRAD_REL_L2``, equal metrics on both
-    ranks, exactly one B1 and one B1-bwd an attention layer and one B5 and
-    one B5-bwd a microbatch on each rank, the checkpoint of the 2x1 gspmd
-    run restored on one card bit for bit; the tp runs' all-reduce bytes
-    a step as predicted (``mesh_tp_prediction``). Prints the backend,
-    stored bytes and peak a rank, step ms and collective ms by kind. Then
-    B1, B1-bwd, B5 and B5-bwd are held to their plain versions and timed
-    at every rank shape they ran at (the kernels line's ``mesh_cases``),
-    the vocab-parallel B5 and the -1-label B5-bwd by ``xent_tp_case``."""
+    ``MESH_TP_RUNS`` (granite and llama3-8b at 4 layers, falcon-mamba-7b
+    at 4 and zamba2-2.7b at 8 in float32, tensor-parallel on 1x2). Gates
+    (``mesh_gates``), against the one-card engine on the same batches and
+    depth: the step-0 gradient and the parameters after the steps per
+    leaf within ``MESH_REL_L2``'s limits for the run's dtype, the planted
+    faults (a rank's own unreduced gradient; rank 0 skipping one
+    row-parallel all-reduce; rank 0 normalizing one Mamba-2 norm by its
+    own sum of squares; in the float32 runs every sum over ``model``
+    rounded to bf16) outside them, the losses within
+    ``MESH_LOSS_RTOL``, equal metrics on both ranks, exactly one B1 and
+    one B1-bwd an attention layer or shared-attention application, one
+    B4 and one B4-bwd a Mamba layer and one B5 and one B5-bwd a
+    microbatch on each rank, the checkpoint of the 2x1 gspmd run
+    restored on one card bit for bit; the tp runs' activation all-reduce
+    bytes and gradient sums over ``model`` a step as predicted
+    (``mesh_tp_prediction``). Prints the backend, stored bytes and peak
+    a rank, step ms beside one card's, collective ms by kind and each tp
+    run's one-process floor (``mesh_reference(floor=True)``). Then B1,
+    B1-bwd, B5, B5-bwd, B4 and the per-head B4 are held to their plain
+    versions and timed at every rank shape and dtype they ran at (the
+    kernels line's ``mesh_cases``: in float32 B1, B5 and their
+    backwards are the CUDA-core kernels; B4 and the per-head B4 in bf16
+    and fp32 whichever ran), the vocab-parallel B5 and the -1-label
+    B5-bwd by ``xent_tp_case``; a B4-bwd or per-head B4-bwd launch
+    outside [scan-bwd]'s shapes fails (``scan_bwd_held``)."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6350,70 +6698,84 @@ def mesh_phase(torch, dev):
     if any(r["backend"] != "gloo" for r in ranks):
         fail("[mesh] ranks sharing the card must take gloo")
     shapes, predictions = {}, {}
+    from repro_torch.configs import get_config
     runs_by_tag = [(f"[mesh] {m} {p} {lw} mb {mb}",
-                    [r["runs"][i] for r in ranks], one, MESH_LAYERS)
+                    [r["runs"][i] for r in ranks], one, MESH_LAYERS, None)
                    for i, (m, p, lw, mb) in enumerate(MESH_RUNS)]
-    for i, (arch, layers, cut, (m, p, lw, mb)) in enumerate(MESH_TP_RUNS):
-        tag = f"[mesh] {arch} {layers} layers {m} {p} {lw} mb {mb}"
+    for i, (arch, layers, cut, dtype, (m, p, lw, mb)) in enumerate(
+            MESH_TP_RUNS):
+        tag = (f"[mesh] {arch} {layers} layers {dtype or 'bfloat16'} {m} "
+               f"{p} {lw} mb {mb}")
         tp_one = ranks[0]["tp_runs"][i]["one_card"]
         print(f"{tag}: one card at {layers} layers (cut {cut}): "
-              f"{card(tp_one)}; its step-0 gradient with the row products "
-              f"through an fp32 GEMM (the floor of a tensor-parallel "
-              f"comparison): {json.dumps(tp_one['fp32_row_products'])}",
-              flush=True)
+              f"{card(tp_one)}; its step-0 gradient and parameters after "
+              f"the steps with the row products through an fp32 GEMM (the "
+              f"floor of a tensor-parallel comparison): "
+              f"{json.dumps(tp_one['fp32_row_products'])}", flush=True)
         runs_by_tag.append((tag, [r["tp_runs"][i] for r in ranks], tp_one,
-                            layers))
-    for tag, runs, ref, layers in runs_by_tag:
-        mesh_gates(tag, runs, ref, layers)
+                            layers, get_config(arch)))
+    for tag, runs, ref, layers, cfg in runs_by_tag:
+        mesh_gates(tag, runs, ref)
         if runs[0]["tensor_parallel"]:
-            predictions[tag] = mesh_tp_prediction(tag, runs, layers)
+            predictions[tag] = mesh_tp_prediction(tag, runs, layers, cfg)
         for name, rows in runs[0]["shapes"].items():
             for shape, n in rows:
                 shapes.setdefault(name, {})
                 shapes[name][tuple(shape)] = (
                     shapes[name].get(tuple(shape), 0) + n)
-    print(f"[mesh] ranks done in {children_s:.1f} s; B1, B1-bwd, B5, B5-bwd"
-          f" launches by shape a rank: {json.dumps({k: [[list(s), n] for s, n in v.items()] for k, v in shapes.items()})}",
+    print(f"[mesh] ranks done in {children_s:.1f} s; B1, B1-bwd, B4, "
+          f"B4-bwd, B5, B5-bwd launches by shape a rank: "
+          f"{json.dumps({k: [[list(s), n] for s, n in v.items()] for k, v in shapes.items()})}",
           flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
 
-    def rn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+    def draw(dtype):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return rn
     cases = {name: [] for name in ("flash_attention", "flash_attention_bwd",
                                    "cross_entropy", "cross_entropy_bwd",
-                                   "cross_entropy_partials")}
+                                   "cross_entropy_partials",
+                                   "selective_scan", "selective_scan_heads")}
+    # every (shape, dtype) a run launched, in that dtype: a float32 run's
+    # B1, B5 and their backwards are the CUDA-core kernels
     for shape in sorted(shapes.get("cross_entropy", {})):
-        fwd, bwd = xent_case(torch, dev, gen, torch.bfloat16, timed=True,
-                             shape=shape)
+        fwd, bwd = xent_case(torch, dev, gen, getattr(torch, shape[3]),
+                             timed=True, shape=shape[:3])
         for name, case in (("cross_entropy", fwd),
                            ("cross_entropy_bwd", bwd)):
             cases[name].append({"phase": "mesh", "launches":
                                 shapes[name].get(shape, 0), **case})
     for shape in sorted(shapes.get("cross_entropy_partials", {})):
-        fwd, bwd = xent_tp_case(torch, dev, gen, shape)
+        fwd, bwd = xent_tp_case(torch, dev, gen, shape[:3],
+                                getattr(torch, shape[3]))
         for name, case in (("cross_entropy_partials", fwd),
                            ("cross_entropy_bwd", bwd)):
             cases[name].append({"phase": "mesh-tp", "launches":
                                 shapes[name].get(shape, 0), **case})
     for shape, n in sorted(shapes["flash_attention"].items()):
-        b, s, hq, hkv, d = shape
+        b, s, hq, hkv, d, dt = shape
         cases["flash_attention"].append({
             "phase": "mesh", "launches": n, **attention_train_case(
-                torch, dev, gen, rn, b=b, s=s, hq=hq, hkv=hkv, d=d)})
+                torch, dev, gen, draw(getattr(torch, dt)), b=b, s=s, hq=hq,
+                hkv=hkv, d=d)})
     for shape, n in sorted(shapes["flash_attention_bwd"].items()):
         cases["flash_attention_bwd"].append({
-            "phase": "mesh", "launches": n,
-            **attention_bwd_case(torch, dev, gen, *shape)})
+            "phase": "mesh", "launches": n, **attention_bwd_case(
+                torch, dev, gen, *shape[:5], dtype=getattr(torch, shape[5]))})
+    cases.update(mesh_scan_cases(torch, dev, gen, shapes))
     if not cases["cross_entropy_partials"]:
         fail("[mesh] no run launched the vocab-parallel B5")
     seconds = time.perf_counter() - t_phase
     all_runs = ranks[0]["runs"] + ranks[0]["tp_runs"]
     launches = {name: sum(r["launches"][name] for r in all_runs)
                 for name in all_runs[0]["launches"]}
+    tp_runs = ranks[0]["tp_runs"]
     summary = {"ranks": ranks, "seconds": seconds, "launches": launches,
-               "tp_launches": ranks[0]["tp_runs"][-1]["launches"],
+               "tp_launches": {name: sum(r["launches"][name]
+                                         for r in tp_runs)
+                               for name in tp_runs[0]["launches"]},
                "tp_all_reduce": predictions}
     print(f"[mesh] phase {seconds:.1f} s", flush=True)
     gc.collect()
@@ -6596,7 +6958,9 @@ def main() -> int:
     # the per-head B4 at zamba2's training shape ([hybrid-train]'s)
     b4h = max(family_cases["selective_scan_heads"],
               key=lambda c: c["bound_ms"])
-    b5_tp = mesh_cases["cross_entropy_partials"][0]   # llama's rank shape
+    # llama's rank shape, the largest bf16 vocab slice
+    b5_tp = max((c for c in mesh_cases["cross_entropy_partials"]
+                 if "bfloat16" in c["shape"]), key=lambda c: c["bound_ms"])
     by_path = {name: {"serve_paged": launches["paged"][name],
                       "serve_continuous": launches["continuous"][name],
                       "serve_speculative": launches["speculative"][name],
@@ -6696,6 +7060,7 @@ def main() -> int:
                                "exp_count", "device_ms", "cases")
             + timing},
          "family_cases": family_cases["selective_scan"],
+         "mesh_cases": mesh_cases["selective_scan"],
          "async_copy_count": asyncs["ssm_scan_kernel"]},
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
@@ -6707,6 +7072,7 @@ def main() -> int:
                                    "kernel_exp_count", "cases", "ptxas")
            + timing},
          "train_cases": train_cases["selective_scan_bwd"],
+         "mesh_cases": mesh_cases["selective_scan_bwd"],
          "async_copy_count": asyncs["ssm_bwd_kernel"]},
         {"name": "selective_scan_heads", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba2_fwd.cu",
@@ -6720,6 +7086,7 @@ def main() -> int:
                                 "b4_ms", "b4_device_ms", "bound_share")
             + timing},
          "family_cases": family_cases["selective_scan_heads"],
+         "mesh_cases": mesh_cases["selective_scan_heads"],
          "ptxas": heads_ptxas,
          "async_copy_count": asyncs["mamba2_fwd_kernel"],
          "exp_sass": sass["MUFU.EX2"]["kernels"]["mamba2_fwd_kernel"]},
@@ -6734,6 +7101,7 @@ def main() -> int:
                                      "per_channel_device_ms", "bound_share",
                                      "fp32", "cases", "ptxas") + timing},
          "train_cases": train_cases["selective_scan_heads_bwd"],
+         "mesh_cases": mesh_cases["selective_scan_heads_bwd"],
          "async_copy_count": asyncs["mamba2_bwd_kernel"]},
         {"name": "cross_entropy", "route": "cuda",
          "source": "src/repro_torch/csrc/cross_entropy.cu",

@@ -37,14 +37,16 @@ The lowerings differ in what a rank stores:
 compute, as GSPMD derives it in ``repro`` (:mod:`repro_torch.launch.
 tensor_parallel`): a rank all-gathers each leaf over the data axes only
 and keeps its ``model`` block; its q and kv heads go through B1 and
-B1-bwd, the MLP's columns through its products, row-parallel products
-are all-reduced over ``model``, and a split vocab runs a vocab-parallel
-embedding and B5 with a cross-rank logsumexp. The gradient sums of those
-blocks are reduce-scattered over the batch axes only; a leaf computed
-whole keeps the whole path (its sums reduced over the batch axes, and
-over ``model`` too where each rank's is partial). The dense and VLM
-families compute in parallel, the CNN runs replicated over ``model``,
-and MoE, SSM, hybrid and audio raise (ROADMAP A.21). ``repro``'s
+B1-bwd, the MLP's columns through its products, its Mamba channels (or
+Mamba-2 heads) through B4 or the per-head B4 and their backwards,
+row-parallel products are all-reduced over ``model``, and a split vocab
+runs a vocab-parallel embedding and B5 with a cross-rank logsumexp. The
+gradient sums of those blocks are reduce-scattered over the batch axes
+only; a leaf computed whole keeps the whole path (its sums reduced over
+the batch axes, and over ``model`` too where each rank's is partial: the
+mixer's in_proj, Mamba-2's conv and per-head leaves). The dense, VLM,
+SSM and hybrid families compute in parallel, the CNN runs replicated
+over ``model``, and MoE and audio raise (ROADMAP A.21). ``repro``'s
 ``shard_map`` program replicates every leaf whatever the profile, so
 ``tp`` with ``shard_map`` runs as explicit data parallelism there too.
 ``tp`` on D × 1 keeps FSDP over ``data``. A batch whose leading

@@ -49,10 +49,36 @@ leaf's gradient, partial on each rank, is summed over ``model``
 ``spec_for`` (granite's 49,155): the lookup and B5 then run whole on
 every rank, as on one card.
 
-Families: the dense and VLM families compute in parallel; the CNN names
-no logical axis, so ``tp`` replicates it over ``model`` (mode
-``"whole"`` for every leaf) and its model ranks repeat their data rank's
-work, as in ``repro``. MoE, SSM, hybrid and audio raise (ROADMAP A.21).
+The Mamba mixers (the ssm and hybrid families) split their channels
+over ``model``: a rank computes the contiguous channels ``[c0, c1)`` of
+``d_inner`` (Mamba-2: whole heads ``[h0, h1)``), which are its stored
+blocks of every leaf whose only split is ``inner`` (conv, x_proj,
+dt_proj, dt_bias, a_log and d_skip of Mamba-1, Mamba-2's norm_w, both
+out_proj). The mixer's input goes through a column-parallel product (dx
+all-reduced), B4 or the per-head B4 and their backwards run on the
+rank's channels, and out_proj is row-parallel. The stored blocks of the
+other leaves are not the rank's channels, so :func:`mixer_params` takes
+their columns from the whole leaf (mode ``"partial"``):
+
+* ``in_proj`` stores x then z (Mamba-1), or z | x | B | C | dt
+  (Mamba-2), in contiguous blocks: on two ranks rank 0 stores x and rank
+  1 stores z. A rank needs the x and z columns of its channels, and
+  Mamba-2 its dt columns and B's and C's whole (one group: every head
+  reads them); conv_w and conv_b (Mamba-2: x's rows, then B's and C's)
+  alike;
+* Mamba-2's a_log, dt_bias and d_skip are replicated (no logical axis)
+  and a rank reads its heads' entries.
+
+Two sums over ranks go both ways, in fp32 (:class:`SumOverModel`):
+Mamba-2's RMSNorm over the whole ``d_inner`` (each rank's sum of
+squares; the norm divides by ``d_inner``, not the rank's width) and
+Mamba-1's row-parallel ``x_proj``, whose output (dt, B, C) feeds only
+the rank's channels, so its gradient is partial too.
+
+Families: the dense, VLM, SSM and hybrid families compute in parallel;
+the CNN names no logical axis, so ``tp`` replicates it over ``model``
+(mode ``"whole"`` for every leaf) and its model ranks repeat their data
+rank's work, as in ``repro``. MoE and audio raise (ROADMAP A.21).
 """
 from __future__ import annotations
 
@@ -68,23 +94,26 @@ from repro_torch.models.layers import tree_leaves
 Layout = Tuple[Tuple[str, ...], ...]      # repro_torch.sharding's
 
 A21 = {"moe": "experts over model",
-       "ssm": "the Mamba channels over model with a row-parallel out_proj",
-       "hybrid": "the Mamba channels over model with a row-parallel "
-                 "out_proj",
        "audio": "EncDecModel's encoder, decoder and cross-attention"}
+
+# Mamba-2's leaves a rank slices from the whole leaf (the module's
+# docstring says why); Mamba-1 slices in_proj only
+MAMBA2_PARTIAL = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias",
+                  "d_skip")
 
 _ACTIVE: Optional["TensorParallel"] = None
 
 
 def check_family(model) -> None:
     """Raise NotImplementedError for a family whose tensor-parallel compute
-    is not ported (MoE, SSM, hybrid, audio: ROADMAP A.21); the dense, VLM
+    is not ported (MoE, audio: ROADMAP A.21); the dense, VLM, SSM, hybrid
     and CNN families pass."""
     family = getattr(getattr(model, "cfg", None), "family", None)
     if family in A21:
         raise NotImplementedError(
-            f"profile 'tp' on a mesh with model > 1 computes the dense, vlm "
-            f"and cnn families tensor-parallel; the {family} family needs "
+            f"profile 'tp' on a mesh with model > 1 computes the dense, vlm, "
+            f"ssm, hybrid and cnn families tensor-parallel; the {family} "
+            f"family needs "
             f"{A21[family]}, not ported to repro_torch yet (ROADMAP A.21); "
             f"use 'fsdp' or 'ddp', or a Dx1 mesh")
 
@@ -114,28 +143,34 @@ def model_only(layout: Layout) -> Layout:
 
 class TensorParallel:
     """What the ``tp`` layouts split over ``model``, for one rank of a
-    mesh with ``model > 1`` and a model of the dense or VLM family.
+    mesh with ``model > 1`` and a model of the dense, VLM, SSM or hybrid
+    family.
 
     ``modes``: one of "local" (the rank computes with its ``model`` block),
     "partial" (gathered whole; its gradient is partial and is summed over
     ``model``) or "whole" (gathered whole; its gradient is whole on every
-    rank) for each leaf of ``layouts``, in ``tree_leaves`` order."""
+    rank) for each leaf of ``layouts``, in ``tree_leaves`` order.
+    ``channels`` is the rank's ``[c0, c1)`` of the Mamba mixer's
+    ``d_inner`` and ``ssm_heads`` its ``[h0, h1)`` of Mamba-2's heads
+    (None without a mixer, or for Mamba-1)."""
 
     def __init__(self, model, layouts, comm):
         cfg = model.cfg
         self.comm = comm
         self.size, self.rank = comm.sizes["model"], comm.coord["model"]
         m = self.size
-        blocks = layouts["server"].get("blocks") or \
-            layouts["client"]["blocks"]
-        attn = blocks["attn"]
-        self.heads = _split(attn["wq"]) and cfg.num_heads % m == 0
+        server, client = layouts["server"], layouts["client"]
+        blocks = (server.get("blocks") or server.get("superblocks")
+                  or client["blocks"])
+        attn = blocks.get("attn") or server.get("shared_attn", {}).get(
+            "attn")
+        self.heads = attn is not None and _split(attn["wq"]) \
+            and cfg.num_heads % m == 0
         kv_local = self.heads and _split(attn["wk"]) \
             and cfg.num_kv_heads % m == 0
-        self.ff = _split(blocks["mlp"]["w_gate"])
-        head = (layouts["client"]["embed"] if cfg.tie_embeddings
-                else layouts["server"]["lm_head"])
-        self.embed_vocab = _split(layouts["client"]["embed"])
+        self.ff = "mlp" in blocks and _split(blocks["mlp"]["w_gate"])
+        head = (client["embed"] if cfg.tie_embeddings else server["lm_head"])
+        self.embed_vocab = _split(client["embed"])
         self.head_vocab = _split(head)
         # the kv heads this rank's q heads use, when kv is computed whole
         self.kv_heads: Optional[Tuple[int, int]] = None
@@ -149,8 +184,30 @@ class TensorParallel:
             q0 = self.rank * hq_loc
             self.kv_heads = (q0 // group, (q0 + hq_loc - 1) // group + 1)
         self.head_dim = cfg.head_dim
+        self.channels: Optional[Tuple[int, int]] = None
+        self.ssm_heads: Optional[Tuple[int, int]] = None
+        if "mixer" in blocks:
+            self._split_mixer(cfg, blocks["mixer"])
         self.modes = [self._mode(p, lay) for p, lay in zip(
             _paths(layouts), tree_leaves(layouts))]
+
+    def _split_mixer(self, cfg, mixer) -> None:
+        """The rank's channels (and Mamba-2 heads): whole heads and whole
+        stored blocks of the leaves it computes with locally, or raise."""
+        m, di = self.size, cfg.d_inner
+        where = f"tensor-parallel {cfg.name} on a mesh with model={m}"
+        if di % m or not _split(mixer["out_proj"]):
+            raise NotImplementedError(
+                f"{where}: d_inner {di} does not split into {m} blocks")
+        width = di // m
+        self.channels = (self.rank * width, (self.rank + 1) * width)
+        if cfg.ssm_variant == "mamba2":
+            nh = cfg.ssm_num_heads
+            if nh % m:
+                raise NotImplementedError(
+                    f"{where}: {nh} Mamba-2 heads do not split into {m} "
+                    f"ranks of whole heads")
+            self.ssm_heads = (self.rank * nh // m, (self.rank + 1) * nh // m)
 
     def _mode(self, path: Sequence[str], layout: Layout) -> str:
         name = path[-1]
@@ -162,6 +219,14 @@ class TensorParallel:
             return "partial" if self.kv_heads else "local"
         if len(path) > 1 and path[-2] == "mlp":
             return "local" if self.ff else "whole"
+        if len(path) > 1 and path[-2] == "mixer":
+            if name in (MAMBA2_PARTIAL if self.ssm_heads else ("in_proj",)):
+                return "partial"
+            if not _split(layout):
+                raise NotImplementedError(
+                    f"tensor-parallel mixer leaf {'.'.join(path)}: layout "
+                    f"{layout} does not split over model")
+            return "local"
         if path[-1] in ("embed", "lm_head"):
             return "local" if _split(layout) else "whole"
         if _split(layout):
@@ -259,6 +324,95 @@ class RowParallelProduct(torch.autograd.Function):
         dw = torch.matmul(a.reshape(-1, a.shape[-1]).T,
                           dy.reshape(-1, dy.shape[-1]))
         return da, dw, None
+
+
+class SumOverModel(torch.autograd.Function):
+    """An fp32 partial sum all-reduced over ``model`` forward, and its
+    gradient all-reduced over ``model`` backward: for a sum each rank
+    takes over its own channels whose result then feeds only those
+    channels, so each rank's gradient of it is partial too (Mamba-2's
+    sum of squares, Mamba-1's ``x_proj`` product)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_reduce(x.float().clone(
+            memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.float().clone(
+            memory_format=torch.contiguous_format)), None
+
+
+def summed_product(a: torch.Tensor, w: torch.Tensor,
+                   tp: TensorParallel) -> torch.Tensor:
+    """``a @ w`` summed over ``model``, ``a`` (..., K / M) the rank's
+    channels and ``w`` (K / M, N) its rows (Mamba-1's ``x_proj``): the
+    partial product in fp32 (the 16-bit inputs multiply exactly there),
+    summed both ways by :class:`SumOverModel` and rounded to ``a``'s
+    dtype once."""
+    part = torch.matmul(a.float(), w.float())
+    return SumOverModel.apply(part, tp).to(a.dtype)
+
+
+def rms_norm_over_model(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                        width: int, tp: TensorParallel) -> torch.Tensor:
+    """``layers.rms_norm`` over channels split across ``model``: ``x``
+    (..., width / M) the rank's channels; the sum of squares is taken on
+    each rank in fp32, summed both ways (:class:`SumOverModel`) and
+    divided by the whole ``width``."""
+    xf = x.float()
+    ss = SumOverModel.apply((xf * xf).sum(dim=-1, keepdim=True), tp)
+    y = xf * torch.rsqrt(ss / width + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def mixer_params(p, cfg):
+    """One layer's Mamba mixer leaves as the rank computes with them: with
+    a context that splits the channels, ``in_proj`` (and Mamba-2's conv,
+    a_log, dt_bias, d_skip), whole on every rank, cut to the rank's
+    columns, rows and heads (the module's docstring); else ``p``."""
+    tp = _ACTIVE
+    if tp is None or tp.channels is None:
+        return p
+    c0, c1 = tp.channels
+    di = cfg.d_inner
+    w = p["in_proj"]
+    out = dict(p)
+    if tp.ssm_heads is None:
+        out["in_proj"] = torch.cat([w[..., c0:c1], w[..., di + c0:di + c1]],
+                                   dim=-1)
+        return out
+    h0, h1 = tp.ssm_heads
+    dt0 = 2 * di + 2 * cfg.ssm_state
+    out["in_proj"] = torch.cat([w[..., c0:c1], w[..., di + c0:di + c1],
+                                w[..., 2 * di:dt0], w[..., dt0 + h0:dt0 + h1]],
+                               dim=-1)
+    for name in ("conv_w", "conv_b"):
+        out[name] = torch.cat([p[name][c0:c1], p[name][di:]], dim=0)
+    for name in ("a_log", "dt_bias", "d_skip"):
+        out[name] = p[name][h0:h1]
+    return out
+
+
+def mixer_hooks(cfg) -> dict:
+    """The Mamba mixer's hooks under a context that splits its channels
+    (``mamba1_apply`` / ``mamba2_apply``'s keywords): the input's
+    column-parallel product, the row-parallel ``out_proj`` and Mamba-1's
+    summed ``x_proj`` or Mamba-2's norm over the whole ``d_inner``; none
+    without one (the mixers' defaults, the one-card path)."""
+    tp = _ACTIVE
+    if tp is None or tp.channels is None:
+        return {}
+    hooks = {"column": lambda x, w: ColumnParallelProduct.apply(x, w, tp),
+             "row": lambda a, w: RowParallelProduct.apply(a, w, tp)}
+    if tp.ssm_heads is None:
+        hooks["inner"] = lambda a, w: summed_product(a, w, tp)
+    else:
+        hooks["norm"] = lambda y, w, eps: rms_norm_over_model(
+            y, w, eps, cfg.d_inner, tp)
+    return hooks
 
 
 def _parallel(part: str) -> Optional[TensorParallel]:
@@ -368,9 +522,11 @@ def cross_entropy(hidden, w, labels):
     return vocab_parallel_cross_entropy(hidden, w, labels, tp)
 
 
-__all__ = ["A21", "ColumnParallelProduct", "ReduceFromModel",
-           "RowParallelProduct", "TensorParallel",
-           "VocabParallelCrossEntropy", "active", "attention_params",
-           "check_family", "column_parallel", "cross_entropy", "drop_model",
-           "embed", "fp32_product", "model_only", "row_parallel",
-           "set_tensor_parallel", "vocab_parallel_cross_entropy"]
+__all__ = ["A21", "ColumnParallelProduct", "MAMBA2_PARTIAL",
+           "ReduceFromModel", "RowParallelProduct", "SumOverModel",
+           "TensorParallel", "VocabParallelCrossEntropy", "active",
+           "attention_params", "check_family", "column_parallel",
+           "cross_entropy", "drop_model", "embed", "fp32_product",
+           "mixer_hooks", "mixer_params", "model_only",
+           "rms_norm_over_model", "row_parallel", "set_tensor_parallel",
+           "summed_product", "vocab_parallel_cross_entropy"]

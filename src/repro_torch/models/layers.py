@@ -452,7 +452,8 @@ def mamba1_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def mamba1_apply(p, x, cfg: ModelConfig, state=None,
-                 return_state: bool = False):
+                 return_state: bool = False, column=torch.matmul,
+                 row=torch.matmul, inner=torch.matmul):
     """Mamba-1 selective SSM. x: (B, S, d).
 
     state: None (training/prefill from zero) or dict(conv (B, K-1, di),
@@ -460,10 +461,16 @@ def mamba1_apply(p, x, cfg: ModelConfig, state=None,
     ``return_state=True`` makes the stateless (prefill) path also return
     the final streaming state. The prefill scan runs the selective-scan
     kernel (``ops.selective_scan``) on the card; ``repro`` computes the
-    same recurrence with its chunked associative scan in plain JAX."""
+    same recurrence with its chunked associative scan in plain JAX.
+
+    The channels are ``p``'s (``in_proj`` holds x's columns, then z's):
+    tensor parallelism passes a rank's channels with ``column`` for the
+    in_proj product, ``inner`` for the x_proj product (summed over the
+    ranks) and ``row`` for out_proj."""
     s = x.shape[1]
-    di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    xz = x @ p["in_proj"]
+    n, r = cfg.ssm_state, cfg.dt_rank
+    di = p["in_proj"].shape[-1] // 2
+    xz = column(x, p["in_proj"])
     xs, z = xz.split(di, dim=-1)                              # (B,S,di) each
     if state is not None:
         xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"],
@@ -474,7 +481,7 @@ def mamba1_apply(p, x, cfg: ModelConfig, state=None,
         xs = _causal_conv(xs, p["conv_w"], p["conv_b"])
         conv_state = conv_in_tail if return_state else None
 
-    proj = xs @ p["x_proj"]                                   # (B,S,r+2N)
+    proj = inner(xs, p["x_proj"])                             # (B,S,r+2N)
     dt_in, bmat, cmat = proj.split([r, n, n], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"] + p["dt_bias"]).float())
     a = -torch.exp(p["a_log"])                                # (di,N) f32
@@ -492,7 +499,7 @@ def mamba1_apply(p, x, cfg: ModelConfig, state=None,
         y, new_ssm = ops.selective_scan(xs, dt, a, bmat, cmat)
     y = y + p["d_skip"][None, None] * xs.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = row(y, p["out_proj"])
     if state is not None or return_state:
         return out, {"conv": conv_state, "ssm": new_ssm}
     return out
@@ -518,7 +525,8 @@ def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def mamba2_apply(p, x, cfg: ModelConfig, state=None,
-                 return_state: bool = False):
+                 return_state: bool = False, column=torch.matmul,
+                 row=torch.matmul, norm=rms_norm):
     """Mamba-2 (SSD, scalar decay per head, ngroups=1). x: (B, S, d).
 
     state: None (training/prefill from zero) or dict(conv (B, K-1, di+2N),
@@ -531,11 +539,18 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None,
     per-head B4-bwd, which returns d(dt) and dA per head.
     y is ``repro``'s hs . C and h_last (B, di, N) the (B, nh, hd, N)
     state, so ``repro``'s (B, S, nh, hd, N) ``bx`` is never built. The
-    one-token decode update stays plain torch, as in ``repro``."""
+    one-token decode update stays plain torch, as in ``repro``.
+
+    The heads are ``p``'s (``a_log``'s): tensor parallelism passes a
+    rank's heads, ``in_proj`` and the conv cut to their z, x and dt and
+    the whole B and C, with ``column`` for the in_proj product, ``row``
+    for out_proj and ``norm`` for the RMSNorm over the whole
+    ``d_inner``."""
     b, s, _ = x.shape
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
-    hd = di // nh
-    zxbcdt = x @ p["in_proj"]
+    n, nh = cfg.ssm_state, p["a_log"].shape[-1]
+    hd = cfg.d_inner // cfg.ssm_num_heads
+    di = nh * hd
+    zxbcdt = column(x, p["in_proj"])
     z, xbc, dt_in = zxbcdt.split([di, di + 2 * n, nh], dim=-1)
     if state is not None:
         xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
@@ -564,8 +579,8 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None,
         new_ssm = h_last.reshape(b, nh, hd, n)
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y.reshape(b, s, di) * F.silu(z.float())
-    y = rms_norm(y.to(x.dtype), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    y = norm(y.to(x.dtype), p["norm_w"], cfg.norm_eps)
+    out = row(y, p["out_proj"])
     if state is not None or return_state:
         return out, {"conv": conv_state, "ssm": new_ssm}
     return out

@@ -180,8 +180,13 @@ class _Blocks:
         return x, (self._repeat_kv(k), self._repeat_kv(v))
 
     def ssm_block(self, p, x):
-        hn = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
-        return x + self._mixer(p["mixer"], hn, self.cfg)
+        """Full-sequence SSM block (training). Under tensor parallelism
+        the rank computes its channels of the mixer (``launch.
+        tensor_parallel.mixer_params`` and ``mixer_hooks``)."""
+        cfg = self.cfg
+        hn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        return x + self._mixer(tp.mixer_params(p["mixer"], cfg), hn, cfg,
+                               **tp.mixer_hooks(cfg))
 
     def ssm_block_prefill(self, p, x):
         """Prefill block; returns (x, {"conv", "ssm"}) decode state."""
@@ -375,13 +380,17 @@ class LanguageModel:
 
     def _shared_attn(self, p, x, positions, window):
         """The hybrid's shared attention block on a full sequence (B1):
-        (x + attention, k, v)."""
+        (x + attention, k, v). Under tensor parallelism the rank computes
+        its heads, as in ``_Blocks.block``."""
         cfg = self.cfg
         b, s, _ = x.shape
         hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(p["attn"], hn, cfg, positions)
+        q, k, v = L.attention_qkv(tp.attention_params(p["attn"]), hn, cfg,
+                                  positions,
+                                  matmul=tp.column_parallel("attn"))
         a = L.blockwise_attention(q, k, v, causal=True, window=window)
-        return x + a.reshape(b, s, -1) @ p["attn"]["wo"], k, v
+        return x + tp.row_parallel("attn")(a.reshape(b, s, -1),
+                                           p["attn"]["wo"]), k, v
 
     # ----- training forward pieces -----
     def _embed(self, params, batch):

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.core import psl as tpsl
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.layers import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCHS = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e",
          "moonshot-v1-16b-a3b", "internvl2-2b", "llama3-8b", "qwen2-72b"]

@@ -34,6 +34,7 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
 from repro_torch.models.layers import tree_leaves
 from repro_torch.models.transformer import EncDecModel
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "whisper-tiny"
 LAYER_ATOL = 1e-5

@@ -13,6 +13,7 @@ from repro_torch.core import psl as tpsl
 from repro_torch.models.layers import tree_leaves
 from test_torch_audio import (GRAD_REL, LOSS_RTOL, MODEL_ATOL, _batch,
                               _close, pair)  # noqa: F401  (fixture)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_loss_fn_matches_repro(pair):

@@ -29,6 +29,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.core import psl as tpsl
 from repro_torch.models import cnn as tcnn
 from repro_torch.models.layers import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 GRAD_REL = 3e-4
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -23,6 +23,7 @@ from repro_torch.data import federated as tfed
 from repro_torch.data import synthetic as tsyn
 from repro_torch.obs import monitor as tmon
 from repro_torch.runtime import workload as tworkload
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _eq(a, b):

@@ -16,6 +16,7 @@ from repro_torch.data.federated import ClientStore
 from repro_torch.data.synthetic import make_classification_dataset
 from repro_torch.launch.train import PSLTrainer, default_lm_spec
 from repro_torch.models.cnn import CNNModel
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -513,6 +513,8 @@ def _scan_case(gen, dev, dtype, b, l, d, n):
     (torch.float16, 2, 45, 100, 16),        # D % 8 != 0: 4-byte copies
     (torch.bfloat16, 1, 17, 72, 5),         # N < its tier, 16-bit B and C
     (torch.float32, 2, 33, 36, 64),         # 8-channel tiles, ragged D
+    (torch.bfloat16, 16, 128, 4096, 16),    # a rank's channels, tp 1x2
+    (torch.float32, 16, 128, 4096, 16),     # ... in fp32
 ])
 def test_ssm_scan_kernel_matches_plain(dev, dtype, b, l, d, n):
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -586,6 +588,7 @@ def _check_scan_bwd(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,l,d,n,hd", [
     (16, 128, 8192, 16, None),      # falcon-mamba's training shape
+    (16, 128, 4096, 16, None),      # ... a rank's channels on tp 1x2
     (16, 128, 5120, 64, 64),        # zamba2's, in the Mamba-2 layout
     (3, 37, 200, 5, None),          # ragged L, D tile and N
 ])
@@ -678,6 +681,7 @@ def _heads_case(gen, dev, dtype, b, l, d, n, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,l,d,n,hd", [
     (16, 128, 5120, 64, 64),        # zamba2's training shape
+    (16, 128, 2560, 64, 64),        # ... a rank's 40 heads on tp 1x2
     (8, 32, 256, 8, 32),            # the reduced zamba2's
     (3, 37, 60, 5, 12),             # ragged L, N, hd: 20 idle lanes
     (2, 21, 160, 16, 80),           # hd 80: a head in two tiles
@@ -758,6 +762,7 @@ def test_ssm_scan_heads_backward_refuses_what_it_does_not_take(dev):
     (1, 32, 5120, 64, 64),      # ... L 32
     (4, 32, 5120, 64, 64),      # ... four 32-token prompts
     (16, 128, 5120, 64, 64),    # zamba2's training shape
+    (16, 128, 2560, 64, 64),    # ... a rank's 40 heads on tp 1x2
     (8, 32, 256, 8, 32),        # the reduced zamba2's hd and N
     (3, 37, 60, 5, 5),          # ragged L, N and hd: 12 heads of 5
 ])

@@ -51,6 +51,7 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
 from repro_torch.models.layers import tree_leaves
 from test_torch_archs import LOSS_RTOL, assert_grads
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "zamba2-2.7b"
 SCAN_TOL = dict(atol=1e-5, rtol=1e-5)

@@ -27,6 +27,7 @@ from repro_torch.kernels.paged_attention import (combine_partials_plain,
                                                  split_partials_plain)
 from repro_torch.kernels.ssm_scan import (ssm_scan_heads,
                                           ssm_scan_heads_bwd)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]

@@ -31,6 +31,7 @@ from repro_torch.kernels.cross_entropy import (cross_entropy_bwd_plain,
                                                ds_chunk, num_vocab_splits)
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 VAL = dict(atol=1e-5, rtol=1e-5)
 GRAD = dict(atol=1e-5, rtol=1e-4)

@@ -63,6 +63,7 @@ from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import TrainState
 
 import torch_mesh_worker as W
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 WORLD = 4
 CHILD_TIMEOUT_S = 300

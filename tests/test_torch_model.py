@@ -25,6 +25,7 @@ from repro_torch import checkpoint as tckpt
 from repro_torch.configs import get_config as tget
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.layers import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "granite-3-2b"
 OVERRIDES = {"reduced": {}, "kv_repeat4": {"num_heads": 16,

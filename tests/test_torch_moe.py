@@ -48,6 +48,7 @@ from repro_torch.core import psl as tpsl
 from repro_torch.launch.train import default_lm_spec as t_default_lm_spec
 from repro_torch.models import layers as TL
 from repro_torch.models.layers import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 GRAD_REL = 3e-4

@@ -15,6 +15,7 @@ import pytest
 import repro.api as japi
 from repro_torch import api as tapi
 from repro_torch.checkpoint import from_numpy_tree
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "granite-moe-3b-a800m"
 

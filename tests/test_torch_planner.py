@@ -40,6 +40,7 @@ from repro_torch.core import straggler as tstraggler
 from repro_torch.core.psl import requires_grad_
 from repro_torch.core.types import ClientPopulation as TPop
 from repro_torch.optim import TrainState
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 EM_PI_ATOL = 1e-5
 EM_ITERS = 2

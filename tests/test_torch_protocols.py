@@ -28,6 +28,7 @@ from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.core.psl import requires_grad_
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import TrainState
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 NUM_TEST = 64
 

@@ -20,6 +20,7 @@ from repro.runtime import sampling as jsampling
 from repro_torch import api as tapi
 from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.runtime import sampling as tsampling
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SEEDS = [0, 7, 2**31 - 1, -1, 2**32 + 5]
 DATA = [(0, 0), (3, 11), (96, 4095), (2**31 - 1, 2**31 - 1)]

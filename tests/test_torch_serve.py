@@ -20,6 +20,7 @@ import repro.api as japi
 from repro_torch import api as tapi
 from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.launch import serve as serve_cli
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

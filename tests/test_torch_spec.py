@@ -37,6 +37,7 @@ from repro_torch.kernels.paged_attention import (combine_partials_plain,
 from repro_torch.kernels.spec_verify import spec_verify_plain
 from repro_torch.launch import serve as serve_cli
 from repro_torch.runtime.paging import PagePool as TPagePool
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "granite-3-2b"
 DTYPES = [("float32", jnp.float32, torch.float32),

@@ -42,6 +42,7 @@ from repro_torch.kernels.spec_verify import spec_verify
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
 from repro_torch.models.layers import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "falcon-mamba-7b"
 SCAN_TOL = dict(atol=1e-5, rtol=1e-5)

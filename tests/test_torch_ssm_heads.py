@@ -21,6 +21,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import (expand_heads, ssm_scan_bwd_plain,
                                           ssm_scan_heads_bwd_plain,
                                           ssm_scan_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 GRAD_ATOL = 1e-5
 NAMES = ("dx", "ddt", "da", "dB", "dC")

@@ -23,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import (expand_heads, heads_fwd_exp_count,
                                           ssm_scan_heads_plain,
                                           ssm_scan_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 # (B, L, heads, channels a head, N), as tests/test_torch_ssm_heads.py's

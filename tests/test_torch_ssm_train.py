@@ -49,6 +49,7 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
 from test_torch_archs import assert_grads
 from test_torch_hybrid import _configs as hybrid_configs
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 GRAD_ATOL = 1e-5
 LOSS_RTOL = 1e-4

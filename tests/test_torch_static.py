@@ -18,6 +18,7 @@ from repro_torch import api as tapi
 from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.launch import serve as serve_cli
 from test_torch_audio import audio_params
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPORT_FIELDS = ("engine", "steps", "prefill_tokens", "decode_tokens",
                  "num_requests", "max_active", "step_active",

@@ -27,6 +27,7 @@ from repro_torch.checkpoint import from_numpy_tree
 from repro_torch.configs import get_config as tget
 from repro_torch.models import build_model as tbuild
 from test_torch_archs import fan_in_params
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # (arch, depth override): zamba2 at 2 layers is too shallow for a
 # superblock, so its shared-attention and superblock caches are empty

@@ -42,6 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain,
                                                  uses_tensor_cores)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CARD_TOL = 2e-2           # bf16 atol/rtol of tests/test_torch_gpu.py
 GRAD_REL_L2 = 2e-2        # chip_smoke.py's [grads] limit

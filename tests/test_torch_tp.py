@@ -37,6 +37,7 @@ from repro_torch.models import build_model
 from repro_torch.models.cnn import CNNConfig, CNNModel
 from repro_torch.optim import sgd
 from repro_torch.sharding import model_param_shardings
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REL = 1e-6
 GRAD = dict(atol=1e-5, rtol=1e-4)
@@ -224,15 +225,15 @@ def _model(arch):
 
 @pytest.mark.parametrize("arch", sorted(TORCH_CONFIGS))
 def test_tp_over_model_accepts_or_refuses_each_family(arch):
-    """dense, vlm and cnn pass the family check and reach the mesh (which
-    needs 4 ranks: one is running); moe, ssm, hybrid and audio raise,
+    """dense, vlm, ssm, hybrid and cnn pass the family check and reach
+    the mesh (which needs 4 ranks: one is running); moe and audio raise,
     naming ROADMAP A.21, on either lowering. ``ExecutionSpec`` knows no
     family and accepts tp on 2x2."""
     model = _model(arch)
     family = getattr(getattr(model, "cfg", None), "family", "cnn")
     tapi.ExecutionSpec(mesh="2x2").validate()
     for lowering in ("gspmd", "shard_map"):
-        if family in ("dense", "vlm", "cnn"):
+        if family in ("dense", "vlm", "ssm", "hybrid", "cnn"):
             with pytest.raises(ValueError, match="needs 4 ranks"):
                 ShardedPSLEngine(model, sgd(1e-3), mesh="2x2", profile="tp",
                                  lowering=lowering, device="cpu")

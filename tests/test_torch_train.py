@@ -55,6 +55,7 @@ from repro_torch.launch import distributed as tdist
 from repro_torch.launch import train as train_cli
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.layers import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "granite-3-2b"
 LOSS_RTOL = 1e-5

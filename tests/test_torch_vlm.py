@@ -28,6 +28,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.core import psl as tpsl
 from repro_torch.models import build_model as tbuild
 from test_torch_archs import LOSS_RTOL, assert_grads, fan_in_params
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "internvl2-2b"
 

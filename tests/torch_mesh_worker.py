@@ -18,14 +18,18 @@ Model kinds: "cnn", "lm" (reduced granite-3-2b from ``repro``'s init)
 and "lm_fanin", the same LM from ``repro``'s init with every stacked
 matrix rescaled to fan-in d_in (``chip_smoke.py``'s ``rescale_to_fan_in``,
 written by the test); "qwen_fanin" (reduced qwen2-72b: qkv biases) and
-"vlm_fanin" (reduced internvl2-2b, its batches with patches) alike
-(``ARCHS``). The tensor-parallel cases take the fan-in kinds: their
-forward sums in another order than one process does (row-parallel
-products summed over ranks), and at ``repro``'s init (stacked leaves of
-fan-in 1, near-argmax attention) one process's own step-0 gradient moves
-by 7e-5 of a leaf's largest entry when one leaf is scaled by 1 + 2**-23,
-past the 1e-5 limit of any reassociation; from the fan-in init it moves
-by 1.1e-6.
+"vlm_fanin" (reduced internvl2-2b, its batches with patches),
+"ssm_fanin" (reduced falcon-mamba-7b) and "hybrid_fanin" (reduced
+zamba2-2.7b) alike (``ARCHS``). The tensor-parallel cases take the
+fan-in kinds: their forward sums in another order than one process does
+(row-parallel products summed over ranks), and at ``repro``'s init
+(stacked leaves of fan-in 1, near-argmax attention) one process's own
+step-0 gradient moves by 7e-5 of a leaf's largest entry when one leaf is
+scaled by 1 + 2**-23, past the 1e-5 limit of any reassociation; from the
+fan-in init it moves by 1.1e-6. The Mamba models alike: at ``repro``'s
+init the worst leaf of reduced falcon-mamba moves by 7.6e-4 and of
+reduced zamba2 by 7.8e-4 (states of std-1 products over 1- and 2-layer
+stacks), from the fan-in init by 1.6e-6 and 7.2e-6.
 """
 from __future__ import annotations
 
@@ -65,10 +69,19 @@ CASES = {
     "cnn-tp-2x2": ("cnn", "2x2", "tp", "gspmd", 1, "even", "sgd"),
     "qwen-tp-2x2": ("qwen_fanin", "2x2", "tp", "gspmd", 1, "even", "sgd"),
     "vlm-tp-1x4": ("vlm_fanin", "1x4", "tp", "gspmd", 1, "even", "sgd"),
+    # falcon-mamba: on 2x2 rank 0 stores in_proj's x columns, rank 1 z's
+    "ssm-tp-2x2": ("ssm_fanin", "2x2", "tp", "gspmd", 1, "even", "sgd"),
+    "ssm-tp-1x4-mb2": ("ssm_fanin", "1x4", "tp", "gspmd", 2, "even", "sgd"),
+    # zamba2: in_proj's 536 columns split across z | x | B | C | dt
+    "hybrid-tp-2x2": ("hybrid_fanin", "2x2", "tp", "gspmd", 1, "even",
+                      "adamw"),
+    "hybrid-tp-1x4": ("hybrid_fanin", "1x4", "tp", "gspmd", 1, "even",
+                      "sgd"),
 }
 # the LM kinds' reduced configs
 ARCHS = {"lm": "granite-3-2b", "lm_fanin": "granite-3-2b",
-         "qwen_fanin": "qwen2-72b", "vlm_fanin": "internvl2-2b"}
+         "qwen_fanin": "qwen2-72b", "vlm_fanin": "internvl2-2b",
+         "ssm_fanin": "falcon-mamba-7b", "hybrid_fanin": "zamba2-2.7b"}
 CHECKPOINT_CASE = "lm-fsdp-2x2"
 LM_SEQ, LM_VOCAB = 24, 512
 VLM_PATCHES = 16                 # reduced internvl2: 16 patches of d 128
