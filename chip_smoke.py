@@ -304,27 +304,35 @@ JAX or of the JAX package. Phases (any failure exits non-zero):
    rank), falcon-mamba-7b (B4 and B4-bwd on 4,096 of the 8,192 channels
    a rank, B5 on 32,512 columns) and zamba2-2.7b (the per-head B4 and
    B4-bwd on 40 of the 80 heads, the shared attention's B1 and B1-bwd on
-   16 of 32 heads, B5 on 16,000 columns), the last two in float32 (the
-   constant says why; ``MESH_REL_L2`` gives their limits), ``MESH_STEPS``
-   steps each, held to the one-card engine on the same batches and depth
-   (``mesh_phase`` lists the gates; a planted unreduced gradient, in the
-   granite tp run a row-parallel product whose all-reduce rank 0 skips,
-   in the zamba2 run a Mamba-2 norm whose sum of squares rank 0 does not
-   add up over the ranks, and in both float32 runs every sum over
-   ``model`` rounded to bf16, must fail them); each rank launches
-   exactly one B1 and one B1-bwd an attention layer or shared-attention
-   application, one B4 and one B4-bwd a Mamba layer (falcon-mamba the
-   per-channel kernels, zamba2 the per-head ones) and one B5 (the
-   vocab-parallel one where the head's vocab is split) and one B5-bwd a
-   microbatch; the 2x1 gspmd run's checkpoint restores on one card bit
-   for bit. Printed: backend, stored bytes and peak a rank, step ms
-   against one card's, collective ms and bytes by kind (the tp runs'
-   activation all-reduce bytes beside the prediction,
-   ``tp_all_reduce_bytes`` or ``tp_mixer_all_reduce_bytes``, and the
-   gradient sums of the leaves computed whole beside theirs,
-   ``tp_partial_grad_bytes``). Then B1, B1-bwd, B5, B5-bwd, B4 and the
-   per-head B4 are held to their plain versions and timed at the rank
-   shapes, each in the dtype it ran in (the kernels line's
+   16 of 32 heads, B5 on 16,000 columns), granite-moe-3b-a800m (8 layers:
+   20 of 40 experts and 12 q / 4 kv heads a rank, B5 whole) and
+   whisper-tiny (4 + 4 layers on 8 x (1500 frames + 128 tokens): 3 heads
+   a rank in the encoder, the decoder and the cross-attention, B5
+   whole), the last four in float32 (the constant says why; each prints
+   its bf16 floor, which must sit over ``GRAD_REL_L2``; ``MESH_REL_L2``
+   gives their limits), ``MESH_STEPS`` steps each, held to the one-card
+   engine on the same batches and depth (``mesh_phase`` lists the gates;
+   a planted unreduced gradient, in the granite tp run a row-parallel
+   product whose all-reduce rank 0 skips, in the zamba2 run a Mamba-2
+   norm whose sum of squares rank 0 does not add up over the ranks, in
+   the granite-moe run an MoE combine rank 0 does not sum, and in the
+   float32 runs every sum over ``model`` rounded to bf16, must fail
+   them; the granite-moe run prints its routing flips against one
+   card's); each rank launches exactly one B1 and one B1-bwd an
+   attention layer, cross-attention or shared-attention application,
+   one B4 and one B4-bwd a Mamba layer (falcon-mamba the per-channel
+   kernels, zamba2 the per-head ones) and one B5 (the vocab-parallel one
+   where the head's vocab is split) and one B5-bwd a microbatch; the 2x1
+   gspmd run's checkpoint restores on one card bit for bit. Printed:
+   backend, stored bytes and peak a rank, step ms against one card's,
+   collective ms and bytes by kind (the tp runs' activation all-reduce
+   bytes beside the prediction, ``tp_all_reduce_bytes``,
+   ``tp_mixer_all_reduce_bytes``, ``tp_moe_all_reduce_bytes`` or
+   ``tp_audio_all_reduce_bytes``, and the gradient sums of the leaves
+   computed whole beside theirs, ``tp_partial_grad_bytes``). Then B1,
+   B1-bwd, B5, B5-bwd, B4 and the per-head B4 are held to their plain
+   versions and timed at the rank shapes (B1 and B1-bwd by keys and
+   causality too), each in the dtype it ran in (the kernels line's
    ``mesh_cases``; B4 in bf16 and fp32), the vocab-parallel B5 and the
    -1-label B5-bwd by ``xent_tp_case``; both B4-bwd kernels' rank shapes
    are [scan-bwd]'s.
@@ -773,44 +781,50 @@ def paged_case(torch, dev, gen, hq=32, hc=16, d=64):
 
 def attention_train_case(torch, dev, gen, rn, b=ATTN_SHAPE["b"],
                          s=ATTN_SHAPE["seqs"][0], hq=ATTN_SHAPE["hq"],
-                         hkv=ATTN_SHAPE["hkv"], d=ATTN_SHAPE["d"]):
+                         hkv=ATTN_SHAPE["hkv"], d=ATTN_SHAPE["d"], t=None,
+                         causal=True):
     """B1 at a training shape (by default granite's: B = 16, S = 128,
-    Hq = 32, Hkv = 8, D = 64, causal) with the lse the backward reads, on
-    inputs drawn by ``rn`` (bf16; in float32 the CUDA-core kernel, held at
-    ``FP32_ATTN_TOL``), against the plain version's output and lse, timed
-    beside it and the SDPA forward."""
+    Hq = 32, Hkv = 8, D = 64, causal; T keys, S unless given) with the
+    lse the backward reads, on inputs drawn by ``rn`` (bf16; in float32
+    the CUDA-core kernel, held at ``FP32_ATTN_TOL``), against the plain
+    version's output and lse, timed beside it and the SDPA forward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    qt, kt, vt = (rn(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv))
+    t = s if t is None else t
+    qt = rn(b, s, hq, d).transpose(1, 2)
+    kt, vt = (rn(b, t, hkv, d).transpose(1, 2) for _ in range(2))
     fp32 = qt.dtype == torch.float32
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-    got = flash_attention(qt, kt, vt, causal=True, lse=lse)   # uncounted
-    want, want_lse = flash_attention_plain(qt, kt, vt, causal=True,
+    got = flash_attention(qt, kt, vt, causal=causal, lse=lse)  # uncounted
+    want, want_lse = flash_attention_plain(qt, kt, vt, causal=causal,
                                            with_lse=True)
     torch.cuda.synchronize()
     err = (within_tol(torch, got, want, "flash_attention float32",
                       **FP32_ATTN_TOL) if fp32 else within(torch, got, want))
     lse_err = within_tol(torch, lse, want_lse, "flash_attention lse",
                          **LSE_TOL)
-    flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
+    flops = 4.0 * b * hq * d * attn_pairs(s, t, causal)
     bnd, by = bound_ms(qt.element_size() * (2 * b * s * hq * d
-                                            + 2 * b * s * hkv * d)
+                                            + 2 * b * t * hkv * d)
                        + 4 * b * hq * s, flops,
                        FP32_FLOPS if fp32 else BF16_FLOPS)
     case = {
-        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal, with lse "
-                 f"(training)" + (" float32" if fp32 else ""),
+        "shape": f"{attn_shape(b, s, t, hq, hkv, d, causal)}, with lse "
+                 f"(training)"
+                 + (" float32" if fp32 else ""),
         "max_abs_err": err, "lse_max_abs_err": lse_err,
-        "ms": time_ms(torch, lambda: flash_attention(qt, kt, vt, lse=lse)),
+        "ms": time_ms(torch, lambda: flash_attention(
+            qt, kt, vt, causal=causal, lse=lse)),
         "plain_ms": time_ms(torch, lambda: flash_attention_plain(
-            qt, kt, vt, causal=True, with_lse=True)),
+            qt, kt, vt, causal=causal, with_lse=True)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(
             torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
         "device_ms": device_ms(
-            torch, lambda: flash_attention(qt, kt, vt, lse=lse),
+            torch, lambda: flash_attention(qt, kt, vt, causal=causal,
+                                           lse=lse),
             "flash_fwd_kernel" if fp32 else "flash_fwd_tc"),
     }
     add_rates(case, flops)
@@ -3265,9 +3279,9 @@ def moe_hooks(torch):
     apply, experts, route = saved
     keeps = []
 
-    def ranged(p, x, cfg):
+    def ranged(p, x, cfg, **hooks):
         with record_function("moe_apply"):
-            return apply(p, x, cfg)
+            return apply(p, x, cfg, **hooks)
 
     def ranged_experts(p, buf, dtype):
         with record_function("expert_ffn"):
@@ -4438,7 +4452,9 @@ class record_train_shapes:
     the inputs' (``dtype_name``: a 16-bit and a float32 launch run
     different kernels). A B1 or B1-bwd launch that is not
     causal and unwindowed over T = S, or a B1 launch without the lse,
-    fails: training runs none."""
+    fails: training runs none. With ``keys`` B1 and B1-bwd go by (B, S,
+    T, Hq, Hkv, D, causal, dtype) and may be non-causal over T keys
+    (whisper's encoder and cross-attention)."""
 
     NAMES = {"flash_attention": "flash_attention",
              "flash_attention_bwd": "flash_attention_bwd",
@@ -4447,7 +4463,7 @@ class record_train_shapes:
              "selective_scan_heads": "ssm_scan_heads",
              "selective_scan_heads_bwd": "ssm_scan_heads_bwd"}
 
-    def __init__(self):
+    def __init__(self, keys: bool = False):
         from repro_torch.kernels import ops
         self.ops, self.xent = ops, ops.xent
         self.saved = {n: getattr(ops, a) for n, a in self.NAMES.items()}
@@ -4469,11 +4485,15 @@ class record_train_shapes:
             def shape_of(q, k, v, *args, causal=True, window=None,
                          lse=None, **kw):
                 b, hq, s, d = q.shape
-                if not causal or window is not None or k.shape[2] != s \
-                        or (fwd and lse is None):
-                    fail(f"a training B1 launch at T {k.shape[2]}, S {s}, "
+                t = k.shape[2]
+                if window is not None or (fwd and lse is None) or (
+                        not keys and (not causal or t != s)):
+                    fail(f"a training B1 launch at T {t}, S {s}, "
                          f"causal {causal}, window {window}, lse "
                          f"{lse is not None}")
+                if keys:
+                    return (b, s, t, hq, k.shape[1], d, causal,
+                            dtype_name(q.dtype))
                 return (b, s, hq, k.shape[1], d, dtype_name(q.dtype))
             return shape_of
 
@@ -5839,12 +5859,27 @@ MESH_CHECKPOINT_RUN = 1         # the 2x1 gspmd run writes a checkpoint
 # 0.0198 (the per-head a_log, dt_bias and d_skip, each a sum over every
 # token, channel and state of its head); at 2 and 7 layers still 0.027
 # and 0.099. In float32 they are held to MESH_REL_L2's own limits.
+# granite-moe-3b-a800m at [moe-train]'s 8 of 32 layers (cut 2): 20 of
+# 40 experts, 12 q and 4 kv heads a rank; whisper-tiny whole (4 encoder
+# and 4 decoder layers, cut at the encoder) on [audio-grads]' batch of 8
+# x (1500 frames + 128 tokens): 3 heads a rank, 768 MLP columns. Both in
+# float32: their bf16 floors sit over GRAD_REL_L2 too. granite-moe's
+# step-0 gradient moves by 0.087 (the router; a changed rounding flips
+# 6% of the bf16 top-k assignments, each flip moving an expert's rows),
+# whisper's parameters after 3 AdamW steps by 0.060 (zero-init b_in,
+# whose first updates are signs); on an H100. A float32 run's bf16 floor
+# is read and printed at every run (``mesh_rank_main``), and must still
+# sit over the gate: a float32 run is the choice only while bf16 cannot
+# pass.
 MESH_TP_RUNS = (("granite-3-2b", 4, 2, None, ("1x2", "tp", "gspmd", 1)),
                 ("llama3-8b", 4, 1, None, ("1x2", "tp", "gspmd", 1)),
                 ("falcon-mamba-7b", 4, 2, "float32",
                  ("1x2", "tp", "gspmd", 1)),
                 ("zamba2-2.7b", 8, 2, "float32",
-                 ("1x2", "tp", "gspmd", 1)))
+                 ("1x2", "tp", "gspmd", 1)),
+                (MOE_ARCH, MOE_TRAIN_LAYERS, 2, "float32",
+                 ("1x2", "tp", "gspmd", 1)),
+                (AUDIO_ARCH, 4, 0, "float32", ("1x2", "tp", "gspmd", 1)))
 # Per-leaf relative L2 limits (step-0 gradient, parameters after the
 # steps) against the one-card engine, by the run's dtype. bf16: GRAD_REL_L2
 # for both. float32, from the float32 tp runs' own readings on an H100:
@@ -5857,10 +5892,11 @@ MESH_REL_L2 = {"bfloat16": (GRAD_REL_L2, GRAD_REL_L2),
                "float32": (2e-4, 4e-3)}
 MESH_SKIP_RUN = 0               # granite tp 1x2: rank 0 skips a reduce
 MESH_NORM_SKIP_RUN = 3          # zamba2 tp 1x2: rank 0's norm, unsummed
+MESH_COMBINE_SKIP_RUN = 4       # granite-moe tp 1x2: rank 0's combine
 GRAD_NORM_BYTES = 4             # the gradient norm's all-reduce a step
 MESH_LOSS_RTOL = 1e-2           # per-step loss against the one-card run
 MESH_PG_TIMEOUT_S = 180         # a collective that waits longer fails
-MESH_CHILD_TIMEOUT_S = 420      # a rank that runs longer is killed
+MESH_CHILD_TIMEOUT_S = 600      # a rank that runs longer is killed
 
 
 def _tree_bytes(tree) -> int:
@@ -5902,6 +5938,44 @@ def tp_mixer_all_reduce_bytes(cfg, tokens: int, layers: int, attention: int,
             + (elements * (itemsize + 4) if vocab_parallel else 0))
 
 
+def tp_moe_all_reduce_bytes(cfg, tokens: int, layers: int, attention: bool,
+                            vocab_parallel: bool, itemsize: int) -> int:
+    """``tp_all_reduce_bytes`` for ``layers`` MoE layers with the experts
+    split over ``model``, all in fp32 but the embedding's: with
+    ``attention`` (its heads split) a layer's q, k, v input gradients and
+    its ``wo`` sum; the experts' combine forward and the dispatch input's
+    gradient backward (``tokens`` x d_model each) and the gate values'
+    gradient (``tokens`` x k); a shared expert's gate and up input
+    gradients and its ``w_down`` sum; with the vocab split, the
+    embedding's rows and the head's dh."""
+    elements = tokens * cfg.d_model
+    per_layer = (elements * (2 + 4 * attention
+                             + 3 * cfg.moe_shared_expert) * 4
+                 + tokens * cfg.experts_per_token * 4)
+    return (layers * per_layer
+            + (elements * (itemsize + 4) if vocab_parallel else 0))
+
+
+def tp_audio_all_reduce_bytes(cfg, frames: int, tokens: int,
+                              attention: bool, vocab_parallel: bool,
+                              itemsize: int) -> int:
+    """``tp_all_reduce_bytes`` for whisper's encoder (``frames`` rows a
+    step) and decoder (``tokens`` rows), all in fp32 but the embedding's:
+    an encoder layer's MLP input gradient and ``w_out`` sum, and with
+    ``attention`` (its heads split) its q, k, v input gradients and
+    ``wo`` sum, over ``frames`` x d_model; a decoder layer's MLP pair,
+    and with ``attention`` its self-attention's four and the
+    cross-attention's q input gradient and ``wo`` sum over ``tokens`` x
+    d_model, and the cross-attention's k and v input gradients over
+    ``frames`` x d_model (onto the encoder states, the PSL cut); with the
+    vocab split, the embedding's rows and the head's dh."""
+    enc, dec = frames * cfg.d_model, tokens * cfg.d_model
+    return (cfg.encoder_layers * enc * (2 + 4 * attention) * 4
+            + cfg.num_layers * (dec * (2 + 6 * attention)
+                                + enc * 2 * attention) * 4
+            + (dec * (itemsize + 4) if vocab_parallel else 0))
+
+
 def tp_partial_grad_bytes(cfg, layers: int) -> int:
     """The fp32 gradient sums over ``model`` a step of the Mamba leaves a
     rank computes whole and slices (``tensor_parallel``'s "partial"
@@ -5920,7 +5994,8 @@ def tp_partial_grad_bytes(cfg, layers: int) -> int:
 def mesh_setup(api, dev, layers: int, cut: int, arch=None, dtype=None):
     """The ``[train]`` setting's context at ``layers`` layers (cut
     ``cut``; granite-3-2b unless ``arch``; the config's dtype unless
-    ``dtype``) and its first ``MESH_STEPS`` plan batches."""
+    ``dtype``) and its first ``MESH_STEPS`` plan batches; for the audio
+    family, ``audio_mesh_batches``."""
     import itertools
     from repro_torch.api.protocols import lm_plan_batches
     from repro_torch.core.sampling import make_plan
@@ -5934,6 +6009,8 @@ def mesh_setup(api, dev, layers: int, cut: int, arch=None, dtype=None):
         sets.append(f"model.overrides.dtype={dtype}")
     spec = api.apply_overrides(default_lm_spec(), sets)
     ctx = api.build_context(spec, device=dev)
+    if ctx.model.cfg.family == "audio":
+        return ctx, audio_mesh_batches(ctx.model.cfg, spec.seed)
     plan = make_plan(spec.sampler.method, ctx.data.pop,
                      spec.protocol.global_batch_size, seed=spec.seed)
     hosts = list(itertools.islice(lm_plan_batches(
@@ -5942,6 +6019,57 @@ def mesh_setup(api, dev, layers: int, cut: int, arch=None, dtype=None):
         assign_clients_to_shards(len(ctx.data.lm_data), MESH_RANKS),
         seed=spec.seed), MESH_STEPS))
     return ctx, hosts
+
+
+def audio_mesh_batches(cfg, seed: int):
+    """``MESH_STEPS`` host batches (numpy, from ``seed``) of
+    ``AUDIO_GRADS``' shape: frames (B, T_enc, d) at std 1, random tokens
+    and labels, every weight 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b, s = AUDIO_GRADS["batch"], AUDIO_GRADS["seq"]
+    out = []
+    for _ in range(MESH_STEPS):
+        toks = rng.integers(0, cfg.vocab_size, (b, s + 1))
+        out.append({"frames": rng.standard_normal(
+                        (b, cfg.encoder_seq, cfg.d_model), np.float32),
+                    "tokens": toks[:, :s].astype(np.int32),
+                    "labels": toks[:, 1:].astype(np.int32),
+                    "weights": np.ones((b, s), np.float32)})
+    return out
+
+
+@contextlib.contextmanager
+def routed_experts():
+    """Inside: the experts every MoE layer routes each token to (the top
+    k of ``layers.top_k_stable``, (T, k) a call), appended to the yielded
+    list in call order."""
+    from repro_torch.models import layers as L
+    top_k, picked = L.top_k_stable, []
+
+    def recorded(x, k):
+        vals, idx = top_k(x, k)
+        picked.append(idx.detach())
+        return vals, idx
+    L.top_k_stable = recorded
+    try:
+        yield picked
+    finally:
+        L.top_k_stable = top_k
+
+
+def routing_flips(got, want) -> dict:
+    """Assignments (token, k-th pick) whose expert differs between two
+    runs' ``routed_experts`` lists, and tokens whose set of experts
+    differs, over every layer."""
+    import torch
+    picks = tokens = 0
+    for a, b in zip(got, want, strict=True):
+        picks += int((a != b).sum())
+        tokens += int((torch.sort(a, dim=-1).values
+                       != torch.sort(b, dim=-1).values).any(-1).sum())
+    return {"assignments": picks, "tokens": tokens,
+            "of": sum(a.numel() for a in want)}
 
 
 @contextlib.contextmanager
@@ -5972,7 +6100,9 @@ def mesh_reference(torch, ctx, hosts, floor=False):
     losses and stored bytes). With ``floor``, also how far its step-0
     gradient and its parameters after the steps move when only the
     rounding of its row products changes (``fp32_row_products``): no
-    tensor-parallel run can be held closer."""
+    tensor-parallel run can be held closer. An MoE model's routed
+    experts of the step-0 gradient are kept (``routed_experts``) for the
+    runs' routing flips."""
     from repro_torch.launch.distributed import ShardedPSLEngine
     eng = ShardedPSLEngine(ctx.model, ctx.optimizer, mesh="1x1",
                            device=ctx.device)
@@ -5983,7 +6113,9 @@ def mesh_reference(torch, ctx, hosts, floor=False):
         return st
     st = init()
     torch.cuda.reset_peak_memory_stats()
-    ref = {"grads": eng.grads(st, eng.put_batch(hosts[0]))}
+    with routed_experts() as picked:
+        ref = {"grads": eng.grads(st, eng.put_batch(hosts[0]))}
+    ref["experts"] = picked
     floor_rel = None
     if floor:
         with fp32_row_products():
@@ -6082,6 +6214,30 @@ def skipped_norm_reduce(rank: int):
 
 
 @contextlib.contextmanager
+def skipped_combine(rank: int):
+    """A planted fault: on rank ``rank``, the first MoE combine
+    (``tensor_parallel.ExpertParallel.combine``) runs its all-reduce but
+    the rank goes on with its own experts' partial output. Every rank
+    still takes part in every collective, so the ranks stay in step.
+    Yields the list of skipped combines."""
+    import torch.distributed as dist
+    from repro_torch.launch.tensor_parallel import ExpertParallel
+    combine, skipped = ExpertParallel.combine, []
+
+    def planted(self, part):
+        out = combine(self, part)
+        if dist.get_rank() == rank and not skipped:
+            skipped.append("combine")
+            return part
+        return out
+    ExpertParallel.combine = planted
+    try:
+        yield skipped
+    finally:
+        ExpertParallel.combine = combine
+
+
+@contextlib.contextmanager
 def bf16_sums():
     """A planted fault: every sum over ``model`` of the tensor-parallel
     compute (``TensorParallel.all_reduce``: the activations' sums both
@@ -6102,7 +6258,8 @@ def bf16_sums():
 
 def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
                   planted_unreduced=False, planted_skip=False,
-                  planted_norm=False, planted_bf16=False, checkpoint=False):
+                  planted_norm=False, planted_combine=False,
+                  planted_bf16=False, checkpoint=False):
     """One run (``run_spec``: mesh, profile, lowering, microbatches) on this
     rank (the ``[mesh]`` phase's child): the sharded engine from the
     seeded init rescaled to fan-in d_in, its step-0 gradient (with
@@ -6110,8 +6267,10 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
     gradient; with ``planted_skip``, every rank computes the step-0
     gradient again while rank 0 skips one row-parallel all-reduce; with
     ``planted_norm``, while rank 0 normalizes one Mamba-2 norm by its own
-    sum of squares), ``MESH_STEPS`` steps with the launches counted by
-    shape and dtype, collectives timed (the bytes of the gradient sums
+    sum of squares; with ``planted_combine``, while rank 0 skips one MoE
+    combine's sum; an MoE run's routing flips against the one-card run,
+    ``routing_flips``), ``MESH_STEPS`` steps with the launches counted by
+    shape, keys and causality and dtype, collectives timed (the bytes of the gradient sums
     over ``model`` apart), peak memory, the parameters gathered after; a
     ``checkpoint`` run saves and restores. With ``planted_bf16``, the run
     is made again from the same init with every sum over ``model``
@@ -6136,28 +6295,38 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
     batches = [eng.put_batch(h) for h in hosts]
     cfg = model.cfg
     ssm = cfg.family in ("ssm", "hybrid")
+    # B1 a step: a decoder layer's self- and cross-attention, an encoder
+    # layer's; the hybrid's shared-attention applications
+    attention = {"ssm": 0, "hybrid": getattr(model, "n_super", 0),
+                 "audio": cfg.encoder_layers + 2 * cfg.num_layers}
     run = {"arch": cfg.name, "mesh": mesh_spec, "profile": profile,
            "lowering": lowering, "microbatches": mb,
            "dtype": dtype_name(cfg.torch_dtype),
            "family": cfg.family, "ssm_variant": cfg.ssm_variant,
            "mamba_layers": cfg.num_layers if ssm else 0,
-           "attention_layers": (getattr(model, "n_super", 0) if ssm
-                                else cfg.num_layers),
+           "attention_layers": attention.get(cfg.family, cfg.num_layers),
            "rows": int(batches[0]["tokens"].shape[0]),
            "activation": [int(batches[0]["tokens"].numel())
                           * model.cfg.d_model, torch.empty(
                               (), dtype=model.cfg.torch_dtype).element_size()],
+           "frames": (int(batches[0]["frames"].shape[0]
+                          * batches[0]["frames"].shape[1])
+                      if "frames" in batches[0] else 0),
            "shards": batches[0].shards, "fallbacks": eng.report.fallbacks,
            "tensor_parallel": None if tp is None else {
                "heads": tp.heads, "kv_heads": tp.kv_heads, "ff": tp.ff,
                "channels": tp.channels, "ssm_heads": tp.ssm_heads,
+               "experts": tp.experts, "shared_ff": tp.shared_ff,
                "embed_vocab": tp.embed_vocab, "head_vocab": tp.head_vocab,
                "partial_leaves": sum(
                    m == "partial" for m in tp.modes)}}
-    grads = eng.grads(st, batches[0])
+    with routed_experts() as picked:
+        grads = eng.grads(st, batches[0])
     if ref is not None:
         run["grads"] = _worst(leaf_rel_l2(grads, ref["grads"]))
-    del grads
+        if picked:
+            run["routing_flips"] = routing_flips(picked, ref["experts"])
+    del grads, picked
     if ref is not None and planted_unreduced:
         whole = requires_grad_(eng.gather_params(st.params))
         local = fused_grads(model, whole, batches[0], mb)[0]
@@ -6179,6 +6348,14 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
                 "skipped": skipped,
                 **_worst(leaf_rel_l2(faulty, ref["grads"]))}
         del faulty
+    if planted_combine:
+        with skipped_combine(0) as skipped:
+            faulty = eng.grads(st, batches[0])
+        if ref is not None:
+            run["planted_skipped_combine"] = {
+                "skipped": skipped,
+                **_worst(leaf_rel_l2(faulty, ref["grads"]))}
+        del faulty
     gc.collect()
     torch.cuda.empty_cache()
     # the gradient sums over model (the leaves computed whole) by kind
@@ -6197,7 +6374,7 @@ def mesh_rank_run(torch, ctx, hosts, ref, run_spec, work: pathlib.Path, *,
     ops.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    recorder = record_train_shapes()
+    recorder = record_train_shapes(keys=True)
     step_ms, metrics = [], []
     try:
         for b in batches:
@@ -6265,8 +6442,9 @@ def mesh_rank_main(rank: int, workdir: str) -> int:
     the ``[train]`` setting's first ``MESH_STEPS`` plan batches; rank 0
     first runs the one-card engine on them (``mesh_reference``); then
     every ``MESH_RUNS`` entry (``mesh_rank_run``). Then each of
-    ``MESH_TP_RUNS`` alike, at its own arch, depth and dtype. Writes
-    ``rank<R>.json``."""
+    ``MESH_TP_RUNS`` alike, at its own arch, depth and dtype; for a
+    float32 run rank 0 also reads the bf16 floor (the config's own
+    dtype, which that floor ruled out). Writes ``rank<R>.json``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -6294,10 +6472,18 @@ def mesh_rank_main(rank: int, workdir: str) -> int:
         ctx, hosts = mesh_setup(api, dev, layers, cut, arch, dtype)
         ref, one = None, None
         if rank == 0:
-            ref, one = mesh_reference(torch, ctx, hosts, floor=True)
+            ref, one = mesh_reference(torch, ctx, hosts, floor=not dtype)
+            if dtype:           # the bf16 floor that chose this dtype
+                bf16, bf16_hosts = mesh_setup(api, dev, layers, cut, arch,
+                                              "bfloat16")
+                one["fp32_row_products"] = mesh_reference(
+                    torch, bf16, bf16_hosts, floor=True)[1][
+                        "fp32_row_products"]
+                del bf16, bf16_hosts
         run = mesh_rank_run(torch, ctx, hosts, ref, run_spec, work,
                             planted_skip=i == MESH_SKIP_RUN,
                             planted_norm=i == MESH_NORM_SKIP_RUN,
+                            planted_combine=i == MESH_COMBINE_SKIP_RUN,
                             planted_bf16=dtype == "float32")
         run["one_card"] = one
         out["tp_runs"].append(run)
@@ -6359,6 +6545,10 @@ def mesh_gates(tag, runs, one) -> None:
         if run["metrics"] != r0["metrics"]:
             fail(f"{tag}: the ranks read different metrics")
     grad_limit, param_limit = MESH_REL_L2[r0["dtype"]]
+    if "routing_flips" in r0:
+        print(f"{tag}: routing flips of the step-0 gradient against the "
+              f"one-card run (rank 0; gradient gate {grad_limit}): "
+              f"{json.dumps(r0['routing_flips'])}", flush=True)
     if r0["grads"]["worst"] > grad_limit \
             or r0["params"]["worst"] > param_limit:
         fail(f"{tag} disagrees with the one-card engine: grads "
@@ -6374,7 +6564,9 @@ def mesh_gates(tag, runs, one) -> None:
                       ("planted_skipped_reduce", "rank 0 skipping one "
                        "row-parallel all-reduce"),
                       ("planted_skipped_norm", "rank 0 normalizing one "
-                       "Mamba-2 norm by its own sum of squares")):
+                       "Mamba-2 norm by its own sum of squares"),
+                      ("planted_skipped_combine", "rank 0 skipping one MoE "
+                       "combine's sum over model")):
         if key in r0:
             print(f"{tag}: planted fault, {what}, against the one-card "
                   f"gradient: {json.dumps(r0[key])}", flush=True)
@@ -6407,12 +6599,24 @@ def mesh_tp_prediction(tag, runs, layers: int, cfg) -> dict:
     the bytes."""
     r0 = runs[0]
     vocab = r0["tensor_parallel"]["head_vocab"]
+    heads = r0["tensor_parallel"]["heads"]
     elements, itemsize = r0["activation"]
     if r0["mamba_layers"]:
+        formula = "tp_mixer_all_reduce_bytes"
         predicted = tp_mixer_all_reduce_bytes(
             cfg, elements // cfg.d_model, layers, r0["attention_layers"],
             vocab, itemsize)
+    elif r0["family"] == "moe":
+        formula = "tp_moe_all_reduce_bytes"
+        predicted = tp_moe_all_reduce_bytes(
+            cfg, elements // cfg.d_model, layers, heads, vocab, itemsize)
+    elif r0["family"] == "audio":
+        formula = "tp_audio_all_reduce_bytes"
+        predicted = tp_audio_all_reduce_bytes(
+            cfg, r0["frames"], elements // cfg.d_model, heads, vocab,
+            itemsize)
     else:
+        formula = "tp_all_reduce_bytes"
         predicted = tp_all_reduce_bytes(elements, itemsize, layers, vocab)
     predicted_partial = (tp_partial_grad_bytes(cfg, layers)
                          if r0["mamba_layers"] else 0)
@@ -6425,8 +6629,7 @@ def mesh_tp_prediction(tag, runs, layers: int, cfg) -> dict:
     print(f"{tag}: activation all-reduce bytes a step by rank {got}, "
           f"predicted {predicted} + {GRAD_NORM_BYTES} (the gradient norm) "
           f"({'with' if vocab else 'without'} the vocab's two, "
-          f"{'tp_mixer_all_reduce_bytes' if r0['mamba_layers'] else 'tp_all_reduce_bytes'}"
-          f"); gradient sums over model of the "
+          f"{formula}); gradient sums over model of the "
           f"{r0['tensor_parallel']['partial_leaves']} leaves computed "
           f"whole a step by rank {json.dumps(partial)}, predicted "
           f"{predicted_partial} (tp_partial_grad_bytes); all-gather and "
@@ -6623,14 +6826,16 @@ def mesh_phase(torch, dev):
     seed 0, the init rescaled to fan-in d_in as ``[grads]`` does) for
     ``MESH_STEPS`` steps on each of ``MESH_RUNS``, then each of
     ``MESH_TP_RUNS`` (granite and llama3-8b at 4 layers, falcon-mamba-7b
-    at 4 and zamba2-2.7b at 8 in float32, tensor-parallel on 1x2). Gates
+    at 4, zamba2-2.7b at 8, granite-moe-3b-a800m at 8 and whisper-tiny
+    whole in float32, tensor-parallel on 1x2). Gates
     (``mesh_gates``), against the one-card engine on the same batches and
     depth: the step-0 gradient and the parameters after the steps per
     leaf within ``MESH_REL_L2``'s limits for the run's dtype, the planted
     faults (a rank's own unreduced gradient; rank 0 skipping one
     row-parallel all-reduce; rank 0 normalizing one Mamba-2 norm by its
-    own sum of squares; in the float32 runs every sum over ``model``
-    rounded to bf16) outside them, the losses within
+    own sum of squares; rank 0 skipping one MoE combine's sum; in the
+    float32 runs every sum over ``model`` rounded to bf16) outside them,
+    a float32 run's bf16 floor over GRAD_REL_L2, the losses within
     ``MESH_LOSS_RTOL``, equal metrics on both ranks, exactly one B1 and
     one B1-bwd an attention layer or shared-attention application, one
     B4 and one B4-bwd a Mamba layer and one B5 and one B5-bwd a
@@ -6638,8 +6843,9 @@ def mesh_phase(torch, dev):
     restored on one card bit for bit; the tp runs' activation all-reduce
     bytes and gradient sums over ``model`` a step as predicted
     (``mesh_tp_prediction``). Prints the backend, stored bytes and peak
-    a rank, step ms beside one card's, collective ms by kind and each tp
-    run's one-process floor (``mesh_reference(floor=True)``). Then B1,
+    a rank, step ms beside one card's, collective ms by kind, each tp
+    run's one-process bf16 floor (``mesh_reference(floor=True)``) and
+    the MoE run's routing flips. Then B1,
     B1-bwd, B5, B5-bwd, B4 and the per-head B4 are held to their plain
     versions and timed at every rank shape and dtype they ran at (the
     kernels line's ``mesh_cases``: in float32 B1, B5 and their
@@ -6707,11 +6913,16 @@ def mesh_phase(torch, dev):
         tag = (f"[mesh] {arch} {layers} layers {dtype or 'bfloat16'} {m} "
                f"{p} {lw} mb {mb}")
         tp_one = ranks[0]["tp_runs"][i]["one_card"]
+        floor = tp_one["fp32_row_products"]
         print(f"{tag}: one card at {layers} layers (cut {cut}): "
-              f"{card(tp_one)}; its step-0 gradient and parameters after "
-              f"the steps with the row products through an fp32 GEMM (the "
-              f"floor of a tensor-parallel comparison): "
-              f"{json.dumps(tp_one['fp32_row_products'])}", flush=True)
+              f"{card(tp_one)}; in bf16, its step-0 gradient and parameters "
+              f"after the steps with the row products through an fp32 GEMM "
+              f"(the floor of a tensor-parallel comparison, which sets the "
+              f"run's dtype): {json.dumps(floor)}", flush=True)
+        if dtype == "float32" and max(floor["grads"]["worst"],
+                                      floor["params"]["worst"]) < GRAD_REL_L2:
+            fail(f"{tag}: its bf16 floor {floor} sits under GRAD_REL_L2 "
+                 f"({GRAD_REL_L2}): the run belongs in bf16")
         runs_by_tag.append((tag, [r["tp_runs"][i] for r in ranks], tp_one,
                             layers, get_config(arch)))
     for tag, runs, ref, layers, cfg in runs_by_tag:
@@ -6755,15 +6966,17 @@ def mesh_phase(torch, dev):
             cases[name].append({"phase": "mesh-tp", "launches":
                                 shapes[name].get(shape, 0), **case})
     for shape, n in sorted(shapes["flash_attention"].items()):
-        b, s, hq, hkv, d, dt = shape
+        b, s, t, hq, hkv, d, causal, dt = shape
         cases["flash_attention"].append({
             "phase": "mesh", "launches": n, **attention_train_case(
                 torch, dev, gen, draw(getattr(torch, dt)), b=b, s=s, hq=hq,
-                hkv=hkv, d=d)})
+                hkv=hkv, d=d, t=t, causal=causal)})
     for shape, n in sorted(shapes["flash_attention_bwd"].items()):
+        b, s, t, hq, hkv, d, causal, dt = shape
         cases["flash_attention_bwd"].append({
             "phase": "mesh", "launches": n, **attention_bwd_case(
-                torch, dev, gen, *shape[:5], dtype=getattr(torch, shape[5]))})
+                torch, dev, gen, b, s, hq, hkv, d, t=t, causal=causal,
+                dtype=getattr(torch, dt))})
     cases.update(mesh_scan_cases(torch, dev, gen, shapes))
     if not cases["cross_entropy_partials"]:
         fail("[mesh] no run launched the vocab-parallel B5")

@@ -38,28 +38,41 @@ compute, as GSPMD derives it in ``repro`` (:mod:`repro_torch.launch.
 tensor_parallel`): a rank all-gathers each leaf over the data axes only
 and keeps its ``model`` block; its q and kv heads go through B1 and
 B1-bwd, the MLP's columns through its products, its Mamba channels (or
-Mamba-2 heads) through B4 or the per-head B4 and their backwards,
-row-parallel products are all-reduced over ``model``, and a split vocab
-runs a vocab-parallel embedding and B5 with a cross-rank logsumexp. The
-gradient sums of those blocks are reduce-scattered over the batch axes
-only; a leaf computed whole keeps the whole path (its sums reduced over
-the batch axes, and over ``model`` too where each rank's is partial: the
-mixer's in_proj, Mamba-2's conv and per-head leaves). The dense, VLM,
-SSM and hybrid families compute in parallel, the CNN runs replicated
-over ``model``, and MoE and audio raise (ROADMAP A.21). ``repro``'s
-``shard_map`` program replicates every leaf whatever the profile, so
-``tp`` with ``shard_map`` runs as explicit data parallelism there too.
-``tp`` on D × 1 keeps FSDP over ``data``. A batch whose leading
-axis does not divide over the batch axes is replicated: every rank then
-holds it whole and nothing is summed across ranks, so it is not counted
-once a rank.
+Mamba-2 heads) through B4 or the per-head B4 and their backwards, its
+MoE experts on the assignments routed to them, row-parallel products
+and the experts' combine are all-reduced over ``model``, and a split
+vocab runs a vocab-parallel embedding and B5 with a cross-rank
+logsumexp. The gradient sums of those blocks are reduce-scattered over
+the batch axes only; a leaf computed whole keeps the whole path (its
+sums reduced over the batch axes, and over ``model`` too where each
+rank's is partial: the mixer's in_proj, Mamba-2's conv and per-head
+leaves). Every family but the CNN computes in parallel (the audio
+family's encoder, decoder and cross-attention alike); the CNN runs
+replicated over ``model``. ``repro``'s ``shard_map`` program replicates
+every leaf whatever the profile, so ``tp`` with ``shard_map`` runs as
+explicit data parallelism there too. ``tp`` on D × 1 keeps FSDP over
+``data``. A batch whose leading axis does not divide over the batch axes
+is replicated: every rank then holds it whole and nothing is summed
+across ranks, so it is not counted once a rank.
 
-The aux loss (MoE load balancing) of a rank is computed on its own rows;
-its gradient enters with weight ``w_total / shards``, so the summed
+MoE dispatch. ``repro``'s gspmd program runs ``moe_apply`` once over the
+global microbatch: capacity from the global token count, positions
+counted over every row, the aux loss ``E · Σ f_e p_e`` over the global
+means. On ``gspmd`` with the batch split, the engine sets
+``layers.BatchShards`` for the step, so a rank's MoE layers dispatch its
+rows as that one dispatch would (each layer all-gathers the ranks'
+per-expert counts over the batch axes) and each rank's aux term is its
+share of the global aux; the shares enter with weight ``w_total`` and
+the metric reports their sum, ``aux_sum / M``. A microbatch there is
+each rank's m-th slice of its rows, so with M > 1 the global microbatch
+is the union of the ranks' m-th slices, not ``repro``'s m-th contiguous
+block (``ROADMAP.md`` C). ``shard_map`` dispatches shard by shard, as
+``repro``'s shard_map program does: a rank's aux term is computed on its
+own rows and enters with weight ``w_total / shards``, so the summed
 gradient is that of the mean over the shards, the metric
 ``aux_sum / (shards · M)`` reports (``repro``'s shard_map program weights
-each shard's aux term by ``w_total``). Dense and CNN models carry no aux
-loss.
+each shard's aux term by ``w_total``). Dense, audio and CNN models carry
+no aux loss.
 
 On one card (a mesh of one rank: ``mesh`` None in a single process,
 "1x1", or "auto" with one rank) the engine runs the fused step of
@@ -85,7 +98,8 @@ from repro_torch.launch import tensor_parallel as tp_lib
 from repro_torch.launch.mesh import (AXES, MeshComm, make_training_mesh,
                                      mesh_sizes, parse_mesh_spec,
                                      rank_device)
-from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import (BatchShards, set_batch_shards,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.optim import Optimizer, TrainState
 
 _SUMS = ("loss_sum", "acc_sum", "aux_sum", "tokens")
@@ -141,8 +155,9 @@ def step_timing(sizes_row: np.ndarray, delays: np.ndarray,
 class ShardedBatch(dict):
     """A rank's rows of a global batch (``put_batch``); ``shards`` is the
     number of distinct row blocks across ranks (1 when every rank holds
-    the whole batch)."""
+    the whole batch) and ``index`` the rank's block."""
     shards: int = 1
+    index: int = 0
 
 
 def _batch_digest(host: Dict[str, Any]) -> int:
@@ -184,12 +199,6 @@ class ShardedPSLEngine:
         mesh = "auto" if mesh is None else mesh
         shape = (parse_mesh_spec(mesh) if isinstance(mesh, str)
                  else tuple(mesh_sizes(mesh)[a] for a in AXES))
-        if profile == "tp" and shape[1] > 1:
-            try:
-                tp_lib.check_family(model)
-            except NotImplementedError as e:
-                raise NotImplementedError(
-                    f"mesh {shape[0]}x{shape[1]}: {e}") from None
         self.model = model
         self.optimizer = optimizer
         self.profile = profile
@@ -308,16 +317,15 @@ class ShardedPSLEngine:
         total = math.prod(sizes[a] for a in self._batch_axes)
         split = total > 1 and all(x.ndim and x.shape[0] % total == 0
                                   for x in host.values())
-        rows = slice(None)
+        rows, index = slice(None), 0
         if split:
-            index = 0
             for a in self._batch_axes:
                 index = index * sizes[a] + coord[a]
             rows = slice(index * b // total, (index + 1) * b // total)
         out = ShardedBatch({k: torch.as_tensor(v[rows]).to(
             device=self.device, dtype=_DTYPES.get(k), non_blocking=True)
             for k, v in host.items()})
-        out.shards = total if split else 1
+        out.shards, out.index = (total, index) if split else (1, 0)
         return out
 
     # -------------------------------------------------------------- step
@@ -333,6 +341,11 @@ class ShardedPSLEngine:
                                      self._compute_layouts,
                                      self._compute_shapes)])
 
+    def _global_dispatch(self, batch: ShardedBatch) -> bool:
+        """Whether the step's MoE layers dispatch over every shard's rows
+        (gspmd with the batch split; the module's docstring says why)."""
+        return self.lowering == "gspmd" and batch.shards > 1
+
     def _sum_grads(self, params, batch: ShardedBatch):
         """Gather the tree, and sum the rank's gradients and metrics:
         (fp32 gradient sums, metric sums all-reduced, reduce axes)."""
@@ -341,13 +354,19 @@ class ShardedPSLEngine:
         axes = self._batch_axes if batch.shards > 1 else ()
         full = requires_grad_(self._compute_params(params))
         w_total = self.comm.all_reduce(batch["weights"].float().sum(), axes)
+        shards = None
+        if self._global_dispatch(batch):
+            shards = BatchShards(batch.shards, batch.index,
+                                 lambda t: self.comm.all_gather(t, axes))
         prev = tp_lib.set_tensor_parallel(self.tp)
+        prev_shards = set_batch_shards(shards)
         try:
             g_sum, m_sum = accumulate_sum_grads(
                 self.model, full, batch, self.microbatches,
-                w_total / batch.shards)
+                w_total if shards else w_total / batch.shards)
         finally:
             tp_lib.set_tensor_parallel(prev)
+            set_batch_shards(prev_shards)
         del full
         sums = self.comm.all_reduce(torch.stack([m_sum[k] for k in _SUMS]),
                                     axes)
@@ -360,8 +379,10 @@ class ShardedPSLEngine:
             return tuple(axes) + ("model",)
         return axes
 
-    def _metrics(self, sums, shards: int) -> Dict[str, torch.Tensor]:
+    def _metrics(self, sums, batch: ShardedBatch
+                 ) -> Dict[str, torch.Tensor]:
         denom = torch.clamp(sums[3], min=1e-6)
+        shards = 1 if self._global_dispatch(batch) else batch.shards
         return {"loss": sums[0] / denom, "accuracy": sums[1] / denom,
                 "aux_loss": sums[2] / (shards * self.microbatches),
                 "tokens": sums[3]}
@@ -385,7 +406,7 @@ class ShardedPSLEngine:
             if shard_lib.is_owner(lay, self.comm.coord):
                 sq = sq + torch.sum(g.float() ** 2)
         grads = tree_unflatten(state.params, local)
-        metrics = self._metrics(sums, batch.shards)
+        metrics = self._metrics(sums, batch)
         metrics["grad_norm"] = torch.sqrt(self.comm.all_reduce(sq, AXES))
         opt_state = self.optimizer.apply_updates(state.params, grads,
                                                  state.opt_state)

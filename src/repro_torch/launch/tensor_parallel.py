@@ -75,13 +75,42 @@ squares; the norm divides by ``d_inner``, not the rank's width) and
 Mamba-1's row-parallel ``x_proj``, whose output (dt, B, C) feeds only
 the rank's channels, so its gradient is partial too.
 
-Families: the dense, VLM, SSM and hybrid families compute in parallel;
-the CNN names no logical axis, so ``tp`` replicates it over ``model``
-(mode ``"whole"`` for every leaf) and its model ranks repeat their data
-rank's work, as in ``repro``. MoE and audio raise (ROADMAP A.21).
+The MoE family splits its experts over ``model`` (``repro``'s tp rules:
+``experts`` over ``model``, ``expert_ff`` whole): rank r computes experts
+``[r E / M, (r + 1) E / M)``, its stored blocks of ``w_gate``, ``w_up``
+and ``w_down``. Every rank of a ``model`` group holds the same tokens
+(the batch splits over the data axes only), so each computes the same
+router (whole, mode ``"whole"``), top-k and capacity, and scatters only
+its own experts' assignments (:class:`ExpertParallel`). Its gate-weighted
+outputs, summed over k in fp32, are all-reduced over ``model`` in fp32
+and rounded once, as one card rounds the sum over k once. Backward, the
+dispatch input's gradient and the gate values' are partial on each rank
+and are all-reduced in fp32, so the router's gradient is whole and the
+same on every rank, its aux term counted once. A shared expert (llama4)
+is an MLP whose ``ff`` splits: column- and row-parallel, mode
+``"local"``.
+
+The audio family (whisper) takes the dense block's hooks in the encoder,
+the decoder and the cross-attention: q, k, v column-parallel, ``wo``
+row-parallel, the GELU MLP's ``w_in`` column-parallel with its ``b_in``
+the rank's columns and ``w_out`` row-parallel with ``b_out`` added after
+the sum (mode ``"whole"``). Cross-attention's k and v are products of
+the encoder states, the PSL cut activations: their input gradient,
+summed over ``model``, is what the client receives. The learned
+positions are whole; the embedding sits under ``server``.
+
+Heads that do not split into whole heads a rank (whisper-tiny's 6 on 1x4)
+leave the attention whole (mode ``"whole"``), whatever the family, while
+the MLP columns still split.
+
+Families: every family computes in parallel but the CNN, which names no
+logical axis, so ``tp`` replicates it over ``model`` (mode ``"whole"``
+for every leaf) and its model ranks repeat their data rank's work, as in
+``repro``. The context is per thread (the tests play ranks as threads).
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -93,29 +122,12 @@ from repro_torch.models.layers import tree_leaves
 
 Layout = Tuple[Tuple[str, ...], ...]      # repro_torch.sharding's
 
-A21 = {"moe": "experts over model",
-       "audio": "EncDecModel's encoder, decoder and cross-attention"}
-
 # Mamba-2's leaves a rank slices from the whole leaf (the module's
 # docstring says why); Mamba-1 slices in_proj only
 MAMBA2_PARTIAL = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias",
                   "d_skip")
 
-_ACTIVE: Optional["TensorParallel"] = None
-
-
-def check_family(model) -> None:
-    """Raise NotImplementedError for a family whose tensor-parallel compute
-    is not ported (MoE, audio: ROADMAP A.21); the dense, VLM, SSM, hybrid
-    and CNN families pass."""
-    family = getattr(getattr(model, "cfg", None), "family", None)
-    if family in A21:
-        raise NotImplementedError(
-            f"profile 'tp' on a mesh with model > 1 computes the dense, vlm, "
-            f"ssm, hybrid and cnn families tensor-parallel; the {family} "
-            f"family needs "
-            f"{A21[family]}, not ported to repro_torch yet (ROADMAP A.21); "
-            f"use 'fsdp' or 'ddp', or a Dx1 mesh")
+_STATE = threading.local()
 
 
 def _paths(tree, path=()) -> List[Tuple[str, ...]]:
@@ -143,8 +155,7 @@ def model_only(layout: Layout) -> Layout:
 
 class TensorParallel:
     """What the ``tp`` layouts split over ``model``, for one rank of a
-    mesh with ``model > 1`` and a model of the dense, VLM, SSM or hybrid
-    family.
+    mesh with ``model > 1``.
 
     ``modes``: one of "local" (the rank computes with its ``model`` block),
     "partial" (gathered whole; its gradient is partial and is summed over
@@ -152,7 +163,9 @@ class TensorParallel:
     rank) for each leaf of ``layouts``, in ``tree_leaves`` order.
     ``channels`` is the rank's ``[c0, c1)`` of the Mamba mixer's
     ``d_inner`` and ``ssm_heads`` its ``[h0, h1)`` of Mamba-2's heads
-    (None without a mixer, or for Mamba-1)."""
+    (None without a mixer, or for Mamba-1); ``experts`` its ``[e0, e1)``
+    of the MoE experts (None without them, or when they are whole) and
+    ``shared_ff`` whether the shared expert's columns split."""
 
     def __init__(self, model, layouts, comm):
         cfg = model.cfg
@@ -161,17 +174,25 @@ class TensorParallel:
         m = self.size
         server, client = layouts["server"], layouts["client"]
         blocks = (server.get("blocks") or server.get("superblocks")
-                  or client["blocks"])
+                  or server.get("dec_blocks") or client["blocks"])
         attn = blocks.get("attn") or server.get("shared_attn", {}).get(
             "attn")
         self.heads = attn is not None and _split(attn["wq"]) \
             and cfg.num_heads % m == 0
         kv_local = self.heads and _split(attn["wk"]) \
             and cfg.num_kv_heads % m == 0
-        self.ff = "mlp" in blocks and _split(blocks["mlp"]["w_gate"])
-        head = (client["embed"] if cfg.tie_embeddings else server["lm_head"])
-        self.embed_vocab = _split(client["embed"])
-        self.head_vocab = _split(head)
+        mlp = blocks.get("mlp", {})
+        self.ff = _split(mlp.get("w_gate") or mlp.get("w_in") or ())
+        embed = client["embed"] if "embed" in client else server["embed"]
+        self.embed_vocab = _split(embed)
+        self.head_vocab = _split(embed if cfg.tie_embeddings
+                                 else server["lm_head"])
+        moe = blocks.get("moe", {})
+        self.experts: Optional[Tuple[int, int]] = None
+        if _split(moe.get("w_gate", ())):
+            per = cfg.num_experts // m
+            self.experts = (self.rank * per, (self.rank + 1) * per)
+        self.shared_ff = _split(moe.get("shared", {}).get("w_gate", ()))
         # the kv heads this rank's q heads use, when kv is computed whole
         self.kv_heads: Optional[Tuple[int, int]] = None
         if self.heads and not kv_local:
@@ -210,15 +231,19 @@ class TensorParallel:
             self.ssm_heads = (self.rank * nh // m, (self.rank + 1) * nh // m)
 
     def _mode(self, path: Sequence[str], layout: Layout) -> str:
-        name = path[-1]
-        if len(path) > 1 and path[-2] == "attn":
+        name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+        if parent in ("attn", "xattn"):
             if not self.heads:
                 return "whole"
             if name in ("wq", "wo", "bq"):
                 return "local"
             return "partial" if self.kv_heads else "local"
-        if len(path) > 1 and path[-2] == "mlp":
-            return "local" if self.ff else "whole"
+        if parent in ("mlp", "shared"):
+            # whisper's b_out is added after the sum: whole
+            split = self.ff if parent == "mlp" else self.shared_ff
+            return "local" if split and _split(layout) else "whole"
+        if parent == "moe":
+            return "local" if self.experts and name != "router" else "whole"
         if len(path) > 1 and path[-2] == "mixer":
             if name in (MAMBA2_PARTIAL if self.ssm_heads else ("in_proj",)):
                 return "partial"
@@ -245,15 +270,15 @@ class TensorParallel:
 
 def set_tensor_parallel(ctx: Optional[TensorParallel]
                         ) -> Optional[TensorParallel]:
-    """Make ``ctx`` the context the model's hooks consult (None: every hook
-    is the identity); returns the one it replaces."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, ctx
+    """Make ``ctx`` the context the model's hooks consult in this thread
+    (None: every hook is the identity); returns the one it replaces."""
+    prev = active()
+    _STATE.ctx = ctx
     return prev
 
 
 def active() -> Optional[TensorParallel]:
-    return _ACTIVE
+    return getattr(_STATE, "ctx", None)
 
 
 def fp32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -373,7 +398,7 @@ def mixer_params(p, cfg):
     a context that splits the channels, ``in_proj`` (and Mamba-2's conv,
     a_log, dt_bias, d_skip), whole on every rank, cut to the rank's
     columns, rows and heads (the module's docstring); else ``p``."""
-    tp = _ACTIVE
+    tp = active()
     if tp is None or tp.channels is None:
         return p
     c0, c1 = tp.channels
@@ -402,7 +427,7 @@ def mixer_hooks(cfg) -> dict:
     column-parallel product, the row-parallel ``out_proj`` and Mamba-1's
     summed ``x_proj`` or Mamba-2's norm over the whole ``d_inner``; none
     without one (the mixers' defaults, the one-card path)."""
-    tp = _ACTIVE
+    tp = active()
     if tp is None or tp.channels is None:
         return {}
     hooks = {"column": lambda x, w: ColumnParallelProduct.apply(x, w, tp),
@@ -415,8 +440,81 @@ def mixer_hooks(cfg) -> dict:
     return hooks
 
 
+class DispatchToExperts(torch.autograd.Function):
+    """Each token's row repeated k times, one a top-k assignment (the MoE
+    dispatch's input on every rank). Backward: the rows' gradients,
+    nonzero for the rank's own assignments only, summed over k in fp32,
+    all-reduced over ``model`` in fp32 and rounded once, as one card sums
+    the k rows' gradients in fp32 and rounds once."""
+
+    @staticmethod
+    def forward(ctx, xt, k, tp):
+        ctx.k, ctx.tp, ctx.dtype = k, tp, xt.dtype
+        return xt.repeat_interleave(k, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = g.float().reshape(-1, ctx.k, g.shape[-1]).sum(dim=1)
+        return ctx.tp.all_reduce(dx).to(ctx.dtype), None, None
+
+
+class SumGradOverModel(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over ``model`` in fp32
+    backward: the MoE gate values, whose gradient on a rank covers its
+    own experts' assignments only. The sum makes the router's gradient
+    whole on every rank, while the aux loss's share of it, whole already,
+    is not summed."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.float().clone(
+            memory_format=torch.contiguous_format)).to(g.dtype), None
+
+
+class ExpertParallel:
+    """``layers.moe_apply``'s ``experts`` hook under a context that splits
+    the experts over ``model``: the rank's ``count`` experts from
+    ``first``, the dispatch input (:class:`DispatchToExperts`), the gate
+    values (:class:`SumGradOverModel`) and the combine, an fp32 partial
+    sum all-reduced forward (:class:`ReduceFromModel`)."""
+
+    def __init__(self, tp: TensorParallel):
+        self.tp = tp
+        self.first = tp.experts[0]
+        self.count = tp.experts[1] - tp.experts[0]
+
+    def dispatch(self, xt: torch.Tensor, k: int) -> torch.Tensor:
+        return DispatchToExperts.apply(xt, k, self.tp)
+
+    def gates(self, g: torch.Tensor) -> torch.Tensor:
+        return SumGradOverModel.apply(g, self.tp)
+
+    def combine(self, part: torch.Tensor) -> torch.Tensor:
+        return ReduceFromModel.apply(part, self.tp)
+
+
+def moe_hooks() -> dict:
+    """``layers.moe_apply``'s keywords under the active context: the
+    rank's experts (:class:`ExpertParallel`) when they split, the shared
+    expert's column- and row-parallel products when its columns split;
+    none without a context (the one-card path)."""
+    tp = active()
+    hooks = {}
+    if tp is not None and tp.experts is not None:
+        hooks["experts"] = ExpertParallel(tp)
+    if tp is not None and tp.shared_ff:
+        hooks["column"] = lambda x, w: ColumnParallelProduct.apply(x, w, tp)
+        hooks["row"] = lambda a, w: RowParallelProduct.apply(a, w, tp)
+    return hooks
+
+
 def _parallel(part: str) -> Optional[TensorParallel]:
-    tp = _ACTIVE
+    tp = active()
     if tp is None:
         return None
     split = {"attn": tp.heads, "mlp": tp.ff, "head": tp.head_vocab}[part]
@@ -447,7 +545,7 @@ def attention_params(p):
     """The attention leaves a rank computes with: when kv is computed
     whole, wk / wv (and bk / bv) cut to the kv heads of the rank's q
     heads; else ``p``."""
-    tp = _ACTIVE
+    tp = active()
     if tp is None or tp.kv_heads is None:
         return p
     k0, k1 = (h * tp.head_dim for h in tp.kv_heads)
@@ -461,7 +559,7 @@ def attention_params(p):
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; vocab-parallel when the active context splits the
     embedding's vocab: ``table`` is the rank's rows ``[v0, v0 + n)``."""
-    tp = _ACTIVE
+    tp = active()
     if tp is None or not tp.embed_vocab:
         return table[tokens.long()]
     n = table.shape[0]
@@ -522,11 +620,12 @@ def cross_entropy(hidden, w, labels):
     return vocab_parallel_cross_entropy(hidden, w, labels, tp)
 
 
-__all__ = ["A21", "ColumnParallelProduct", "MAMBA2_PARTIAL",
-           "ReduceFromModel", "RowParallelProduct", "SumOverModel",
-           "TensorParallel", "VocabParallelCrossEntropy", "active",
-           "attention_params", "check_family", "column_parallel",
-           "cross_entropy", "drop_model", "embed", "fp32_product",
-           "mixer_hooks", "mixer_params", "model_only",
-           "rms_norm_over_model", "row_parallel", "set_tensor_parallel",
-           "summed_product", "vocab_parallel_cross_entropy"]
+__all__ = ["ColumnParallelProduct", "DispatchToExperts", "ExpertParallel",
+           "MAMBA2_PARTIAL", "ReduceFromModel", "RowParallelProduct",
+           "SumGradOverModel", "SumOverModel", "TensorParallel",
+           "VocabParallelCrossEntropy", "active", "attention_params",
+           "column_parallel", "cross_entropy", "drop_model", "embed",
+           "fp32_product", "mixer_hooks", "mixer_params", "model_only",
+           "moe_hooks", "rms_norm_over_model", "row_parallel",
+           "set_tensor_parallel", "summed_product",
+           "vocab_parallel_cross_entropy"]

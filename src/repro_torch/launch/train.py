@@ -194,11 +194,11 @@ def main(argv=None):
     ap.add_argument("--sharding", default=None,
                     choices=["tp", "fsdp", "ddp"],
                     help="sharding profile of the parameters and moments; "
-                         "tp on a mesh with model > 1 computes the dense, "
-                         "vlm, ssm and hybrid families tensor-parallel "
-                         "(heads, MLP columns, Mamba channels and vocab "
-                         "over model) and refuses moe and audio (ROADMAP "
-                         "A.21)")
+                         "tp on a mesh with model > 1 computes every LM "
+                         "family tensor-parallel (heads, MLP columns, "
+                         "Mamba channels, MoE experts and vocab over "
+                         "model; whisper's encoder, decoder and "
+                         "cross-attention alike)")
     ap.add_argument("--lowering", default=None,
                     choices=["gspmd", "shard_map"],
                     help="gspmd: each rank stores its blocks of the "

@@ -16,6 +16,7 @@ outside any kernel.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -244,21 +245,25 @@ def cross_attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return attention_specs(cfg)
 
 
-def cross_attention(p, x, enc, cfg: ModelConfig):
+def cross_attention(p, x, enc, cfg: ModelConfig, matmul=torch.matmul,
+                    row=torch.matmul):
     """x: (B, S, d) queries; enc: (B, T, d) encoder states (no rotary).
     Non-causal attention of the S queries over the T encoder rows through
-    :func:`blockwise_attention` (the flash-attention kernel)."""
+    :func:`blockwise_attention` (the flash-attention kernel). ``matmul``
+    computes the q, k and v products and ``row`` the ``wo`` product
+    (tensor parallelism passes column- and row-parallel ones: k's and
+    v's input gradient is then summed over the ranks onto ``enc``)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, -1, hd)
-    k = (enc @ p["wk"]).reshape(b, enc.shape[1], -1, hd)
-    v = (enc @ p["wv"]).reshape(b, enc.shape[1], -1, hd)
+    q = matmul(x, p["wq"]).reshape(b, s, -1, hd)
+    k = matmul(enc, p["wk"]).reshape(b, enc.shape[1], -1, hd)
+    v = matmul(enc, p["wv"]).reshape(b, enc.shape[1], -1, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(1, 1, -1, hd)
         k = k + p["bk"].reshape(1, 1, -1, hd)
         v = v + p["bv"].reshape(1, 1, -1, hd)
     out = blockwise_attention(q, k, v, causal=False)
-    return out.reshape(b, s, -1) @ p["wo"]
+    return row(out.reshape(b, s, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +331,71 @@ def moe_capacity(tokens: int, cfg: ModelConfig, groups: int = 1) -> int:
                              * cfg.moe_capacity_factor)), 1)
 
 
+class BatchShards:
+    """A step's rows split over the ranks of the batch axes: ``shards``
+    contiguous blocks in rank order (the rows' order), this rank holding
+    block ``index``; ``gather(t)`` all-gathers ``t`` over those ranks,
+    (shards, *t.shape) in rank order. While one is set
+    (:func:`set_batch_shards`), :func:`moe_route` places the rank's
+    assignments as one dispatch over every shard's tokens would: capacity
+    from the global token count, each assignment's position offset by the
+    counts of the ranks before it (E int64s a rank a layer, gathered), and
+    :func:`moe_apply`'s aux loss is the rank's share of the global one
+    (``repro``'s gspmd program runs ``moe_apply`` once over the global
+    batch)."""
+
+    def __init__(self, shards: int, index: int, gather: Callable):
+        self.shards, self.index, self.gather = shards, index, gather
+
+
+_SHARDS = threading.local()
+
+
+def set_batch_shards(ctx: Optional[BatchShards]) -> Optional[BatchShards]:
+    """Make ``ctx`` the batch split the MoE dispatch consults in this
+    thread (None: each call dispatches over its own tokens, the one-card
+    path); returns the one it replaces."""
+    prev = batch_shards()
+    _SHARDS.ctx = ctx
+    return prev
+
+
+def batch_shards() -> Optional[BatchShards]:
+    return getattr(_SHARDS, "ctx", None)
+
+
+def _global_positions(expert_idx, cfg: ModelConfig, groups: int,
+                      shards: BatchShards):
+    """:func:`moe_route`'s plan for a rank's tokens under ``shards``:
+    (slot, keep, per-expert counts over every shard, rows C' of a (group,
+    expert) cell in the rank's buffer). A rank's assignment j is global
+    assignment ``index · n + j``, in group ``(index · n + j) // (n · S /
+    G)``; its position is its running count among the rank's assignments
+    of its (group, expert) cell plus that cell's counts on the ranks
+    before. Its slot is the running count alone: the rank's buffer holds
+    its own rows, at most C' = min(C, T) a cell (top-k experts are
+    distinct, so a token adds at most one to a cell)."""
+    e = cfg.num_experts
+    tokens, k = expert_idx.shape
+    n = tokens * k
+    capacity = moe_capacity(tokens * shards.shards, cfg, groups)
+    per_group = n * shards.shards // groups
+    first = shards.index * n
+    glob = torch.arange(first, first + n, device=expert_idx.device)
+    cell = torch.div(glob, per_group, rounding_mode="floor") * e \
+        + expert_idx.reshape(-1)
+    onehot = F.one_hot(cell, groups * e).T.contiguous()      # (G E, n)
+    running = onehot.cumsum(-1)
+    every = shards.gather(running[:, -1].contiguous())       # (S, G E)
+    before = every[:shards.index].sum(dim=0)
+    pos = running.gather(0, cell[None])[0] - 1
+    keep = pos + before[cell] < capacity
+    rows = min(capacity, tokens)
+    slot = cell * rows + torch.where(keep, pos, torch.zeros_like(pos))
+    counts = every.sum(dim=0).reshape(groups, e).sum(dim=0)
+    return slot, keep, counts, rows
+
+
 def moe_route(p, xt, cfg: ModelConfig, groups: int = 1):
     """The router and dispatch plan of :func:`moe_apply` for tokens xt
     (T, d), in ``groups`` groups (dividing T).
@@ -337,7 +407,11 @@ def moe_route(p, xt, cfg: ModelConfig, groups: int = 1):
     below ``capacity``. Returns (probs (T, E) fp32, gates (T, k) fp32,
     slot (G Tl,) int64 index of each assignment's row in the flattened
     (G, E, C) buffer (row C·(g E + e) for a dropped one), keep (G Tl,)
-    bool, per-expert assignment counts (E,) int64, capacity C)."""
+    bool, per-expert assignment counts (E,) int64, capacity C).
+
+    Under :class:`BatchShards` (``groups`` then divides the global token
+    count) the plan is ``_global_positions``': the buffer's C rows a cell
+    are the rank's, and the counts are every shard's."""
     e, k = cfg.num_experts, cfg.experts_per_token
     tokens = xt.shape[0]
     logits = (xt @ p["router"]).float()                       # (T, E)
@@ -345,6 +419,10 @@ def moe_route(p, xt, cfg: ModelConfig, groups: int = 1):
     gate_vals, expert_idx = top_k_stable(probs, k)            # (T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    shards = batch_shards()
+    if shards is not None:
+        return (probs, gate_vals) + _global_positions(expert_idx, cfg,
+                                                      groups, shards)
     capacity = moe_capacity(tokens, cfg, groups)
     flat_expert = expert_idx.reshape(groups, tokens * k // groups)
     # running count of each expert along the assignments, scanned along
@@ -374,7 +452,50 @@ def expert_ffn(p, buf, dtype):
     return torch.einsum("gecf,efd->gecd", (g * u).to(dtype), p["w_down"])
 
 
-def moe_apply(p, x, cfg: ModelConfig):
+def expert_slots(slot, keep, capacity: int, num_experts: int, first: int,
+                 count: int):
+    """The assignments of experts ``[first, first + count)`` in a buffer
+    of those experts alone: (slot (n,) in the (G, count, C) buffer,
+    mine (n,) bool: kept and routed to one of them). ``slot`` indexes the
+    (G, E, C) buffer; an assignment to another expert is not the rank's,
+    and its slot (0) carries nothing."""
+    cell = torch.div(slot, capacity, rounding_mode="floor")
+    expert = cell % num_experts
+    mine = keep & (expert >= first) & (expert < first + count)
+    local = ((torch.div(cell, num_experts, rounding_mode="floor") * count
+              + expert - first) * capacity + slot % capacity)
+    return torch.where(mine, local, torch.zeros_like(local)), mine
+
+
+def _parallel_experts(p, xt, gate_vals, slot, keep, capacity: int,
+                      groups: int, cfg: ModelConfig, experts):
+    """The routed experts' output (T, d) with ``p``'s expert leaves the
+    rank's experts ``[experts.first, experts.first + experts.count)``:
+    the rank scatters only its assignments (``expert_slots``) into its
+    (G, E/M, C, d) buffer, runs them, gathers them back and sums its
+    gate-weighted outputs over k in fp32; ``experts.combine`` sums that
+    over the ranks and it is rounded once. Backward, ``experts.dispatch``
+    and ``experts.gates`` sum the input's and the gate values' gradients
+    (each rank's covers its own assignments) over the ranks."""
+    tokens, d = xt.shape
+    k = cfg.experts_per_token
+    local, mine = expert_slots(slot, keep, capacity, cfg.num_experts,
+                               experts.first, experts.count)
+    zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
+    mine_col = mine[:, None]
+    upd = torch.where(mine_col, experts.dispatch(xt, k), zero)
+    buf = xt.new_zeros((groups * experts.count * capacity, d)).index_add(
+        0, local, upd)
+    out_buf = expert_ffn(p, buf.reshape(groups, experts.count, capacity, d),
+                         xt.dtype)
+    gathered = torch.where(mine_col, out_buf.reshape(-1, d)[local], zero)
+    gates = experts.gates(gate_vals).reshape(-1, 1).to(xt.dtype)
+    part = (gathered * gates).reshape(tokens, k, d).float().sum(dim=1)
+    return experts.combine(part).to(xt.dtype)
+
+
+def moe_apply(p, x, cfg: ModelConfig, experts=None, column=torch.matmul,
+              row=torch.matmul):
     """Top-k routed experts with static capacity, as
     ``repro.models.layers.moe_apply``. x: (B, S, d) -> (y, aux_loss).
 
@@ -387,27 +508,47 @@ def moe_apply(p, x, cfg: ModelConfig):
     groups, each with its own capacity. The expert products are plain
     batched matmuls, as ``repro`` leaves them to XLA outside any Pallas
     kernel. Returns the output (plus the shared expert's, if any) and the
-    Switch load-balance loss E * sum_e f_e p_e * ``router_aux_loss``."""
+    Switch load-balance loss E * sum_e f_e p_e * ``router_aux_loss``.
+
+    Tensor parallelism passes ``experts`` (``launch.tensor_parallel.
+    ExpertParallel``; ``p``'s expert leaves are then the rank's experts,
+    ``_parallel_experts``) and the shared expert's ``column`` and ``row``
+    products. Under :class:`BatchShards` the token count of the capacity
+    and of the groups is the global one, and the aux loss is the rank's
+    share of the global loss: E * sum_e f_e^global * (the sum of the
+    rank's probs_e) / T_global * ``router_aux_loss``; the shares sum to
+    it over the ranks."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     tokens = b * s
-    grp = cfg.moe_groups if cfg.moe_groups and tokens % cfg.moe_groups == 0 \
+    shards = batch_shards()
+    total = tokens * (shards.shards if shards is not None else 1)
+    grp = cfg.moe_groups if cfg.moe_groups and total % cfg.moe_groups == 0 \
         else 1
     xt = x.reshape(tokens, d)
     probs, gate_vals, slot, keep, counts, capacity = moe_route(p, xt, cfg,
                                                                grp)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    keep_col = keep[:, None]
-    upd = torch.where(keep_col, xt.repeat_interleave(k, dim=0), zero)
-    buf = x.new_zeros((grp * e * capacity, d)).index_add(0, slot, upd)
-    out_buf = expert_ffn(p, buf.reshape(grp, e, capacity, d), x.dtype)
-    gathered = torch.where(keep_col, out_buf.reshape(-1, d)[slot], zero)
-    weighted = gathered * gate_vals.reshape(-1, 1).to(x.dtype)
-    y = weighted.reshape(tokens, k, d).sum(dim=1)
+    if experts is not None:
+        y = _parallel_experts(p, xt, gate_vals, slot, keep, capacity, grp,
+                              cfg, experts)
+    else:
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        keep_col = keep[:, None]
+        upd = torch.where(keep_col, xt.repeat_interleave(k, dim=0), zero)
+        buf = x.new_zeros((grp * e * capacity, d)).index_add(0, slot, upd)
+        out_buf = expert_ffn(p, buf.reshape(grp, e, capacity, d), x.dtype)
+        gathered = torch.where(keep_col, out_buf.reshape(-1, d)[slot], zero)
+        weighted = gathered * gate_vals.reshape(-1, 1).to(x.dtype)
+        y = weighted.reshape(tokens, k, d).sum(dim=1)
     if cfg.moe_shared_expert:
-        y = y + mlp_apply(p["shared"], xt)
-    fe = counts.float() / tokens / k
-    aux = e * torch.sum(fe * probs.mean(dim=0)) * cfg.router_aux_loss
+        y = y + mlp_apply(p["shared"], xt, column=column, row=row)
+    if shards is None:
+        fe = counts.float() / tokens / k
+        aux = e * torch.sum(fe * probs.mean(dim=0)) * cfg.router_aux_loss
+    else:
+        fe = counts.float() / total / k
+        aux = (e * torch.sum(fe * (probs.sum(dim=0) / total))
+               * cfg.router_aux_loss)
     return y.reshape(b, s, d), aux
 
 

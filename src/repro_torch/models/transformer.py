@@ -148,9 +148,10 @@ class _Blocks:
 
     def ffn(self, p, hn):
         """The block's MLP or routed experts: (y, aux_loss or None). Under
-        tensor parallelism the MLP is column- then row-parallel."""
+        tensor parallelism the MLP is column- then row-parallel, and the
+        rank computes its experts (``tensor_parallel.moe_hooks``)."""
         if self.cfg.is_moe:
-            return L.moe_apply(p["moe"], hn, self.cfg)
+            return L.moe_apply(p["moe"], hn, self.cfg, **tp.moe_hooks())
         return L.mlp_apply(p["mlp"], hn, column=tp.column_parallel("mlp"),
                            row=tp.row_parallel("mlp")), None
 
@@ -792,27 +793,40 @@ class EncDecModel:
     # ----- encoder -----
     def encode(self, params, frames):
         """frames: (B, T_enc, d) precomputed frontend embeddings -> the
-        encoder states (B, T_enc, d)."""
+        encoder states (B, T_enc, d). Under tensor parallelism
+        (``launch.tensor_parallel``) the rank computes its heads and MLP
+        columns, as ``_Blocks.block`` does."""
         cfg = self.cfg
         c = params["client"]
         x = frames.to(cfg.torch_dtype) + c["enc_pos"][None]
         b, s, _ = x.shape
         for lp in _unstack(c["enc_blocks"]):
             hn = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-            q, k, v = L.attention_qkv(lp["attn"], hn, cfg, None, rope=False)
+            q, k, v = L.attention_qkv(tp.attention_params(lp["attn"]), hn,
+                                      cfg, None, rope=False,
+                                      matmul=tp.column_parallel("attn"))
             a = L.blockwise_attention(q, k, v, causal=False)
-            x = x + a.reshape(b, s, -1) @ lp["attn"]["wo"]
+            x = x + tp.row_parallel("attn")(a.reshape(b, s, -1),
+                                            lp["attn"]["wo"])
             hn2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], hn2, gelu=True)
+            x = x + self._mlp(lp, hn2)
         return L.rms_norm(x, c["enc_norm"], cfg.norm_eps)
+
+    @staticmethod
+    def _mlp(lp, x):
+        return L.mlp_apply(lp["mlp"], x, gelu=True,
+                           column=tp.column_parallel("mlp"),
+                           row=tp.row_parallel("mlp"))
 
     # ----- decoder -----
     def _cross_and_mlp(self, lp, x, enc):
         cfg = self.cfg
         hx = L.rms_norm(x, lp["norm_x"], cfg.norm_eps)
-        x = x + L.cross_attention(lp["xattn"], hx, enc, cfg)
+        x = x + L.cross_attention(tp.attention_params(lp["xattn"]), hx, enc,
+                                  cfg, matmul=tp.column_parallel("attn"),
+                                  row=tp.row_parallel("attn"))
         hn2 = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + L.mlp_apply(lp["mlp"], hn2, gelu=True)
+        return x + self._mlp(lp, hn2)
 
     def _decoder(self, srv, enc, tokens, cache=None, pos=None,
                  fill_len: Optional[int] = None):
@@ -822,10 +836,13 @@ class EncDecModel:
         position 0; with ``fill_len`` it also returns the stacked ring
         caches {"k", "v"} of that length. Cached decode: one token a row
         at the scalar position ``pos`` (a (1,) long tensor), its K/V
-        written into ``cache`` in place at slot ``pos % C``."""
+        written into ``cache`` in place at slot ``pos % C``. Under tensor
+        parallelism the embedding is vocab-parallel where its vocab
+        splits, and the self- and cross-attention and the MLP compute
+        the rank's heads and columns."""
         cfg = self.cfg
         b, slen = tokens.shape
-        x = srv["embed"][tokens.long()]
+        x = tp.embed(srv["embed"], tokens)
         if cache is None:
             x = x + srv["dec_pos"][None, :slen]
         else:
@@ -835,7 +852,9 @@ class EncDecModel:
         rings = []
         for i, lp in enumerate(_unstack(srv["dec_blocks"])):
             hn = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-            q, k, v = L.attention_qkv(lp["attn"], hn, cfg, None, rope=False)
+            q, k, v = L.attention_qkv(tp.attention_params(lp["attn"]), hn,
+                                      cfg, None, rope=False,
+                                      matmul=tp.column_parallel("attn"))
             if cache is None:
                 a = L.blockwise_attention(q, k, v, causal=True)
                 if fill_len is not None:
@@ -849,7 +868,8 @@ class EncDecModel:
                 kc.index_copy_(1, slot, self.blocks._repeat_kv(k))
                 vc.index_copy_(1, slot, self.blocks._repeat_kv(v))
                 a = L.decode_attention(q, kc, vc, posv)
-            x = x + a.reshape(b, slen, -1) @ lp["attn"]["wo"]
+            x = x + tp.row_parallel("attn")(a.reshape(b, slen, -1),
+                                            lp["attn"]["wo"])
             x = self._cross_and_mlp(lp, x, enc)
         x = L.rms_norm(x, srv["final_norm"], cfg.norm_eps)
         return x, (_stack_trees(rings) if rings else None)

@@ -1664,6 +1664,30 @@ def test_whisper_attention_non_causal(dev, dtype, b, s, t, hq, hkv, d):
     assert bool((moved.float() - out.float()).abs().amax() > 1.0)
 
 
+# --- tensor parallelism on 1x2: B1 and B1-bwd at a rank's heads ----------
+# whisper-tiny's 3 of 6 heads on [audio-grads]' batch of 8 (the encoder
+# over 1500 frames, the cross-attention of 128 tokens over them, the
+# decoder causal over 128) and granite-moe-3b-a800m's 12 q of 24 and 4 kv
+# of 8 heads on [train]'s 16 x 128, in both dtypes the [mesh] runs take.
+
+TP_RANK_ATTN = [(8, 1500, 1500, 3, 3, 64, False),
+                (8, 128, 1500, 3, 3, 64, False),
+                (8, 128, 128, 3, 3, 64, True),
+                (16, 128, 128, 12, 4, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal", TP_RANK_ATTN)
+def test_tp_rank_attention_shapes(dev, dtype, b, s, t, hq, hkv, d, causal):
+    """The forward with its lse and the backward at a tensor-parallel
+    rank's shapes, each against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = _attn_case(gen, dev, dtype, b, s, t, hq, hkv, d)
+    _check_attention_with_lse(dev, dtype, q, k, v, causal, None)
+    do = _randn(gen, (b, s, hq, d), dtype, dev)
+    _check_attention_backward(dtype, q, k, v, do, causal, None)
+
+
 def test_reduced_whisper_static_serve_on_the_card(dev):
     """Float32 reduced whisper served through ``static`` on the card: one
     prefill runs B1 non-causal once an encoder layer and once a decoder

@@ -17,7 +17,7 @@ The 4-rank runs of the engine live in ``tests/test_torch_mesh.py``
 * the vocab-parallel autograd Function rank by rank, its collectives
   played by a fake ``model`` group;
 * the hooks are the identity while no context is set;
-* which families ``tp`` over ``model`` accepts, and what the context
+* that ``tp`` over ``model`` accepts every family, and what the context
   computes in parallel for each layout.
 """
 import jax.numpy as jnp
@@ -225,23 +225,16 @@ def _model(arch):
 
 @pytest.mark.parametrize("arch", sorted(TORCH_CONFIGS))
 def test_tp_over_model_accepts_or_refuses_each_family(arch):
-    """dense, vlm, ssm, hybrid and cnn pass the family check and reach
-    the mesh (which needs 4 ranks: one is running); moe and audio raise,
-    naming ROADMAP A.21, on either lowering. ``ExecutionSpec`` knows no
+    """Every family (dense, moe, vlm, ssm, hybrid, audio and the cnn)
+    reaches the mesh, which needs 4 ranks (one is running), on either
+    lowering: none is refused any more. ``ExecutionSpec`` knows no
     family and accepts tp on 2x2."""
     model = _model(arch)
-    family = getattr(getattr(model, "cfg", None), "family", "cnn")
     tapi.ExecutionSpec(mesh="2x2").validate()
     for lowering in ("gspmd", "shard_map"):
-        if family in ("dense", "vlm", "ssm", "hybrid", "cnn"):
-            with pytest.raises(ValueError, match="needs 4 ranks"):
-                ShardedPSLEngine(model, sgd(1e-3), mesh="2x2", profile="tp",
-                                 lowering=lowering, device="cpu")
-        else:
-            with pytest.raises(NotImplementedError,
-                               match=f"{family} family.*A.21"):
-                ShardedPSLEngine(model, sgd(1e-3), mesh="2x2", profile="tp",
-                                 lowering=lowering, device="cpu")
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            ShardedPSLEngine(model, sgd(1e-3), mesh="2x2", profile="tp",
+                             lowering=lowering, device="cpu")
 
 
 class _FakeMesh:

@@ -19,8 +19,12 @@ and "lm_fanin", the same LM from ``repro``'s init with every stacked
 matrix rescaled to fan-in d_in (``chip_smoke.py``'s ``rescale_to_fan_in``,
 written by the test); "qwen_fanin" (reduced qwen2-72b: qkv biases) and
 "vlm_fanin" (reduced internvl2-2b, its batches with patches),
-"ssm_fanin" (reduced falcon-mamba-7b) and "hybrid_fanin" (reduced
-zamba2-2.7b) alike (``ARCHS``). The tensor-parallel cases take the
+"ssm_fanin" (reduced falcon-mamba-7b), "hybrid_fanin" (reduced
+zamba2-2.7b), "moe_fanin" (reduced granite-moe-3b-a800m, capacity factor
+1.25) and "audio_fanin" (reduced whisper-tiny, its batches with frames)
+alike (``ARCHS``). An MoE case also records how many assignments each
+rank's dispatch dropped in its step-0 gradient (``moe_dropped``): the
+test holds them to one dispatch over the global batch. The tensor-parallel cases take the
 fan-in kinds: their forward sums in another order than one process does
 (row-parallel products summed over ranks), and at ``repro``'s init
 (stacked leaves of fan-in 1, near-argmax attention) one process's own
@@ -77,14 +81,28 @@ CASES = {
                       "adamw"),
     "hybrid-tp-1x4": ("hybrid_fanin", "1x4", "tp", "gspmd", 1, "even",
                       "sgd"),
+    # granite-moe: 4 experts, 2 a rank on 2x2 (and 3 q heads, 1 kv head),
+    # 1 a rank on 1x4 (the 6 heads whole); fsdp splits the batch over all
+    # 4 ranks, whose own dispatches would drop other assignments
+    "moe-tp-2x2": ("moe_fanin", "2x2", "tp", "gspmd", 1, "even", "adamw"),
+    "moe-tp-1x4": ("moe_fanin", "1x4", "tp", "gspmd", 1, "even", "sgd"),
+    "moe-fsdp-2x2": ("moe_fanin", "2x2", "fsdp", "gspmd", 1, "even", "sgd"),
+    # whisper: 4 heads, 2 a rank on 2x2, 1 on 1x4; vocab 512 split
+    "audio-tp-2x2": ("audio_fanin", "2x2", "tp", "gspmd", 1, "even", "sgd"),
+    "audio-tp-1x4": ("audio_fanin", "1x4", "tp", "gspmd", 1, "even", "sgd"),
+    "audio-fsdp-2x2": ("audio_fanin", "2x2", "fsdp", "gspmd", 1, "even",
+                       "sgd"),
 }
 # the LM kinds' reduced configs
 ARCHS = {"lm": "granite-3-2b", "lm_fanin": "granite-3-2b",
          "qwen_fanin": "qwen2-72b", "vlm_fanin": "internvl2-2b",
-         "ssm_fanin": "falcon-mamba-7b", "hybrid_fanin": "zamba2-2.7b"}
+         "ssm_fanin": "falcon-mamba-7b", "hybrid_fanin": "zamba2-2.7b",
+         "moe_fanin": "granite-moe-3b-a800m",
+         "audio_fanin": "whisper-tiny"}
 CHECKPOINT_CASE = "lm-fsdp-2x2"
 LM_SEQ, LM_VOCAB = 24, 512
 VLM_PATCHES = 16                 # reduced internvl2: 16 patches of d 128
+AUDIO_FRAMES = (64, 128)         # reduced whisper: 64 frames of d 128
 
 
 def build(kind: str, optimizer: str):
@@ -114,8 +132,9 @@ def build(kind: str, optimizer: str):
 def host_batch(kind: str, layout: str, step: int, rank: int = 0):
     """Step ``step``'s host batch (numpy, from a seed). The LM's is
     ``tests/test_torch_train.py``'s ``_batch(seed=step)``: 4 rows of 24
-    tokens, one of them padding (the VLM's with 16 patches a row). The
-    CNN's has 16 rows; "ragged" ends in
+    tokens, one of them padding (the VLM's with 16 patches a row, the
+    audio family's with 64 frames a row). The CNN's has 16 rows; "ragged"
+    ends in
     5 zero-weight padding slots (the last rank's rows are all padding);
     "indivisible" has 18 rows, which do not split over 4 ranks; "digest"
     differs from rank to rank."""
@@ -130,6 +149,9 @@ def host_batch(kind: str, layout: str, step: int, rank: int = 0):
         if kind == "vlm_fanin":      # tests/test_torch_vlm.py's patches
             out["patches"] = (0.02 * rng.standard_normal(
                 (4, VLM_PATCHES, 128))).astype(np.float32)
+        if kind == "audio_fanin":
+            out["frames"] = rng.standard_normal(
+                (4,) + AUDIO_FRAMES).astype(np.float32)
         return out
     rng = np.random.default_rng(100 * step + (rank if layout == "digest"
                                               else 0))
@@ -153,6 +175,25 @@ def _equal(a, b) -> bool:
 def _numel(tree) -> int:
     from repro_torch.models.layers import tree_leaves
     return sum(x.numel() for x in tree_leaves(tree))
+
+
+class dropped_count:
+    """Inside: the assignments each ``moe_route`` call drops, a list by
+    call (empty for a model without experts)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.route, self.counts = layers, layers.moe_route, []
+
+        def counted(*args):
+            out = self.route(*args)
+            self.counts.append(int((~out[3]).sum()))
+            return out
+        layers.moe_route = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.route
 
 
 def run_case(name, workdir, rank):
@@ -179,8 +220,11 @@ def run_case(name, workdir, rank):
     out["restore_is_slice"] = _equal(
         params, engine.shard_tree(restore(path, "cpu")))
     state = TrainState(params, opt.init(params), 0)
-    grads = engine.grads(state, engine.put_batch(host_batch(kind, layout,
-                                                            0)))
+    with dropped_count() as dropped:
+        grads = engine.grads(state, engine.put_batch(host_batch(kind, layout,
+                                                                0)))
+    if dropped:
+        out["moe_dropped"] = dropped
     metrics, first = [], {}
     for t in range(STEPS):
         state, m = engine.step(state, engine.put_batch(
